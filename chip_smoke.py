@@ -6,17 +6,23 @@
 Phases, each printing one JSON line:
   1. device: the card's name and count, and nvidia-smi's name and power
      limit;
-  2. build: the native C++ plane (g++) and the CUDA kernels (nvcc, sm_90a),
-     built side by side from the sources in the checkout, with the SASS
-     instruction counts per iteration of each kernel's inner loop;
+  2. build: the native C++ plane (g++) and the CUDA kernel (nvcc, sm_90a),
+     built side by side from the sources in the checkout; the SASS
+     instruction counts per cell of the fused kernel's fill loop and per
+     step of its traceback loop, for each instantiation, with the DPX
+     opcodes the fill loop holds, and the toolkit headers that declare
+     __vibmax_s32;
   3. main path: the default corpus (520 kb, 5,195 windows) through
-     runner.run(device="cuda") with 8 threads, launch counts of both
-     kernels, then the same run with device="cpu"; the two VCFs must be
-     byte-equal. Every DP group the cuda run dispatched is kept;
-  4. kernels, one line per kept group: K1 gotoh_fill and K2
-     gotoh_traceback on that group's own pairs, held bit-equal to their
-     plain PyTorch versions run on the card, and timed with CUDA events
-     beside the plain versions and the card's bound.
+     runner.run(device="cuda") with 8 threads, the kernel's launch counts
+     (one shared-memory-mode launch per DP group), then the same run with
+     device="cpu"; the two VCFs must be byte-equal. Every DP group the
+     cuda run dispatched is kept;
+  4. kernels, one line per case: the fused kernel gotoh_align on each kept
+     group's own pairs, on the tie-heavy pairs of tests/test_torch_align.py,
+     and on one seeded group of 132 related pairs of ~1,100 bp whose codes
+     do not fit in shared memory (global mode); its ops and counts held
+     bit-equal to the plain PyTorch versions run on the card, and timed
+     with CUDA events beside the plain versions and the card's bound.
 Then the kernels' summary line, nvidia-smi's line, and last the device
 line. Any failure exits non-zero before the last line. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -43,16 +49,28 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 # lanes, whatever the mix of INT32-pipe (64 lanes) and IMAD-on-FMA-pipe (64
 # lanes) instructions, so SMs x 128 x SM clock bounds any integer work.
 ISSUE_LANES_PER_SM_CLK = 128
-# Integer operations the function needs, derived by hand (csrc/gotoh.cu):
-# per interior cell of K1 (X: 2 adds, compare, select; Y: the same; the
-# substitution: compare, select, add; the best of three: 2 compares,
-# 4 selects; the packed byte: 2 shifts, 2 ors) and per traceback step of
-# K2 (a load address, 3 bit extractions, up to 5 compares, 2 updates, the
-# op store). The bound takes the smaller of these and the SASS count.
-FILL_OPS_PER_CELL = 20
-TRACE_OPS_PER_STEP = 12
-KERNEL_REPS = (5, 10)  # batches x launches per batch, per group
+# Integer operations the function needs, derived by hand with Hopper's
+# DPX instructions (csrc/gotoh.cu): per interior cell 17 (X 2: an add and
+# an add-and-max; the bit "X opened" 2; Y 3: an add, an add-and-max, a
+# mask; the substitution 3: compare, select, add; M 1: a three-way max;
+# M's tag 3: two adds, a three-way max; the 4-bit code 3 funnel shifts);
+# per traceback step 10 (the code word's address 2, its load, the nibble's
+# extract 2, the state machine's tests 2, the moves of i, j and the flag
+# 2, the op store). The bound takes the smaller of these and the SASS
+# count.
+FILL_OPS_PER_CELL = 17
+TRACE_OPS_PER_STEP = 10
+KERNEL_REPS = (5, 10)  # batches x launches per batch, per case
 PLAIN_REPS = 3  # one call each: the plain versions take ~1 s a call
+LARGE_GROUP = (132, 1000, 1100, 3)  # pairs, min and max length, seed
+# the repeats_ties pairs of tests/test_torch_align.py: homopolymer runs of
+# unequal length, tandem repeats shifted by one unit, identical strings,
+# and pairs whose best alignment is all gaps
+TIE_PAIRS = [("A" * 10, "A" * 7), ("CCCCCGGGG", "CCCGGGGGGG"),
+             ("T" * 20, "T" * 23), ("G" * 3, "G" * 12), ("AC" * 6, "CA" * 6),
+             ("ACG" * 5, "CGA" * 5), ("AGTT" * 4 + "C", "GTTA" * 4 + "C"),
+             ("ACGTTGCA", "ACGTTGCA"), ("GATTACA" * 5, "GATTACA" * 5),
+             ("A" * 20, "C" * 20), ("A" * 25, "C" * 30)]
 
 
 def emit(obj) -> None:
@@ -82,15 +100,9 @@ _CONTROL_OPS = ("BRA", "BRX", "JMP", "BAR", "BSSY", "BSYNC", "EXIT", "RET",
                 "MEMBAR", "DEPBAR", "ERRBAR")
 
 
-def sass_loop_counts(so: str, kernel: str):
-    """Instructions per stored byte in the innermost loop of `kernel` that
-    stores bytes to global memory (STG.*U8), from cuobjdump's SASS of the
-    built library: K1's loop over a diagonal's cells (one byte per cell)
-    and K2's traceback loop (one op byte per step). Static counts over the
-    loop body, divided by the byte stores in it (an unrolled body holds
-    several), so branches of the body that a cell skips are counted too.
-    Returns ({"arith", "uniform", "memory", "control", "stores"}, None),
-    or (None, the reason) where cuobjdump or the loop is missing."""
+def _sass_functions(so: str):
+    """{mangled name: [instruction tokens]} from cuobjdump's SASS of the
+    built library, or (None, the reason)."""
     from lancet_tpu_torch.gpu import gotoh
 
     cuobjdump = os.path.join(os.path.dirname(gotoh._nvcc()), "cuobjdump")
@@ -101,52 +113,113 @@ def sass_loop_counts(so: str, kernel: str):
         return None, f"cuobjdump: {e}"
     if r.returncode != 0:
         return None, f"cuobjdump rc {r.returncode}: {r.stderr[-300:]}"
+    funcs = {}
     for func in re.split(r"\n\s*Function : ", r.stdout)[1:]:
-        if kernel not in func.split("\n", 1)[0]:
-            continue
-        ops, at = [], {}  # instructions, and their index by address
+        ops = []
         for line in func.splitlines():
             m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+([^;]*);", line)
             if m:
-                at[int(m.group(1), 16)] = len(ops)
-                ops.append(m.group(2).split())
-        loops = []  # (first, last) index of each backward branch's range
-        for k, toks in enumerate(ops):
-            toks = toks[1:] if toks[0].startswith("@") else toks
-            m = re.search(r"\b0x([0-9a-f]+)$", " ".join(toks))
-            if toks[0].startswith("BRA") and m:
-                tgt = at.get(int(m.group(1), 16))
-                if tgt is not None and tgt <= k:
-                    loops.append((tgt, k))
-        inner = [lp for lp in loops
-                 if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
-                            for o in loops)]
-        best = None
-        for s, e in inner:
-            cnt = {"arith": 0, "uniform": 0, "memory": 0, "control": 0,
-                   "stores": 0}
-            for toks in ops[s : e + 1]:
-                toks = toks[1:] if toks[0].startswith("@") else toks
-                op = toks[0]
-                base = op.split(".")[0]
-                if base in _MEMORY_OPS:
-                    cnt["memory"] += 1
-                    if base == "STG" and ".U8" in op:
-                        cnt["stores"] += 1
-                elif base in _CONTROL_OPS:
-                    cnt["control"] += 1
-                elif base.startswith("U"):
-                    cnt["uniform"] += 1
-                else:
-                    cnt["arith"] += 1
-            if cnt["stores"] and (best is None
-                                  or cnt["stores"] > best["stores"]):
-                best = cnt
-        if best is None:
-            return None, f"{kernel}: no inner loop with a byte store"
-        k = best.pop("stores")
-        return {**{n: v / k for n, v in best.items()}, "stores": k}, None
-    return None, f"{kernel}: not in the SASS"
+                toks = m.group(2).split()
+                ops.append((int(m.group(1), 16),
+                            toks[1:] if toks[0].startswith("@") else toks))
+        funcs[func.split("\n", 1)[0].strip()] = ops
+    return funcs, None
+
+
+def _inner_loops(ops):
+    """The innermost loops of a function: instruction lists between a
+    backward branch's target and the branch."""
+    at = {addr: k for k, (addr, _) in enumerate(ops)}
+    loops = []
+    for k, (_, toks) in enumerate(ops):
+        m = re.search(r"\b0x([0-9a-f]+)$", " ".join(toks))
+        if toks[0].startswith("BRA") and m:
+            tgt = at.get(int(m.group(1), 16))
+            if tgt is not None and tgt <= k:
+                loops.append((tgt, k))
+    return [[t for _, t in ops[s : e + 1]] for s, e in loops
+            if not any(o != (s, e) and s <= o[0] and o[1] <= e
+                       for o in loops)]
+
+
+def _classify(body):
+    cnt = {"arith": 0, "uniform": 0, "memory": 0, "control": 0}
+    for toks in body:
+        base = toks[0].split(".")[0]
+        if base in _MEMORY_OPS:
+            cnt["memory"] += 1
+        elif base in _CONTROL_OPS:
+            cnt["control"] += 1
+        elif base.startswith("U"):
+            cnt["uniform"] += 1
+        else:
+            cnt["arith"] += 1
+    return cnt
+
+
+def sass_loop_counts(so: str):
+    """Static SASS counts of gotoh_align's two hot loops, per instantiation
+    ("R8/smem": 8 rows a thread, codes in shared memory). The fill loop is
+    the innermost loop that shuffles (SHFL); one step of it shuffles two
+    values (M and X of the row above) and computes R cells, so its counts
+    are divided by R x half its SHFL count. The traceback loop is the
+    innermost loop that
+    stores op bytes to shared memory (STS.U8) and loads a code word (a
+    32-bit LDS or LDG); its counts are divided by its op stores. Branches a
+    cell or step skips are counted too. Also the DPX and other V* integer
+    opcodes of the fill loop. Returns ({key: counts}, None), or (None, the
+    reason) where cuobjdump or a loop is missing."""
+    funcs, why = _sass_functions(so)
+    if funcs is None:
+        return None, why
+    out = {}
+    for name, ops in funcs.items():
+        m = re.search(r"gotoh_align_kernelILi(\d+)ELb([01])E", name)
+        if not m:
+            continue
+        R = int(m.group(1))
+        key = f"R{R}/{'global' if m.group(2) == '1' else 'smem'}"
+        res = {}
+        for body in _inner_loops(ops):
+            bases = [t[0] for t in body]
+            if any(b.startswith("SHFL") for b in bases):
+                steps = sum(1 for b in bases if b.startswith("SHFL")) // 2
+                if steps:
+                    c = _classify(body)
+                    res["fill_per_cell"] = {k: v / (R * steps)
+                                            for k, v in c.items()}
+                    res["fill_steps_per_iteration"] = steps
+                    v_ops = sorted({b for b in bases if b.startswith("VI")})
+                    res["fill_v_opcodes"] = {
+                        o: sum(1 for b in bases if b == o) for o in v_ops}
+            elif any(b.startswith("STS.U8") for b in bases) and any(
+                    b.split(".")[0] in ("LDS", "LDG") and ".U8" not in b
+                    for b in bases):
+                steps = sum(1 for b in bases if b.startswith("STS.U8"))
+                c = _classify(body)
+                res["trace_per_step"] = {k: v / steps for k, v in c.items()}
+        if "fill_per_cell" not in res or "trace_per_step" not in res:
+            return None, f"{key}: a hot loop was not found in the SASS"
+        out[key] = res
+    if not out:
+        return None, "gotoh_align_kernel: not in the SASS"
+    return out, None
+
+
+def dpx_headers() -> list[str]:
+    """The CUDA toolkit's headers that declare __vibmax_s32."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    inc = os.path.join(CUDA_HOME or "/usr/local/cuda", "include")
+    found = []
+    for root, _, files in os.walk(inc):
+        for f in files:
+            if f.endswith((".h", ".hpp")):
+                path = os.path.join(root, f)
+                with open(path, errors="replace") as fh:
+                    if "__vibmax_s32" in fh.read():
+                        found.append(os.path.relpath(path, inc))
+    return sorted(found)
 
 
 def build_all():
@@ -205,10 +278,28 @@ def spread(ts: list[float]) -> dict:
             "n": len(ts)}
 
 
+def large_group():
+    """One seeded group of related pairs whose codes do not fit in shared
+    memory: LARGE_GROUP pairs of S 1,000-1,100 bp, T with 1-12 edits."""
+    import random
+
+    P, lo, hi, seed = LARGE_GROUP
+    rng = random.Random(seed)
+    pairs = []
+    for _ in range(P):
+        s = "".join(rng.choice("ACGT") for _ in range(rng.randint(lo, hi)))
+        t = list(s)
+        for _ in range(rng.randint(1, 12)):
+            k = rng.randrange(len(t))
+            t[k] = rng.choice("ACGT") if rng.random() < 0.5 else ""
+        pairs.append((s, "".join(t)))
+    return pairs
+
+
 def kernel_phase(pairs, rate: dict) -> dict:
-    """K1 and K2 on one DP group of the main path: bit-equal to the plain
-    versions on the card, then timed beside them and the card's bound."""
-    import numpy as np
+    """gotoh_align on one group of pairs: its ops and counts bit-equal to
+    the plain versions on the card, then timed beside them and the card's
+    bound."""
     import torch
 
     from lancet_tpu_torch.gpu import gotoh
@@ -217,71 +308,48 @@ def kernel_phase(pairs, rate: dict) -> dict:
     dev = torch.device("cuda", 0)
     S, T, n_len, m_len, N, M = _pack(pairs)
     P = len(pairs)
+    pl = gotoh.plan(N, M)
+    key = f"R{pl.rows_per_thread}/{pl.mode}"
     S, T, n_d, m_d = (torch.from_numpy(a).to(dev) for a in (S, T, n_len,
                                                               m_len))
-    tb = gotoh.dp_fill(S, T, n_d, m_d, N, M)
-    ops, cnt = gotoh.traceback(tb, n_d, m_d, N, M)
+
+    def plain():
+        return gotoh.traceback_plain(gotoh.dp_fill_plain(S, T, n_d, m_d, N,
+                                                         M), n_d, m_d, N, M)
+
+    ops, cnt = gotoh.align(S, T, n_d, m_d, N, M)
     torch.cuda.synchronize()
-    tb_p = gotoh.dp_fill_plain(S, T, n_d, m_d, N, M)
-    ops_p, cnt_p = gotoh.traceback_plain(tb_p, n_d, m_d, N, M)
+    ops_p, cnt_p = plain()
     torch.cuda.synchronize()
+    err = max(int((ops.int() - ops_p.int()).abs().max()),
+              int((cnt - cnt_p).abs().max()))
+    if err:
+        raise AssertionError(f"P={P} N={N} M={M} ({pl.mode}): gotoh_align "
+                             f"disagrees with its plain version ({err})")
+    del ops_p, cnt_p
 
-    # interior cells 1 <= i <= n, 1 <= j <= m of each pair: the only ones
-    # the traceback reads
-    i = torch.arange(N + 1, device=dev)[None, None, :]
-    j = torch.arange(2, N + M + 1, device=dev)[:, None, None] - i
-    valid = ((i >= 1) & (i <= n_d[None, :, None]) & (j >= 1)
-             & (j <= m_d[None, :, None]))
-    bad = (tb != tb_p) & valid
-    fill_err = (int((tb.int() - tb_p.int()).abs()[bad].max()) if bad.any()
-                else 0)
-    n_cells = int(valid.sum())
-    del bad, valid, i, j, tb_p
-    trace_err = max(int((ops.int() - ops_p.int()).abs().max()),
-                    int((cnt - cnt_p).abs().max()))
-    if fill_err or trace_err:
-        raise AssertionError(f"P={P}: kernel disagrees with its plain "
-                             f"version (fill {fill_err}, traceback "
-                             f"{trace_err})")
+    ms = spread(cuda_times(lambda: gotoh.align(S, T, n_d, m_d, N, M),
+                           *KERNEL_REPS))
+    plain_ms = spread(cuda_times(plain, PLAIN_REPS))
 
-    fill = spread(cuda_times(lambda: gotoh.dp_fill(S, T, n_d, m_d, N, M),
-                             *KERNEL_REPS))
-    fill_plain = spread(cuda_times(
-        lambda: gotoh.dp_fill_plain(S, T, n_d, m_d, N, M), PLAIN_REPS))
-    trace = spread(cuda_times(lambda: gotoh.traceback(tb, n_d, m_d, N, M),
-                              *KERNEL_REPS))
-    trace_plain = spread(cuda_times(
-        lambda: gotoh.traceback_plain(tb, n_d, m_d, N, M), PLAIN_REPS))
-
+    cells = int((n_len.astype("int64") * m_len).sum())
     steps = int(cnt.sum())
-    in_bytes = int(n_len.sum() + m_len.sum()) + 8 * P
-    # K1: read S, T and the lengths once, write one byte per interior cell
-    fill_bytes = in_bytes + n_cells
-    fill_ops = rate["fill_ops_per_cell"] * n_cells
-    # K2: read one tb byte and write one op byte per step, the count once
-    trace_bytes = 2 * steps + 8 * P + 4 * P
-    trace_ops = rate["trace_ops_per_step"] * steps
-
-    def bound(nbytes, nops):
-        """ms the bytes take at the memory rate, and the operations at
-        the integer issue rate"""
-        return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                "operations": nops / rate["int_ops_per_s"] * 1e3}
-
+    # read each pair's characters and lengths once; write ops and counts
+    nbytes = int(n_len.sum() + m_len.sum()) + 8 * P + P * (N + M) + 4 * P
+    per = rate["per_instantiation"][key]
+    nops = per["fill_ops_per_cell"] * cells + per["trace_ops_per_step"] * steps
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": nops / rate["int_ops_per_s"] * 1e3}
     return {
-        "P": P, "N": N, "M": M,
+        "P": P, "N": N, "M": M, "mode": pl.mode, "instantiation": key,
+        "threads": pl.threads, "smem": pl.smem,
         "n_range": [int(n_len.min()), int(n_len.max())],
         "m_range": [int(m_len.min()), int(m_len.max())],
-        "cells": n_cells, "trace_steps": steps,
-        "tolerance": 0,  # bit-equal on every interior cell, op and count
-        "fill": {"max_abs_err": fill_err, "ms": fill, "plain_ms": fill_plain,
-                 "bound": bound(fill_bytes, fill_ops),
-                 "cells_per_s": n_cells / (fill["median"] / 1e3),
-                 "bytes": fill_bytes, "int_ops": fill_ops},
-        "traceback": {"max_abs_err": trace_err, "ms": trace,
-                      "plain_ms": trace_plain,
-                      "bound": bound(trace_bytes, trace_ops),
-                      "bytes": trace_bytes, "int_ops": trace_ops},
+        "cells": cells, "trace_steps": steps,
+        "tolerance": 0,  # bit-equal on every op and count
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound,
+        "cells_per_s": cells / (ms["median"] / 1e3),
+        "bytes": nbytes, "int_ops": nops,
     }
 
 
@@ -342,24 +410,26 @@ def main() -> int:
     # 2. build, and the SASS counts the bound is held against
     secs, libs, ptxas = build_all()
     so = os.path.join(HERE, libs["gotoh_cu"])
-    sass = {}
-    for name, kern in (("fill", "gotoh_fill_kernel"),
-                       ("traceback", "gotoh_traceback_kernel")):
-        c, why = sass_loop_counts(so, kern)
-        sass[name] = c if c is not None else {"not_measured": why}
+    sass, why = sass_loop_counts(so)
     clock_hz, clock_txt = sm_clock_hz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per = {}
+    for key, c in (sass or {}).items():
+        per[key] = {"fill_ops_per_cell": min(FILL_OPS_PER_CELL,
+                                             c["fill_per_cell"]["arith"]),
+                    "trace_ops_per_step": min(TRACE_OPS_PER_STEP,
+                                              c["trace_per_step"]["arith"])}
     rate = {"int_ops_per_s": sms * ISSUE_LANES_PER_SM_CLK * clock_hz,
             "sms": sms, "sm_clock_max": clock_txt,
-            "fill_ops_per_cell": min(
-                [FILL_OPS_PER_CELL] + ([sass["fill"]["arith"]]
-                                       if "arith" in sass["fill"] else [])),
-            "trace_ops_per_step": min(
-                [TRACE_OPS_PER_STEP] + ([sass["traceback"]["arith"]]
-                                        if "arith" in sass["traceback"]
-                                        else []))}
+            "hand_fill_ops_per_cell": FILL_OPS_PER_CELL,
+            "hand_trace_ops_per_step": TRACE_OPS_PER_STEP,
+            "per_instantiation": per}
     emit({"phase": "build", "seconds": secs, "libraries": libs,
-          "ptxas": ptxas, "sass_per_iteration": sass, "bound_rate": rate})
+          "ptxas": ptxas, "dpx_headers": dpx_headers(),
+          "sass": sass if sass is not None else {"not_measured": why},
+          "bound_rate": rate})
+    if sass is None:
+        raise RuntimeError(f"SASS counts missing: {why}")
 
     # 3. main path on the default corpus
     from lancet_tpu_torch import corpus
@@ -401,36 +471,46 @@ def main() -> int:
     if n_rec == 0 or st["n_dp"] == 0:
         raise AssertionError(f"main path produced {n_rec} records from "
                              f"{st['n_dp']} DP pairs")
-    for name, n in launches.items():
-        if n != len(groups):
-            raise AssertionError(f"{name} was launched {n} times on the "
-                                 f"main path for {len(groups)} DP groups")
+    if launches["gotoh_align_smem"] != len(groups) or sum(
+            launches.values()) != len(groups):
+        raise AssertionError(f"gotoh_align launches {launches} on the main "
+                             f"path for {len(groups)} DP groups (one "
+                             "shared-memory launch each expected)")
 
-    # 4. kernel parity and times on each DP group of the main path
+    # 4. kernel parity and times: each DP group of the main path, the
+    # tie-heavy pairs, and one group that takes the global mode
     kres = []
     for g, pairs in enumerate(groups):
         kres.append(kernel_phase(pairs, rate))
-        emit({"phase": "kernels", "group": g, **kres[-1]})
+        emit({"phase": "kernels", "case": f"main_path_group_{g}",
+              **kres[-1]})
+    ties = kernel_phase(TIE_PAIRS, rate)
+    emit({"phase": "kernels", "case": "repeats_ties", **ties})
+    large = kernel_phase(large_group(), rate)
+    emit({"phase": "kernels", "case": "large_global", **large})
+    if large["mode"] != "global":
+        raise AssertionError(f"the large group took mode {large['mode']}")
 
     def mean(vals):
         return sum(vals) / len(vals)
 
-    src = "lancet_tpu_torch/csrc/gotoh.cu"
     line = []
-    for name, part, replaces in (
-            ("gotoh_fill", "fill", "lancet_tpu/tpu/pallas_gotoh.py:113"),
-            ("gotoh_traceback", "traceback",
-             "lancet_tpu/tpu/align_batch.py:143")):
-        # per launch, averaged over the main path's DP groups
-        bnd = {k: mean([r[part]["bound"][k] for r in kres])
+    for mode, cases in (("smem", kres), ("global", [large])):
+        # per launch, averaged over the cases: the main path's DP groups
+        # for the shared mode, the large seeded group for the global mode
+        bnd = {k: mean([r["bound"][k] for r in cases])
                for k in ("bytes", "operations")}
         by = max(bnd, key=bnd.get)
         line.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(r[part]["max_abs_err"] for r in kres),
-            "ms": mean([r[part]["ms"]["median"] for r in kres]),
-            "plain_ms": mean([r[part]["plain_ms"]["median"] for r in kres]),
+            "name": f"gotoh_align_{mode}", "route": "cuda",
+            "source": "lancet_tpu_torch/csrc/gotoh.cu",
+            "replaces": "lancet_tpu/tpu/pallas_gotoh.py:113",
+            "also_replaces": "lancet_tpu/tpu/align_batch.py:143",
+            "launches": launches[f"gotoh_align_{mode}"],
+            "on_main_path": mode == "smem",
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "ms": mean([r["ms"]["median"] for r in cases]),
+            "plain_ms": mean([r["plain_ms"]["median"] for r in cases]),
             "bound_ms": bnd[by], "bound_by": by, "library_ms": None})
     emit({"kernels": line, "t_smoke": time.perf_counter() - t_start})
     print(smi, flush=True)

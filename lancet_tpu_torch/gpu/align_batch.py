@@ -1,9 +1,10 @@
 """Batched global affine-gap alignment on one device.
 
 `batch_align_async(pairs, device)` packs the pairs, enqueues the Gotoh fill
-and the traceback (`gotoh.dp_fill`, `gotoh.traceback`) and, on a card, the
-copy of the op codes into pinned host memory, then returns without waiting;
-`batch_align_wait` waits for that copy and decodes the alignments. Results
+and traceback (`gotoh.align`, one fused kernel launch on a card) and, on a
+card, the copy of the op codes into pinned host memory, then returns
+without waiting; `batch_align_wait` waits for that copy and decodes the
+alignments. Results
 equal the oracle `global_align_aff` of the JAX package (same scores, tie
 rules and forced-gap traceback).
 
@@ -62,16 +63,13 @@ def batch_align_async(pairs: list[tuple[str, str]], device="cuda"):
     host = _pack(pairs)
     S, T, n_len, m_len, N, M = host
     if dev.type == "cpu":
-        ops, count = gotoh.traceback(
-            gotoh.dp_fill(torch.from_numpy(S), torch.from_numpy(T),
-                          torch.from_numpy(n_len), torch.from_numpy(m_len),
-                          N, M),
-            torch.from_numpy(n_len), torch.from_numpy(m_len), N, M)
+        ops, count = gotoh.align(torch.from_numpy(S), torch.from_numpy(T),
+                                 torch.from_numpy(n_len),
+                                 torch.from_numpy(m_len), N, M)
         return None, ops, count, pairs
     S_d, T_d, n_d, m_d = (torch.from_numpy(a).pin_memory().to(
         dev, non_blocking=True) for a in (S, T, n_len, m_len))
-    ops_d, count_d = gotoh.traceback(
-        gotoh.dp_fill(S_d, T_d, n_d, m_d, N, M), n_d, m_d, N, M)
+    ops_d, count_d = gotoh.align(S_d, T_d, n_d, m_d, N, M)
     ops = torch.empty(ops_d.shape, dtype=ops_d.dtype, pin_memory=True)
     count = torch.empty(count_d.shape, dtype=count_d.dtype, pin_memory=True)
     ops.copy_(ops_d, non_blocking=True)

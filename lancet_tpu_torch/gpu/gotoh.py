@@ -1,17 +1,21 @@
-"""Batched Gotoh fill and traceback: the hand-written CUDA kernels of
-`csrc/gotoh.cu` and their plain PyTorch versions.
+"""Batched Gotoh alignment: the fused hand-written CUDA kernel of
+`csrc/gotoh.cu` (`gotoh_align`, fill and traceback in one launch) and its
+plain PyTorch versions.
 
-`dp_fill` and `traceback` take tensors on one device. On the CPU they run
-the plain versions (`dp_fill_plain`, `traceback_plain`); on a CUDA device
-they launch K1 `gotoh_fill` / K2 `gotoh_traceback` and raise if the kernel
-library cannot be built or a launch is refused. There is no fallback from
-the card to the plain version. Each launch adds one to `LAUNCHES[name]`.
+`align` takes tensors on one device. On the CPU it runs the plain versions
+(`traceback_plain(dp_fill_plain(...))`); on a CUDA device it launches
+`gotoh_align` and raises if the kernel library cannot be built or a launch
+is refused. There is no fallback from the card to the plain version.
+`plan(N, M)` picks, from the batch's widths alone, where the kernel keeps
+the traceback codes: in shared memory ("smem") when they fit, else in a
+scratch buffer in device memory ("global"). Each launch adds one to
+`LAUNCHES["gotoh_align_" + mode]`.
 
 Layouts are the JAX package's: S [P, N+1] and T [P, M+1] uint8 with the
-characters 1-indexed and zero padding; tb [D, P, N+1] uint8, D = N+M-1,
-tb[d-2, p, i] the packed byte (mtb | xext << 2 | yext << 3) of cell
-(i, d-i); ops [P, N+M] uint8, back to front, zero past the count.
-Preconditions: 0 <= n_len[p] <= N and 0 <= m_len[p] <= M.
+characters 1-indexed and zero padding; the plain fill's tb [D, P, N+1]
+uint8, D = N+M-1, tb[d-2, p, i] the packed byte (mtb | xext << 2 |
+yext << 3) of cell (i, d-i); ops [P, N+M] uint8, back to front, zero past
+the count. Preconditions: 0 <= n_len[p] <= N and 0 <= m_len[p] <= M.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import ctypes
 import os
 import shutil
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -32,8 +37,10 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
+RING = 128  # slots of each ring between warps (csrc/gotoh.cu kRing)
+ROWS_PER_THREAD = (4, 5, 6, 8, 10, 12, 16, 24, 32)  # instantiations
 
-LAUNCHES = {"gotoh_fill": 0, "gotoh_traceback": 0}
+LAUNCHES = {"gotoh_align_smem": 0, "gotoh_align_global": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -152,6 +159,55 @@ def traceback_plain(tbs, n_len, m_len, N: int, M: int):
 
 
 # ---------------------------------------------------------------------------
+# launch plan
+# ---------------------------------------------------------------------------
+
+class Plan(NamedTuple):
+    mode: str  # "smem" or "global": where the traceback codes live
+    rows_per_thread: int
+    threads: int
+    smem: int  # bytes of dynamic shared memory a block takes
+
+
+def _r16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def code_rows(N: int, R: int) -> int:
+    """Rows of code words a pair keeps: N rounded up to whole threads."""
+    return -(-N // R) * R
+
+
+def smem_bytes(N: int, M: int, R: int, threads: int,
+               global_codes: bool) -> int:
+    """Dynamic shared memory of one block, as csrc/gotoh.cu's `layout`:
+    the code words (4 bits a cell, 8 cells of a row to a uint32; shared
+    mode only), one ring of (M, X) pairs between neighbouring warps, T's
+    characters, the staged ops and the op count."""
+    words = 0 if global_codes else _r16(code_rows(N, R) * ((M + 7) // 8) * 4)
+    return (words + _r16((threads // 32 - 1) * RING * 8) + _r16(M + 1)
+            + _r16(N + M) + 16)
+
+
+def plan(N: int, M: int) -> Plan:
+    """The launch of `gotoh_align` for batch widths N, M: the fewest rows
+    per thread that keep a block within 4 warps (one per scheduler of the
+    SM; up to 8 warps at 32 rows), and the shared mode wherever the codes
+    fit in a block's shared memory."""
+    for R in ROWS_PER_THREAD:
+        threads = (-(-N // R) + 31) // 32 * 32
+        if threads <= 128 or (R == 32 and threads <= 256):
+            break
+    else:
+        raise ValueError(f"gotoh_align: N={N} exceeds the kernel's "
+                         f"{32 * 256} rows")
+    smem = smem_bytes(N, M, R, threads, False)
+    if smem <= SMEM_LIMIT:
+        return Plan("smem", R, threads, smem)
+    return Plan("global", R, threads, smem_bytes(N, M, R, threads, True))
+
+
+# ---------------------------------------------------------------------------
 # kernel library
 # ---------------------------------------------------------------------------
 
@@ -177,14 +233,9 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.gotoh_fill_smem.restype = ctypes.c_size_t
-            lib.gotoh_fill_smem.argtypes = [ci, ci]
-            lib.gotoh_fill.restype = ci
-            lib.gotoh_fill.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                       vp]
-            lib.gotoh_traceback.restype = ci
-            lib.gotoh_traceback.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                            vp]
+            lib.gotoh_align.restype = ci
+            lib.gotoh_align.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                        ci, ci, ci, ci, ctypes.c_size_t, vp]
             _lib = lib
         return _lib
 
@@ -215,49 +266,34 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def dp_fill(S, T, n_len, m_len, N: int, M: int):
-    """Gotoh fill of a batch: plain version on the CPU, K1 on the card."""
-    P = _check_batch(n_len, m_len, N, M, S.device)
-    _check("S", S, torch.uint8, (P, N + 1), S.device)
-    _check("T", T, torch.uint8, (P, M + 1), S.device)
-    if S.device.type == "cpu":
-        return dp_fill_plain(S, T, n_len, m_len, N, M)
+def align(S, T, n_len, m_len, N: int, M: int):
+    """Gotoh fill and forced-gap traceback of a batch: the plain versions on
+    the CPU, one `gotoh_align` launch on the card. Returns (ops [P, N+M]
+    uint8 back to front, count [P] int32)."""
+    dev = S.device
+    P = _check_batch(n_len, m_len, N, M, dev)
+    _check("S", S, torch.uint8, (P, N + 1), dev)
+    _check("T", T, torch.uint8, (P, M + 1), dev)
+    if dev.type == "cpu":
+        return traceback_plain(dp_fill_plain(S, T, n_len, m_len, N, M),
+                               n_len, m_len, N, M)
+    pl = plan(N, M)
     lib = _load()
-    smem = lib.gotoh_fill_smem(N, M)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"gotoh_fill: N={N}, M={M} needs {smem} B of "
-                         f"shared memory, more than {SMEM_LIMIT}")
-    tb = torch.empty((N + M - 1, P, N + 1), dtype=torch.uint8,
-                     device=S.device)
-    if P == 0:
-        return tb
-    threads = min(1024, max(32, (min(N, M) + 32) // 32 * 32))
-    rc = lib.gotoh_fill(S.data_ptr(), T.data_ptr(), n_len.data_ptr(),
-                        m_len.data_ptr(), tb.data_ptr(), P, N, M, threads,
-                        _stream(S.device))
-    if rc != 0:
-        raise RuntimeError(f"gotoh_fill launch failed: CUDA error {rc}")
-    LAUNCHES["gotoh_fill"] += 1
-    return tb
-
-
-def traceback(tbs, n_len, m_len, N: int, M: int):
-    """Traceback of a filled batch: plain version on the CPU, K2 on the
-    card. Returns (ops [P, N+M] uint8, count [P] int32)."""
-    P = _check_batch(n_len, m_len, N, M, tbs.device)
-    _check("tbs", tbs, torch.uint8, (N + M - 1, P, N + 1), tbs.device)
-    if tbs.device.type == "cpu":
-        return traceback_plain(tbs, n_len, m_len, N, M)
-    lib = _load()
-    ops = torch.zeros((P, N + M), dtype=torch.uint8, device=tbs.device)
-    count = torch.empty(P, dtype=torch.int32, device=tbs.device)
+    ops = torch.empty((P, N + M), dtype=torch.uint8, device=dev)
+    count = torch.empty(P, dtype=torch.int32, device=dev)
     if P == 0:
         return ops, count
-    rc = lib.gotoh_traceback(tbs.data_ptr(), n_len.data_ptr(),
-                             m_len.data_ptr(), ops.data_ptr(),
-                             count.data_ptr(), P, N, M,
-                             _stream(tbs.device))
+    glob = pl.mode == "global"
+    scratch = (torch.empty((P, code_rows(N, pl.rows_per_thread)
+                            * ((M + 7) // 8)), dtype=torch.int32,
+                           device=dev) if glob else None)
+    rc = lib.gotoh_align(S.data_ptr(), T.data_ptr(), n_len.data_ptr(),
+                         m_len.data_ptr(), ops.data_ptr(), count.data_ptr(),
+                         scratch.data_ptr() if glob else None, P, N, M,
+                         pl.rows_per_thread, pl.threads, int(glob), pl.smem,
+                         _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"gotoh_traceback launch failed: CUDA error {rc}")
-    LAUNCHES["gotoh_traceback"] += 1
+        raise RuntimeError(f"gotoh_align ({pl.mode}) launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES["gotoh_align_" + pl.mode] += 1
     return ops, count

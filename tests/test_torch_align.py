@@ -5,8 +5,10 @@ must equal the JAX lax.scan fill `_dp_fill`, the Pallas kernel
 `pallas_dp_fill` (interpret mode), and the on-device traceback of
 `_dp_and_traceback`, bit for bit on every cell the traceback can read; the
 port's `batch_align(device="cpu")` must equal the JAX `batch_align` and the
-oracle `global_align_aff`. The `cuda` test holds K1 and K2 against the
-plain versions on a card and skips without one.
+oracle `global_align_aff`. `gotoh.plan` must pick the shared-memory mode
+exactly where the codes fit. The `cuda` test holds the fused kernel
+`gotoh_align`, in both modes, against the plain versions on a card and
+skips without one.
 
 The JAX side is imported inside the tests that use it, so the `cuda` test
 also runs where JAX is not installed:
@@ -56,6 +58,17 @@ PAIR_SETS = {
                               ("ACGTACGTAC", "ACG")],
     "length_one": lambda: [("A", "A"), ("A", "C"), ("A", "CA"), ("CA", "A"),
                            ("G", "ACGTT"), ("ACGTT", "T"), ("C", "C")],
+    # where the tie rules and the forced gaps decide the ops: homopolymer
+    # runs of unequal length, tandem repeats shifted by one unit, identical
+    # strings, and pairs whose best alignment is all gaps
+    "repeats_ties": lambda: [("A" * 10, "A" * 7), ("CCCCCGGGG", "CCCGGGGGGG"),
+                             ("T" * 20, "T" * 23), ("G" * 3, "G" * 12),
+                             ("AC" * 6, "CA" * 6),
+                             ("ACG" * 5, "CGA" * 5),
+                             ("AGTT" * 4 + "C", "GTTA" * 4 + "C"),
+                             ("ACGTTGCA", "ACGTTGCA"),
+                             ("GATTACA" * 5, "GATTACA" * 5),
+                             ("A" * 20, "C" * 20), ("A" * 25, "C" * 30)],
 }
 
 
@@ -162,29 +175,66 @@ def test_batch_align_empty_strings():
     assert got == [global_align_aff(s, t) for s, t in pairs]
 
 
+def test_plan_picks_mode_by_bytes():
+    pl = gotoh.plan(585, 591)  # the main path's widest DP group
+    assert pl.mode == "smem" and pl.smem <= gotoh.SMEM_LIMIT
+    assert pl.threads % 32 == 0 and pl.threads * pl.rows_per_thread >= 585
+    big = gotoh.plan(1100, 1100)  # a larger --window-size
+    assert big.mode == "global"
+    assert gotoh.smem_bytes(1100, 1100, big.rows_per_thread, big.threads,
+                            False) > gotoh.SMEM_LIMIT
+    assert big.smem == gotoh.smem_bytes(1100, 1100, big.rows_per_thread,
+                                        big.threads, True)
+    # the boundary follows the byte count: the widest M whose codes fit at
+    # N = 585 takes shared memory, one column more does not
+    M = 591
+    while gotoh.smem_bytes(585, M + 1, pl.rows_per_thread, pl.threads,
+                           False) <= gotoh.SMEM_LIMIT:
+        M += 1
+    assert gotoh.plan(585, M).mode == "smem"
+    assert gotoh.plan(585, M + 1).mode == "global"
+    # a 4-bit code per cell: 585 rows of ceil(591 / 8) words
+    assert pl.smem >= 585 * 74 * 4
+
+
+def _padded(pairs, N, M):
+    """The batch of `pairs` padded to widths N, M (padding never changes a
+    result), as tensors."""
+    S, T, n_len, m_len, N0, M0 = tab._pack(pairs)
+    S = np.pad(S, ((0, 0), (0, N - N0)))
+    T = np.pad(T, ((0, 0), (0, M - M0)))
+    return tuple(torch.from_numpy(a) for a in (S, T, n_len, m_len))
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
     rng = random.Random(5)
-    pairs = (PAIR_SETS["edit_seed7"]() + PAIR_SETS["divergent_seed8"]()
-             + PAIR_SETS["length_one"]()
-             + [("", "ACGT"), ("ACGT", ""), ("", "")]
-             + _random_pairs(rng, 8))
-    S, T, n_len, m_len, N, M, _ = _tensors(pairs)
-    S, T, n_d, m_d = (torch.from_numpy(a).to(dev) for a in (S, T, n_len,
-                                                              m_len))
-    fills = gotoh.LAUNCHES["gotoh_fill"]
-    tb = gotoh.dp_fill(S, T, n_d, m_d, N, M)
-    ops, cnt = gotoh.traceback(tb, n_d, m_d, N, M)
-    torch.cuda.synchronize()
-    assert gotoh.LAUNCHES["gotoh_fill"] == fills + 1
-    tb_p = gotoh.dp_fill_plain(S, T, n_d, m_d, N, M)
-    ops_p, cnt_p = gotoh.traceback_plain(tb_p, n_d, m_d, N, M)
-    mask = torch.from_numpy(_interior(n_len, m_len, N, M)).to(dev)
-    assert torch.equal(tb[mask], tb_p[mask])
-    assert torch.equal(ops, ops_p)
-    assert torch.equal(cnt, cnt_p)
+    large = []  # related pairs of 900-1,100 bp
+    for _ in range(6):
+        s = "".join(rng.choice("ACGT") for _ in range(rng.randint(900, 1100)))
+        t = list(s)
+        for _ in range(rng.randint(1, 12)):
+            p = rng.randint(0, len(t) - 1)
+            t[p] = rng.choice("ACGT") if rng.random() < 0.5 else ""
+        large.append((s, "".join(t)))
+    pairs = (PAIR_SETS["repeats_ties"]() + PAIR_SETS["length_one"]()
+             + PAIR_SETS["edit_seed7"]() + PAIR_SETS["divergent_seed8"]()
+             + [("", "ACGT"), ("ACGT", ""), ("", "")] + large)
+    small = [pr for pr in pairs if max(map(len, pr)) <= 250]
+    for group, N, M, mode in ((small, 250, 250, "smem"),
+                              (pairs, 1100, 1100, "global")):
+        assert gotoh.plan(N, M).mode == mode
+        S, T, n_len, m_len = (a.to(dev) for a in _padded(group, N, M))
+        before = gotoh.LAUNCHES["gotoh_align_" + mode]
+        ops, cnt = gotoh.align(S, T, n_len, m_len, N, M)
+        torch.cuda.synchronize()
+        assert gotoh.LAUNCHES["gotoh_align_" + mode] == before + 1
+        tb_p = gotoh.dp_fill_plain(S, T, n_len, m_len, N, M)
+        ops_p, cnt_p = gotoh.traceback_plain(tb_p, n_len, m_len, N, M)
+        assert torch.equal(ops, ops_p), mode
+        assert torch.equal(cnt, cnt_p), mode
     assert (tab.batch_align(pairs, device="cuda")
             == tab.batch_align(pairs, device="cpu"))
