@@ -6,27 +6,42 @@
 Phases, each printing one JSON line:
   1. device: the card's name and count, and nvidia-smi's name and power
      limit;
-  2. build: the native C++ plane (g++) and the CUDA kernel (nvcc, sm_90a),
-     built side by side from the sources in the checkout; the SASS
-     instruction counts per cell of the fused kernel's fill loop and per
-     step of its traceback loop, for each instantiation, with the DPX
-     opcodes the fill loop holds, and the toolkit headers that declare
-     __vibmax_s32;
-  3. main path: the default corpus (520 kb, 5,195 windows) through
-     runner.run(device="cuda") with 8 threads, the kernel's launch counts
-     (one shared-memory-mode launch per DP group), then the same run with
-     device="cpu"; the two VCFs must be byte-equal. Every DP group the
-     cuda run dispatched is kept;
-  4. kernels, one line per case: the fused kernel gotoh_align on each kept
+  2. build: the native C++ plane (g++) and the two CUDA kernel libraries
+     (nvcc, sm_90a: csrc/gotoh.cu and csrc/repeats.cu), built side by side
+     from the sources in the checkout; the SASS instruction counts per
+     cell of the fused Gotoh kernel's fill loop and per step of its
+     traceback loop, for each instantiation, with the DPX opcodes the fill
+     loop holds, and the toolkit headers that declare __vibmax_s32; the
+     SASS counts per position-step of the repeat-gate kernel's scan loop;
+  3. gates, one line per case: the kernel repeat_gates held bit-equal to
+     the plain PyTorch version gates_plain on the card, on all 5,195
+     default-corpus windows (timed with CUDA events beside the plain
+     version and the card's bound) and on the adversarial windows of
+     tests/test_torch_repeats.py for several ks lists and max_mismatch;
+  4. main path: the default corpus (520 kb, 5,195 windows) through
+     runner.run(device="cuda") with 8 threads, the Gotoh kernel's launch
+     counts (one shared-memory-mode launch per DP group), then the same
+     run with device="cpu"; the two VCFs must be byte-equal. Every DP
+     group the cuda run dispatched is kept;
+  5. engine_path: the same corpus through the two-phase process pool,
+     runner.run(processes=True, engine="batched", device="cuda") with the
+     native shard runner off and 8 workers; its VCF and stderr summary
+     must equal the main path's, no worker may die, and both kernels must
+     launch;
+  6. fallback: a 400-window part of the corpus with two native windows
+     forced into the replay, which runs them on the per-window engine on
+     the card; the VCF must equal the unforced run's;
+  7. kernels, one line per case: the fused kernel gotoh_align on each kept
      group's own pairs, on the tie-heavy pairs of tests/test_torch_align.py,
      and on one seeded group of 132 related pairs of ~1,100 bp whose codes
      do not fit in shared memory (global mode); its ops and counts held
      bit-equal to the plain PyTorch versions run on the card, and timed
      with CUDA events beside the plain versions and the card's bound.
 Then the kernels' summary line, nvidia-smi's line, and last the device
-line. Any failure exits non-zero before the last line. Without a CUDA
-device, or without the package beside this script, it exits non-zero and
-prints no result.
+line. Every path's launch counts are set to 0 just before it runs and read
+just after. Any failure exits non-zero before the last line. Without a
+CUDA device, or without the package beside this script, it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -60,6 +75,15 @@ ISSUE_LANES_PER_SM_CLK = 128
 # count.
 FILL_OPS_PER_CELL = 17
 TRACE_OPS_PER_STEP = 10
+# Integer operations of one position-step of the repeat-gate scan at
+# max_mismatch 2, by hand (csrc/repeats.cu): the byte compare, the three
+# selects of the mismatch ring, and two add-and-max (the zero run and the
+# stretch, one DPX VIADDMNMX each). The bound takes the smaller of this and
+# the SASS count.
+GATE_OPS_PER_STEP = 6
+GATE_ODD_KS = [31, 4, 6, 7, 12, 10, 64, 0]  # tests/test_torch_repeats.py
+GATE_MISMATCHES = (-1, 0, 1, 2, 3, 8, 40)
+FALLBACK_REGION = "chr1:300-40300"  # 400 windows of the default corpus
 KERNEL_REPS = (5, 10)  # batches x launches per batch, per case
 PLAIN_REPS = 3  # one call each: the plain versions take ~1 s a call
 LARGE_GROUP = (132, 1000, 1100, 3)  # pairs, min and max length, seed
@@ -206,6 +230,43 @@ def sass_loop_counts(so: str):
     return out, None
 
 
+_LDS_BYTES = {"LDS.U8": 1, "LDS.S8": 1, "LDS.U16": 2, "LDS": 4, "LDS.64": 8,
+              "LDS.128": 16}
+
+
+def sass_gate_counts(so: str):
+    """Static SASS counts of repeat_gates' scan loop, per max_mismatch
+    instantiation ("MM2"; "MMn1" the two-pointer pass): the innermost loop
+    that loads shared bytes (LDS.U8), divided by its position-steps, each
+    of which reads two bytes (the compiler merges the aligned ones of an
+    unrolled loop into 32-bit loads, so steps = shared bytes loaded / 2);
+    the loop with the most steps where there are several. Returns
+    ({key: counts}, None), or (None, the reason)."""
+    funcs, why = _sass_functions(so)
+    if funcs is None:
+        return None, why
+    out = {}
+    for name, ops in funcs.items():
+        m = re.search(r"repeat_gates_kernelILi(n?)(\d+)EE", name)
+        if not m:
+            continue
+        key = f"MM{m.group(1)}{m.group(2)}"
+        best = None
+        for body in _inner_loops(ops):
+            if not any(t[0].startswith("LDS.U8") for t in body):
+                continue
+            steps = sum(_LDS_BYTES.get(t[0], 0) for t in body) // 2
+            if steps and (best is None or steps > best[0]):
+                best = (steps, _classify(body))
+        if best is None:
+            return None, f"{key}: the scan loop was not found in the SASS"
+        out[key] = {"steps_per_iteration": best[0],
+                    **{k: v / best[0] for k, v in best[1].items()}}
+    if "MM2" not in out:
+        return None, "repeat_gates_kernel<2>: not in the SASS"
+    return out, None
+
+
 def dpx_headers() -> list[str]:
     """The CUDA toolkit's headers that declare __vibmax_s32."""
     from torch.utils.cpp_extension import CUDA_HOME
@@ -227,7 +288,7 @@ def build_all():
     ({name: seconds}, {name: library}, ptxas lines). Raises with the
     compiler's error text."""
     from lancet_tpu_torch import native
-    from lancet_tpu_torch.gpu import gotoh
+    from lancet_tpu_torch.gpu import gotoh, repeats
 
     secs, libs, errs = {}, {}, {}
 
@@ -240,7 +301,8 @@ def build_all():
             errs[name] = e
 
     ts = [threading.Thread(target=one, args=a)
-          for a in (("native", native.build), ("gotoh_cu", gotoh.build))]
+          for a in (("native", native.build), ("gotoh_cu", gotoh.build),
+                    ("repeats_cu", repeats.build))]
     for t in ts:
         t.start()
     for t in ts:
@@ -249,8 +311,11 @@ def build_all():
         for name, e in errs.items():
             print(f"build of {name} failed:\n{e}", file=sys.stderr)
         raise RuntimeError(f"build failed: {sorted(errs)}")
-    with open(os.path.join(HERE, libs["gotoh_cu"]) + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+    ptxas = {}
+    for name in ("gotoh_cu", "repeats_cu"):
+        with open(os.path.join(HERE, libs[name]) + ".log") as f:
+            ptxas[name] = [ln.strip() for ln in f
+                           if "registers" in ln or "spill" in ln]
     return secs, libs, ptxas
 
 
@@ -353,34 +418,152 @@ def kernel_phase(pairs, rate: dict) -> dict:
     }
 
 
-def run_main_path(device: str, workdir: str, region: str, stats: dict,
-                  groups: list | None = None):
-    """runner.run on the corpus; with `groups`, every pair list the DP
-    dispatch hands to batch_align_async is appended to it."""
+def gates_case(windows, ks, mm: int, rate: dict, timed: bool) -> dict:
+    """repeat_gates on one batch of windows: its gates and exact rows
+    bit-equal to gates_plain on the card; with `timed`, timed beside it and
+    the card's bound."""
+    import torch
+
+    from lancet_tpu_torch.gpu import repeats
+
+    dev = torch.device("cuda", 0)
+    seq, lens = repeats.pack(windows)
+    seq_d, lens_d = (torch.from_numpy(a).to(dev) for a in (seq, lens))
+    g, e = repeats.gates(seq_d, lens_d, ks, mm)
+    torch.cuda.synchronize()
+    pg, pe = repeats.gates_plain(seq_d, lens_d, tuple(ks), mm)
+    # verdicts that differ (0 or 1 each); the kernel must agree on all
+    err = max(int((g != pg).sum()), int((e != pe).sum()))
+    if err:
+        raise AssertionError(f"W={len(windows)} mm={mm} ks={ks}: "
+                             f"repeat_gates disagrees with gates_plain on "
+                             f"{err} verdicts")
+    W, L = seq.shape
+    steps = int(sum(int(n) * (int(n) - 1) // 2 for n in lens))
+    out = {"W": W, "L": L, "nk": len(ks), "max_mismatch": mm,
+           "threads": repeats.plan_threads(L), "position_steps": steps,
+           "gated": int(g.sum()), "exact": int(e.sum()),
+           "tolerance": 0, "max_abs_err": err}
+    if not timed:
+        return out
+    ms = spread(cuda_times(lambda: repeats.gates(seq_d, lens_d, ks, mm),
+                           *KERNEL_REPS))
+    plain_ms = spread(cuda_times(
+        lambda: repeats.gates_plain(seq_d, lens_d, tuple(ks), mm),
+        PLAIN_REPS))
+    # read the bytes, lengths and ks once; write both rows once
+    nbytes = W * L + 4 * W + 4 * len(ks) + 2 * W * len(ks)
+    nops = rate["gate_ops_per_step"] * steps
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": nops / rate["int_ops_per_s"] * 1e3}
+    return {**out, "ms": ms, "plain_ms": plain_ms, "bound": bound,
+            "bytes": nbytes, "int_ops": nops,
+            "steps_per_s": steps / (ms["median"] / 1e3)}
+
+
+def default_windows(workdir: str, region: str) -> list[str]:
+    """The reference sequence of every default-corpus window."""
     from lancet_tpu_torch.config import Config
-    from lancet_tpu_torch.engine import shardrun
+    from lancet_tpu_torch.io import open_fasta
+    from lancet_tpu_torch.windows import generate_windows
+
+    cfg = Config()
+    fa = open_fasta(os.path.join(workdir, "ref.fa"))
+    return [w.rawseq for w in generate_windows(fa, [region], fa.lengths,
+                                               cfg.window_size, cfg.padding)]
+
+
+def launch_counts() -> dict:
+    from lancet_tpu_torch.gpu import gotoh, repeats
+
+    return {**gotoh.LAUNCHES, **repeats.LAUNCHES}
+
+
+def reset_counts() -> None:
+    from lancet_tpu_torch.gpu import gotoh, repeats
+
+    gotoh.reset_launches()
+    repeats.reset_launches()
+
+
+def run_captured(workdir: str, region: str, stats: dict, **kw):
+    """runner.run on the corpus with 8 threads; returns (VCF, stderr)."""
+    from lancet_tpu_torch.config import Config
     from lancet_tpu_torch.runner import run
 
     cfg = Config(tumor_bam=os.path.join(workdir, "tumor.bam"),
                  normal_bam=os.path.join(workdir, "normal.bam"),
                  ref_fasta=os.path.join(workdir, "ref.fa"), region=region,
                  num_threads=8)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        vcf = run(cfg, command_line="chip_smoke", date="SMOKE\n",
+                  stats=stats, **kw)
+    return vcf, err.getvalue()
+
+
+def run_engine_path(workdir: str, region: str, stats: dict):
+    """The two-phase process pool on the card, the native runner off."""
+    os.environ["LANCET_TPU_NO_SHARDRUN"] = "1"
+    try:
+        return run_captured(workdir, region, stats, processes=True,
+                            engine="batched", device="cuda")
+    finally:
+        del os.environ["LANCET_TPU_NO_SHARDRUN"]
+
+
+def stop_pool_servers() -> None:
+    """Stop the forkserver and the resource tracker that the process pool
+    started, so that no process of this script outlives it."""
+    import multiprocessing.forkserver as fs
+    import multiprocessing.resource_tracker as rt
+
+    for server in (fs._forkserver, rt._resource_tracker):
+        server._stop()
+
+
+def run_forced_fallback(workdir: str, region: str, stats: dict,
+                        forced: list):
+    """The main path on `region` with the first two windows that hold an
+    indel handed back by the native runner, so that the runner replays
+    them on the per-window engine on the card (their paths need the DP)."""
+    from lancet_tpu_torch.engine import shardrun
+
+    orig = shardrun.run_shards
+
+    def forcing(*a, **k):
+        res = orig(*a, **k)
+        idx = [wi for wi in sorted(res.variants_by_window)
+               if any(v.type in "ID" for v in res.variants_by_window[wi])]
+        res.fallback.update(idx[:2])
+        forced.extend(idx[:2])
+        return res
+
+    shardrun.run_shards = forcing
+    try:
+        return run_captured(workdir, region, stats, device="cuda")
+    finally:
+        shardrun.run_shards = orig
+
+
+def run_main_path(device: str, workdir: str, region: str, stats: dict,
+                  groups: list | None = None):
+    """runner.run on the corpus; with `groups`, every pair list the DP
+    dispatch hands to batch_align_async is appended to it."""
+    from lancet_tpu_torch.engine import shardrun
+
     dispatch = shardrun.batch_align_async
 
     def keep(pairs, device):
         groups.append(list(pairs))
         return dispatch(pairs, device)
 
-    err = io.StringIO()
     if groups is not None:
         shardrun.batch_align_async = keep
     try:
-        with contextlib.redirect_stderr(err):
-            vcf = run(cfg, command_line="chip_smoke", date="SMOKE\n",
-                      stats=stats, device=device)
+        return run_captured(workdir, region, stats, device=device)
     finally:
         shardrun.batch_align_async = dispatch
-    return vcf, err.getvalue()
 
 
 def main() -> int:
@@ -407,10 +590,11 @@ def main() -> int:
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    # 2. build, and the SASS counts the bound is held against
+    # 2. build, and the SASS counts the bounds are held against
     secs, libs, ptxas = build_all()
     so = os.path.join(HERE, libs["gotoh_cu"])
     sass, why = sass_loop_counts(so)
+    gsass, gwhy = sass_gate_counts(os.path.join(HERE, libs["repeats_cu"]))
     clock_hz, clock_txt = sm_clock_hz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     per = {}
@@ -423,33 +607,59 @@ def main() -> int:
             "sms": sms, "sm_clock_max": clock_txt,
             "hand_fill_ops_per_cell": FILL_OPS_PER_CELL,
             "hand_trace_ops_per_step": TRACE_OPS_PER_STEP,
-            "per_instantiation": per}
+            "per_instantiation": per,
+            "hand_gate_ops_per_step": GATE_OPS_PER_STEP,
+            "gate_ops_per_step": min(GATE_OPS_PER_STEP,
+                                     gsass["MM2"]["arith"]) if gsass
+            else None}
     emit({"phase": "build", "seconds": secs, "libraries": libs,
           "ptxas": ptxas, "dpx_headers": dpx_headers(),
           "sass": sass if sass is not None else {"not_measured": why},
+          "sass_gates": gsass if gsass is not None
+          else {"not_measured": gwhy},
           "bound_rate": rate})
-    if sass is None:
-        raise RuntimeError(f"SASS counts missing: {why}")
+    if sass is None or gsass is None:
+        raise RuntimeError(f"SASS counts missing: {why or gwhy}")
 
-    # 3. main path on the default corpus
     from lancet_tpu_torch import corpus
-    from lancet_tpu_torch.gpu import gotoh
+    from lancet_tpu_torch.config import Config
 
     workdir = os.path.join(HERE, "build", "smoke_corpus")
     t0 = time.perf_counter()
     region = corpus.write_default_corpus(workdir)
     t_corpus = time.perf_counter() - t0
+
+    # 3. the repeat-gate kernel against its plain version: every window of
+    # the default corpus, then the adversarial windows
+    cfg0 = Config()
+    ks = list(range(cfg0.min_k, cfg0.max_k + 1, 2))
+    gres = gates_case(default_windows(workdir, region), ks,
+                      cfg0.max_mismatch, rate, timed=True)
+    emit({"phase": "gates", "case": "default_corpus", **gres})
+    adv = corpus.repeat_windows() + ["", "A", "AA", "ACGT"]
+    n_adv = 0
+    for kl in (ks, GATE_ODD_KS):
+        for mm in GATE_MISMATCHES:
+            r = gates_case(adv, kl, mm, rate, timed=False)
+            n_adv += 1
+            gres["max_abs_err"] = max(gres["max_abs_err"], r["max_abs_err"])
+    emit({"phase": "gates", "case": "adversarial", "W": len(adv),
+          "cases": n_adv, "ks_lists": [ks, GATE_ODD_KS],
+          "max_mismatch": list(GATE_MISMATCHES), "tolerance": 0,
+          "max_abs_err": gres["max_abs_err"]})
+
+    # 4. main path on the default corpus
     st: dict = {}
     groups: list = []
-    gotoh.reset_launches()
+    reset_counts()
     vcf, summary = run_main_path("cuda", workdir, region, st, groups)
-    launches = dict(gotoh.LAUNCHES)
+    launches = launch_counts()
     st_cpu: dict = {}
     vcf_cpu, summary_cpu = run_main_path("cpu", workdir, region, st_cpu)
     n_rec = sum(1 for ln in vcf.splitlines() if ln and ln[0] != "#")
     keys = ("t_total", "t_pipeline", "t_host", "t_dp", "t_dp_prep",
             "t_dp_send", "t_dp_wait", "t_finish", "t_render", "n_windows",
-            "n_jobs", "n_dp", "n_groups")
+            "n_jobs", "n_dp", "n_groups", "n_fallback")
     lens = sorted(len(x) for g in groups for pr in g for x in pr)
     emit({"phase": "main_path", "t_corpus": t_corpus,
           "windows_per_s": st["n_windows"] / st["t_total"],
@@ -471,14 +681,65 @@ def main() -> int:
     if n_rec == 0 or st["n_dp"] == 0:
         raise AssertionError(f"main path produced {n_rec} records from "
                              f"{st['n_dp']} DP pairs")
-    if launches["gotoh_align_smem"] != len(groups) or sum(
-            launches.values()) != len(groups):
+    if launches["gotoh_align_smem"] != len(groups) or launches[
+            "gotoh_align_global"] != 0:
         raise AssertionError(f"gotoh_align launches {launches} on the main "
                              f"path for {len(groups)} DP groups (one "
                              "shared-memory launch each expected)")
 
-    # 4. kernel parity and times: each DP group of the main path, the
-    # tie-heavy pairs, and one group that takes the global mode
+    # 5. the two-phase process pool on the same corpus
+    st_e: dict = {}
+    reset_counts()
+    vcf_e, summary_e = run_engine_path(workdir, region, st_e)
+    launches_e = launch_counts()
+    stop_pool_servers()
+    ekeys = ("t_total", "t_gates", "t_host", "t_dp", "t_finish", "t_render",
+             "n_windows", "n_jobs", "n_dp")
+    emit({"phase": "engine_path", "num_threads": 8,
+          "windows_per_s": st_e["n_windows"] / st_e["t_total"],
+          **{k: st_e[k] for k in ekeys},
+          "n_dead_workers": st_e.get("n_dead_workers", 0),
+          "launches": launches_e, "vcf_equal_main": vcf_e == vcf,
+          "summary_equal_main": summary_e == summary})
+    if vcf_e != vcf or summary_e != summary:
+        raise AssertionError("the two-phase path's VCF or summary differs "
+                             "from the main path's")
+    if st_e.get("n_dead_workers", 0):
+        raise AssertionError(f"{st_e['n_dead_workers']} workers died")
+    if launches_e["repeat_gates"] < 1 or launches_e[
+            "gotoh_align_smem"] + launches_e["gotoh_align_global"] < 1:
+        raise AssertionError(f"the two-phase path launched {launches_e}")
+
+    # 6. native fallback windows replayed on the per-window engine
+    st_u: dict = {}
+    reset_counts()
+    vcf_u, summary_u = run_captured(workdir, FALLBACK_REGION, st_u,
+                                    device="cuda")
+    launches_u = launch_counts()
+    st_f: dict = {}
+    forced: list = []
+    reset_counts()
+    vcf_f, summary_f = run_forced_fallback(workdir, FALLBACK_REGION, st_f,
+                                           forced)
+    launches_f = launch_counts()
+    warn = ("WARNING: 2 windows replayed on the python engine (native "
+            "shard runner fallback)\n")
+    replay = {k: launches_f[k] - launches_u[k] for k in launches_f}
+    emit({"phase": "fallback", "region": FALLBACK_REGION,
+          "n_windows": st_f["n_windows"], "forced": forced,
+          "n_fallback": st_f["n_fallback"], "launches_unforced": launches_u,
+          "launches_forced": launches_f, "replay_launches": replay,
+          "t_total": st_f["t_total"], "vcf_equal_unforced": vcf_f == vcf_u,
+          "summary_equal_unforced": summary_f == warn + summary_u})
+    if (st_f["n_fallback"] != 2 or vcf_f != vcf_u
+            or summary_f != warn + summary_u):
+        raise AssertionError("the forced fallback run differs from the "
+                             "unforced run")
+    if replay["gotoh_align_smem"] + replay["gotoh_align_global"] < 1:
+        raise AssertionError(f"the replay launched no DP: {replay}")
+
+    # 7. Gotoh kernel parity and times: each DP group of the main path,
+    # the tie-heavy pairs, and one group that takes the global mode
     kres = []
     for g, pairs in enumerate(groups):
         kres.append(kernel_phase(pairs, rate))
@@ -494,6 +755,10 @@ def main() -> int:
     def mean(vals):
         return sum(vals) / len(vals)
 
+    def by_path(name):
+        return {"main_path": launches[name], "engine_path": launches_e[name],
+                "fallback_replay": replay[name]}
+
     line = []
     for mode, cases in (("smem", kres), ("global", [large])):
         # per launch, averaged over the cases: the main path's DP groups
@@ -507,11 +772,24 @@ def main() -> int:
             "replaces": "lancet_tpu/tpu/pallas_gotoh.py:113",
             "also_replaces": "lancet_tpu/tpu/align_batch.py:143",
             "launches": launches[f"gotoh_align_{mode}"],
+            "launches_by_path": by_path(f"gotoh_align_{mode}"),
             "on_main_path": mode == "smem",
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "ms": mean([r["ms"]["median"] for r in cases]),
             "plain_ms": mean([r["plain_ms"]["median"] for r in cases]),
             "bound_ms": bnd[by], "bound_by": by, "library_ms": None})
+    gby = max(gres["bound"], key=gres["bound"].get)
+    line.append({
+        "name": "repeat_gates", "route": "cuda",
+        "source": "lancet_tpu_torch/csrc/repeats.cu",
+        "replaces": "lancet_tpu/tpu/repeats.py:37",
+        # the native main path runs no gates; the two-phase path is this
+        # kernel's path
+        "launches": launches_e["repeat_gates"],
+        "launches_by_path": by_path("repeat_gates"),
+        "on_main_path": False, "max_abs_err": gres["max_abs_err"],
+        "ms": gres["ms"]["median"], "plain_ms": gres["plain_ms"]["median"],
+        "bound_ms": gres["bound"][gby], "bound_by": gby, "library_ms": None})
     emit({"kernels": line, "t_smoke": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -70,8 +70,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--print-config-file", "-G", action="store_true",
                    help="dump the effective configuration to config.txt")
     # new-framework options
+    p.add_argument("--engine", choices=["oracle", "batched"],
+                   default="batched",
+                   help="execution engine (batched = device kernels; "
+                        "oracle = host only)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="device of the batched Gotoh alignment")
+                   help="device of the batched engine's kernels")
     p.add_argument("--out", default="-", help="output VCF path (default stdout)")
     p.add_argument("--trace-file", default="",
                    help="per-window wall-time JSONL (profiling)")
@@ -79,8 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint dir: append completed-window logs and "
                         "resume an interrupted run from them")
     p.add_argument("--processes", action="store_true",
-                   help="fan shards out to a host process pool (not ported "
-                        "yet: raises)")
+                   help="fan shards out to a host process pool")
     return p
 
 
@@ -128,8 +131,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     cfg = config_from_args(args)
-    vcf = run(cfg, command_line=" ".join(sys.argv), device=args.device,
-              processes=args.processes)
+    vcf = run(cfg, command_line=" ".join(sys.argv), engine=args.engine,
+              device=args.device, processes=args.processes)
     if args.out == "-":
         sys.stdout.write(vcf)
     else:

@@ -176,3 +176,27 @@ def write_default_corpus(dirpath: str, chrom_len: int = CHROM_LEN) -> str:
     refseq, tumor, normal = default_corpus_reads(chrom_len)
     write_pair(dirpath, refseq, "chr1", tumor, normal)
     return f"chr1:300-{chrom_len - 300}"
+
+
+def repeat_windows(seed: int = 13, n: int = 48) -> list[str]:
+    """Adversarial windows for the repeat gates: lengths 0, 1, 2, 5 and 12,
+    then lengths up to 600; random sequence (with N and a lowercase base)
+    or tandem repeats of a 1-8 bp unit with 0-4 substitutions, N
+    included."""
+    rng = random.Random(seed)
+    lengths = [0, 1, 2, 5, 12, 600] + [rng.choice([rng.randint(5, 60),
+                                                   rng.randint(60, 600)])
+                                       for _ in range(n - 6)]
+    out = []
+    for i, ln in enumerate(lengths):
+        if i % 2:
+            unit = "".join(rng.choice(BASES) for _ in range(rng.randint(1, 8)))
+            s = list((unit * (ln // len(unit) + 1))[:ln])
+            for _ in range(rng.randint(0, 4)):
+                if s:
+                    s[rng.randrange(ln)] = rng.choice("ACGTN")
+        else:
+            s = [rng.choice("ACGTNa" if rng.random() < 0.1 else BASES)
+                 for _ in range(ln)]
+        out.append("".join(s))
+    return out

@@ -1,4 +1,4 @@
-"""Device work of the main path: the batched Gotoh alignment."""
+"""Device work: the batched Gotoh alignment and the repeat gates."""
 
 from __future__ import annotations
 
@@ -8,7 +8,11 @@ import torch
 def resolve_device(device) -> torch.device:
     """torch.device for `device` ("cuda", "cuda:N" or "cpu"). Raises if a
     CUDA device is asked for and none is present: nothing carries on
-    silently on the CPU."""
+    silently on the CPU. None (a process that must not touch a device)
+    raises too."""
+    if device is None:
+        raise RuntimeError("no device was given to this process (a "
+                           "two-phase worker does host work only)")
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -3,8 +3,10 @@
 `load_library` builds `_lancet_native.so` with g++ at first use into the
 build directory (`_build.BUILD_DIR`) and loads it. `NativeBamReader` and
 `NativeFastaFile` are the streaming readers that `io.open_bam` /
-`io.open_fasta` return; the shard runner (`engine/shardrun.py`) binds the
-`lsr_*` batch entry points itself.
+`io.open_fasta` return; `dbg_build` runs the colored-DBG build of the
+per-window engine (`engine/fastbuild.py`). The shard runner
+(`engine/shardrun.py`), the per-k pipeline (`engine/fastpipe.py`) and the
+repeat scans (`engine/seqs.py`) bind their entry points themselves.
 """
 
 from __future__ import annotations
@@ -85,8 +87,76 @@ def load_library() -> ctypes.CDLL:
                                   ctypes.c_long, ctypes.c_long,
                                   ctypes.POINTER(ctypes.c_long)]
         lib.lfa_free.argtypes = [ctypes.POINTER(ctypes.c_char)]
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.lgb_build.restype = ctypes.c_void_p
+        lib.lgb_build.argtypes = [
+            u8p, u8p, ctypes.c_int64, ctypes.c_int64, i64p, i32p, i32p,
+            i32p, i32p, i64p, u8p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_double, ctypes.c_int, ctypes.c_double, u8p,
+            ctypes.c_int64]
+        for nm, rt in (("lgb_n_nodes", ctypes.c_int64),
+                       ("lgb_n_edges", ctypes.c_int64),
+                       ("lgb_mers", u8p), ("lgb_cov", i32p),
+                       ("lgb_mq", i32p), ("lgb_flags", u8p),
+                       ("lgb_mincov_qv", i32p), ("lgb_tot_cov", i32p),
+                       ("lgb_esrc", i32p), ("lgb_edst", i32p),
+                       ("lgb_edir", u8p)):
+            fn = getattr(lib, nm)
+            fn.restype = rt
+            fn.argtypes = [ctypes.c_void_p]
+        lib.lgb_result_free.argtypes = [ctypes.c_void_p]
         _lib = lib
         return lib
+
+
+def dbg_build(cat, qcat, starts, lens, sample, strand, order, name_off,
+              name_blob, K, minq, avgcov, low_cov_threshold, min_cov_ratio,
+              refseq):
+    """Run the native colored-DBG build kernel; returns a dict of numpy
+    arrays (copies — the native result is freed before returning). Raises
+    NativeUnavailable when the toolchain is missing."""
+    import numpy as np
+
+    lib = load_library()
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+
+    def p(a, t):
+        return a.ctypes.data_as(t)
+
+    h = lib.lgb_build(
+        p(cat, u8p), p(qcat, u8p), cat.size, lens.size, p(starts, i64p),
+        p(lens, i32p), p(sample, i32p), p(strand, i32p), p(order, i32p),
+        p(name_off, i64p), p(name_blob, u8p), K, minq, float(avgcov),
+        int(low_cov_threshold), float(min_cov_ratio), p(refseq, u8p),
+        refseq.size)
+    try:
+        n = lib.lgb_n_nodes(h)
+        m = lib.lgb_n_edges(h)
+
+        def arr(fn, count, dtype):
+            if count == 0:
+                return np.zeros(0, dtype)
+            return np.ctypeslib.as_array(fn(h), shape=(count,)).astype(
+                dtype, copy=True)
+
+        return {
+            "n_nodes": n,
+            "mers": arr(lib.lgb_mers, n * K, np.uint8),
+            "cov": arr(lib.lgb_cov, n * 4, np.int32).reshape(n, 4),
+            "mq": arr(lib.lgb_mq, 4 * n * K, np.int32).reshape(4, n, K),
+            "flags": arr(lib.lgb_flags, n, np.uint8),
+            "mincov_qv": arr(lib.lgb_mincov_qv, n, np.int32),
+            "tot_cov": arr(lib.lgb_tot_cov, n, np.int32),
+            "esrc": arr(lib.lgb_esrc, m, np.int32),
+            "edst": arr(lib.lgb_edst, m, np.int32),
+            "edir": arr(lib.lgb_edir, m, np.uint8),
+        }
+    finally:
+        lib.lgb_result_free(h)
 
 
 def _unpack_records(buf: bytes, n: int):

@@ -13,12 +13,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-# IUPAC ambiguity codes (ref: util.cc:171-189)
-_AMBIG = frozenset("MmRrWwSsYyKkVvHhDdBbXx")
-
-
-def is_ambiguous(b: str) -> bool:
-    return b in _AMBIG
+from .engine.ref import Ref
+from .engine.seqs import is_ambiguous
 
 
 @dataclass
@@ -31,6 +27,16 @@ class Window:
     @property
     def name(self) -> str:
         return f"{self.chrom}:{self.refstart}-{self.refend}"
+
+    def make_ref(self, k: int) -> Ref:
+        r = Ref(k)
+        r.refchr = self.chrom
+        r.refstart = self.refstart
+        r.refend = self.refend
+        r.hdr = self.name
+        r.seq = self.rawseq
+        r.rawseq = self.rawseq
+        return r
 
 
 def _clean(s: str) -> str:

@@ -24,6 +24,11 @@ import torch
 from lancet_tpu_torch.gpu import align_batch as tab
 from lancet_tpu_torch.gpu import gotoh
 
+# One intra-op thread: the test workers share the host's cores, and
+# PyTorch's OpenMP threads, spinning while oversubscribed, slow every
+# worker down many times over.
+torch.set_num_threads(1)
+
 
 def _random_pairs(rng, n_pairs, edits=True):
     """The pair sets of tests/test_tpu_align.py."""

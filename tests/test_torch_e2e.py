@@ -14,6 +14,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -26,6 +27,11 @@ from lancet_tpu.config import Filters as JaxFilters  # noqa: E402
 from lancet_tpu.runner import run as jax_run  # noqa: E402
 from lancet_tpu_torch import runner as torch_runner  # noqa: E402
 from lancet_tpu_torch.config import Config  # noqa: E402
+
+# One intra-op thread: the test workers share the host's cores, and
+# PyTorch's OpenMP threads, spinning while oversubscribed, slow every
+# worker down many times over.
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -149,7 +155,7 @@ def test_resume_dir_chunked_equals_jax(tmp_path, monkeypatch):
 def test_cli_cpu_records_equal_jax(tmp_path):
     region = _snv(tmp_path)
     out = tmp_path / "port.vcf"
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     r = subprocess.run(
         [sys.executable, "-m", "lancet_tpu_torch.cli", "--device", "cpu",
          "-t", f"{tmp_path}/tumor.bam", "-n", f"{tmp_path}/normal.bam",

@@ -24,6 +24,11 @@ from lancet_tpu_torch import corpus  # noqa: E402
 from lancet_tpu_torch import runner as trunner  # noqa: E402
 from lancet_tpu_torch.gpu.align_batch import batch_align  # noqa: E402
 
+# One intra-op thread: the test workers share the host's cores, and
+# PyTorch's OpenMP threads, spinning while oversubscribed, slow every
+# worker down many times over.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = r"""
@@ -56,6 +61,7 @@ assert not bad, bad
 def test_port_imports_no_jax(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
+    env["OMP_NUM_THREADS"] = "1"  # as torch.set_num_threads(1) above
     r = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path)],
                        capture_output=True, text=True, env=env, cwd=ROOT,
                        timeout=300)
@@ -108,8 +114,23 @@ def test_default_device_raises_without_card(tmp_path):
 
 @pytest.mark.parametrize("mode", ["processes", "kmer_recovery",
                                   "print_graph"])
-def test_unported_modes_raise(mode):
-    cfg = tcfg.Config(region="chr1:1-9", **({} if mode == "processes"
-                                             else {mode: True}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        trunner.run(cfg, processes=mode == "processes", device="cpu")
+def test_unported_modes_raise(mode, tmp_path, monkeypatch):
+    """The modes the first slice left out (they raised then) run now, on
+    the port's own per-window engine."""
+    ref = corpus.make_reference(1400, seed=11)
+    alt = {"A": "C", "C": "G", "G": "T", "T": "A"}[ref[700]]
+    t = corpus.hap_reads(ref, ("s", 700, alt), 450, 950, 100, 5, "t", 0.5, 1)
+    n = corpus.hap_reads(ref, None, 450, 950, 100, 5, "n", 0, 2)
+    r, tb, nb = corpus.write_pair(str(tmp_path), ref, "chr1", t, n)
+    kw = ({"num_threads": 2} if mode == "processes" else {mode: True})
+    cfg = tcfg.Config(tumor_bam=tb, normal_bam=nb, ref_fasta=r,
+                      region="chr1:650-750", **kw)
+    monkeypatch.setenv("LANCET_TPU_NO_SHARDRUN", "1")
+    monkeypatch.chdir(tmp_path)
+    stats: dict = {}
+    vcf = trunner.run(cfg, processes=mode == "processes", device="cpu",
+                      stats=stats)
+    assert any(ln and ln[0] != "#" for ln in vcf.splitlines())
+    assert ("t_gates" in stats) == (mode == "processes")
+    if mode == "print_graph":
+        assert any(f.endswith(".dot") for f in os.listdir(tmp_path))
