@@ -6,8 +6,9 @@
 Phases, each printing one JSON line:
   1. device: the card's name and count, and nvidia-smi's name and power
      limit;
-  2. build: the native C++ plane (g++) and the two CUDA kernel libraries
-     (nvcc, sm_90a: csrc/gotoh.cu and csrc/repeats.cu), built side by side
+  2. build: the native C++ plane (g++) and the three CUDA kernel libraries
+     (nvcc, sm_90a: csrc/gotoh.cu, csrc/repeats.cu, csrc/walks.cu), built
+     side by side
      from the sources in the checkout; the SASS instruction counts per
      cell of the fused Gotoh kernel's fill loop and per step of its
      traceback loop, for each instantiation, with the DPX opcodes the fill
@@ -31,7 +32,19 @@ Phases, each printing one JSON line:
   6. fallback: a 400-window part of the corpus with two native windows
      forced into the replay, which runs them on the per-window engine on
      the card; the VCF must equal the unforced run's;
-  7. kernels, one line per case: the fused kernel gotoh_align on each kept
+  7. devgraph, two cases, the device graph engine (LANCET_TPU_DEVGRAPH=1,
+     device="cuda"): case 1 the JAX bench's device-graph region
+     chr1:300-120000 (1,198 windows, 8 threads), its VCF and summary equal
+     to the native main path's on the region and its device-graph stats
+     equal to the JAX package's there; case 2 the adversarial windows of
+     corpus.adversarial_corpus (STR runs, near repeats, homopolymers, dense
+     hets, internal tandem duplications whose cycles reach the exact cycle
+     replay), its VCF equal to the native path's; the four walk kernels
+     (csrc/walks.cu) must launch, gotoh_align and repeat_gates too on case
+     1; then one kernels line per walk: the call with the most work of the
+     two cases, its outputs bit-equal to the plain version on the card,
+     timed beside it and the card's bound;
+  8. kernels, one line per case: the fused kernel gotoh_align on each kept
      group's own pairs, on the tie-heavy pairs of tests/test_torch_align.py,
      and on one seeded group of 132 related pairs of ~1,100 bp whose codes
      do not fit in shared memory (global mode); its ops and counts held
@@ -84,6 +97,24 @@ GATE_OPS_PER_STEP = 6
 GATE_ODD_KS = [31, 4, 6, 7, 12, 10, 64, 0]  # tests/test_torch_repeats.py
 GATE_MISMATCHES = (-1, 0, 1, 2, 3, 8, 40)
 FALLBACK_REGION = "chr1:300-40300"  # 400 windows of the default corpus
+# the JAX package's device-graph region of the default corpus (bench.py:377,
+# 1,198 windows) and its device-graph stats there: BENCH_r05.json
+# "devgraph", confirmed by a run of the JAX package on the CPU
+DEVGRAPH_REGION = "chr1:300-120000"
+DEVGRAPH_STATS = {"n_dev_windows": 357, "n_dev_fallback": 0,
+                  "dev_fallback_causes": {},
+                  "k_histogram": {11: 15, 13: 231, 15: 99, 17: 10, 19: 2}}
+# Integer operations of the four walks per unit of work, by hand
+# (csrc/walks.cu), as lower bounds: path_cover 12 per BFS pop (the entry's
+# five loads, the sink and best tests, the expand test, head and tail);
+# seq_removal 8 per rank slot (the slot, its degree, removed flag and
+# merlen loads, the tests); cycle_dfs 10 per DFS step (three stack loads,
+# the adjacency, direction, destination, special and colour loads, the
+# test, the push or pop); almost_repeat_paths 3 per compared position (two
+# byte loads and a compare-add).
+WALK_OPS = {"path_cover": 12, "seq_removal": 8, "cycle_dfs": 10,
+            "almost_repeat_paths": 3}
+WALK_PLAIN_REPS = 2  # the plain walks loop on the host: seconds a call
 KERNEL_REPS = (5, 10)  # batches x launches per batch, per case
 PLAIN_REPS = 3  # one call each: the plain versions take ~1 s a call
 LARGE_GROUP = (132, 1000, 1100, 3)  # pairs, min and max length, seed
@@ -288,7 +319,7 @@ def build_all():
     ({name: seconds}, {name: library}, ptxas lines). Raises with the
     compiler's error text."""
     from lancet_tpu_torch import native
-    from lancet_tpu_torch.gpu import gotoh, repeats
+    from lancet_tpu_torch.gpu import gotoh, repeats, walks
 
     secs, libs, errs = {}, {}, {}
 
@@ -302,7 +333,7 @@ def build_all():
 
     ts = [threading.Thread(target=one, args=a)
           for a in (("native", native.build), ("gotoh_cu", gotoh.build),
-                    ("repeats_cu", repeats.build))]
+                    ("repeats_cu", repeats.build), ("walks_cu", walks.build))]
     for t in ts:
         t.start()
     for t in ts:
@@ -312,7 +343,7 @@ def build_all():
             print(f"build of {name} failed:\n{e}", file=sys.stderr)
         raise RuntimeError(f"build failed: {sorted(errs)}")
     ptxas = {}
-    for name in ("gotoh_cu", "repeats_cu"):
+    for name in ("gotoh_cu", "repeats_cu", "walks_cu"):
         with open(os.path.join(HERE, libs[name]) + ".log") as f:
             ptxas[name] = [ln.strip() for ln in f
                            if "registers" in ln or "spill" in ln]
@@ -474,27 +505,30 @@ def default_windows(workdir: str, region: str) -> list[str]:
 
 
 def launch_counts() -> dict:
-    from lancet_tpu_torch.gpu import gotoh, repeats
+    from lancet_tpu_torch.gpu import gotoh, repeats, walks
 
-    return {**gotoh.LAUNCHES, **repeats.LAUNCHES}
+    return {**gotoh.LAUNCHES, **repeats.LAUNCHES, **walks.LAUNCHES}
 
 
 def reset_counts() -> None:
-    from lancet_tpu_torch.gpu import gotoh, repeats
+    from lancet_tpu_torch.gpu import gotoh, repeats, walks
 
     gotoh.reset_launches()
     repeats.reset_launches()
+    walks.reset_launches()
 
 
-def run_captured(workdir: str, region: str, stats: dict, **kw):
-    """runner.run on the corpus with 8 threads; returns (VCF, stderr)."""
+def run_captured(workdir: str, region: str, stats: dict, num_threads=8,
+                 **kw):
+    """runner.run on the corpus (8 threads by default); returns (VCF,
+    stderr)."""
     from lancet_tpu_torch.config import Config
     from lancet_tpu_torch.runner import run
 
     cfg = Config(tumor_bam=os.path.join(workdir, "tumor.bam"),
                  normal_bam=os.path.join(workdir, "normal.bam"),
                  ref_fasta=os.path.join(workdir, "ref.fa"), region=region,
-                 num_threads=8)
+                 num_threads=num_threads)
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         vcf = run(cfg, command_line="chip_smoke", date="SMOKE\n",
@@ -564,6 +598,255 @@ def run_main_path(device: str, workdir: str, region: str, stats: dict,
         return run_captured(workdir, region, stats, device=device)
     finally:
         shardrun.batch_align_async = dispatch
+
+
+_WALKS = {"path_cover": "path_cover", "seq_removal": "seq_removal",
+          "almost_repeat": "almost_repeat_paths", "cycle_dfs": "cycle_dfs"}
+_WALK_SOURCES = {"path_cover": "lancet_tpu/tpu/pipeline.py:310",
+                 "seq_removal": "lancet_tpu/tpu/stages.py:580",
+                 "almost_repeat_paths": "lancet_tpu/tpu/pipeline.py:680",
+                 "cycle_dfs": "lancet_tpu/tpu/stages.py:839"}
+# torch-op functions of the device graph engine whose calls and aten ops
+# (about one kernel launch each) are counted
+_OP_COUNTED = ("tandem_at", "cycle_screen", "compress_round")
+
+
+def _tree(x, fn):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree(y, fn) for y in x)
+    return fn(x)
+
+
+def _walk_work(name: str, args) -> int:
+    """How much work a walk call holds (the call kept is the largest)."""
+    import torch
+
+    if name == "cycle_dfs":
+        _, _, _, alive, _, N, Cmax, mask = args
+        src = alive[:, N + 2 * torch.arange(Cmax, device=alive.device)]
+        return int((mask & src).sum()) if mask is not None else 0
+    if name == "seq_removal":
+        return int((args[0] >= 0).sum())
+    if name == "almost_repeat":
+        return int(args[1].clamp(min=0).sum())
+    return int(args[5].sum())  # path_cover: runnable components
+
+
+@contextlib.contextmanager
+def instrument_devgraph(kept: dict | None, ops: dict | None):
+    """While active: keep, per walk, a copy of the inputs of its card call
+    with the most work (`kept`); count the calls of the _OP_COUNTED
+    functions and the aten ops they dispatch (`ops`)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from lancet_tpu_torch.gpu import stages, walks
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    real_w = {n: getattr(walks, n) for n in _WALKS}
+    real_s = {n: getattr(stages, n) for n in _OP_COUNTED}
+
+    def wrap_walk(n):
+        def f(*a, **k):
+            if kept is not None and a[0].is_cuda:
+                work = _walk_work(n, a)
+                if n not in kept or kept[n][0] < work:
+                    kept[n] = (work, _tree(list(a), lambda x: x.clone()
+                                           if torch.is_tensor(x) else x),
+                               dict(k))
+            return real_w[n](*a, **k)
+        return f
+
+    def wrap_op(n):
+        def f(*a, **k):
+            c = ops.setdefault(n, {"calls": 0, "aten_ops": 0})
+            before = Count.n
+            with Count():
+                out = real_s[n](*a, **k)
+            c["calls"] += 1
+            c["aten_ops"] += Count.n - before
+            return out
+        return f
+
+    for n in _WALKS:
+        setattr(walks, n, wrap_walk(n))
+    if ops is not None:
+        for n in _OP_COUNTED:
+            setattr(stages, n, wrap_op(n))
+    try:
+        yield
+    finally:
+        for n, f in real_w.items():
+            setattr(walks, n, f)
+        for n, f in real_s.items():
+            setattr(stages, n, f)
+
+
+def run_devgraph(workdir: str, region: str, stats: dict, num_threads=8):
+    """runner.run with LANCET_TPU_DEVGRAPH=1 on the card."""
+    os.environ["LANCET_TPU_DEVGRAPH"] = "1"
+    try:
+        return run_captured(workdir, region, stats, device="cuda",
+                            num_threads=num_threads)
+    finally:
+        del os.environ["LANCET_TPU_DEVGRAPH"]
+
+
+def profile_devgraph(workdir: str, region: str, t_unprofiled: float) -> dict:
+    """One more devgraph run under torch.profiler: the card's busy time
+    (the sum of its kernel and copy intervals, which do not overlap on one
+    stream) against the wall time of this run and of the unprofiled run
+    (the profiler slows the host, not the card), and the kernels that take
+    most. A profiler that cannot trace the card gives "not_measured"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    st: dict = {}
+    by_name: dict = {}
+    # only the profiler's own failures become a measurement gap: an error
+    # of the run itself propagates
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except (AttributeError, RuntimeError) as e:
+        return {"not_measured": f"profiler: {e}"}
+    try:
+        run_devgraph(workdir, region, st)
+    except BaseException:
+        prof.stop()
+        raise
+    try:
+        prof.stop()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                ms, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
+                                   n + 1)
+    except (AttributeError, RuntimeError) as e:
+        return {"not_measured": f"profiler: {e}"}
+    if not by_name:
+        return {"not_measured": "the profiler recorded no device event"}
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"t_total_profiled": st["t_total"], "busy_ms": busy_ms,
+            "busy_share_profiled": busy_ms / 1e3 / st["t_total"],
+            "busy_share": busy_ms / 1e3 / t_unprofiled,
+            "device_events": sum(n for _, n in by_name.values()),
+            "top": [{"name": k[:80], "ms": ms, "calls": n}
+                    for k, (ms, n) in top]}
+
+
+def _narrow(x):
+    """A walk input as the kernel reads it: int32 or bytes."""
+    import torch
+
+    if not torch.is_tensor(x):
+        return x
+    if x.dtype == torch.bool:
+        return x.to(torch.uint8)
+    return x.to(torch.int32) if x.dtype == torch.int64 else x
+
+
+def walk_case(name: str, args, kw: dict, rate: dict) -> dict:
+    """One walk kernel on inputs captured from the devgraph runs: its
+    outputs bit-equal to the plain version on the card, then timed beside
+    it (CUDA events; the kernel's wrapper on int32/byte inputs, so the
+    launch and the widening of its outputs) and the card's bound."""
+    import torch
+
+    from lancet_tpu_torch.gpu import pipeline, stages, walks
+
+    kname = _WALKS[name]
+    fn = getattr(walks, name)
+    counts: dict = {}
+    if name == "path_cover":
+        def plain(c=None):
+            return pipeline.path_cover_plain(*args, **kw, counts=c)
+    elif name == "seq_removal":
+        kill = stages.removal_kill_fn(args[3])
+
+        def plain(c=None):
+            return stages.seq_removal_plain(args[0], args[1], args[2], kill)
+    elif name == "almost_repeat":
+        def plain(c=None):
+            return pipeline.almost_repeat_plain(*args, **kw)
+    else:
+        def plain(c=None):
+            return stages.cycle_dfs_plain(*args, **kw, counts=c)
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    want = plain(counts)
+    torch.cuda.synchronize()
+    if isinstance(want, dict):
+        err = sum(int((got[k].cpu() != want[k].cpu()).sum()) for k in want)
+    else:
+        err = int((got.cpu() != want.cpu()).sum())
+    if err:
+        raise AssertionError(f"{kname} disagrees with its plain version on "
+                             f"{err} outputs")
+    narrow = _tree(list(args), _narrow)
+    ms = spread(cuda_times(lambda: fn(*narrow, **kw), *KERNEL_REPS))
+    plain_ms = spread(cuda_times(plain, WALK_PLAIN_REPS))
+
+    # bytes: each input element the walk reads on this data, once (int32,
+    # bytes; the plain version marks them, stages.touch), each output
+    # once; units of work: this data's pops, slots, steps or compared
+    # positions
+    def seen(key):
+        return int((counts[key] > 0).sum()) if key in counts else 0
+
+    if name == "path_cover":
+        D2, W = args[0].shape[2], args[0].shape[0]
+        C, J, PN = kw["Cmax"], kw["JMAX"], kw["PN"]
+        nbytes = (4 * D2 * seen("adj_rows") + 4 * seen("e_dir")
+                  + 4 * seen("e_dst") + 5 * seen("nodes")
+                  + 4 * W + 5 * W * C  # numcomp, runnable, reflens
+                  + 4 * W * J * PN + 8 * W * J + 5 * W)  # the outputs
+        units = counts["pops"]
+    elif name == "seq_removal":
+        slots, nbr = args[0], args[1]
+        W, NI, D2 = nbr.shape
+        n_slots = int((slots >= 0).sum())
+        kills = int(got.sum())
+        links = args[3][0] == "links"
+        # per slot its id, degree and merlen; per kill its neighbour row
+        # (and, for links, the mincov and guard it passed); thr per window
+        nbytes = (12 * n_slots + (4 * D2 + (5 if links else 0)) * kills
+                  + (4 * W if links else 0) + W * NI)
+        units = n_slots
+    elif name == "almost_repeat":
+        seq, lens = args[0], args[1]
+        W, J, LP = seq.shape
+        nbytes = int(lens.clamp(0, LP).sum()) + 5 * W * J
+        K = args[2]
+        units = 0
+        for n, hit in zip(lens.reshape(-1).tolist(),
+                          got.reshape(-1).tolist()):
+            maxp = n - K - 1
+            if hit:
+                units += K + 1  # one window compared at the least
+            elif maxp > 0:
+                units += sum(K + 1 + 2 * (maxp - d)
+                             for d in range(1, maxp + 1))
+    else:
+        W, C = args[0].shape[0], args[6]
+        nbytes = (4 * seen("adj") + 4 * seen("e_dir") + 4 * seen("e_dst")
+                  + seen("special") + 3 * W * C)  # alive, lane_mask, flags
+        units = counts["steps"]
+    nops = WALK_OPS[kname] * units
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": nops / rate["int_ops_per_s"] * 1e3}
+    return {"name": kname, "shape": list(args[0].shape),
+            "work_units": units, "tolerance": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound": bound,
+            "bytes": nbytes, "int_ops": nops}
 
 
 def main() -> int:
@@ -738,7 +1021,90 @@ def main() -> int:
     if replay["gotoh_align_smem"] + replay["gotoh_align_global"] < 1:
         raise AssertionError(f"the replay launched no DP: {replay}")
 
-    # 7. Gotoh kernel parity and times: each DP group of the main path,
+    # 7. the device graph engine: case 1, the JAX bench's device-graph
+    # region, twice (the first run timed, the second keeping the walks'
+    # inputs), against the native main path on that region and the JAX
+    # package's stats; case 2, the adversarial windows with tandem
+    # duplications, whose cycles reach the exact cycle replay
+    st_n: dict = {}
+    vcf_n, summary_n = run_main_path("cuda", workdir, DEVGRAPH_REGION, st_n)
+    st_g: dict = {}
+    reset_counts()
+    vcf_g, summary_g = run_devgraph(workdir, DEVGRAPH_REGION, st_g)
+    launches_g = launch_counts()
+    kept: dict = {}
+    st_g2: dict = {}
+    with instrument_devgraph(kept, None):
+        vcf_g2, _ = run_devgraph(workdir, DEVGRAPH_REGION, st_g2)
+    busy = profile_devgraph(workdir, DEVGRAPH_REGION, st_g["t_total"])
+    got_stats = {k: st_g[k] for k in DEVGRAPH_STATS}
+    dkeys = ("t_total", "t_pipeline", "t_host", "t_unpack", "t_devgraph",
+             "t_dg_pack", "t_dg_build", "t_dg_ranks", "t_dg_assemble",
+             "t_dg_a_dispatch", "t_dg_a_exec", "t_dg_a_fetch", "t_dg_finish",
+             "t_dp", "t_finish", "t_render", "n_windows", "n_jobs", "n_dp",
+             "n_dev_attempts")
+    emit({"phase": "devgraph", "case": "bench_region",
+          "region": DEVGRAPH_REGION, "num_threads": 8,
+          "windows_per_s": st_g["n_windows"] / st_g["t_total"],
+          **{k: st_g[k] for k in dkeys}, **got_stats,
+          "launches": launches_g,
+          "second_run_t_total": st_g2["t_total"], "device_busy": busy,
+          "native_main_path": {"windows_per_s": st_n["n_windows"]
+                               / st_n["t_total"], "t_total": st_n["t_total"]},
+          "vcf_records": sum(1 for ln in vcf_g.splitlines()
+                             if ln and ln[0] != "#"),
+          "vcf_equal_native": vcf_g == vcf_n,
+          "summary_equal_native": summary_g == summary_n,
+          "stats_equal_jax": got_stats == DEVGRAPH_STATS})
+    if vcf_g != vcf_n or summary_g != summary_n or vcf_g2 != vcf_g:
+        raise AssertionError("the device graph engine's VCF or summary "
+                             "differs from the native main path's")
+    if got_stats != DEVGRAPH_STATS:
+        raise AssertionError(f"device-graph stats {got_stats} differ from "
+                             f"the JAX package's {DEVGRAPH_STATS}")
+    for k in ("gotoh_align_smem", "repeat_gates"):
+        if launches_g[k] < 1:
+            raise AssertionError(f"the devgraph path launched no {k}")
+
+    advdir = os.path.join(HERE, "build", "smoke_adversarial")
+    os.makedirs(advdir, exist_ok=True)
+    refseq, tumor, normal, adv_region = corpus.adversarial_corpus()
+    corpus.write_pair(advdir, refseq, "chr1", tumor, normal)
+    st_an: dict = {}
+    vcf_an, summary_an = run_main_path("cuda", advdir, adv_region, st_an)
+    st_a: dict = {}
+    ops: dict = {}
+    reset_counts()
+    with instrument_devgraph(kept, ops):
+        vcf_a, summary_a = run_devgraph(advdir, adv_region, st_a,
+                                        num_threads=2)
+    launches_a = launch_counts()
+    emit({"phase": "devgraph", "case": "adversarial", "region": adv_region,
+          "itd_events": list(corpus.ITD_EVENTS), "num_threads": 2,
+          **{k: st_a[k] for k in ("t_total", "n_windows", "n_dev_windows",
+                                  "n_dev_fallback", "dev_fallback_causes",
+                                  "k_histogram")},
+          "launches": launches_a, "torch_op_functions": ops,
+          "cycle_dfs_flagged_components": kept.get("cycle_dfs", (0,))[0],
+          "vcf_equal_native": vcf_a == vcf_an,
+          "summary_equal_native": summary_a == summary_an})
+    if vcf_a != vcf_an or summary_a != summary_an:
+        raise AssertionError("the device graph engine's adversarial VCF "
+                             "differs from the native main path's")
+    walk_launches = {k: launches_g[k] + launches_a[k]
+                     for k in _WALKS.values()}
+    if min(walk_launches.values()) < 1 or kept["cycle_dfs"][0] < 1:
+        raise AssertionError(f"a walk kernel did not launch, or no "
+                             f"component reached the cycle replay: "
+                             f"{walk_launches}")
+    wres = {}
+    for name in _WALKS:
+        _, args, kw = kept[name]
+        wres[name] = walk_case(name, args, kw, rate)
+        emit({"phase": "kernels", "case": f"devgraph_{_WALKS[name]}",
+              **wres[name]})
+
+    # 8. Gotoh kernel parity and times: each DP group of the main path,
     # the tie-heavy pairs, and one group that takes the global mode
     kres = []
     for g, pairs in enumerate(groups):
@@ -757,7 +1123,8 @@ def main() -> int:
 
     def by_path(name):
         return {"main_path": launches[name], "engine_path": launches_e[name],
-                "fallback_replay": replay[name]}
+                "fallback_replay": replay[name],
+                "devgraph": launches_g[name] + launches_a[name]}
 
     line = []
     for mode, cases in (("smem", kres), ("global", [large])):
@@ -790,6 +1157,19 @@ def main() -> int:
         "on_main_path": False, "max_abs_err": gres["max_abs_err"],
         "ms": gres["ms"]["median"], "plain_ms": gres["plain_ms"]["median"],
         "bound_ms": gres["bound"][gby], "bound_by": gby, "library_ms": None})
+    for name, kname in _WALKS.items():
+        r = wres[name]
+        by = max(r["bound"], key=r["bound"].get)
+        line.append({
+            "name": kname, "route": "cuda",
+            "source": "lancet_tpu_torch/csrc/walks.cu",
+            "replaces": _WALK_SOURCES[kname],
+            # the devgraph path is these kernels' path
+            "launches": walk_launches[kname],
+            "launches_by_path": by_path(kname), "on_main_path": False,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"]["median"],
+            "plain_ms": r["plain_ms"]["median"], "bound_ms": r["bound"][by],
+            "bound_by": by, "library_ms": None})
     emit({"kernels": line, "t_smoke": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -200,3 +200,61 @@ def repeat_windows(seed: int = 13, n: int = 48) -> list[str]:
                  for _ in range(ln)]
         out.append("".join(s))
     return out
+
+
+# internal tandem duplications (a stretch inserted right after itself):
+# (center, length). Their graphs hold a cycle at every k up to about the
+# length, which the cycle screen flags and the exact cycle replay confirms,
+# so the k ladder climbs past them.
+ITD_EVENTS = ((13_000, 15), (15_000, 24))
+
+
+def adversarial_corpus(itd: bool = True):
+    """Hard windows -> (refseq, tumor, normal, region): one family every
+    2 kb over 12 kb (STR runs, a near-repeat 24 bp duplication with one
+    mismatch, a homopolymer, dense germline hets, a plain SNV), the JAX
+    package's adversarial device-graph windows; with `itd`, also the
+    ITD_EVENTS on a 16 kb reference (the first 12 kb unchanged)."""
+    other = _OTHER
+    base = list(make_reference(16_000 if itd else 12_000, seed=77))
+    centers = list(range(1000, 11_000, 2000))
+    for idx, c in enumerate(centers):
+        fam = idx % 5
+        if fam == 0:  # STR
+            base[c - 60:c - 60 + 36] = "AC" * 18
+            base[c + 20:c + 20 + 30] = "AGC" * 10
+        elif fam == 1:  # near-repeat 24bp dup, 1 mismatch
+            seg = list(base[c - 30:c - 6])
+            seg[11] = other[seg[11]]
+            base[c + 30:c + 54] = seg
+        elif fam == 2:  # homopolymer
+            base[c - 40:c - 16] = "A" * 24
+    refseq = "".join(base)
+    tumor, normal = [], []
+    for idx, c in enumerate(centers):
+        fam = idx % 5
+        if fam == 0:
+            edit = ("i", c + 21, "AGC")
+        elif fam == 2:
+            edit = ("d", c - 30, 1)
+        else:
+            edit = ("s", c, other[refseq[c]])
+        tumor += hap_reads(refseq, edit, c - 700, c + 700, 100, 5,
+                           f"t{idx}_", 0.5, 100 + idx)
+        normal += hap_reads(refseq, None, c - 700, c + 700, 100, 5,
+                            f"n{idx}_", 0, 200 + idx)
+        if fam == 3:  # dense germline hets -> bubbles at every k
+            for j, off in enumerate((-90, -33, 54)):
+                e = ("s", c + off, other[refseq[c + off]])
+                tumor += hap_reads(refseq, e, c + off - 140, c + off + 140,
+                                   100, 11, f"tx{idx}_{j}_", 0.5, 300 + j)
+                normal += hap_reads(refseq, e, c + off - 140, c + off + 140,
+                                    100, 11, f"nx{idx}_{j}_", 0.5, 400 + j)
+    if not itd:
+        return refseq, tumor, normal, "chr1:400-11600"
+    for idx, (c, n) in enumerate(ITD_EVENTS):
+        tumor += hap_reads(refseq, ("i", c, refseq[c - n:c]), c - 700,
+                           c + 700, 100, 5, f"ti{idx}_", 0.5, 500 + idx)
+        normal += hap_reads(refseq, None, c - 700, c + 700, 100, 5,
+                            f"ni{idx}_", 0, 600 + idx)
+    return refseq, tumor, normal, "chr1:400-15600"

@@ -58,6 +58,18 @@ def _lib():
                 ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int64, i32p, i32p,
                 i64p, i64p, u8p, i64p, u8p, u8p, ctypes.c_int, i64p, f64p,
                 ctypes.c_char_p, ctypes.c_int, ctypes.c_int64, u8p]
+            lib.lsr_x_info.argtypes = [ctypes.c_void_p, u8p, i64p, i64p]
+            lib.lsr_x_data.restype = u8p
+            lib.lsr_x_data.argtypes = [ctypes.c_void_p, ctypes.c_long]
+            lib.lsx_scan_batch.restype = ctypes.c_void_p
+            lib.lsx_scan_batch.argtypes = [
+                ctypes.c_int64, i64p, u8p, i64p, u8p, i64p, u8p, i64p,
+                i32p, i32p, i64p, u8p, i64p, i32p, i64p]
+            lib.lsx_varbuf_size.restype = ctypes.c_long
+            lib.lsx_varbuf_size.argtypes = [ctypes.c_void_p]
+            lib.lsx_varbuf.restype = u8p
+            lib.lsx_varbuf.argtypes = [ctypes.c_void_p]
+            lib.lsx_free.argtypes = [ctypes.c_void_p]
             lib.lsr_status.restype = ctypes.c_int
             lib.lsr_status.argtypes = [ctypes.c_void_p]
             lib.lsr_n_jobs.restype = ctypes.c_long
@@ -143,23 +155,48 @@ _STAGES = ("t_c_fetch", "t_c_triage", "t_c_extract", "t_c_kloop",
            "t_c_cleanup", "t_c_findrep")
 
 
-def run_shards(cfg, windows, tumor, normal, stats: dict | None = None,
-               device="cuda"):
-    """Run every window natively, with the DP of each group aligned on
-    `device`. `windows` is the full ordered list (shard-concatenated,
-    lexicographic within shard), the VariantDB add order. `tumor`/`normal`
-    are open readers (for refid lookup only). Returns a ShardRunResult, or
-    None when the native plane reports a failed group."""
-    lib = _lib()
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_F64P = ctypes.POINTER(ctypes.c_double)
 
-    n = len(windows)
+
+def _p(a, t):
+    return a.ctypes.data_as(t) if a.size else ctypes.cast(None, t)
+
+
+def _lsr_run(lib, cfg, windows, idxs, inputs, export=False):
+    """lsr_run on the windows `idxs` (GIL released during the C++ call).
+    `inputs` is _run_inputs' tuple. With `export`, the native plane exports
+    each window's post-trim reads (lsr_x_info, lsr_x_data) instead of
+    assembling it."""
+    refid_t, refid_n, starts, ends, icfg, dcfg, rgs = inputs
+    g = np.asarray(idxs, np.int64)
+    sub_raw, sub_off = _blob([windows[i].rawseq.encode("latin-1")
+                              for i in idxs])
+    rt = np.ascontiguousarray(refid_t[g])
+    rn = np.ascontiguousarray(refid_n[g])
+    st = np.ascontiguousarray(starts[g])
+    en = np.ascontiguousarray(ends[g])
+    mask = np.ones(len(idxs), np.uint8)
+    return lib.lsr_run(
+        cfg.tumor_bam.encode(), cfg.normal_bam.encode(), len(idxs),
+        _p(rt, _I32P), _p(rn, _I32P), _p(st, _I64P), _p(en, _I64P),
+        _p(sub_raw, _U8P), _p(sub_off, _I64P), ctypes.cast(None, _U8P),
+        ctypes.cast(None, _U8P), 0, _p(icfg, _I64P), _p(dcfg, _F64P), rgs,
+        max(1, os.cpu_count() or 1), CACHE_SPAN,
+        _p(mask, _U8P) if export else ctypes.cast(None, _U8P))
+
+
+def _run_inputs(cfg, windows, tumor, normal):
+    """lsr_run's per-window arrays and configuration: (refid_t, refid_n,
+    starts, ends, icfg, dcfg, rgs)."""
     tmap = {nm: i for i, (nm, _) in enumerate(tumor.references)}
     nmap = {nm: i for i, (nm, _) in enumerate(normal.references)}
     refid_t = np.array([tmap.get(w.chrom, -1) for w in windows], np.int32)
     refid_n = np.array([nmap.get(w.chrom, -1) for w in windows], np.int32)
     starts = np.array([w.refstart for w in windows], np.int64)
     ends = np.array([w.refend for w in windows], np.int64)
-
     icfg = np.array([
         cfg.min_k, cfg.max_k, cfg.min_qual_trim, cfg.min_qual_call,
         cfg.min_map_qual, cfg.max_avg_cov, cfg.max_delta_as_xs,
@@ -171,23 +208,27 @@ def run_shards(cfg, windows, tumor, normal, stats: dict | None = None,
         int(cfg.lr_mode)],
         np.int64)
     dcfg = np.array([cfg.min_cov_ratio, float(cfg.cov_threshold)], np.float64)
-
     rgs = b""
     if cfg.rg_file:
         with open(cfg.rg_file) as f:
             toks = f.read().split()
         if toks:
             rgs = "\n".join(toks).encode()
+    return refid_t, refid_n, starts, ends, icfg, dcfg, rgs
 
-    u8p = ctypes.POINTER(ctypes.c_uint8)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    f64p = ctypes.POINTER(ctypes.c_double)
 
-    def p(a, t):
-        return a.ctypes.data_as(t) if a.size else ctypes.cast(None, t)
-
-    n_threads = max(1, os.cpu_count() or 1)
+def run_shards(cfg, windows, tumor, normal, stats: dict | None = None,
+               device="cuda"):
+    """Run every window natively, with the DP of each group aligned on
+    `device`. `windows` is the full ordered list (shard-concatenated,
+    lexicographic within shard), the VariantDB add order. `tumor`/`normal`
+    are open readers (for refid lookup only). Returns a ShardRunResult, or
+    None when the native plane reports a failed group."""
+    lib = _lib()
+    n = len(windows)
+    inputs = _run_inputs(cfg, windows, tumor, normal)
+    refid_t, starts, ends = inputs[0], inputs[2], inputs[3]
+    u8p, i64p, f64p, p = _U8P, _I64P, _F64P, _p
 
     # Genomic groups for the host/device pipeline. Groups are genomically
     # contiguous so each lsr_run call keeps the shared-cache locality;
@@ -209,20 +250,7 @@ def run_shards(cfg, windows, tumor, normal, stats: dict | None = None,
         pass
 
     def native_stage(idxs):
-        """lsr_run for one group (GIL released during the C++ call)."""
-        g = np.asarray(idxs, np.int64)
-        sub_raw, sub_off = _blob([windows[i].rawseq.encode("latin-1")
-                                  for i in idxs])
-        rt = np.ascontiguousarray(refid_t[g])
-        rn = np.ascontiguousarray(refid_n[g])
-        st = np.ascontiguousarray(starts[g])
-        en = np.ascontiguousarray(ends[g])
-        return lib.lsr_run(
-            cfg.tumor_bam.encode(), cfg.normal_bam.encode(), len(idxs),
-            p(rt, i32p), p(rn, i32p), p(st, i64p), p(en, i64p),
-            p(sub_raw, u8p), p(sub_off, i64p), ctypes.cast(None, u8p),
-            ctypes.cast(None, u8p), 0, p(icfg, i64p), p(dcfg, f64p), rgs,
-            n_threads, CACHE_SPAN, ctypes.cast(None, u8p))
+        return _lsr_run(lib, cfg, windows, idxs, inputs)
 
     variants_by_window: dict[int, list] = {}
     fallback: set[int] = set()
@@ -341,3 +369,189 @@ def run_shards(cfg, windows, tumor, normal, stats: dict | None = None,
         for k, v in zip(_STAGES, ns):
             stats[k] = float(v) / 1e9
     return ShardRunResult(variants_by_window, fallback, cls, times, reads)
+
+
+def device_graph_enabled() -> bool:
+    """The device graph engine switch, LANCET_TPU_DEVGRAPH (set and not
+    "0" turns it on; default off, as in the JAX package)."""
+    v = os.environ.get("LANCET_TPU_DEVGRAPH")
+    return v is not None and v != "0"
+
+
+def run_shards_device(cfg, windows, tumor, normal, stats: dict | None = None,
+                      device="cuda"):
+    """Device graph engine run: the native plane fetches, triages and
+    extracts and exports the post-trim reads; the device builds, cleans
+    and path-covers each exported window's graph (engine.devicepipe); the
+    jobs that need DP are aligned on `device`; the native scan_batch
+    finishes the transcripts. Windows the device hands back (caps, quirk
+    corners, k > 63) are replayed through run_shards, fully natively.
+    An error of the device engine propagates. Returns a ShardRunResult, or
+    None when the native plane reports a failed pass."""
+    from .devicepipe import WindowTask, run_device_graph
+
+    lib = _lib()
+    n = len(windows)
+    u8p, i32p, i64p, f64p, p = _U8P, _I32P, _I64P, _F64P, _p
+
+    lib.lsr_stage_reset()
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    h = _lsr_run(lib, cfg, windows, list(range(n)),
+                 _run_inputs(cfg, windows, tumor, normal), export=True)
+    if lib.lsr_status(h) != STATUS_OK:
+        lib.lsr_free(h)
+        return None
+    t_host = time.perf_counter() - t0
+
+    # collect the exports + per-window outputs
+    exported = np.zeros(n, np.uint8)
+    nbytes = np.zeros(n, np.int64)
+    xbp = np.zeros(n, np.int64)
+    lib.lsr_x_info(h, p(exported, u8p), p(nbytes, i64p), p(xbp, i64p))
+    gflags = np.zeros(n, np.uint8)
+    reads_n = np.zeros(n, np.int64)
+    times = np.zeros(n, np.float64)
+    cls = np.zeros((n, 9), np.int64)
+    lib.lsr_win_out(h, p(gflags, u8p), p(reads_n, i64p), p(times, f64p),
+                    p(cls.reshape(-1), i64p))
+
+    t0 = time.perf_counter()
+    tasks = []
+    for i in range(n):
+        if not exported[i]:
+            continue
+        buf = ctypes.string_at(lib.lsr_x_data(h, i), int(nbytes[i]))
+        reads = []
+        off = 0
+        while off < len(buf):
+            (ln,) = struct.unpack_from("<i", buf, off)
+            (frag,) = struct.unpack_from("<i", buf, off + 8)
+            reads.append((buf[off + 12:off + 12 + ln],
+                          buf[off + 12 + ln:off + 12 + 2 * ln],
+                          int(buf[off + 4]), int(buf[off + 5]), int(frag),
+                          int(buf[off + 6])))
+            off += 12 + 2 * ln
+        w = windows[i]
+        tasks.append(WindowTask(
+            widx=i, reads=reads, rawseq=w.rawseq, totalreadbp=int(xbp[i]),
+            refchr=w.chrom, refstart=w.refstart))
+    lib.lsr_free(h)
+    t_unpack = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    run_device_graph(tasks, cfg, stats=stats, device=device)
+    t_dev = time.perf_counter() - t0
+
+    # device DP for the jobs that need it
+    t0 = time.perf_counter()
+    all_jobs = [(t, j) for t in tasks if not t.fallback for j in t.jobs]
+    dp_jobs = [(t, j) for t, j in all_jobs if j.needs_dp]
+    aligned = {}
+    if dp_jobs:
+        out = batch_align_wait(batch_align_async(
+            [(j.refseq, j.pathseq) for _, j in dp_jobs], device))
+        aligned = {id(j): r for (_, j), r in zip(dp_jobs, out)}
+    t_dp = time.perf_counter() - t0
+
+    # native batch transcript finish
+    t0 = time.perf_counter()
+    variants_by_window: dict[int, list] = {}
+    if all_jobs:
+        metas = np.zeros((len(all_jobs), 8), np.int64)
+        paths, ras, pas, spans = [], [], [], []
+        covT_parts, covN_parts = [], []
+        cov_off = np.zeros(len(all_jobs) + 1, np.int64)
+        rc_blobs = []
+        rc_off_of_task: dict[int, int] = {}
+        rc_total = 0
+        for k, (t, j) in enumerate(all_jobs):
+            if id(t) not in rc_off_of_task:
+                rc_off_of_task[id(t)] = rc_total
+                rc4 = np.concatenate([
+                    j.ref_cov_tmr[:, 0], j.ref_cov_tmr[:, 1],
+                    j.ref_cov_nml[:, 0], j.ref_cov_nml[:, 1]]).astype(
+                        np.int32)
+                rc_blobs.append(rc4)
+                rc_total += rc4.size
+            ra, pa = (aligned[id(j)] if j.needs_dp
+                      else (j.refseq, j.pathseq))
+            metas[k] = (j.K, j.trim5, t.refstart, 0, 0, len(t.rawseq),
+                        t.widx, rc_off_of_task[id(t)])
+            paths.append(j.pathseq.encode("latin-1"))
+            ras.append(ra.encode("latin-1"))
+            pas.append(pa.encode("latin-1"))
+            spans.append(np.ascontiguousarray(j.tumor_span.astype(np.uint8)))
+            covT_parts.append(np.ascontiguousarray(
+                j.covT[:, :4].astype(np.int32)).reshape(-1))
+            covN_parts.append(np.ascontiguousarray(
+                j.covN[:, :4].astype(np.int32)).reshape(-1))
+            cov_off[k + 1] = cov_off[k] + covT_parts[-1].size
+        path_blob, path_off = _blob(paths)
+        ra_blob, ra_off = _blob(ras)
+        pa_blob, pa_off = _blob(pas)
+        span_blob, span_off = _blob([s.tobytes() for s in spans])
+        covT_blob = np.concatenate(covT_parts)
+        covN_blob = np.concatenate(covN_parts)
+        rc_blob = np.concatenate(rc_blobs)
+        icfg4 = np.array([cfg.max_unit_len, cfg.min_report_units,
+                          cfg.min_report_len, cfg.dist_from_str], np.int64)
+        hx = lib.lsx_scan_batch(
+            len(all_jobs), p(metas.reshape(-1), i64p),
+            p(path_blob, u8p), p(path_off, i64p),
+            p(ra_blob, u8p), p(ra_off, i64p),
+            p(pa_blob, u8p), p(pa_off, i64p),
+            p(covT_blob, i32p), p(covN_blob, i32p), p(cov_off, i64p),
+            p(span_blob, u8p), p(span_off, i64p),
+            p(rc_blob, i32p), p(icfg4, i64p))
+        nv = lib.lsx_varbuf_size(hx)
+        buf = ctypes.string_at(lib.lsx_varbuf(hx), nv) if nv else b""
+        lib.lsx_free(hx)
+        _parse_varbuf(buf, windows, lambda wi: wi, variants_by_window)
+    t_fin = time.perf_counter() - t0
+
+    # second pass: the device-fallback windows through the native runner
+    fb_idx = sorted([t.widx for t in tasks if t.fallback]
+                    + [i for i in range(n) if gflags[i]])
+    fallback: set[int] = set()
+    tot_jobs, tot_dp = len(all_jobs), len(dp_jobs)
+    ns = np.zeros(16, np.int64)
+    lib.lsr_stage_ns(p(ns, i64p))  # run_shards resets the stage clocks
+    if fb_idx:
+        st2: dict = {}
+        res = run_shards(cfg, [windows[i] for i in fb_idx], tumor, normal,
+                         stats=st2, device=device)
+        if res is None:
+            return None
+        for wi, vs in res.variants_by_window.items():
+            variants_by_window.setdefault(fb_idx[wi], []).extend(vs)
+        ga = np.asarray(fb_idx, np.int64)
+        cls[ga] = res.counters
+        times[ga] += res.times
+        reads_n[ga] = res.reads
+        fallback.update(fb_idx[li] for li in res.fallback)
+        tot_jobs += st2["n_jobs"]
+        tot_dp += st2["n_dp"]
+        ns2 = np.zeros(16, np.int64)
+        lib.lsr_stage_ns(p(ns2, i64p))
+        ns += ns2
+
+    if stats is not None:
+        stats["t_host"] = t_host
+        stats["t_pipeline"] = time.perf_counter() - t_all
+        stats["t_unpack"] = t_unpack
+        stats["t_devgraph"] = t_dev
+        stats["t_dp"] = t_dp
+        stats["t_finish"] = t_fin
+        stats["n_jobs"] = tot_jobs
+        stats["n_dp"] = tot_dp
+        stats["n_dev_windows"] = len(tasks)
+        stats["n_dev_fallback"] = len(fb_idx)
+        hist: dict[int, int] = {}
+        for t in tasks:
+            if t.done:
+                hist[t.k_done] = hist.get(t.k_done, 0) + 1
+        stats["k_histogram"] = dict(sorted(hist.items()))
+        for k, v in zip(_STAGES, ns):
+            stats[k] = float(v) / 1e9
+    return ShardRunResult(variants_by_window, fallback, cls, times, reads_n)

@@ -1,4 +1,5 @@
-"""Device work: the batched Gotoh alignment and the repeat gates."""
+"""Device work: the batched Gotoh alignment, the repeat gates and the
+device graph engine (graph build, cleanup, path cover and its walks)."""
 
 from __future__ import annotations
 

@@ -1,0 +1,242 @@
+"""The device graph engine's four sequential walks: the hand-written CUDA
+kernels of `csrc/walks.cu` and the dispatch to their plain versions.
+
+The JAX package writes each walk as a lockstep `lax.while_loop` or
+`fori_loop` over all windows of a chunk; on its device one executable runs
+every iteration. In PyTorch that loop would launch every op of its body
+from the host, every iteration, and sync on the predicate. Here each walk
+is one kernel launch per call, one warp or block per window (or per path
+string). The lockstep is an artifact of batching: a window's result
+depends on its own lane only, so the per-window walk is exact, overflow
+flags included.
+
+- K1 `path_cover` (JAX `tpu/pipeline.py::path_cover`, :310-500): the
+  eka/BFS path cover of every component;
+- K2 `seq_removal` (`tpu/stages.py::_seq_removal_pass`, :580-622): the
+  map-rank-order removal sweep of removeTips / removeShortLinks;
+- K3 `almost_repeat_paths` (`tpu/pipeline.py::_is_almost_repeat_paths`,
+  :680-717): isAlmostRepeat on the path strings;
+- K4 `cycle_dfs` (`tpu/stages.py::has_cycle_seq`, :839-926): the exact
+  hasCycleRec replay for the components the cycle screen flags.
+
+Each wrapper takes tensors on one device. On the CPU it runs the plain
+version (gpu.pipeline.path_cover_plain, gpu.stages.seq_removal_plain,
+gpu.pipeline.almost_repeat_plain, gpu.stages.cycle_dfs_plain: the JAX
+loops step for step); on a CUDA device it launches the kernel and raises
+if the library cannot be built or the launch is refused. There is no
+fallback from the card to the plain version. Each launch adds one to
+`LAUNCHES[name]`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+
+import torch
+
+from .._build import build_shared
+from .gotoh import NVCC_FLAGS, _nvcc, _stream
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "walks.cu")
+LAUNCHES = {"path_cover": 0, "seq_removal": 0, "almost_repeat_paths": 0,
+            "cycle_dfs": 0}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build() -> str:
+    """Compile csrc/walks.cu for sm_90a (if not built yet); returns the .so
+    path. Raises _build.BuildError with nvcc's error text."""
+    return build_shared(_SRC, "libwalks", [_nvcc()] + NVCC_FLAGS + [_SRC])
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            for name, n_ptr, n_int in (("path_cover", 13, 13),
+                                       ("seq_removal", 8, 6),
+                                       ("almost_repeat_paths", 3, 4),
+                                       ("cycle_dfs", 7, 6)):
+                fn = getattr(lib, name)
+                fn.restype = ci
+                fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
+            _lib = lib
+        return _lib
+
+
+def _i32(t):
+    return t.to(torch.int32).contiguous()
+
+
+def _u8(t):
+    return t.to(torch.uint8).contiguous()
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _cuda(t) -> bool:
+    dev = t.device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return True
+
+
+# ---------------------------------------------------------------------------
+# K1 path_cover
+# ---------------------------------------------------------------------------
+
+def path_cover(adj, e_dst, e_dir, merlen, special, runnable, numcomp,
+               reflens, *, K, N, Cmax, dfs_limit, max_indel, Q=512,
+               POPMAX=1024, JMAX=8, PN=24):
+    """The eka/BFS path cover walk. adj [W, NI, D2] edge ids in okey order
+    (-1 empty); e_dst, e_dir [W, EE]; merlen [W, NI]; special [W, NI];
+    runnable [W, Cmax]; numcomp [W]; reflens [W, Cmax]. Returns dict
+    sel_edges [W, JMAX, PN], sel_hops, sel_comp [W, JMAX], n_sel [W],
+    fallback [W] (queue / pop / path / job overflows, unfinished comps)."""
+    kw = dict(K=K, N=N, Cmax=Cmax, dfs_limit=dfs_limit, max_indel=max_indel,
+              Q=Q, POPMAX=POPMAX, JMAX=JMAX, PN=PN)
+    if not _cuda(adj):
+        from .pipeline import path_cover_plain
+
+        return path_cover_plain(adj, e_dst, e_dir, merlen, special, runnable,
+                                numcomp, reflens, **kw)
+    W, NI, D2 = adj.shape
+    EE = e_dst.shape[1]
+    if D2 > 32:
+        raise ValueError(f"path_cover takes at most 32 adjacency slots, "
+                         f"got {D2}")
+    dev = adj.device
+    out = dict(
+        sel_edges=torch.empty((W, JMAX, PN), dtype=torch.int32, device=dev),
+        sel_hops=torch.empty((W, JMAX), dtype=torch.int32, device=dev),
+        sel_comp=torch.empty((W, JMAX), dtype=torch.int32, device=dev),
+        n_sel=torch.empty((W,), dtype=torch.int32, device=dev),
+        fallback=torch.empty((W,), dtype=torch.uint8, device=dev))
+    if W == 0:
+        return _widen(out)
+    ins = (_i32(adj), _i32(e_dst), _i32(e_dir), _i32(merlen), _u8(special),
+           _u8(runnable), _i32(numcomp), _i32(reflens))
+    rc = _load().path_cover(
+        *[t.data_ptr() for t in ins],
+        *[out[k].data_ptr() for k in ("sel_edges", "sel_hops", "sel_comp",
+                                      "n_sel", "fallback")],
+        W, NI, D2, EE, K, N, Cmax, min(int(dfs_limit), 2**31 - 1),
+        int(max_indel), Q, POPMAX, JMAX, PN, _stream(dev))
+    _launched("path_cover", rc)
+    return _widen(out)
+
+
+def _widen(out):
+    res = {k: v.to(torch.int64) for k, v in out.items() if k != "fallback"}
+    res["fallback"] = out["fallback"].to(torch.bool)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# K2 seq_removal
+# ---------------------------------------------------------------------------
+
+def seq_removal(slots, nbr, deg, cond):
+    """The map-rank-order removal sweep. slots [W, U] item ids in map-rank
+    order (-1 empty); nbr [W, NI, D2] alive-edge destinations; deg [W, NI]
+    live out-degrees; cond = ("tips", merlen, max_tip) or ("links",
+    merlen, max_link, mincov, thr, guard). Returns removed [W, NI] bool."""
+    if not _cuda(slots):
+        from .stages import removal_kill_fn, seq_removal_plain
+
+        return seq_removal_plain(slots, nbr, deg, removal_kill_fn(cond))
+    W, U = slots.shape
+    NI, D2 = nbr.shape[1], nbr.shape[2]
+    dev = slots.device
+    removed = torch.empty((W, NI), dtype=torch.uint8, device=dev)
+    if W == 0:
+        return removed.to(torch.bool)
+    if D2 > 32:
+        raise ValueError(f"seq_removal takes at most 32 neighbour slots, "
+                         f"got {D2}")
+    merlen = _i32(cond[1])
+    mode, max_len = (0 if cond[0] == "tips" else 1), int(cond[2])
+    # the tips mode reads no mincov, thr or guard
+    mincov, thr, guard = ((merlen,) * 3 if mode == 0 else
+                          (_i32(cond[3]), _i32(cond[4]), _u8(cond[5])))
+    ins = (_i32(slots), _i32(nbr), _i32(deg), merlen, mincov, guard, thr)
+    rc = _load().seq_removal(*[t.data_ptr() for t in ins],
+                             removed.data_ptr(), W, U, NI, D2, mode, max_len,
+                             _stream(dev))
+    _launched("seq_removal", rc)
+    return removed.to(torch.bool)
+
+
+# ---------------------------------------------------------------------------
+# K3 almost_repeat_paths
+# ---------------------------------------------------------------------------
+
+def almost_repeat(seq, lens, K, max_mismatch):
+    """isAlmostRepeat of each path string. seq [W, J, LP] base codes; lens
+    [W, J]. Returns [W, J] bool."""
+    if not _cuda(seq):
+        from .pipeline import almost_repeat_plain
+
+        return almost_repeat_plain(seq, lens, K, max_mismatch)
+    W, J, LP = seq.shape
+    dev = seq.device
+    out = torch.empty((W, J), dtype=torch.uint8, device=dev)
+    if W * J == 0:
+        return out.to(torch.bool)
+    s8 = _u8(seq)
+    ln = _i32(lens)
+    rc = _load().almost_repeat_paths(s8.data_ptr(), ln.data_ptr(),
+                                     out.data_ptr(), W * J, LP, int(K),
+                                     int(max_mismatch), _stream(dev))
+    _launched("almost_repeat_paths", rc)
+    return out.to(torch.bool)
+
+
+# ---------------------------------------------------------------------------
+# K4 cycle_dfs
+# ---------------------------------------------------------------------------
+
+def cycle_dfs(adj, e_dst, e_dir, alive, special, N, Cmax, lane_mask):
+    """The hasCycleRec replay of each flagged component: one block per
+    (window, component). adj [W, NI, D2] edge ids in okey order; e_dst,
+    e_dir [W, EE]; alive, special [W, NI]; lane_mask [W, Cmax] (None =
+    every component). Each block keeps its stack (NI+2 frames) and the
+    node colours in shared memory, (NI+2)*12 + NI bytes. Returns [W, Cmax]
+    bool."""
+    if not _cuda(adj):
+        from .stages import cycle_dfs_plain
+
+        return cycle_dfs_plain(adj, e_dst, e_dir, alive, special, N, Cmax,
+                               lane_mask)
+    W, NI, D2 = adj.shape
+    EE = e_dst.shape[1]
+    dev = adj.device
+    flags = torch.empty((W, Cmax), dtype=torch.uint8, device=dev)
+    if W == 0:
+        return flags.to(torch.bool)
+    if lane_mask is None:
+        lane_mask = torch.ones((W, Cmax), dtype=torch.bool, device=dev)
+    ins = (_i32(adj), _i32(e_dst), _i32(e_dir), _u8(alive), _u8(special),
+           _u8(lane_mask))
+    rc = _load().cycle_dfs(*[t.data_ptr() for t in ins], flags.data_ptr(),
+                           W, NI, D2, EE, N, Cmax, _stream(dev))
+    _launched("cycle_dfs", rc)
+    return flags.to(torch.bool)

@@ -4,7 +4,8 @@
 build directory (`_build.BUILD_DIR`) and loads it. `NativeBamReader` and
 `NativeFastaFile` are the streaming readers that `io.open_bam` /
 `io.open_fasta` return; `dbg_build` runs the colored-DBG build of the
-per-window engine (`engine/fastbuild.py`). The shard runner
+per-window engine (`engine/fastbuild.py`); `lmo_ranks_batch` gives the
+device graph engine its map-order ranks. The shard runner
 (`engine/shardrun.py`), the per-k pipeline (`engine/fastpipe.py`) and the
 repeat scans (`engine/seqs.py`) bind their entry points themselves.
 """
@@ -107,6 +108,10 @@ def load_library() -> ctypes.CDLL:
             fn.restype = rt
             fn.argtypes = [ctypes.c_void_p]
         lib.lgb_result_free.argtypes = [ctypes.c_void_p]
+        lib.lmo_ranks_batch.restype = None
+        lib.lmo_ranks_batch.argtypes = [
+            ctypes.c_int64, i64p, ctypes.POINTER(ctypes.c_uint64),
+            ctypes.POINTER(ctypes.c_uint64), ctypes.c_int32, i32p, i64p]
         _lib = lib
         return lib
 
@@ -157,6 +162,35 @@ def dbg_build(cat, qcat, starts, lens, sample, strand, order, name_off,
         }
     finally:
         lib.lgb_result_free(h)
+
+
+def lmo_ranks_batch(hi, lo, offs, k):
+    """libstdc++ iteration-order ranks for packed mers, batched over
+    windows (lancet_native.cc lmo_ranks_batch). `hi`/`lo` are flat uint64
+    arrays (2-bit packed mers, first base most significant; k <= 63),
+    `offs` the per-window [n_windows+1] int64 offsets. Returns (ranks int32
+    flat, slack int64 per window), slack being the insert headroom before
+    the next rehash. Raises NativeUnavailable when the plane cannot be
+    built."""
+    import numpy as np
+
+    lib = load_library()
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    hi = np.ascontiguousarray(hi, np.uint64)
+    lo = np.ascontiguousarray(lo, np.uint64)
+    offs = np.ascontiguousarray(offs, np.int64)
+    nw = len(offs) - 1
+    ranks = np.zeros(max(1, hi.size), np.int32)
+    slack = np.zeros(max(1, nw), np.int64)
+
+    def p(a, t):
+        return a.ctypes.data_as(t) if a.size else ctypes.cast(None, t)
+
+    lib.lmo_ranks_batch(nw, p(offs, i64p), p(hi, u64p), p(lo, u64p), k,
+                        p(ranks, i32p), p(slack, i64p))
+    return ranks[: hi.size], slack[:nw]
 
 
 def _unpack_records(buf: bytes, n: int):

@@ -8,7 +8,10 @@ JAX package's runner:
 - the native shard runner (engine "batched" without kmer_recovery or
   print_graph, unless LANCET_TPU_NO_SHARDRUN is set): the host work in the
   native C++ plane and the Gotoh DP on `device`; a window the native plane
-  hands back is replayed on the per-window engine;
+  hands back is replayed on the per-window engine. With
+  LANCET_TPU_DEVGRAPH=1 (not in LR mode) the graph build, cleanup and path
+  cover of each exported window run on `device` instead (the device graph
+  engine, engine.shardrun.run_shards_device);
 - the two-phase process pool (`processes=True`, num_threads > 1): the
   parent computes the repeat gates on `device`, workers do the host work,
   the parent aligns every deferred path job in one batch and finishes
@@ -145,11 +148,17 @@ def _regions(cfg: Config) -> list[str]:
 
 
 def _accumulate(stats: dict, rs: dict) -> None:
+    """Add one round's stats into the run's: numbers sum, and so do the
+    counts of a dict (k_histogram, dev_fallback_causes) key by key."""
     for k, v in rs.items():
         if isinstance(v, float):
             stats[k] = stats.get(k, 0.0) + v
         elif isinstance(v, int):
             stats[k] = stats.get(k, 0) + v
+        elif isinstance(v, dict):
+            h = stats.setdefault(k, {})
+            for kk, vv in v.items():
+                h[kk] = h.get(kk, 0) + vv
         else:
             stats[k] = v
 
@@ -159,7 +168,13 @@ def _run_native(cfg, cfg_eff, shards, resume_state, tumor, normal, dev,
     """The native shard runner over every shard; returns (per-shard
     VariantDBs, counters), or None when the native plane reports a failed
     group (the caller then runs the per-window engine)."""
-    from .engine.shardrun import run_shards
+    from .engine.shardrun import (device_graph_enabled, run_shards,
+                                  run_shards_device)
+
+    # the device graph engine carries no BX/HP payloads: LR runs stay on
+    # the native plane
+    run_fn = (run_shards_device if device_graph_enabled() and not cfg.lr_mode
+              else run_shards)
 
     # per-shard window lists; with --resume-dir the run is split into
     # chunked rounds, each followed by an fsync'd per-shard log append
@@ -199,8 +214,8 @@ def _run_native(cfg, cfg_eff, shards, resume_state, tumor, normal, dev,
             if not ordered:
                 continue
             rstats: dict = {}
-            res = run_shards(cfg_eff, ordered, tumor, normal, stats=rstats,
-                             device=dev)
+            res = run_fn(cfg_eff, ordered, tumor, normal, stats=rstats,
+                         device=dev)
             if res is None:
                 return None
             _accumulate(stats, rstats)

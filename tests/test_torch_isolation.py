@@ -3,6 +3,7 @@ defaults and constants equal the JAX package's, and it never falls back
 quietly to the CPU."""
 
 import dataclasses
+import inspect
 import os
 import random
 import subprocess
@@ -16,10 +17,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from goldengen import hap_reads as jax_hap_reads  # noqa: E402
 
 import lancet_tpu.config as jcfg  # noqa: E402
+import lancet_tpu.engine.devicepipe as jdevpipe  # noqa: E402
+import lancet_tpu.tpu.dbg as jdbg  # noqa: E402
+import lancet_tpu.tpu.pipeline as jpipeline  # noqa: E402
 import lancet_tpu.engine.align as jalign  # noqa: E402
 import lancet_tpu.runner as jrunner  # noqa: E402
 import lancet_tpu_torch.config as tcfg  # noqa: E402
 import lancet_tpu_torch.engine.align as talign  # noqa: E402
+import lancet_tpu_torch.engine.devicepipe as tdevpipe  # noqa: E402
+import lancet_tpu_torch.gpu.pack as tpack  # noqa: E402
+import lancet_tpu_torch.gpu.pipeline as tpipeline  # noqa: E402
 from lancet_tpu_torch import corpus  # noqa: E402
 from lancet_tpu_torch import runner as trunner  # noqa: E402
 from lancet_tpu_torch.gpu.align_batch import batch_align  # noqa: E402
@@ -80,6 +87,18 @@ def test_defaults_and_constants_equal_jax():
     assert (talign.STAR, talign.DIAG, talign.LEFT, talign.UP) == (
         jalign._STAR, jalign._DIAG, jalign._LEFT, jalign._UP)
     assert trunner.LANCET_VERSION == jrunner.LANCET_VERSION
+    # the device graph engine's shapes and caps, so that job lists compare
+    # one for one
+    for name in ("_BUCKETS", "_TIERS", "_CMAX", "_D"):
+        assert getattr(tdevpipe, name) == getattr(jdevpipe, name), name
+    assert (inspect.signature(tdevpipe.run_device_graph).parameters[
+        "Lraw"].default == inspect.signature(
+            jdevpipe.run_device_graph).parameters["Lraw"].default == 1152)
+    assert tdevpipe.W_DEFAULT == 32  # the JAX engine's W (devicepipe.py:167)
+    for name in ("NCR_DEFAULT", "ECR_DEFAULT", "_SL_CAP", "_SL_ITEMS"):
+        assert getattr(tpipeline, name) == getattr(jpipeline, name), name
+    for name in ("S_TMR", "S_NML", "S_REF"):
+        assert getattr(tpack, name) == getattr(jdbg, name), name
     cfg = jcfg.Config(region="chr1:1-9", num_threads=3, lr_mode=True,
                       filters=jcfg.Filters(min_vaf_tumor=0.1))
     port = tcfg.Config.from_dict(dataclasses.asdict(cfg))
