@@ -44,7 +44,24 @@ Phases, each printing one JSON line:
      1; then one kernels line per walk: the call with the most work of the
      two cases, its outputs bit-equal to the plain version on the card,
      timed beside it and the card's bound;
-  8. kernels, one line per case: the fused kernel gotoh_align on each kept
+  8. mesh, one line per case: (a) the main path with make_mesh() (every
+     card) and with a 4-entry mesh over cuda:0 (and, with two cards or
+     more, make_mesh(2) over distinct cards), each VCF and summary equal to
+     the unsharded main path's, one gotoh_align launch for each non-empty
+     shard of each DP group; (b) device-graph case 1 over meshes of 1, 2
+     and 4 entries of cuda:0, each VCF, summary, n_dev_windows and
+     dev_fallback_causes equal to the unsharded devgraph run's and its
+     mesh_counters equal to the sums over that run's attempt outputs, with
+     t_devgraph beside the unsharded one (whether shard threads overlap
+     on one card); (c) two processes
+     started by this script (gloo, each on cuda:{rank % card count}) run
+     parallel.multihost.run_multihost on the default corpus: process 0's
+     VCF equals the main path's, both exit 0 within their limit, and no
+     process of theirs is left; (d) the main path with LANCET_TPU_GATES=1
+     against the main path without it, alternating (GATES_AB): every VCF
+     equals the main path's and repeat_gates launched in every run with
+     the sweep;
+  9. kernels, one line per case: the fused kernel gotoh_align on each kept
      group's own pairs, on the tie-heavy pairs of tests/test_torch_align.py,
      and on one seeded group of 132 related pairs of ~1,100 bp whose codes
      do not fit in shared memory (global mode); its ops and counts held
@@ -54,7 +71,8 @@ Then the kernels' summary line, nvidia-smi's line, and last the device
 line. Every path's launch counts are set to 0 just before it runs and read
 just after. Any failure exits non-zero before the last line. Without a
 CUDA device, or without the package beside this script, it exits non-zero
-and prints no result.
+and prints no result. (`--mh-worker ...` runs one process of case (c); the
+script starts those itself.)
 """
 
 from __future__ import annotations
@@ -97,6 +115,12 @@ GATE_OPS_PER_STEP = 6
 GATE_ODD_KS = [31, 4, 6, 7, 12, 10, 64, 0]  # tests/test_torch_repeats.py
 GATE_MISMATCHES = (-1, 0, 1, 2, 3, 8, 40)
 FALLBACK_REGION = "chr1:300-40300"  # 400 windows of the default corpus
+MESH_ON_ONE_CARD = 4  # entries of cuda:0 in the main path's mesh case
+DEVGRAPH_MESHES = (1, 2, 4)  # entries of cuda:0, device-graph cases
+MH_PROCESSES = 2
+MH_LIMIT_S = 300  # a fan-out process's whole run
+# the main path without and with LANCET_TPU_GATES, alternating
+GATES_AB = ("off", "on", "on", "off", "off", "on")
 # the JAX package's device-graph region of the default corpus (bench.py:377,
 # 1,198 windows) and its device-graph stats there: BENCH_r05.json
 # "devgraph", confirmed by a run of the JAX package on the CPU
@@ -584,20 +608,20 @@ def run_main_path(device: str, workdir: str, region: str, stats: dict,
                   groups: list | None = None):
     """runner.run on the corpus; with `groups`, every pair list the DP
     dispatch hands to batch_align_async is appended to it."""
-    from lancet_tpu_torch.engine import shardrun
+    from lancet_tpu_torch.gpu import align_batch
 
-    dispatch = shardrun.batch_align_async
+    dispatch = align_batch.batch_align_async
 
     def keep(pairs, device):
         groups.append(list(pairs))
         return dispatch(pairs, device)
 
     if groups is not None:
-        shardrun.batch_align_async = keep
+        align_batch.batch_align_async = keep
     try:
         return run_captured(workdir, region, stats, device=device)
     finally:
-        shardrun.batch_align_async = dispatch
+        align_batch.batch_align_async = dispatch
 
 
 _WALKS = {"path_cover": "path_cover", "seq_removal": "seq_removal",
@@ -688,14 +712,37 @@ def instrument_devgraph(kept: dict | None, ops: dict | None):
             setattr(stages, n, f)
 
 
-def run_devgraph(workdir: str, region: str, stats: dict, num_threads=8):
+def run_devgraph(workdir: str, region: str, stats: dict, num_threads=8,
+                 **kw):
     """runner.run with LANCET_TPU_DEVGRAPH=1 on the card."""
     os.environ["LANCET_TPU_DEVGRAPH"] = "1"
     try:
         return run_captured(workdir, region, stats, device="cuda",
-                            num_threads=num_threads)
+                            num_threads=num_threads, **kw)
     finally:
         del os.environ["LANCET_TPU_DEVGRAPH"]
+
+
+@contextlib.contextmanager
+def sum_attempts(sums: dict):
+    """While active: add numcomp, n_sel and fallback of every unsharded
+    attempt tail's output (devicepipe._assemble) into `sums`, the
+    counterpart of a mesh run's mesh_counters."""
+    from lancet_tpu_torch.engine import devicepipe
+
+    real = devicepipe._assemble
+
+    def summed(*a, **k):
+        out = real(*a, **k)
+        for key in ("numcomp", "n_sel", "fallback"):
+            sums[key] = sums.get(key, 0) + int(out[key].long().sum())
+        return out
+
+    devicepipe._assemble = summed
+    try:
+        yield
+    finally:
+        devicepipe._assemble = real
 
 
 def profile_devgraph(workdir: str, region: str, t_unprofiled: float) -> dict:
@@ -849,6 +896,234 @@ def walk_case(name: str, args, kw: dict, rate: dict) -> dict:
             "bytes": nbytes, "int_ops": nops}
 
 
+def mesh_main_case(workdir: str, region: str, mesh, case: str, vcf: str,
+                   summary: str, st_main: dict) -> dict:
+    """(a) The main path with its DP groups split over `mesh`: VCF and
+    summary equal to the unsharded run's, one gotoh_align launch for each
+    non-empty shard of each group."""
+    from lancet_tpu_torch.engine import shardrun
+
+    sizes: list = []
+    real = shardrun.mesh_batch_align_async
+
+    def spy(pairs, m):
+        sizes.append(len(pairs))
+        return real(pairs, m)
+
+    st: dict = {}
+    shardrun.mesh_batch_align_async = spy
+    reset_counts()
+    try:
+        v, summ = run_captured(workdir, region, st, device="cuda", mesh=mesh)
+    finally:
+        shardrun.mesh_batch_align_async = real
+    launches = launch_counts()
+    want = sum(min(p, len(mesh)) for p in sizes)
+    got = launches["gotoh_align_smem"] + launches["gotoh_align_global"]
+    emit({"phase": "mesh", "case": case, "mesh": [str(d) for d in mesh],
+          "windows_per_s": st["n_windows"] / st["t_total"],
+          "unsharded_windows_per_s": st_main["n_windows"]
+          / st_main["t_total"],
+          **{k: st[k] for k in ("t_total", "t_dp", "t_dp_send", "t_dp_wait",
+                                "n_dp", "n_groups")},
+          "dp_groups": sizes, "launches": launches,
+          "gotoh_launches_expected": want, "vcf_equal_unsharded": v == vcf,
+          "summary_equal_unsharded": summ == summary})
+    if v != vcf or summ != summary:
+        raise AssertionError(f"mesh {case}: VCF or summary differs from the "
+                             "unsharded main path's")
+    if not sizes or got != want:
+        raise AssertionError(f"mesh {case}: {got} gotoh_align launches for "
+                             f"groups {sizes} over {len(mesh)} shards")
+    return launches
+
+
+def mesh_devgraph_case(workdir: str, n: int, vcf_g: str, summary_g: str,
+                       st_g: dict, sums_g: dict) -> dict:
+    """(b) Device-graph case 1 with its windows over n entries of cuda:0."""
+    from lancet_tpu_torch.parallel.mesh import make_mesh
+
+    st: dict = {}
+    reset_counts()
+    v, summ = run_devgraph(workdir, DEVGRAPH_REGION, st,
+                           mesh=make_mesh(devices=["cuda:0"] * n))
+    launches = launch_counts()
+    same = {k: st[k] == st_g[k] for k in ("n_dev_windows",
+                                           "dev_fallback_causes",
+                                           "k_histogram")}
+    emit({"phase": "mesh", "case": f"devgraph_{n}", "region":
+          DEVGRAPH_REGION, "mesh": ["cuda:0"] * n,
+          "t_devgraph": st["t_devgraph"],
+          "unsharded_t_devgraph": st_g["t_devgraph"],
+          **{k: st[k] for k in ("t_total", "t_dg_pack", "t_dg_build",
+                                "t_dg_assemble", "t_dp", "n_dev_windows",
+                                "n_dev_attempts", "dev_fallback_causes")},
+          "mesh_counters": st["mesh_counters"], "unsharded_sums": sums_g,
+          "launches": launches, "stats_equal_unsharded": same,
+          "vcf_equal_unsharded": v == vcf_g,
+          "summary_equal_unsharded": summ == summary_g})
+    if v != vcf_g or summ != summary_g or not all(same.values()):
+        raise AssertionError(f"devgraph over {n} shards differs from the "
+                             f"unsharded run: {same}")
+    if st["mesh_counters"] != sums_g:
+        raise AssertionError(f"mesh_counters {st['mesh_counters']} differ "
+                             f"from the unsharded sums {sums_g}")
+    for k in ("gotoh_align_smem", "repeat_gates", *_WALKS.values()):
+        if launches[k] < 1:
+            raise AssertionError(f"devgraph over {n} shards launched no {k}")
+    return launches
+
+
+def _processes_left(marker: str) -> list:
+    """Processes that are this one's children, or whose command line holds
+    `marker` (a string unique to this checkout: another checkout's runs on
+    the same machine are not this run's), with their command lines."""
+    me, left = os.getpid(), []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == me:
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except (OSError, IndexError, ValueError):
+            continue  # exited meanwhile
+        if ppid == me or marker in cmd:
+            left.append(f"{pid}: {cmd[:120]}")
+    return left
+
+
+def multihost_case(workdir: str, region: str, vcf: str, st_main: dict):
+    """(c) MH_PROCESSES processes of this script on gloo run run_multihost
+    on the default corpus; returns their launch counts summed."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = str(sk.getsockname()[1])
+    outp = os.path.join(workdir, "multihost")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mh-worker", str(r),
+         str(MH_PROCESSES), port, workdir, region, outp],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(MH_PROCESSES)]
+    fails = []
+    try:
+        for r, pr in enumerate(procs):
+            try:
+                _, err = pr.communicate(timeout=MH_LIMIT_S)
+            except subprocess.TimeoutExpired:
+                fails.append(f"rank {r}: no exit within {MH_LIMIT_S} s")
+                continue
+            if pr.returncode != 0:
+                fails.append(f"rank {r}: rc {pr.returncode}: {err[-2000:]}")
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    t_wall = time.perf_counter() - t0
+    left = _processes_left(f"{os.path.abspath(__file__)} --mh-worker")
+    ranks = []
+    for r in range(MH_PROCESSES):
+        if os.path.exists(f"{outp}.{r}.json"):
+            with open(f"{outp}.{r}.json") as f:
+                ranks.append(json.load(f))
+    got = None
+    if os.path.exists(outp + ".vcf"):
+        with open(outp + ".vcf") as f:
+            got = f.read()
+    launches = {k: sum(rk["launches"][k] for rk in ranks)
+                for k in launch_counts()}
+    emit({"phase": "mesh", "case": "multihost", "processes": MH_PROCESSES,
+          "backend": "gloo", "t_wall": t_wall,
+          "single_process_t_total": st_main["t_total"], "ranks": ranks,
+          "launches": launches, "failures": fails, "processes_left": left,
+          "vcf_equal_single_process": got == vcf})
+    if fails or left or got != vcf or len(ranks) != MH_PROCESSES:
+        raise AssertionError(f"the fan-out over processes failed: {fails}, "
+                             f"left {left}, VCF equal {got == vcf}")
+    return launches
+
+
+def mh_worker(argv: list) -> int:
+    """One process of case (c): join the gloo group, run run_multihost on
+    the default corpus on cuda:{rank % card count}, write the launch counts
+    and times (and, on rank 0, the VCF) beside `outp`."""
+    import torch
+
+    from lancet_tpu_torch.config import Config
+    from lancet_tpu_torch.parallel.multihost import (init_distributed,
+                                                     run_multihost, shutdown)
+
+    rank, nproc, port, workdir, region, outp = argv
+    rank, nproc = int(rank), int(nproc)
+    dev = f"cuda:{rank % torch.cuda.device_count()}"
+    t0 = time.perf_counter()
+    init_distributed(f"127.0.0.1:{port}", nproc, rank)
+    try:
+        cfg = Config(tumor_bam=os.path.join(workdir, "tumor.bam"),
+                     normal_bam=os.path.join(workdir, "normal.bam"),
+                     ref_fasta=os.path.join(workdir, "ref.fa"),
+                     region=region, num_threads=8)
+        st: dict = {}
+        reset_counts()
+        with contextlib.redirect_stderr(io.StringIO()):
+            vcf = run_multihost(cfg, command_line="chip_smoke",
+                                date="SMOKE\n", device=dev, stats=st)
+        rec = {"rank": rank, "device": dev, "t_run": st["t_total"],
+               "t_since_start": time.perf_counter() - t0,
+               "n_windows": st["n_windows"], "launches": launch_counts()}
+    finally:
+        shutdown()
+    if rank == 0:
+        with open(outp + ".vcf", "w") as f:
+            f.write(vcf)
+    with open(f"{outp}.{rank}.json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def gates_case_main(workdir: str, region: str, vcf: str, summary: str):
+    """(d) The main path with the eager gate sweep (LANCET_TPU_GATES=1) in
+    an A/B against the main path without it, in the order GATES_AB (off
+    and on alternating, each arm in the same slots on average): every VCF
+    equal, repeat_gates launched in every run with the sweep. Returns the
+    launch counts of the last run with the sweep."""
+    t_total = {"off": [], "on": []}
+    t_gates = []
+    launches_on: dict = {}
+    for arm in GATES_AB:
+        st: dict = {}
+        if arm == "on":
+            os.environ["LANCET_TPU_GATES"] = "1"
+        reset_counts()
+        try:
+            v, summ = run_captured(workdir, region, st, device="cuda")
+        finally:
+            os.environ.pop("LANCET_TPU_GATES", None)
+        t_total[arm].append(st["t_total"])
+        if arm == "on":
+            launches_on = launch_counts()
+            t_gates.append(st["t_gates"])
+            if launches_on["repeat_gates"] < 1:
+                raise AssertionError(f"LANCET_TPU_GATES=1 launched no "
+                                     f"repeat_gates: {launches_on}")
+        if v != vcf or summ != summary:
+            raise AssertionError(f"LANCET_TPU_GATES {arm}: the VCF or "
+                                 "summary differs from the main path's")
+    emit({"phase": "mesh", "case": "gates_switch", "order": list(GATES_AB),
+          "t_total_off": t_total["off"], "t_total_on": t_total["on"],
+          "median_off": statistics.median(t_total["off"]),
+          "median_on": statistics.median(t_total["on"]),
+          "t_gates": t_gates, "n_windows": st["n_windows"],
+          "launches": launches_on, "vcf_equal_main": True,
+          "summary_equal_main": True})
+    return launches_on
+
+
 def main() -> int:
     try:
         import torch
@@ -863,6 +1138,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--mh-worker"]:
+        return mh_worker(sys.argv[2:])
     t_start = time.perf_counter()
 
     # 1. device
@@ -1034,7 +1311,8 @@ def main() -> int:
     launches_g = launch_counts()
     kept: dict = {}
     st_g2: dict = {}
-    with instrument_devgraph(kept, None):
+    sums_g: dict = {}  # the attempt outputs' counters, for phase mesh
+    with instrument_devgraph(kept, None), sum_attempts(sums_g):
         vcf_g2, _ = run_devgraph(workdir, DEVGRAPH_REGION, st_g2)
     busy = profile_devgraph(workdir, DEVGRAPH_REGION, st_g["t_total"])
     got_stats = {k: st_g[k] for k in DEVGRAPH_STATS}
@@ -1104,7 +1382,29 @@ def main() -> int:
         emit({"phase": "kernels", "case": f"devgraph_{_WALKS[name]}",
               **wres[name]})
 
-    # 8. Gotoh kernel parity and times: each DP group of the main path,
+    # 8. the mesh: (a) the main path over every card and over 4 entries of
+    # cuda:0 (and over 2 cards where there are two); (b) device-graph case
+    # 1 over 1, 2 and 4 entries of cuda:0; (c) two processes on gloo; (d)
+    # the main path with the eager gate sweep
+    from lancet_tpu_torch.parallel.mesh import make_mesh
+
+    mesh_cases = [("all_cards", make_mesh()),
+                  (f"cuda0_x{MESH_ON_ONE_CARD}",
+                   make_mesh(devices=["cuda:0"] * MESH_ON_ONE_CARD))]
+    if count > 1:
+        mesh_cases.append(("two_cards", make_mesh(2)))
+    launches_m = [mesh_main_case(workdir, region, m, c, vcf, summary, st)
+                  for c, m in mesh_cases]
+    launches_m += [mesh_devgraph_case(workdir, n, vcf_g, summary_g, st_g,
+                                      sums_g) for n in DEVGRAPH_MESHES]
+    launches_mh = multihost_case(workdir, region, vcf, st)
+    launches_d = gates_case_main(workdir, region, vcf, summary)
+    emit({"phase": "mesh", "case": "summary", "cards": count,
+          "cases_run": [c for c, _ in mesh_cases]
+          + [f"devgraph_{n}" for n in DEVGRAPH_MESHES]
+          + ["multihost", "gates_switch"]})
+
+    # 9. Gotoh kernel parity and times: each DP group of the main path,
     # the tie-heavy pairs, and one group that takes the global mode
     kres = []
     for g, pairs in enumerate(groups):
@@ -1124,7 +1424,10 @@ def main() -> int:
     def by_path(name):
         return {"main_path": launches[name], "engine_path": launches_e[name],
                 "fallback_replay": replay[name],
-                "devgraph": launches_g[name] + launches_a[name]}
+                "devgraph": launches_g[name] + launches_a[name],
+                "mesh": sum(lm[name] for lm in launches_m),
+                "multihost": launches_mh[name],
+                "gates_switch": launches_d[name]}
 
     line = []
     for mode, cases in (("smem", kres), ("global", [large])):

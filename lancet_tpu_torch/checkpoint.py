@@ -61,14 +61,15 @@ def shard_log_path(resume_dir: str, shard_idx: int) -> str:
     return os.path.join(resume_dir, f"shard{shard_idx:04d}.jsonl")
 
 
-def load_resume_state(resume_dir: str, num_shards: int):
-    """Per-shard [(done_window_names, replay_variants)] from existing
-    shard logs. Replaying a shard's variants into its worker's DB before
-    processing reproduces the exact window-order accumulation of a fresh
-    run (resume therefore requires the same num_threads/shard layout).
+def load_resume_state(resume_dir: str, shard_ids):
+    """Per-shard [(done_window_names, replay_variants)] from the existing
+    logs of the shards `shard_ids` (global shard indices). Replaying a
+    shard's variants into its worker's DB before processing reproduces the
+    exact window-order accumulation of a fresh run (resume therefore
+    requires the same num_threads/shard layout).
     Truncated trailing lines (crash mid-write) are ignored."""
     state = []
-    for i in range(num_shards):
+    for i in shard_ids:
         done: set[str] = set()
         replay: list = []
         p = shard_log_path(resume_dir, i)

@@ -7,8 +7,14 @@ DBG build, cleanup and path cover run on the device as fixed-shape batched
 work; windows that exceed the shape caps or hit the reference's irregular
 corners (mate-overlap dedup, k > 63, compress loop-backs, map-rehash
 hazards) are replayed natively, exactly. The JAX package's
-`engine/devicepipe.py`, without its compile cache, stack-limit raise and
-mesh argument.
+`engine/devicepipe.py`, without its compile cache and stack-limit raise.
+
+The window axis of each chunk is split over a mesh (parallel.mesh; one
+entry, inline, when the caller gives none): the build runs through
+shard_build_k and the attempt tail through shard_windows, one host thread
+a shard; the rank round trip and the job finish stay on the main thread
+for the whole chunk, and the repeat gates run unsharded on the mesh's
+first device. Only the main thread writes `stats`.
 
 Reference flow: Microassembler.cc:73-249 (processGraph k-retry loop).
 """
@@ -21,6 +27,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel.mesh import (Mesh, Sharded, gather, shard_build_k,
+                             shard_windows)
 from .extract import PathJob
 
 _BASES = np.frombuffer(b"ACGTN", np.uint8)
@@ -64,7 +72,7 @@ _D = 12
 # assemble shape tiers (ascending): the graph-size shapes the attempt tail
 # runs at after slice-to-fit, whatever bucket sized the build
 _TIERS = ((1536, 3840),)
-W_DEFAULT = 32  # windows per chunk; tails of <= 8 run at W 8
+W_DEFAULT = 32  # windows per chunk; tails of <= 8 run at W 8 (one shard)
 
 
 def _cfg_scalars(cfg, K):
@@ -92,20 +100,25 @@ def _bucket_for(task, Lraw):
 
 def run_device_graph(tasks: list[WindowTask], cfg, stats: dict | None = None,
                      W: int = W_DEFAULT, Lraw: int = 1152,
-                     device="cuda") -> None:
-    """Process tasks in place on `device`: fills .jobs/.done/.fallback per
-    window. Callers align and finish the jobs in task order.
+                     device="cuda", mesh=None) -> None:
+    """Process tasks in place, sharded over `mesh` (one entry, `device`,
+    when None): fills .jobs/.done/.fallback per window. Callers align and
+    finish the jobs in task order. W is rounded down to a multiple of the
+    mesh's size (at least one window a shard), and stats["mesh_counters"]
+    sums the tails' counters (numcomp, n_sel, fallback).
 
     One k at a time (the reference's retry ladder, Microassembler.cc:
     109-235): windows the repeat gate passes are packed into chunks of W
     across bucket boundaries, built, ranked on the host and assembled; a
     window that overflows its bucket's node/edge caps is promoted to the
-    next bucket at the same k. Chunk i+1's build is queued on the device
-    before chunk i's host work (rank round trip, job finish) runs."""
-    from ..gpu import resolve_device
+    next bucket at the same k. Chunk i+1's build is dispatched before
+    chunk i's host work (rank round trip, job finish) runs; on a one-entry
+    mesh it is only queued, so the two overlap."""
     from ..gpu.repeats import repeat_gates
 
-    dev = resolve_device(device)
+    mesh = Mesh([device]) if mesh is None else mesh
+    ndev = len(mesh)
+    W = max(ndev, W // ndev * ndev)  # splits evenly on the window axis
     # packed mers carry k <= 63 (the native rank kernel's 128-bit limit);
     # windows still cycling past 63 replay natively
     ks = [k for k in range(cfg.min_k, cfg.max_k + 1, 2) if k <= 63]
@@ -135,7 +148,7 @@ def run_device_graph(tasks: list[WindowTask], cfg, stats: dict | None = None,
         # reference-repeat gate for this k (Microassembler.cc:118-131):
         # gated windows skip to the next k
         gates = repeat_gates([t.rawseq for t in pending], [K],
-                             cfg.max_mismatch, device=dev)[:, 0]
+                             cfg.max_mismatch, device=mesh[0])[:, 0]
         attempt = [t for t, g in zip(pending, gates) if not g]
         next_pending = [t for t, g in zip(pending, gates) if g]
         while attempt:  # promotion rounds (bounded by len(_BUCKETS))
@@ -144,7 +157,7 @@ def run_device_graph(tasks: list[WindowTask], cfg, stats: dict | None = None,
             inflight = None
             for lo in range(0, len(attempt), W):
                 chunk = attempt[lo:lo + W]
-                Wc = 8 if len(chunk) <= 8 <= W else W
+                Wc = 8 if ndev == 1 and len(chunk) <= 8 <= W else W
                 # smallest bucket over every member's floor that fits the
                 # chunk's read count and length (L is not monotone)
                 bi_floor = max(t.min_bucket for t in chunk)
@@ -155,14 +168,14 @@ def run_device_graph(tasks: list[WindowTask], cfg, stats: dict | None = None,
                           if _BUCKETS[i][0] >= need_r
                           and _BUCKETS[i][1] >= need_l)
                 n_attempts += 1
-                st = _dispatch_chunk(chunk, cfg, K, Wc, bi, Lraw, dev, stats)
+                st = _dispatch_chunk(chunk, cfg, K, Wc, bi, Lraw, mesh, stats)
                 if inflight is not None:
                     _complete_chunk(inflight, cfg, K, stats, promoted,
-                                    next_pending)
+                                    next_pending, mesh)
                 inflight = st
             if inflight is not None:
                 _complete_chunk(inflight, cfg, K, stats, promoted,
-                                next_pending)
+                                next_pending, mesh)
             attempt = promoted
         pending = next_pending
     for t in pending:
@@ -172,36 +185,35 @@ def run_device_graph(tasks: list[WindowTask], cfg, stats: dict | None = None,
         stats["n_dev_attempts"] = stats.get("n_dev_attempts", 0) + n_attempts
 
 
-def _dispatch_chunk(chunk, cfg, K, W, bi, Lraw, dev, stats=None):
-    """Pack one chunk and queue its build on the device. Returns the
-    in-flight state consumed by _complete_chunk."""
-    from ..gpu.dbg import build_k
+def _dispatch_chunk(chunk, cfg, K, W, bi, Lraw, mesh, stats=None):
+    """Pack one chunk and build it, shard by shard over `mesh` (one entry:
+    queued on the device). Returns the in-flight state consumed by
+    _complete_chunk, with the builds as a list of per-shard dicts."""
     from ..gpu.pack import WindowBatch, pack_chunk
 
     R, L, N, E = _BUCKETS[bi]
     t0 = time.perf_counter()
     batch = WindowBatch(W, R, L, Lraw)
     pack_chunk(batch, chunk)
-    arrs = [torch.from_numpy(a).to(dev) for a in (
-        batch.bases, batch.quals, batch.rlen, batch.rsample, batch.rstrand,
-        batch.rfrag, batch.rorder, batch.raw, batch.rawlen, batch.seq_off,
-        batch.seq_len, batch.totalreadbp, batch.window_ok)]
-    b = build_k(K, *arrs, N=N, E=E, D=_D, Lraw=Lraw,
-                min_qual_call=cfg.min_qual_call,
-                low_cov_threshold=cfg.low_cov_threshold,
-                min_cov_ratio=cfg.min_cov_ratio)
+    host = (batch.bases, batch.quals, batch.rlen, batch.rsample,
+            batch.rstrand, batch.rfrag, batch.rorder, batch.raw, batch.rawlen,
+            batch.seq_off, batch.seq_len, batch.totalreadbp, batch.window_ok)
+    bs = shard_build_k(mesh, K, (N, E, _D, Lraw, cfg.min_qual_call,
+                                 cfg.low_cov_threshold,
+                                 cfg.min_cov_ratio))(*host)
     if stats is not None:
         stats["t_dg_pack"] = stats.get("t_dg_pack", 0.0) \
             + (time.perf_counter() - t0)
-    return dict(chunk=chunk, batch=batch, b=b, bi=bi, W=W, raw=arrs[7])
+    return dict(chunk=chunk, batch=batch, bs=bs, bi=bi, W=W)
 
 
-def _complete_chunk(st_if, cfg, K, stats, promoted, retry):
+def _complete_chunk(st_if, cfg, K, stats, promoted, retry, mesh):
     """Finish an in-flight chunk: rank round trip, assemble, classify.
     Shape-cap overflows go to `promoted` (same k, next bucket); cycle and
     repeat aborts go to `retry` (next k); semantic corners mark .fallback
-    for the native replay."""
-    chunk, batch, b = st_if["chunk"], st_if["batch"], st_if["b"]
+    for the native replay. Every field is fetched to the host over the
+    chunk's shards, in shard order."""
+    chunk, batch, bs = st_if["chunk"], st_if["batch"], st_if["bs"]
     bi, W = st_if["bi"], st_if["W"]
     R, L, N, E = _BUCKETS[bi]
 
@@ -213,10 +225,9 @@ def _complete_chunk(st_if, cfg, K, stats, promoted, retry):
 
     # host round trip: creation-order packed mers -> map-order ranks
     t0 = time.perf_counter()
-    n_nodes = b["n_nodes"].cpu().numpy()
-    n_edges = b["n_edges"].cpu().numpy()
-    b_fallback = b["fallback"].cpu().numpy()
-    mate_cand = b["mate_cand"].cpu().numpy()
+    n_nodes, n_edges, b_fallback, mate_cand = (
+        gather([b[k] for b in bs])
+        for k in ("n_nodes", "n_edges", "fallback", "mate_cand"))
     window_ok = np.asarray(batch.window_ok)
     # slice-to-fit: when every live lane's graph fits a smaller tier the
     # attempt tail runs at those shapes (node/edge tables are dense in
@@ -230,36 +241,42 @@ def _complete_chunk(st_if, cfg, K, stats, promoted, retry):
             if tn < N and te < E and nn_max <= tn and ne_max <= te:
                 Nc, Ec = tn, te
                 break
-    mers_w = [m[:, :Nc].cpu().numpy() for m in b["mers_w"]]
+    mers_w = [gather([b["mers_w"][i][:, :Nc] for b in bs])
+              for i in range(len(bs[0]["mers_w"]))]
     t0 = mark("t_dg_build", t0)  # build + the fetch of the mer tables
     ranks, rank_bad = _map_ranks_batch(mers_w, n_nodes, window_ok, K, W, Nc)
     t0 = mark("t_dg_ranks", t0)
 
-    dev = b["alive"].device
     tA = time.perf_counter()
-    out = _assemble(b, torch.from_numpy(ranks).to(dev), K, N, E, Nc, Ec,
-                    st_if["raw"], _cfg_scalars(cfg, K),
-                    int(cfg.dfs_limit) or (1 << 30), int(cfg.max_indel_len),
-                    int(cfg.max_mismatch))
+    statics = (K, N, E, Nc, Ec, _cfg_scalars(cfg, K),
+               int(cfg.dfs_limit) or (1 << 30), int(cfg.max_indel_len),
+               int(cfg.max_mismatch))
+    outs, counters = shard_windows(
+        lambda b, r, raw: _assemble(b, r, raw, *statics), mesh)(
+            Sharded(bs), ranks, batch.raw)
+    if stats is not None:
+        mc = stats.setdefault("mesh_counters", {})
+        for k, v in zip(("numcomp", "n_sel", "fallback"), counters.tolist()):
+            mc[k] = mc.get(k, 0) + v
     tB = time.perf_counter()
     # fetch the small fields, then only the used [:, :jmax, :lmax] corner
     # of the [W, JMAX, LP] job tensors
     big = ("pathseq", "covT", "covN", "span")
-    res = {k: v.cpu().numpy() for k, v in out.items() if k not in big}
+    res = {k: gather([o[k] for o in outs]) for k in outs[0] if k not in big}
     tC = time.perf_counter()
     ok_lane = window_ok & ~b_fallback & ~mate_cand & ~rank_bad \
         & ~res["fallback"]
     nsel = np.where(ok_lane, res["n_sel"], 0)
     jmax = int(nsel.max()) if len(nsel) else 0
     if jmax > 0:
-        JMAX, LP = out["pathseq"].shape[1], out["pathseq"].shape[2]
+        JMAX, LP = outs[0]["pathseq"].shape[1], outs[0]["pathseq"].shape[2]
         jm = min(JMAX, -(-jmax // 2) * 2)
         jcols = np.arange(JMAX)[None, :jm]
         lp_used = np.where(jcols < nsel[:, None], res["lp"][:, :jm], 0)
         lm = min(LP, -(-max(int(lp_used.max()), 1) // 256) * 256)
         for k2 in big:
             lw = lm + 1 if k2 == "span" else lm
-            res[k2] = out[k2][:, :jm, :lw].cpu().numpy()
+            res[k2] = gather([o[k2][:, :jm, :lw] for o in outs])
     if stats is not None:
         tD = time.perf_counter()
         stats["t_dg_a_dispatch"] = stats.get("t_dg_a_dispatch", 0.0) \
@@ -342,10 +359,11 @@ def slice_to_fit(b, N, Nc, Ec):
     return b
 
 
-def _assemble(b, ranks, K, N, E, Nc, Ec, raw, cfg_s, dfs_limit, max_indel,
+def _assemble(b, ranks, raw, K, N, E, Nc, Ec, cfg_s, dfs_limit, max_indel,
               max_mismatch):
     """The attempt's tail: stages + path cover + materialize, at the
-    slice-to-fit shapes (Nc, Ec) <= (N, E)."""
+    slice-to-fit shapes (Nc, Ec) <= (N, E). All of its tensors lie on one
+    device (a shard's under a mesh)."""
     from ..gpu import pipeline
 
     b = slice_to_fit(b, N, Nc, Ec)

@@ -10,7 +10,14 @@ and Variant construction from the packed records.
 
 Host and device overlap: while the device aligns group g's DP batch, the
 next group's native stage runs in a worker thread (ctypes releases the GIL
-during the C++ call).
+during the C++ call). Each group's DP batch is split on the pair axis over
+a mesh (parallel.mesh; one entry, the run's device, when the caller gives
+none).
+
+LANCET_TPU_GATES (set and non-empty, as in the JAX package) turns on the
+eager repeat-gate sweep of every window and k on the device before the
+native stage; by default the native k-loop scans lazily, which costs less
+on the native runner.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ import time
 
 import numpy as np
 
-from ..gpu.align_batch import batch_align_async, batch_align_wait
+from ..gpu.align_batch import batch_align_wait
+from ..parallel.mesh import Mesh, mesh_batch_align_async
 from .variant import Variant
 
 STATUS_OK = 0
@@ -165,10 +173,12 @@ def _p(a, t):
     return a.ctypes.data_as(t) if a.size else ctypes.cast(None, t)
 
 
-def _lsr_run(lib, cfg, windows, idxs, inputs, export=False):
+def _lsr_run(lib, cfg, windows, idxs, inputs, export=False, gates=None):
     """lsr_run on the windows `idxs` (GIL released during the C++ call).
-    `inputs` is _run_inputs' tuple. With `export`, the native plane exports
-    each window's post-trim reads (lsr_x_info, lsr_x_data) instead of
+    `inputs` is _run_inputs' tuple; `gates`, if given, is (gate verdicts
+    [n, n_k] uint8, exact repeats at max_k [n] uint8) over all n windows,
+    from _eager_gates. With `export`, the native plane exports each
+    window's post-trim reads (lsr_x_info, lsr_x_data) instead of
     assembling it."""
     refid_t, refid_n, starts, ends, icfg, dcfg, rgs = inputs
     g = np.asarray(idxs, np.int64)
@@ -179,13 +189,49 @@ def _lsr_run(lib, cfg, windows, idxs, inputs, export=False):
     st = np.ascontiguousarray(starts[g])
     en = np.ascontiguousarray(ends[g])
     mask = np.ones(len(idxs), np.uint8)
+    n_k = 0
+    sub_gates = sub_exact = ctypes.cast(None, _U8P)
+    if gates is not None:
+        n_k = gates[0].shape[1]
+        ga = np.ascontiguousarray(gates[0][g].reshape(-1))
+        ex = np.ascontiguousarray(gates[1][g])
+        sub_gates, sub_exact = _p(ga, _U8P), _p(ex, _U8P)
     return lib.lsr_run(
         cfg.tumor_bam.encode(), cfg.normal_bam.encode(), len(idxs),
         _p(rt, _I32P), _p(rn, _I32P), _p(st, _I64P), _p(en, _I64P),
-        _p(sub_raw, _U8P), _p(sub_off, _I64P), ctypes.cast(None, _U8P),
-        ctypes.cast(None, _U8P), 0, _p(icfg, _I64P), _p(dcfg, _F64P), rgs,
+        _p(sub_raw, _U8P), _p(sub_off, _I64P), sub_gates, sub_exact, n_k,
+        _p(icfg, _I64P), _p(dcfg, _F64P), rgs,
         max(1, os.cpu_count() or 1), CACHE_SPAN,
         _p(mask, _U8P) if export else ctypes.cast(None, _U8P))
+
+
+GATE_CHUNK = 512  # windows a launch of the eager gate sweep
+
+
+def gates_enabled() -> bool:
+    """The eager gate sweep switch, LANCET_TPU_GATES: any non-empty value
+    turns it on (the JAX package's test, shardrun.py:511)."""
+    return bool(os.environ.get("LANCET_TPU_GATES"))
+
+
+def _eager_gates(cfg, windows, device):
+    """The repeat gates of every window at every k of the ladder on
+    `device`, GATE_CHUNK windows a launch: (verdicts [n, n_k] uint8, the
+    exact repeat at max_k [n] uint8), as the native plane takes them. An
+    error propagates (the JAX package turns the gates off on any error)."""
+    from ..gpu.repeats import repeat_gates
+
+    ks = list(range(cfg.min_k, cfg.max_k + 1, 2))
+    n, n_k = len(windows), len(ks)
+    gates_arr = np.zeros((n, n_k), np.uint8)
+    exact_arr = np.zeros(n, np.uint8)
+    for i in range(0, n, GATE_CHUNK):
+        chunk = windows[i:i + GATE_CHUNK]
+        g, e = repeat_gates([w.rawseq for w in chunk], ks, cfg.max_mismatch,
+                            with_exact=True, device=device)
+        gates_arr[i:i + len(chunk)] = g
+        exact_arr[i:i + len(chunk)] = e[:, n_k - 1]
+    return gates_arr, exact_arr
 
 
 def _run_inputs(cfg, windows, tumor, normal):
@@ -218,17 +264,24 @@ def _run_inputs(cfg, windows, tumor, normal):
 
 
 def run_shards(cfg, windows, tumor, normal, stats: dict | None = None,
-               device="cuda"):
-    """Run every window natively, with the DP of each group aligned on
-    `device`. `windows` is the full ordered list (shard-concatenated,
-    lexicographic within shard), the VariantDB add order. `tumor`/`normal`
-    are open readers (for refid lookup only). Returns a ShardRunResult, or
-    None when the native plane reports a failed group."""
+               device="cuda", mesh=None):
+    """Run every window natively, with the DP of each group split over
+    `mesh` (parallel.mesh.Mesh; one entry, `device`, when None).
+    `windows` is the full ordered list (shard-concatenated, lexicographic
+    within shard), the VariantDB add order. `tumor`/`normal` are open
+    readers (for refid lookup only). Returns a ShardRunResult, or None
+    when the native plane reports a failed group."""
     lib = _lib()
     n = len(windows)
     inputs = _run_inputs(cfg, windows, tumor, normal)
     refid_t, starts, ends = inputs[0], inputs[2], inputs[3]
     u8p, i64p, f64p, p = _U8P, _I64P, _F64P, _p
+    mesh = Mesh([device]) if mesh is None else mesh
+
+    t0 = time.perf_counter()
+    gates = (_eager_gates(cfg, windows, mesh[0])
+             if gates_enabled() and n else None)
+    t_gates = time.perf_counter() - t0
 
     # Genomic groups for the host/device pipeline. Groups are genomically
     # contiguous so each lsr_run call keeps the shared-cache locality;
@@ -250,7 +303,7 @@ def run_shards(cfg, windows, tumor, normal, stats: dict | None = None,
         pass
 
     def native_stage(idxs):
-        return _lsr_run(lib, cfg, windows, idxs, inputs)
+        return _lsr_run(lib, cfg, windows, idxs, inputs, gates=gates)
 
     variants_by_window: dict[int, list] = {}
     fallback: set[int] = set()
@@ -284,7 +337,7 @@ def run_shards(cfg, windows, tumor, normal, stats: dict | None = None,
                 "latin-1")
             pairs.append((w.rawseq[src : src + dist], pathseq))
         t_mid = time.perf_counter()
-        state = batch_align_async(pairs, device) if pairs else None
+        state = mesh_batch_align_async(pairs, mesh)
         t1 = time.perf_counter()
         t_dp_prep += t_mid - t0
         t_dp_send += t1 - t_mid
@@ -354,6 +407,7 @@ def run_shards(cfg, windows, tumor, normal, stats: dict | None = None,
             lib.lsr_free(h)
 
     if stats is not None:
+        stats["t_gates"] = t_gates
         stats["t_host"] = t_host  # blocked-on-native time (overlap hides it)
         stats["t_pipeline"] = time.perf_counter() - t_all
         stats["t_dp"] = t_dp
@@ -379,18 +433,21 @@ def device_graph_enabled() -> bool:
 
 
 def run_shards_device(cfg, windows, tumor, normal, stats: dict | None = None,
-                      device="cuda"):
+                      device="cuda", mesh=None):
     """Device graph engine run: the native plane fetches, triages and
     extracts and exports the post-trim reads; the device builds, cleans
     and path-covers each exported window's graph (engine.devicepipe); the
-    jobs that need DP are aligned on `device`; the native scan_batch
-    finishes the transcripts. Windows the device hands back (caps, quirk
-    corners, k > 63) are replayed through run_shards, fully natively.
+    jobs that need DP are aligned on the device; the native scan_batch
+    finishes the transcripts. The graph work is sharded on the window axis
+    and the DP on the pair axis over `mesh` (one entry, `device`, when
+    None). Windows the device hands back (caps, quirk corners, k > 63) are
+    replayed through run_shards, fully natively.
     An error of the device engine propagates. Returns a ShardRunResult, or
     None when the native plane reports a failed pass."""
     from .devicepipe import WindowTask, run_device_graph
 
     lib = _lib()
+    mesh = Mesh([device]) if mesh is None else mesh
     n = len(windows)
     u8p, i32p, i64p, f64p, p = _U8P, _I32P, _I64P, _F64P, _p
 
@@ -440,7 +497,7 @@ def run_shards_device(cfg, windows, tumor, normal, stats: dict | None = None,
     t_unpack = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    run_device_graph(tasks, cfg, stats=stats, device=device)
+    run_device_graph(tasks, cfg, stats=stats, mesh=mesh)
     t_dev = time.perf_counter() - t0
 
     # device DP for the jobs that need it
@@ -449,8 +506,8 @@ def run_shards_device(cfg, windows, tumor, normal, stats: dict | None = None,
     dp_jobs = [(t, j) for t, j in all_jobs if j.needs_dp]
     aligned = {}
     if dp_jobs:
-        out = batch_align_wait(batch_align_async(
-            [(j.refseq, j.pathseq) for _, j in dp_jobs], device))
+        out = batch_align_wait(mesh_batch_align_async(
+            [(j.refseq, j.pathseq) for _, j in dp_jobs], mesh))
         aligned = {id(j): r for (_, j), r in zip(dp_jobs, out)}
     t_dp = time.perf_counter() - t0
 
@@ -520,7 +577,7 @@ def run_shards_device(cfg, windows, tumor, normal, stats: dict | None = None,
     if fb_idx:
         st2: dict = {}
         res = run_shards(cfg, [windows[i] for i in fb_idx], tumor, normal,
-                         stats=st2, device=device)
+                         stats=st2, mesh=mesh)
         if res is None:
             return None
         for wi, vs in res.variants_by_window.items():

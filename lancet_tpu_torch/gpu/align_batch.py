@@ -67,22 +67,30 @@ def batch_align_async(pairs: list[tuple[str, str]], device="cuda"):
                                  torch.from_numpy(n_len),
                                  torch.from_numpy(m_len), N, M)
         return None, ops, count, pairs
-    S_d, T_d, n_d, m_d = (torch.from_numpy(a).pin_memory().to(
-        dev, non_blocking=True) for a in (S, T, n_len, m_len))
-    ops_d, count_d = gotoh.align(S_d, T_d, n_d, m_d, N, M)
-    ops = torch.empty(ops_d.shape, dtype=ops_d.dtype, pin_memory=True)
-    count = torch.empty(count_d.shape, dtype=count_d.dtype, pin_memory=True)
-    ops.copy_(ops_d, non_blocking=True)
-    count.copy_(count_d, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(dev))
+    # the copies, the launch and the completion event all on `dev` and its
+    # current stream, whatever the calling thread's current device
+    with torch.cuda.device(dev):
+        S_d, T_d, n_d, m_d = (torch.from_numpy(a).pin_memory().to(
+            dev, non_blocking=True) for a in (S, T, n_len, m_len))
+        ops_d, count_d = gotoh.align(S_d, T_d, n_d, m_d, N, M)
+        ops = torch.empty(ops_d.shape, dtype=ops_d.dtype, pin_memory=True)
+        count = torch.empty(count_d.shape, dtype=count_d.dtype,
+                            pin_memory=True)
+        ops.copy_(ops_d, non_blocking=True)
+        count.copy_(count_d, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
     return done, ops, count, pairs
 
 
 def batch_align_wait(state) -> list[tuple[str, str]]:
-    """Wait for a batch_align_async dispatch and decode the alignments."""
+    """Wait for a batch_align_async dispatch and decode the alignments. A
+    list of states (parallel.mesh.mesh_batch_align_async: one a shard)
+    decodes shard after shard, in pair order."""
     if state is None:
         return []
+    if isinstance(state, list):
+        return [r for st in state for r in batch_align_wait(st)]
     done, ops, count, pairs = state
     if done is not None:
         done.synchronize()  # releases the GIL while it waits

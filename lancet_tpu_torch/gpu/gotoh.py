@@ -4,8 +4,9 @@ plain PyTorch versions.
 
 `align` takes tensors on one device. On the CPU it runs the plain versions
 (`traceback_plain(dp_fill_plain(...))`); on a CUDA device it launches
-`gotoh_align` and raises if the kernel library cannot be built or a launch
-is refused. There is no fallback from the card to the plain version.
+`gotoh_align` on that device (whatever the thread's current device) and
+raises if the kernel library cannot be built or a launch is refused. There
+is no fallback from the card to the plain version.
 `plan(N, M)` picks, from the batch's widths alone, where the kernel keeps
 the traceback codes: in shared memory ("smem") when they fit, else in a
 scratch buffer in device memory ("global"). Each launch adds one to
@@ -31,6 +32,7 @@ import torch
 from .._build import build_shared
 from ..engine.align import (DIAG, GAP_EXTEND, GAP_OPEN, LEFT, MATCH,
                             MISMATCH, OP_DIAG, OP_SGAP, OP_TGAP, UP)
+from . import count_launch
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "gotoh.cu")
@@ -287,13 +289,17 @@ def align(S, T, n_len, m_len, N: int, M: int):
     scratch = (torch.empty((P, code_rows(N, pl.rows_per_thread)
                             * ((M + 7) // 8)), dtype=torch.int32,
                            device=dev) if glob else None)
-    rc = lib.gotoh_align(S.data_ptr(), T.data_ptr(), n_len.data_ptr(),
-                         m_len.data_ptr(), ops.data_ptr(), count.data_ptr(),
-                         scratch.data_ptr() if glob else None, P, N, M,
-                         pl.rows_per_thread, pl.threads, int(glob), pl.smem,
-                         _stream(dev))
+    # the launch (and its cudaFuncSetAttribute) goes to the current
+    # device: make that the inputs' device
+    with torch.cuda.device(dev):
+        rc = lib.gotoh_align(S.data_ptr(), T.data_ptr(), n_len.data_ptr(),
+                             m_len.data_ptr(), ops.data_ptr(),
+                             count.data_ptr(),
+                             scratch.data_ptr() if glob else None, P, N, M,
+                             pl.rows_per_thread, pl.threads, int(glob),
+                             pl.smem, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"gotoh_align ({pl.mode}) launch failed: CUDA "
                            f"error {rc}")
-    LAUNCHES["gotoh_align_" + pl.mode] += 1
+    count_launch(LAUNCHES, "gotoh_align_" + pl.mode)
     return ops, count

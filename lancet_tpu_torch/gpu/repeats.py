@@ -12,9 +12,9 @@ Semantics preserved exactly, including the reference's quirks: the final
 k-mer offset L-k is excluded, and the "almost" window is K+1 long.
 
 `gates` takes tensors on one device: on the CPU it runs `gates_plain`; on
-a CUDA device it launches the kernel and raises if the kernel library
-cannot be built or the launch is refused. There is no fallback from the
-card to the plain version. Each launch adds one to
+a CUDA device it launches the kernel on that device and raises if the
+kernel library cannot be built or the launch is refused. There is no
+fallback from the card to the plain version. Each launch adds one to
 `LAUNCHES["repeat_gates"]`. Windows reach it as latin-1 bytes, so `N` and
 lowercase compare as bytes. Every k must be >= 0; any max_mismatch is
 taken.
@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .._build import build_shared
-from . import resolve_device
+from . import count_launch, resolve_device
 from .gotoh import NVCC_FLAGS, _check, _nvcc, _stream
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -151,12 +151,14 @@ def gates(seq, lens, ks, max_mismatch: int):
         return g, e
     lib = _load()
     ks_d = torch.tensor(ks, dtype=torch.int32).to(dev)
-    rc = lib.repeat_gates(seq.data_ptr(), lens.data_ptr(), ks_d.data_ptr(),
-                          g.data_ptr(), e.data_ptr(), W, L, nk,
-                          int(max_mismatch), plan_threads(L), _stream(dev))
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        rc = lib.repeat_gates(seq.data_ptr(), lens.data_ptr(),
+                              ks_d.data_ptr(), g.data_ptr(), e.data_ptr(), W,
+                              L, nk, int(max_mismatch), plan_threads(L),
+                              _stream(dev))
     if rc != 0:
         raise RuntimeError(f"repeat_gates launch failed: CUDA error {rc}")
-    LAUNCHES["repeat_gates"] += 1
+    count_launch(LAUNCHES, "repeat_gates")
     return g, e
 
 

@@ -19,10 +19,12 @@ flags included.
 - K4 `cycle_dfs` (`tpu/stages.py::has_cycle_seq`, :839-926): the exact
   hasCycleRec replay for the components the cycle screen flags.
 
-Each wrapper takes tensors on one device. On the CPU it runs the plain
+Each wrapper takes tensors on one device and raises, before any work,
+when its inputs span two. On the CPU it runs the plain
 version (gpu.pipeline.path_cover_plain, gpu.stages.seq_removal_plain,
 gpu.pipeline.almost_repeat_plain, gpu.stages.cycle_dfs_plain: the JAX
-loops step for step); on a CUDA device it launches the kernel and raises
+loops step for step); on a CUDA device it launches the kernel on that
+device and raises
 if the library cannot be built or the launch is refused. There is no
 fallback from the card to the plain version. Each launch adds one to
 `LAUNCHES[name]`.
@@ -37,6 +39,7 @@ import threading
 import torch
 
 from .._build import build_shared
+from . import count_launch, input_device
 from .gotoh import NVCC_FLAGS, _nvcc, _stream
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -87,16 +90,16 @@ def _u8(t):
 def _launched(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
 
 
-def _cuda(t) -> bool:
-    dev = t.device
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
+def _device(name: str, *tensors) -> torch.device:
+    """The one device of a walk's input tensors (raises when they span two,
+    or for a device that is neither the CPU nor a card)."""
+    dev = input_device(name, *tensors)
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    return True
+    return dev
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +116,9 @@ def path_cover(adj, e_dst, e_dir, merlen, special, runnable, numcomp,
     fallback [W] (queue / pop / path / job overflows, unfinished comps)."""
     kw = dict(K=K, N=N, Cmax=Cmax, dfs_limit=dfs_limit, max_indel=max_indel,
               Q=Q, POPMAX=POPMAX, JMAX=JMAX, PN=PN)
-    if not _cuda(adj):
+    dev = _device("path_cover", adj, e_dst, e_dir, merlen, special, runnable,
+                  numcomp, reflens)
+    if dev.type == "cpu":
         from .pipeline import path_cover_plain
 
         return path_cover_plain(adj, e_dst, e_dir, merlen, special, runnable,
@@ -123,7 +128,6 @@ def path_cover(adj, e_dst, e_dir, merlen, special, runnable, numcomp,
     if D2 > 32:
         raise ValueError(f"path_cover takes at most 32 adjacency slots, "
                          f"got {D2}")
-    dev = adj.device
     out = dict(
         sel_edges=torch.empty((W, JMAX, PN), dtype=torch.int32, device=dev),
         sel_hops=torch.empty((W, JMAX), dtype=torch.int32, device=dev),
@@ -134,12 +138,13 @@ def path_cover(adj, e_dst, e_dir, merlen, special, runnable, numcomp,
         return _widen(out)
     ins = (_i32(adj), _i32(e_dst), _i32(e_dir), _i32(merlen), _u8(special),
            _u8(runnable), _i32(numcomp), _i32(reflens))
-    rc = _load().path_cover(
-        *[t.data_ptr() for t in ins],
-        *[out[k].data_ptr() for k in ("sel_edges", "sel_hops", "sel_comp",
-                                      "n_sel", "fallback")],
-        W, NI, D2, EE, K, N, Cmax, min(int(dfs_limit), 2**31 - 1),
-        int(max_indel), Q, POPMAX, JMAX, PN, _stream(dev))
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        rc = _load().path_cover(
+            *[t.data_ptr() for t in ins],
+            *[out[k].data_ptr() for k in ("sel_edges", "sel_hops",
+                                          "sel_comp", "n_sel", "fallback")],
+            W, NI, D2, EE, K, N, Cmax, min(int(dfs_limit), 2**31 - 1),
+            int(max_indel), Q, POPMAX, JMAX, PN, _stream(dev))
     _launched("path_cover", rc)
     return _widen(out)
 
@@ -159,13 +164,14 @@ def seq_removal(slots, nbr, deg, cond):
     order (-1 empty); nbr [W, NI, D2] alive-edge destinations; deg [W, NI]
     live out-degrees; cond = ("tips", merlen, max_tip) or ("links",
     merlen, max_link, mincov, thr, guard). Returns removed [W, NI] bool."""
-    if not _cuda(slots):
+    dev = _device("seq_removal", slots, nbr, deg,
+                  *[c for c in cond if torch.is_tensor(c)])
+    if dev.type == "cpu":
         from .stages import removal_kill_fn, seq_removal_plain
 
         return seq_removal_plain(slots, nbr, deg, removal_kill_fn(cond))
     W, U = slots.shape
     NI, D2 = nbr.shape[1], nbr.shape[2]
-    dev = slots.device
     removed = torch.empty((W, NI), dtype=torch.uint8, device=dev)
     if W == 0:
         return removed.to(torch.bool)
@@ -178,9 +184,10 @@ def seq_removal(slots, nbr, deg, cond):
     mincov, thr, guard = ((merlen,) * 3 if mode == 0 else
                           (_i32(cond[3]), _i32(cond[4]), _u8(cond[5])))
     ins = (_i32(slots), _i32(nbr), _i32(deg), merlen, mincov, guard, thr)
-    rc = _load().seq_removal(*[t.data_ptr() for t in ins],
-                             removed.data_ptr(), W, U, NI, D2, mode, max_len,
-                             _stream(dev))
+    with torch.cuda.device(dev):
+        rc = _load().seq_removal(*[t.data_ptr() for t in ins],
+                                 removed.data_ptr(), W, U, NI, D2, mode,
+                                 max_len, _stream(dev))
     _launched("seq_removal", rc)
     return removed.to(torch.bool)
 
@@ -192,20 +199,21 @@ def seq_removal(slots, nbr, deg, cond):
 def almost_repeat(seq, lens, K, max_mismatch):
     """isAlmostRepeat of each path string. seq [W, J, LP] base codes; lens
     [W, J]. Returns [W, J] bool."""
-    if not _cuda(seq):
+    dev = _device("almost_repeat_paths", seq, lens)
+    if dev.type == "cpu":
         from .pipeline import almost_repeat_plain
 
         return almost_repeat_plain(seq, lens, K, max_mismatch)
     W, J, LP = seq.shape
-    dev = seq.device
     out = torch.empty((W, J), dtype=torch.uint8, device=dev)
     if W * J == 0:
         return out.to(torch.bool)
     s8 = _u8(seq)
     ln = _i32(lens)
-    rc = _load().almost_repeat_paths(s8.data_ptr(), ln.data_ptr(),
-                                     out.data_ptr(), W * J, LP, int(K),
-                                     int(max_mismatch), _stream(dev))
+    with torch.cuda.device(dev):
+        rc = _load().almost_repeat_paths(s8.data_ptr(), ln.data_ptr(),
+                                         out.data_ptr(), W * J, LP, int(K),
+                                         int(max_mismatch), _stream(dev))
     _launched("almost_repeat_paths", rc)
     return out.to(torch.bool)
 
@@ -221,14 +229,14 @@ def cycle_dfs(adj, e_dst, e_dir, alive, special, N, Cmax, lane_mask):
     every component). Each block keeps its stack (NI+2 frames) and the
     node colours in shared memory, (NI+2)*12 + NI bytes. Returns [W, Cmax]
     bool."""
-    if not _cuda(adj):
+    dev = _device("cycle_dfs", adj, e_dst, e_dir, alive, special, lane_mask)
+    if dev.type == "cpu":
         from .stages import cycle_dfs_plain
 
         return cycle_dfs_plain(adj, e_dst, e_dir, alive, special, N, Cmax,
                                lane_mask)
     W, NI, D2 = adj.shape
     EE = e_dst.shape[1]
-    dev = adj.device
     flags = torch.empty((W, Cmax), dtype=torch.uint8, device=dev)
     if W == 0:
         return flags.to(torch.bool)
@@ -236,7 +244,9 @@ def cycle_dfs(adj, e_dst, e_dir, alive, special, N, Cmax, lane_mask):
         lane_mask = torch.ones((W, Cmax), dtype=torch.bool, device=dev)
     ins = (_i32(adj), _i32(e_dst), _i32(e_dir), _u8(alive), _u8(special),
            _u8(lane_mask))
-    rc = _load().cycle_dfs(*[t.data_ptr() for t in ins], flags.data_ptr(),
-                           W, NI, D2, EE, N, Cmax, _stream(dev))
+    with torch.cuda.device(dev):
+        rc = _load().cycle_dfs(*[t.data_ptr() for t in ins],
+                               flags.data_ptr(), W, NI, D2, EE, N, Cmax,
+                               _stream(dev))
     _launched("cycle_dfs", rc)
     return flags.to(torch.bool)

@@ -17,6 +17,13 @@ JAX package's runner:
   the parent aligns every deferred path job in one batch and finishes
   them in shard order;
 - the per-window engine, shard after shard, in this process.
+
+A `mesh` (parallel.mesh) reaches only the native shard runner: it splits
+each DP group on the pair axis, and the device graph engine's windows, over
+its devices. `shard_filter` and `collect` serve the multi-process fan-out
+(parallel.multihost): every process computes the same global shard list,
+keeps the shards the filter selects, and hands back per-shard VariantDBs
+for a merge in global shard order.
 """
 
 from __future__ import annotations
@@ -163,11 +170,12 @@ def _accumulate(stats: dict, rs: dict) -> None:
             stats[k] = v
 
 
-def _run_native(cfg, cfg_eff, shards, resume_state, tumor, normal, dev,
-                stats, all_times):
-    """The native shard runner over every shard; returns (per-shard
-    VariantDBs, counters), or None when the native plane reports a failed
-    group (the caller then runs the per-window engine)."""
+def _run_native(cfg, cfg_eff, shards, shard_ids, resume_state, tumor,
+                normal, dev, stats, all_times, mesh=None):
+    """The native shard runner over every shard (`shard_ids` their global
+    indices, which name their resume logs); returns (per-shard VariantDBs,
+    counters), or None when the native plane reports a failed group (the
+    caller then runs the per-window engine)."""
     from .engine.shardrun import (device_graph_enabled, run_shards,
                                   run_shards_device)
 
@@ -191,7 +199,7 @@ def _run_native(cfg, cfg_eff, shards, resume_state, tumor, normal, dev,
             for v in replay:
                 shard_vdbs[i].add_var(v)
         logs = [ShardLog(shard_log_path(cfg.resume_dir, i))
-                for i in range(len(shards))]
+                for i in shard_ids]
         todo = [[w for w in sw if w.name not in resume_state[i][0]]
                 for i, sw in enumerate(shard_wins)]
         chunk = RESUME_CHUNK
@@ -215,7 +223,7 @@ def _run_native(cfg, cfg_eff, shards, resume_state, tumor, normal, dev,
                 continue
             rstats: dict = {}
             res = run_fn(cfg_eff, ordered, tumor, normal, stats=rstats,
-                         device=dev)
+                         device=dev, mesh=mesh)
             if res is None:
                 return None
             _accumulate(stats, rstats)
@@ -283,10 +291,11 @@ def _run_native(cfg, cfg_eff, shards, resume_state, tumor, normal, dev,
     return shard_vdbs, counters
 
 
-def _run_pool(cfg, cfg_eff, engine, windows, shards, resume_state, dev,
-              stats):
+def _run_pool(cfg, cfg_eff, engine, windows, shards, shard_ids, resume_state,
+              dev, stats):
     """Share-nothing shard workers in a process pool (reference pthread
-    model, Lancet.cc:844-928); returns per-shard (VariantDB, window_times,
+    model, Lancet.cc:844-928; `shard_ids` the shards' global indices, which
+    name their resume logs); returns per-shard (VariantDB, window_times,
     counters). Shard DBs merge in shard order, so the result does not
     depend on the process count."""
     import concurrent.futures as cf
@@ -330,7 +339,7 @@ def _run_pool(cfg, cfg_eff, engine, windows, shards, resume_state, dev,
     kill_env = os.environ.get("LANCET_TPU_TEST_KILL_SHARD")
     with cf.ProcessPoolExecutor(max_workers=n_workers, mp_context=ctx) as ex:
         futs = [ex.submit(_run_shard, cfg_eff, cfg.tumor_bam, cfg.normal_bam,
-                          shard, engine, i, resume_state[i],
+                          shard, engine, shard_ids[i], resume_state[i],
                           gates_by_shard[i], defer,
                           kill_env is not None and int(kill_env) == i)
                 for i, shard in enumerate(shards)]
@@ -351,7 +360,8 @@ def _run_pool(cfg, cfg_eff, engine, windows, shards, resume_state, dev,
               file=sys.stderr)
         for i in dead:
             results[i] = _run_shard(cfg_eff, cfg.tumor_bam, cfg.normal_bam,
-                                    shards[i], engine, i, resume_state[i],
+                                    shards[i], engine, shard_ids[i],
+                                    resume_state[i],
                                     gates_by_shard[i], defer)
         stats["n_dead_workers"] = len(dead)
     stats["t_host"] = time.perf_counter() - t0
@@ -383,7 +393,8 @@ def _run_pool(cfg, cfg_eff, engine, windows, shards, resume_state, dev,
 
 def run(cfg: Config, command_line: str = "lancet-tpu", date: str | None = None,
         processes: bool = False, stats: dict | None = None,
-        device="cuda", engine: str = "batched") -> str:
+        device="cuda", engine: str = "batched", mesh=None,
+        shard_filter=None, collect: dict | None = None) -> str:
     """Run the caller; returns the VCF text.
 
     engine "batched" runs the repeat gates and the Gotoh DP on `device`
@@ -391,7 +402,13 @@ def run(cfg: Config, command_line: str = "lancet-tpu", date: str | None = None,
     pure host work (global_align_aff and host repeat scans) and ignores
     `device`. `processes=True` fans shards out to a process pool (the
     two-phase path for the batched engine). `stats`, if given, is filled
-    with per-stage wall seconds and counts."""
+    with per-stage wall seconds and counts. `mesh` (parallel.mesh.Mesh)
+    shards the native shard runner's device work over its devices.
+    `shard_filter(global_shard_idx) -> bool` keeps a subset of the shards;
+    `collect`, if given, receives the per-shard variant DBs as
+    collect["shard_dbs"] = [(global_shard_idx, VariantDB.db), ...] in
+    place of the merge, and the run returns "" (the caller merges in
+    global shard order, as parallel.multihost does across processes)."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
     dev = resolve_device(device) if engine == "batched" else None
@@ -415,6 +432,14 @@ def run(cfg: Config, command_line: str = "lancet-tpu", date: str | None = None,
     windows = generate_windows(fasta, _regions(cfg), fasta.lengths,
                                cfg.window_size, cfg.padding)
     shards = shard_windows(windows, cfg.num_threads)
+    # the multi-process fan-out: the same global shard list in every
+    # process, this process's subset kept (README.md:70-88 of the
+    # reference: a qsub job per region chunk and a merge)
+    shard_ids = list(range(len(shards)))
+    if shard_filter is not None:
+        shard_ids = [i for i in shard_ids if shard_filter(i)]
+        shards = [shards[i] for i in shard_ids]
+        windows = [w for s in shards for w in s]
 
     if cfg.print_config_file:
         # reference writes config.txt in the working directory
@@ -427,20 +452,21 @@ def run(cfg: Config, command_line: str = "lancet-tpu", date: str | None = None,
         from .checkpoint import load_resume_state
 
         os.makedirs(cfg.resume_dir, exist_ok=True)
-        resume_state = load_resume_state(cfg.resume_dir, len(shards))
+        resume_state = load_resume_state(cfg.resume_dir, shard_ids)
 
     all_times: list = []
     native = None  # (per-shard VariantDBs in shard order, counters)
     if (engine == "batched" and not cfg.kmer_recovery and not cfg.print_graph
             and not os.environ.get("LANCET_TPU_NO_SHARDRUN")):
-        native = _run_native(cfg, cfg_eff, shards, resume_state, tumor,
-                             normal, dev, stats, all_times)
+        native = _run_native(cfg, cfg_eff, shards, shard_ids, resume_state,
+                             tumor, normal, dev, stats, all_times, mesh)
     if native is not None:
         per_shard, counters = native
     elif cfg.num_threads > 1 and processes:
         per_shard, counters = [], []
         for vdb, times, ctr in _run_pool(cfg, cfg_eff, engine, windows,
-                                         shards, resume_state, dev, stats):
+                                         shards, shard_ids, resume_state,
+                                         dev, stats):
             per_shard.append(vdb)
             all_times.extend(times)
             counters.append(ctr)
@@ -449,14 +475,10 @@ def run(cfg: Config, command_line: str = "lancet-tpu", date: str | None = None,
         for i, shard in enumerate(shards):
             ma = Microassembler(cfg_eff, readers=(tumor, normal),
                                 engine=engine, device=dev)
-            _process_shard(ma, cfg_eff, shard, i, resume_state[i])
+            _process_shard(ma, cfg_eff, shard, shard_ids[i], resume_state[i])
             per_shard.append(ma.vdb)
             all_times.extend(ma.window_times)
             counters.append(ma.counters)
-
-    merged = VariantDB(cfg.lr_mode)
-    for vdb in per_shard:
-        merged.merge_from(vdb)
 
     if cfg.trace_file:
         with open(cfg.trace_file, "w") as f:
@@ -469,6 +491,15 @@ def run(cfg: Config, command_line: str = "lancet-tpu", date: str | None = None,
     stats["t_total"] = time.perf_counter() - t_start
     stats["n_windows"] = len(windows)
 
+    if collect is not None:
+        collect.setdefault("shard_dbs", []).extend(
+            (si, vdb.db) for si, vdb in zip(shard_ids, per_shard))
+        collect["lr_mode"] = cfg.lr_mode
+        return ""
+
+    merged = VariantDB(cfg.lr_mode)
+    for vdb in per_shard:
+        merged.merge_from(vdb)
     if date is None:
         date = time.asctime() + "\n"
     t0 = time.perf_counter()

@@ -45,8 +45,11 @@ mods = [m.name for m in pkgutil.walk_packages(lancet_tpu_torch.__path__,
                                               "lancet_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+assert {"lancet_tpu_torch.parallel.mesh",
+        "lancet_tpu_torch.parallel.multihost"} <= set(mods), mods
 from lancet_tpu_torch import corpus
 from lancet_tpu_torch.config import Config
+from lancet_tpu_torch.parallel.mesh import make_mesh
 from lancet_tpu_torch.runner import run
 d = sys.argv[1]
 ref = corpus.make_reference(1400, seed=11)
@@ -54,9 +57,11 @@ alt = {"A": "C", "C": "G", "G": "T", "T": "A"}[ref[700]]
 t = corpus.hap_reads(ref, ("s", 700, alt), 450, 950, 100, 5, "t", 0.5, 1)
 n = corpus.hap_reads(ref, None, 450, 950, 100, 5, "n", 0, 2)
 r, tb, nb = corpus.write_pair(d, ref, "chr1", t, n)
-vcf = run(Config(tumor_bam=tb, normal_bam=nb, ref_fasta=r,
-                 region="chr1:650-750"), device="cpu")
+cfg = Config(tumor_bam=tb, normal_bam=nb, ref_fasta=r, region="chr1:650-750")
+vcf = run(cfg, date="D\n", device="cpu")
 assert any(ln and ln[0] != "#" for ln in vcf.splitlines()), vcf
+assert run(cfg, date="D\n", device="cpu",
+           mesh=make_mesh(devices=["cpu"] * 2)) == vcf
 bad = sorted(k for k in sys.modules
              if k in ("jax", "lancet_tpu") or k.startswith(("jax.",
                                                              "lancet_tpu.")))
@@ -129,6 +134,20 @@ def test_default_device_raises_without_card(tmp_path):
         trunner.run(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         batch_align([("ACGT", "ACT")])
+
+
+def test_mesh_raises_without_card():
+    """A mesh of cards needs a card: make_mesh() and make_local_mesh() do
+    not fall back to the host; a mesh on the host is asked for by name."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from lancet_tpu_torch.parallel.mesh import make_local_mesh, make_mesh
+
+    for fn in (make_mesh, make_local_mesh, lambda: make_mesh(1),
+               lambda: make_mesh(devices=["cuda:0"] * 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    assert make_mesh(devices=["cpu"] * 3) == (torch.device("cpu"),) * 3
 
 
 @pytest.mark.parametrize("mode", ["processes", "kmer_recovery",
