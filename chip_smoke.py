@@ -23,7 +23,13 @@ Phases, each printing one JSON line:
      runner.run(device="cuda") with 8 threads, the Gotoh kernel's launch
      counts (one shared-memory-mode launch per DP group), then the same
      run with device="cpu"; the two VCFs must be byte-equal. Every DP
-     group the cuda run dispatched is kept;
+     group the cuda run dispatched is kept. Then the main path at
+     --window-size 9,000 (long_window), on cuda and cpu with equal VCFs,
+     on a region of the default corpus (whose reads are tiled in 2 kb
+     segments, so no DP pair there reaches 2 kb) and on
+     corpus.long_window_corpus (reads tiled over 10 kb), whose DP pairs
+     pass 8,192 bases and take gotoh_align's strip mode; the largest N
+     that reached gotoh_align is printed;
   5. engine_path: the same corpus through the two-phase process pool,
      runner.run(processes=True, engine="batched", device="cuda") with the
      native shard runner off and 8 workers; its VCF and stderr summary
@@ -41,9 +47,13 @@ Phases, each printing one JSON line:
      hets, internal tandem duplications whose cycles reach the exact cycle
      replay), its VCF equal to the native path's; the four walk kernels
      (csrc/walks.cu) must launch, gotoh_align and repeat_gates too on case
-     1; then one kernels line per walk: the call with the most work of the
-     two cases, its outputs bit-equal to the plain version on the card,
-     timed beside it and the card's bound;
+     1; every path_cover and cycle_dfs launch of case 1's second run, of
+     case 2 and of phase mesh (b) is held bit-equal to the plain version
+     on its own inputs; then one kernels line per walk: the call with the
+     most work of the two cases, its outputs bit-equal to the plain
+     version on the card, timed beside it, the card's bound and the
+     walk's chain floor (its longest serial chain of steps times the
+     latency of a dependent shared-memory load, measured here);
   8. mesh, one line per case: (a) the main path with make_mesh() (every
      card) and with a 4-entry mesh over cuda:0 (and, with two cards or
      more, make_mesh(2) over distinct cards), each VCF and summary equal to
@@ -63,10 +73,13 @@ Phases, each printing one JSON line:
      the sweep;
   9. kernels, one line per case: the fused kernel gotoh_align on each kept
      group's own pairs, on the tie-heavy pairs of tests/test_torch_align.py,
-     and on one seeded group of 132 related pairs of ~1,100 bp whose codes
-     do not fit in shared memory (global mode); its ops and counts held
+     on one seeded group of 132 related pairs of ~1,100 bp whose codes
+     do not fit in shared memory (global mode), and on S of 8,193 to
+     20,000 bases (long_ref, the strip mode); its ops and counts held
      bit-equal to the plain PyTorch versions run on the card, and timed
-     with CUDA events beside the plain versions and the card's bound.
+     with CUDA events beside the plain versions and the card's bound;
+     path_cover and cycle_dfs on the crafted cases of gpu/walkcases.py
+     (each staging mode), held bit-equal to the plain versions.
 Then the kernels' summary line, nvidia-smi's line, and last the device
 line. Every path's launch counts are set to 0 just before it runs and read
 just after. Any failure exits non-zero before the last line. Without a
@@ -129,18 +142,33 @@ DEVGRAPH_STATS = {"n_dev_windows": 357, "n_dev_fallback": 0,
                   "dev_fallback_causes": {},
                   "k_histogram": {11: 15, 13: 231, 15: 99, 17: 10, 19: 2}}
 # Integer operations of the four walks per unit of work, by hand
-# (csrc/walks.cu), as lower bounds: path_cover 12 per BFS pop (the entry's
-# five loads, the sink and best tests, the expand test, head and tail);
+# (csrc/walks.cu), as lower bounds: path_cover 10 per BFS pop (the queue
+# entry's one 16-byte load and its three field extracts, the sink and best
+# tests, the expand test, the lane's slot-word load, head and tail);
 # seq_removal 8 per rank slot (the slot, its degree, removed flag and
-# merlen loads, the tests); cycle_dfs 10 per DFS step (three stack loads,
-# the adjacency, direction, destination, special and colour loads, the
-# test, the push or pop); almost_repeat_paths 3 per compared position (two
-# byte loads and a compare-add).
-WALK_OPS = {"path_cover": 12, "seq_removal": 8, "cycle_dfs": 10,
+# merlen loads, the tests); cycle_dfs 6 per DFS step (the successor
+# entry's load, its start-bit test, the colour and count loads, the colour
+# test, the end test; a push or pop of a packed frame besides);
+# almost_repeat_paths 3 per compared position (two byte loads and a
+# compare-add).
+WALK_OPS = {"path_cover": 10, "seq_removal": 8, "cycle_dfs": 6,
             "almost_repeat_paths": 3}
+# Dependent shared-memory loads on a walk's serial chain per unit of work,
+# for its chain floor: path_cover 3 a pop (the queue entry, the slot word,
+# then the covered bit and the length delta), cycle_dfs 2 a step (the
+# successor entry, then its destination's colour and count side by side;
+# steps up to the first cycle a component finds), seq_removal 1 a slot
+# (the degree; its slot id and merlen come from device memory),
+# almost_repeat_paths 1 a compared position (two independent byte loads).
+WALK_CHAIN_LOADS = {"path_cover": 3, "seq_removal": 1, "cycle_dfs": 2,
+                    "almost_repeat_paths": 1}
+CHASE_STEPS = (1 << 20, 1 << 22)  # the shared-memory latency probe
+LONG_WINDOW = 9000  # --window-size of phase long_window (> 8,192)
+LONG_DEFAULT_REGION = "chr1:20000-29000"  # 7 windows at LONG_WINDOW
 WALK_PLAIN_REPS = 2  # the plain walks loop on the host: seconds a call
 KERNEL_REPS = (5, 10)  # batches x launches per batch, per case
 PLAIN_REPS = 3  # one call each: the plain versions take ~1 s a call
+LONG_PLAIN_REPS = 1  # long_ref's plain versions take ~10-30 s a call
 LARGE_GROUP = (132, 1000, 1100, 3)  # pairs, min and max length, seed
 # the repeats_ties pairs of tests/test_torch_align.py: homopolymer runs of
 # unequal length, tandem repeats shifted by one unit, identical strings,
@@ -238,12 +266,14 @@ def _classify(body):
 
 def sass_loop_counts(so: str):
     """Static SASS counts of gotoh_align's two hot loops, per instantiation
-    ("R8/smem": 8 rows a thread, codes in shared memory). The fill loop is
+    ("R8/smem": 8 rows a thread, codes in shared memory; "R32/strips" the
+    strip mode). The fill loop is
     the innermost loop that shuffles (SHFL); one step of it shuffles two
     values (M and X of the row above) and computes R cells, so its counts
     are divided by R x half its SHFL count. The traceback loop is the
     innermost loop that
-    stores op bytes to shared memory (STS.U8) and loads a code word (a
+    stores op bytes (STS.U8 to shared memory; STG.E.U8 to device memory in
+    the strip mode) and loads a code word (a
     32-bit LDS or LDG); its counts are divided by its op stores. Branches a
     cell or step skips are counted too. Also the DPX and other V* integer
     opcodes of the fill loop. Returns ({key: counts}, None), or (None, the
@@ -253,11 +283,15 @@ def sass_loop_counts(so: str):
         return None, why
     out = {}
     for name, ops in funcs.items():
-        m = re.search(r"gotoh_align_kernelILi(\d+)ELb([01])E", name)
+        m = re.search(r"gotoh_align_kernelILi(\d+)ELb([01])ELb([01])E",
+                      name)
         if not m:
             continue
         R = int(m.group(1))
-        key = f"R{R}/{'global' if m.group(2) == '1' else 'smem'}"
+        mode = ("strips" if m.group(3) == "1" else
+                "global" if m.group(2) == "1" else "smem")
+        key = f"R{R}/{mode}"
+        op_store = "STG.E.U8" if mode == "strips" else "STS.U8"
         res = {}
         for body in _inner_loops(ops):
             bases = [t[0] for t in body]
@@ -271,10 +305,10 @@ def sass_loop_counts(so: str):
                     v_ops = sorted({b for b in bases if b.startswith("VI")})
                     res["fill_v_opcodes"] = {
                         o: sum(1 for b in bases if b == o) for o in v_ops}
-            elif any(b.startswith("STS.U8") for b in bases) and any(
+            elif any(b.startswith(op_store) for b in bases) and any(
                     b.split(".")[0] in ("LDS", "LDG") and ".U8" not in b
                     for b in bases):
-                steps = sum(1 for b in bases if b.startswith("STS.U8"))
+                steps = sum(1 for b in bases if b.startswith(op_store))
                 c = _classify(body)
                 res["trace_per_step"] = {k: v / steps for k, v in c.items()}
         if "fill_per_cell" not in res or "trace_per_step" not in res:
@@ -393,6 +427,31 @@ def cuda_times(fn, batches: int, per_batch: int = 1) -> list[float]:
     return out
 
 
+def device_ms(fn, kernel: str, n: int = 20):
+    """The mean device time (ms) of the kernels whose name holds `kernel`
+    over n calls of `fn`, from torch.profiler's CUDA activity: the kernel
+    alone, without the host's launch and allocation time between kernels
+    that CUDA events around a call also see. None where the profiler
+    records no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile that missed the kernel is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ts = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if ts:
+            return sum(ts) / len(ts) / 1e3
+    return None
+
+
 def spread(ts: list[float]) -> dict:
     return {"median": statistics.median(ts), "min": min(ts), "max": max(ts),
             "n": len(ts)}
@@ -416,7 +475,26 @@ def large_group():
     return pairs
 
 
-def kernel_phase(pairs, rate: dict) -> dict:
+def long_pairs():
+    """Pairs beyond a block's 8,192 rows (the strip mode): seeded random S
+    of 8,193 and 20,000 bases against short random T, and S of 9,000 bases
+    against an edited copy (its path crosses the strips' edge)."""
+    import random
+
+    rng = random.Random(6)
+    pairs = [("".join(rng.choice("ACGT") for _ in range(n)),
+              "".join(rng.choice("ACGT") for _ in range(m)))
+             for n, m in ((8_193, 1), (8_193, 50), (20_000, 7),
+                          (20_000, 50))]
+    s = "".join(rng.choice("ACGT") for _ in range(9_000))
+    t = list(s)
+    for _ in range(20):
+        k = rng.randrange(len(t))
+        t[k] = rng.choice("ACGT") if rng.random() < 0.5 else ""
+    return pairs + [(s, "".join(t))]
+
+
+def kernel_phase(pairs, rate: dict, plain_reps: int = PLAIN_REPS) -> dict:
     """gotoh_align on one group of pairs: its ops and counts bit-equal to
     the plain versions on the card, then timed beside them and the card's
     bound."""
@@ -450,7 +528,7 @@ def kernel_phase(pairs, rate: dict) -> dict:
 
     ms = spread(cuda_times(lambda: gotoh.align(S, T, n_d, m_d, N, M),
                            *KERNEL_REPS))
-    plain_ms = spread(cuda_times(plain, PLAIN_REPS))
+    plain_ms = spread(cuda_times(plain, plain_reps))
 
     cells = int((n_len.astype("int64") * m_len).sum())
     steps = int(cnt.sum())
@@ -543,16 +621,18 @@ def reset_counts() -> None:
 
 
 def run_captured(workdir: str, region: str, stats: dict, num_threads=8,
-                 **kw):
-    """runner.run on the corpus (8 threads by default); returns (VCF,
-    stderr)."""
+                 window_size: int | None = None, **kw):
+    """runner.run on the corpus (8 threads and the default window size
+    unless given); returns (VCF, stderr)."""
     from lancet_tpu_torch.config import Config
     from lancet_tpu_torch.runner import run
 
     cfg = Config(tumor_bam=os.path.join(workdir, "tumor.bam"),
                  normal_bam=os.path.join(workdir, "normal.bam"),
                  ref_fasta=os.path.join(workdir, "ref.fa"), region=region,
-                 num_threads=num_threads)
+                 num_threads=num_threads,
+                 **({} if window_size is None
+                    else {"window_size": window_size}))
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         vcf = run(cfg, command_line="chip_smoke", date="SMOKE\n",
@@ -605,7 +685,7 @@ def run_forced_fallback(workdir: str, region: str, stats: dict,
 
 
 def run_main_path(device: str, workdir: str, region: str, stats: dict,
-                  groups: list | None = None):
+                  groups: list | None = None, **kw):
     """runner.run on the corpus; with `groups`, every pair list the DP
     dispatch hands to batch_align_async is appended to it."""
     from lancet_tpu_torch.gpu import align_batch
@@ -619,13 +699,54 @@ def run_main_path(device: str, workdir: str, region: str, stats: dict,
     if groups is not None:
         align_batch.batch_align_async = keep
     try:
-        return run_captured(workdir, region, stats, device=device)
+        return run_captured(workdir, region, stats, device=device, **kw)
     finally:
         align_batch.batch_align_async = dispatch
 
 
+def long_window_case(case: str, workdir: str, region: str) -> dict:
+    """The main path at --window-size LONG_WINDOW on cuda (its launch
+    counts set to 0 just before and read just after) and on cpu: equal
+    VCFs and summaries; returns the line it emits."""
+    st: dict = {}
+    st_cpu: dict = {}
+    groups: list = []
+    reset_counts()
+    vcf, summary = run_main_path("cuda", workdir, region, st, groups,
+                                 window_size=LONG_WINDOW)
+    launches = launch_counts()
+    vcf_cpu, summary_cpu = run_main_path("cpu", workdir, region, st_cpu,
+                                         window_size=LONG_WINDOW)
+    line = {"phase": "long_window", "case": case, "region": region,
+            "window_size": LONG_WINDOW, "n_windows": st["n_windows"],
+            "n_dp": st["n_dp"], "dp_groups": [len(g) for g in groups],
+            "largest_N": max((len(a) for g in groups for a, _ in g),
+                             default=0),
+            "largest_M": max((len(b) for g in groups for _, b in g),
+                             default=0),
+            "launches": launches, "t_total": st["t_total"],
+            "t_total_cpu": st_cpu["t_total"],
+            "vcf_records": sum(1 for ln in vcf.splitlines()
+                               if ln and ln[0] != "#"),
+            "vcf_equal_cpu": vcf == vcf_cpu,
+            "summary_equal_cpu": summary == summary_cpu}
+    emit(line)
+    if vcf != vcf_cpu or summary != summary_cpu:
+        raise AssertionError(f"long_window {case}: device='cuda' and "
+                             "device='cpu' runs differ")
+    if line["vcf_records"] == 0 or st["n_dp"] == 0:
+        raise AssertionError(f"long_window {case}: {line['vcf_records']} "
+                             f"records from {st['n_dp']} DP pairs")
+    return line
+
+
 _WALKS = {"path_cover": "path_cover", "seq_removal": "seq_removal",
           "almost_repeat": "almost_repeat_paths", "cycle_dfs": "cycle_dfs"}
+# the CUDA kernel (csrc/walks.cu) each walk's wrapper launches
+_KERNEL_NAMES = {"path_cover": "path_cover_kernel",
+                 "seq_removal": "seq_removal_kernel",
+                 "almost_repeat_paths": "almost_repeat_kernel",
+                 "cycle_dfs": "cycle_dfs_kernel"}
 _WALK_SOURCES = {"path_cover": "lancet_tpu/tpu/pipeline.py:310",
                  "seq_removal": "lancet_tpu/tpu/stages.py:580",
                  "almost_repeat_paths": "lancet_tpu/tpu/pipeline.py:680",
@@ -656,11 +777,17 @@ def _walk_work(name: str, args) -> int:
     return int(args[5].sum())  # path_cover: runnable components
 
 
+_CHECKED = ("path_cover", "cycle_dfs")  # walks held on every call
+
+
 @contextlib.contextmanager
-def instrument_devgraph(kept: dict | None, ops: dict | None):
+def instrument_devgraph(kept: dict | None, ops: dict | None,
+                        calls: list | None = None):
     """While active: keep, per walk, a copy of the inputs of its card call
     with the most work (`kept`); count the calls of the _OP_COUNTED
-    functions and the aten ops they dispatch (`ops`)."""
+    functions and the aten ops they dispatch (`ops`); append a copy of the
+    inputs and outputs of every card call of the _CHECKED walks to `calls`
+    (on the caller's stream, from any thread), for check_walk_calls."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -676,15 +803,21 @@ def instrument_devgraph(kept: dict | None, ops: dict | None):
     real_w = {n: getattr(walks, n) for n in _WALKS}
     real_s = {n: getattr(stages, n) for n in _OP_COUNTED}
 
+    def copy(x):
+        return _tree(x, lambda t: t.clone() if torch.is_tensor(t) else t)
+
     def wrap_walk(n):
         def f(*a, **k):
             if kept is not None and a[0].is_cuda:
                 work = _walk_work(n, a)
                 if n not in kept or kept[n][0] < work:
-                    kept[n] = (work, _tree(list(a), lambda x: x.clone()
-                                           if torch.is_tensor(x) else x),
-                               dict(k))
-            return real_w[n](*a, **k)
+                    kept[n] = (work, copy(list(a)), dict(k))
+            out = real_w[n](*a, **k)
+            if calls is not None and n in _CHECKED and a[0].is_cuda:
+                calls.append((n, copy(list(a)), dict(k),
+                              copy(out) if not isinstance(out, dict) else
+                              {key: v.clone() for key, v in out.items()}))
+            return out
         return f
 
     def wrap_op(n):
@@ -710,6 +843,31 @@ def instrument_devgraph(kept: dict | None, ops: dict | None):
             setattr(walks, n, f)
         for n, f in real_s.items():
             setattr(stages, n, f)
+
+
+def check_walk_calls(calls: list, case: str) -> dict:
+    """Each captured card call of path_cover or cycle_dfs against the plain
+    version on its own inputs, bit for bit; returns {walk: {calls,
+    mismatches}} and raises on a mismatch. Empties `calls`."""
+    import torch
+
+    from lancet_tpu_torch.gpu import pipeline, stages
+
+    torch.cuda.synchronize()
+    res = {n: {"calls": 0, "mismatches": 0} for n in _CHECKED}
+    while calls:
+        n, args, kw, got = calls.pop(0)
+        if n == "path_cover":
+            want = pipeline.path_cover_plain(*args, **kw)
+            bad = sum(int((got[k] != want[k]).sum()) for k in want)
+        else:
+            bad = int((got != stages.cycle_dfs_plain(*args, **kw)).sum())
+        res[n]["calls"] += 1
+        res[n]["mismatches"] += int(bad > 0)
+    if any(r["mismatches"] for r in res.values()):
+        raise AssertionError(f"{case}: a walk kernel disagrees with its "
+                             f"plain version: {res}")
+    return res
 
 
 def run_devgraph(workdir: str, region: str, stats: dict, num_threads=8,
@@ -801,11 +959,47 @@ def _narrow(x):
     return x.to(torch.int32) if x.dtype == torch.int64 else x
 
 
-def walk_case(name: str, args, kw: dict, rate: dict) -> dict:
+def smem_latency_ns() -> dict:
+    """The latency of one dependent shared-memory load on this card: the
+    probe kernel of csrc/walks.cu (one thread chasing a ring in shared
+    memory) timed at two chain lengths with CUDA events; the slope is ns a
+    load, free of the launch's own time."""
+    import ctypes
+
+    import torch
+
+    from lancet_tpu_torch.gpu import walks
+
+    lib = walks._load()
+    lib.smem_chase.restype = ctypes.c_int
+    lib.smem_chase.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                               ctypes.c_void_p]
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def chase(n):
+        rc = lib.smem_chase(n, out.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"smem_chase launch failed: CUDA error {rc}")
+
+    chase(CHASE_STEPS[0])  # warm up
+    lo, hi = (statistics.median(cuda_times(lambda n=n: chase(n), 5))
+              for n in CHASE_STEPS)
+    return {"ns_per_load": (hi - lo) * 1e6 / (CHASE_STEPS[1]
+                                                - CHASE_STEPS[0]),
+            "ms": {str(n): t for n, t in zip(CHASE_STEPS, (lo, hi))},
+            "source": "csrc/walks.cu smem_chase_kernel, this run"}
+
+
+def walk_case(name: str, args, kw: dict, rate: dict, chase: dict) -> dict:
     """One walk kernel on inputs captured from the devgraph runs: its
     outputs bit-equal to the plain version on the card, then timed beside
     it (CUDA events; the kernel's wrapper on int32/byte inputs, so the
-    launch and the widening of its outputs) and the card's bound."""
+    launch and the widening of its outputs) and by the kernel's own
+    device time (torch.profiler), the card's bound, and the
+    chain floor: the walk's longest serial chain on this data (counted by
+    the plain version) x WALK_CHAIN_LOADS x the measured latency of a
+    dependent shared-memory load."""
     import torch
 
     from lancet_tpu_torch.gpu import pipeline, stages, walks
@@ -840,6 +1034,7 @@ def walk_case(name: str, args, kw: dict, rate: dict) -> dict:
                              f"{err} outputs")
     narrow = _tree(list(args), _narrow)
     ms = spread(cuda_times(lambda: fn(*narrow, **kw), *KERNEL_REPS))
+    dev_ms = device_ms(lambda: fn(*narrow, **kw), _KERNEL_NAMES[kname])
     plain_ms = spread(cuda_times(plain, WALK_PLAIN_REPS))
 
     # bytes: each input element the walk reads on this data, once (int32,
@@ -857,6 +1052,8 @@ def walk_case(name: str, args, kw: dict, rate: dict) -> dict:
                   + 4 * W + 5 * W * C  # numcomp, runnable, reflens
                   + 4 * W * J * PN + 8 * W * J + 5 * W)  # the outputs
         units = counts["pops"]
+        # one warp walks a window's components in turn
+        chain = int(counts["lanes"]["pops"].max())
     elif name == "seq_removal":
         slots, nbr = args[0], args[1]
         W, NI, D2 = nbr.shape
@@ -868,32 +1065,41 @@ def walk_case(name: str, args, kw: dict, rate: dict) -> dict:
         nbytes = (12 * n_slots + (4 * D2 + (5 if links else 0)) * kills
                   + (4 * W if links else 0) + W * NI)
         units = n_slots
+        chain = int((slots >= 0).sum(dim=1).max())  # a window's sweep
     elif name == "almost_repeat":
         seq, lens = args[0], args[1]
         W, J, LP = seq.shape
         nbytes = int(lens.clamp(0, LP).sum()) + 5 * W * J
         K = args[2]
-        units = 0
+        units = chain = 0
         for n, hit in zip(lens.reshape(-1).tolist(),
                           got.reshape(-1).tolist()):
             maxp = n - K - 1
             if hit:
                 units += K + 1  # one window compared at the least
+                chain = max(chain, K + 1)
             elif maxp > 0:
                 units += sum(K + 1 + 2 * (maxp - d)
                              for d in range(1, maxp + 1))
+                # a thread a shift: thread 0 scans d = 1, 257, ...
+                chain = max(chain, sum(K + 1 + 2 * (maxp - d)
+                                       for d in range(1, maxp + 1, 256)))
     else:
         W, C = args[0].shape[0], args[6]
         nbytes = (4 * seen("adj") + 4 * seen("e_dir") + 4 * seen("e_dst")
                   + seen("special") + 3 * W * C)  # alive, lane_mask, flags
         units = counts["steps"]
+        # a window's components walk side by side, one warp each
+        chain = int(counts["lanes"]["steps"].max())
     nops = WALK_OPS[kname] * units
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": nops / rate["int_ops_per_s"] * 1e3}
+    chain_ms = chain * WALK_CHAIN_LOADS[kname] * chase["ns_per_load"] / 1e6
     return {"name": kname, "shape": list(args[0].shape),
             "work_units": units, "tolerance": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound": bound,
-            "bytes": nbytes, "int_ops": nops}
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound": bound, "chain_units": chain, "chain_loads": WALK_CHAIN_LOADS[kname],
+            "chain_floor_ms": chain_ms, "bytes": nbytes, "int_ops": nops}
 
 
 def mesh_main_case(workdir: str, region: str, mesh, case: str, vcf: str,
@@ -940,14 +1146,20 @@ def mesh_main_case(workdir: str, region: str, mesh, case: str, vcf: str,
 
 def mesh_devgraph_case(workdir: str, n: int, vcf_g: str, summary_g: str,
                        st_g: dict, sums_g: dict) -> dict:
-    """(b) Device-graph case 1 with its windows over n entries of cuda:0."""
+    """(b) Device-graph case 1 with its windows over n entries of cuda:0;
+    every path_cover and cycle_dfs call held against its plain version
+    after the run (its inputs and outputs copied during it, so t_devgraph
+    includes the copies)."""
     from lancet_tpu_torch.parallel.mesh import make_mesh
 
     st: dict = {}
+    calls: list = []
     reset_counts()
-    v, summ = run_devgraph(workdir, DEVGRAPH_REGION, st,
-                           mesh=make_mesh(devices=["cuda:0"] * n))
+    with instrument_devgraph(None, None, calls):
+        v, summ = run_devgraph(workdir, DEVGRAPH_REGION, st,
+                               mesh=make_mesh(devices=["cuda:0"] * n))
     launches = launch_counts()
+    checked = check_walk_calls(calls, f"devgraph over {n} shards")
     same = {k: st[k] == st_g[k] for k in ("n_dev_windows",
                                            "dev_fallback_causes",
                                            "k_histogram")}
@@ -959,7 +1171,8 @@ def mesh_devgraph_case(workdir: str, n: int, vcf_g: str, summary_g: str,
                                 "t_dg_assemble", "t_dp", "n_dev_windows",
                                 "n_dev_attempts", "dev_fallback_causes")},
           "mesh_counters": st["mesh_counters"], "unsharded_sums": sums_g,
-          "launches": launches, "stats_equal_unsharded": same,
+          "launches": launches, "walk_calls_checked": checked,
+          "stats_equal_unsharded": same,
           "vcf_equal_unsharded": v == vcf_g,
           "summary_equal_unsharded": summ == summary_g})
     if v != vcf_g or summ != summary_g or not all(same.values()):
@@ -1242,10 +1455,29 @@ def main() -> int:
         raise AssertionError(f"main path produced {n_rec} records from "
                              f"{st['n_dp']} DP pairs")
     if launches["gotoh_align_smem"] != len(groups) or launches[
-            "gotoh_align_global"] != 0:
+            "gotoh_align_global"] + launches["gotoh_align_strips"] != 0:
         raise AssertionError(f"gotoh_align launches {launches} on the main "
                              f"path for {len(groups)} DP groups (one "
                              "shared-memory launch each expected)")
+
+    # 4b. the main path at --window-size 9,000: a region of the default
+    # corpus (its reads come in 2 kb segments, so no DP pair there passes
+    # 2 kb, whatever the window size), then the long-window corpus, whose
+    # DP pairs pass 8,192 bases and take gotoh_align's strip mode
+    from lancet_tpu_torch.gpu import gotoh
+
+    longdir = os.path.join(HERE, "build", "smoke_long")
+    os.makedirs(longdir, exist_ok=True)
+    refseq_l, tumor_l, normal_l, long_region = corpus.long_window_corpus()
+    corpus.write_pair(longdir, refseq_l, "chr1", tumor_l, normal_l)
+    long_default = long_window_case("default_region", workdir,
+                                    LONG_DEFAULT_REGION)
+    long_corpus = long_window_case("long_corpus", longdir, long_region)
+    if (long_corpus["largest_N"] <= gotoh.STRIP_ROWS
+            or long_corpus["launches"]["gotoh_align_strips"] < 1):
+        raise AssertionError(f"the long-window corpus's largest N "
+                             f"{long_corpus['largest_N']} took no strip "
+                             f"launch: {long_corpus['launches']}")
 
     # 5. the two-phase process pool on the same corpus
     st_e: dict = {}
@@ -1312,8 +1544,10 @@ def main() -> int:
     kept: dict = {}
     st_g2: dict = {}
     sums_g: dict = {}  # the attempt outputs' counters, for phase mesh
-    with instrument_devgraph(kept, None), sum_attempts(sums_g):
+    calls: list = []
+    with instrument_devgraph(kept, None, calls), sum_attempts(sums_g):
         vcf_g2, _ = run_devgraph(workdir, DEVGRAPH_REGION, st_g2)
+    checked_g = check_walk_calls(calls, "devgraph case 1")
     busy = profile_devgraph(workdir, DEVGRAPH_REGION, st_g["t_total"])
     got_stats = {k: st_g[k] for k in DEVGRAPH_STATS}
     dkeys = ("t_total", "t_pipeline", "t_host", "t_unpack", "t_devgraph",
@@ -1325,7 +1559,7 @@ def main() -> int:
           "region": DEVGRAPH_REGION, "num_threads": 8,
           "windows_per_s": st_g["n_windows"] / st_g["t_total"],
           **{k: st_g[k] for k in dkeys}, **got_stats,
-          "launches": launches_g,
+          "launches": launches_g, "walk_calls_checked": checked_g,
           "second_run_t_total": st_g2["t_total"], "device_busy": busy,
           "native_main_path": {"windows_per_s": st_n["n_windows"]
                                / st_n["t_total"], "t_total": st_n["t_total"]},
@@ -1353,16 +1587,18 @@ def main() -> int:
     st_a: dict = {}
     ops: dict = {}
     reset_counts()
-    with instrument_devgraph(kept, ops):
+    with instrument_devgraph(kept, ops, calls):
         vcf_a, summary_a = run_devgraph(advdir, adv_region, st_a,
                                         num_threads=2)
     launches_a = launch_counts()
+    checked_a = check_walk_calls(calls, "devgraph case 2")
     emit({"phase": "devgraph", "case": "adversarial", "region": adv_region,
           "itd_events": list(corpus.ITD_EVENTS), "num_threads": 2,
           **{k: st_a[k] for k in ("t_total", "n_windows", "n_dev_windows",
                                   "n_dev_fallback", "dev_fallback_causes",
                                   "k_histogram")},
-          "launches": launches_a, "torch_op_functions": ops,
+          "launches": launches_a, "walk_calls_checked": checked_a,
+          "torch_op_functions": ops,
           "cycle_dfs_flagged_components": kept.get("cycle_dfs", (0,))[0],
           "vcf_equal_native": vcf_a == vcf_an,
           "summary_equal_native": summary_a == summary_an})
@@ -1375,10 +1611,12 @@ def main() -> int:
         raise AssertionError(f"a walk kernel did not launch, or no "
                              f"component reached the cycle replay: "
                              f"{walk_launches}")
+    chase = smem_latency_ns()
+    emit({"phase": "kernels", "case": "smem_latency", **chase})
     wres = {}
     for name in _WALKS:
         _, args, kw = kept[name]
-        wres[name] = walk_case(name, args, kw, rate)
+        wres[name] = walk_case(name, args, kw, rate, chase)
         emit({"phase": "kernels", "case": f"devgraph_{_WALKS[name]}",
               **wres[name]})
 
@@ -1417,12 +1655,48 @@ def main() -> int:
     emit({"phase": "kernels", "case": "large_global", **large})
     if large["mode"] != "global":
         raise AssertionError(f"the large group took mode {large['mode']}")
+    long_ref = kernel_phase(long_pairs(), rate, LONG_PLAIN_REPS)
+    emit({"phase": "kernels", "case": "long_ref", **long_ref})
+    if long_ref["mode"] != "strips":
+        raise AssertionError(f"long_ref took mode {long_ref['mode']}")
+
+    # the two staged walks on the crafted cases, each staging mode
+    from lancet_tpu_torch.gpu import walkcases, walks
+
+    crafted = {}
+    for name, c in walkcases.cycle_cases().items():
+        got = walkcases.run_cycle(c, "cuda")
+        want = walkcases.run_cycle(c)
+        crafted[f"cycle_dfs/{name}"] = {
+            "mode": walks.cycle_dfs_plan(c["NI"], c["D2"],
+                                         c["e_src"].shape[1],
+                                         c["Cmax"]).mode,
+            "mismatches": sum(int((g.cpu() != w).sum())
+                              for g, w in zip(got, want))}
+    for name, c in walkcases.path_cover_cases().items():
+        got = walkcases.run_cover(c, "cuda")
+        want = walkcases.run_cover(c)
+        cp = c["caps"]
+        crafted[f"path_cover/{name}"] = {
+            "mode": walks.path_cover_plan(c["NI"], cp["D2"],
+                                          c["st"]["e_src"].shape[1],
+                                          cp["Q"], cp["PN"]).mode,
+            "mismatches": sum(int((got[k].cpu() != want[k]).sum())
+                              for k in want)}
+    emit({"phase": "kernels", "case": "walks_crafted", "tolerance": 0,
+          "cases": crafted})
+    if any(r["mismatches"] for r in crafted.values()):
+        raise AssertionError(f"a staged walk disagrees with its plain "
+                             f"version on a crafted case: {crafted}")
 
     def mean(vals):
         return sum(vals) / len(vals)
 
     def by_path(name):
-        return {"main_path": launches[name], "engine_path": launches_e[name],
+        return {"main_path": launches[name],
+                "long_window": long_default["launches"][name]
+                + long_corpus["launches"][name],
+                "engine_path": launches_e[name],
                 "fallback_replay": replay[name],
                 "devgraph": launches_g[name] + launches_a[name],
                 "mesh": sum(lm[name] for lm in launches_m),
@@ -1430,9 +1704,11 @@ def main() -> int:
                 "gates_switch": launches_d[name]}
 
     line = []
-    for mode, cases in (("smem", kres), ("global", [large])):
+    for mode, cases in (("smem", kres), ("global", [large]),
+                        ("strips", [long_ref])):
         # per launch, averaged over the cases: the main path's DP groups
-        # for the shared mode, the large seeded group for the global mode
+        # for the shared mode, the large seeded group for the global mode,
+        # long_ref for the strip mode (whose path is long_window's)
         bnd = {k: mean([r["bound"][k] for r in cases])
                for k in ("bytes", "operations")}
         by = max(bnd, key=bnd.get)
@@ -1441,7 +1717,9 @@ def main() -> int:
             "source": "lancet_tpu_torch/csrc/gotoh.cu",
             "replaces": "lancet_tpu/tpu/pallas_gotoh.py:113",
             "also_replaces": "lancet_tpu/tpu/align_batch.py:143",
-            "launches": launches[f"gotoh_align_{mode}"],
+            "launches": (long_corpus["launches"]["gotoh_align_strips"]
+                         if mode == "strips" else
+                         launches[f"gotoh_align_{mode}"]),
             "launches_by_path": by_path(f"gotoh_align_{mode}"),
             "on_main_path": mode == "smem",
             "max_abs_err": max(r["max_abs_err"] for r in cases),
@@ -1472,7 +1750,8 @@ def main() -> int:
             "launches_by_path": by_path(kname), "on_main_path": False,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"]["median"],
             "plain_ms": r["plain_ms"]["median"], "bound_ms": r["bound"][by],
-            "bound_by": by, "library_ms": None})
+            "bound_by": by, "device_ms": r["device_ms"],
+            "chain_floor_ms": r["chain_floor_ms"], "library_ms": None})
     emit({"kernels": line, "t_smoke": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -178,6 +178,24 @@ def write_default_corpus(dirpath: str, chrom_len: int = CHROM_LEN) -> str:
     return f"chr1:300-{chrom_len - 300}"
 
 
+LONG_CHROM = 9800
+
+
+def long_window_corpus(seed: int = 5):
+    """One 9.8 kb chromosome with reads tiled over all of it (~20x each
+    sample, no segment edges, unlike the default corpus's 2 kb segments)
+    and a 4 bp somatic deletion in its middle: at --window-size 9,000 the
+    paths of its windows span ~9 kb, so its DP pairs pass 8,192 bases.
+    Returns (refseq, tumor, normal, region); the region gives 4 windows."""
+    refseq = make_reference(LONG_CHROM, seed=seed)
+    edit = ("d", LONG_CHROM // 2, 4)
+    tumor = hap_reads(refseq, edit, 0, LONG_CHROM, READ_LEN, STEP, "t", 0.5,
+                      seed + 6)
+    normal = hap_reads(refseq, None, 0, LONG_CHROM, READ_LEN, STEP, "n", 0,
+                       seed + 7)
+    return refseq, tumor, normal, "chr1:500-9300"
+
+
 def repeat_windows(seed: int = 13, n: int = 48) -> list[str]:
     """Adversarial windows for the repeat gates: lengths 0, 1, 2, 5 and 12,
     then lengths up to 600; random sequence (with N and a lowercase base)

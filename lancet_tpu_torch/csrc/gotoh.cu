@@ -43,6 +43,15 @@
 //    take the same kernel with kGlobal: the words go to a scratch buffer in
 //    device memory that the wrapper allocates, chosen by shape before the
 //    launch (gpu/gotoh.py::plan).
+//    A block holds at most 8,192 rows (32 a thread x 256 threads). Larger
+//    N, or shapes whose shared-memory staging does not fit, take the strip
+//    mode (kStrips): the block fills its rows in strips of 8,192, one after
+//    the other. Each strip's last row (M and X of every column: all that
+//    the next row reads from it) goes to a scratch row of M+1 entries in
+//    device memory, and the next strip's first row reads it in place of
+//    row 0's boundary. The codes of every strip stay in device memory for
+//    the traceback; T's characters are read from device memory and the
+//    ops written straight to it, so no shared buffer grows with N or M.
 // 2. Fills with a register-resident striped wavefront. Thread t owns rows
 //    t*R+1 .. t*R+R (R a template parameter: the fewest rows that keep the
 //    block within 4 warps, one per scheduler of the SM) and keeps their M
@@ -118,25 +127,30 @@ __host__ __device__ constexpr int code_rows(int N, int R) {
 
 // Byte offsets of the dynamic shared memory: the code words (shared mode
 // only; word w of row i at (w * code_rows + i - 1) * 4), the rings between
-// warps, T's characters, the staged ops and the op count.
-// gpu/gotoh.py::smem_bytes computes the same total.
+// warps, T's characters and the staged ops (neither in the strip mode),
+// and the op count. gpu/gotoh.py::smem_bytes and strip_smem_bytes compute
+// the same totals.
 struct Layout {
   size_t ring, ts, ops, count, total;
 };
 
 __host__ __device__ inline Layout layout(int N, int M, int R, int threads,
-                                         bool global_codes) {
+                                         bool global_codes,
+                                         bool strips = false) {
   const size_t wpr = (static_cast<size_t>(M) + 7) / 8;
   Layout L;
   L.ring = global_codes ? 0 : round16(code_rows(N, R) * wpr * 4);
   L.ts = L.ring + round16(static_cast<size_t>(threads / 32 - 1) * kRing * 8);
-  L.ops = L.ts + round16(static_cast<size_t>(M) + 1);
-  L.count = L.ops + round16(static_cast<size_t>(N) + M);
+  L.ops = L.ts + (strips ? 0 : round16(static_cast<size_t>(M) + 1));
+  L.count = L.ops + (strips ? 0 : round16(static_cast<size_t>(N) + M));
   L.total = L.count + 16;
   return L;
 }
 
-template <int R, bool kGlobal>
+// The strip mode's rows a strip: 32 rows a thread x 256 threads.
+constexpr int kStripRows = 32 * 256;
+
+template <int R, bool kGlobal, bool kStrips = false>
 __global__ void __launch_bounds__(R < 32 ? 128 : 256)
     gotoh_align_kernel(const uint8_t* __restrict__ S,
                        const uint8_t* __restrict__ T,
@@ -146,124 +160,148 @@ __global__ void __launch_bounds__(R < 32 ? 128 : 256)
                        int32_t* __restrict__ count, uint32_t* scratch, int N,
                        int M) {
   extern __shared__ __align__(16) uint8_t sh[];
-  const Layout L = layout(N, M, R, blockDim.x, kGlobal);
+  const Layout L = layout(N, M, R, blockDim.x, kGlobal, kStrips);
   const int p = blockIdx.x;
   const int n = n_len[p];
   const int m = m_len[p];
   const int nr = code_rows(N, R);
+  const size_t wpr = (M + 7) >> 3;
   // code of cell (i, j): word ((j-1) / 8) * nr + i-1, nibble (j-1) % 8
-  uint32_t* codes =
-      kGlobal ? scratch + static_cast<size_t>(p) * nr * ((M + 7) >> 3)
-              : reinterpret_cast<uint32_t*>(sh);
+  uint32_t* codes = kGlobal ? scratch + static_cast<size_t>(p) * nr * wpr
+                            : reinterpret_cast<uint32_t*>(sh);
+  // strip mode: the last row of the strip before, (M, X) at columns 0..M,
+  // one row a pair after all pairs' codes
+  int2* edge = kStrips ? reinterpret_cast<int2*>(
+                             scratch + static_cast<size_t>(gridDim.x) * nr *
+                                           wpr) +
+                             static_cast<size_t>(p) * (M + 1)
+                       : nullptr;
   int2* ring = reinterpret_cast<int2*>(sh + L.ring);
   uint8_t* Ts = sh + L.ts;
-  uint8_t* op_s = sh + L.ops;
+  uint8_t* out = ops + static_cast<size_t>(p) * (N + M);
+  // the op codes are staged in shared memory, or go straight out
+  uint8_t* op_s = kStrips ? out : sh + L.ops;
   int* k_s = reinterpret_cast<int*>(sh + L.count);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int w = tid >> 5;
   const uint8_t* Tp = T + static_cast<size_t>(p) * (M + 1);
-  for (int j = tid; j <= m; j += blockDim.x) Ts[j] = Tp[j];
-
-  // ---- fill ----
-  const int i0 = tid * R + 1;  // first row of this thread
-  const bool owns = i0 <= N;   // its rows have code words
-  // warps that own a row <= n; the rest only keep the barriers
-  const int weff = (n > 0 && m > 0) ? ((n + R - 1) / R + 31) >> 5 : 0;
-  const int phases =
-      weff ? weff - 1 + (m + 32 * weff + kTile - 1) / kTile : 0;
-  int s_ch[R], Ml[R], Yl[R];
-  uint32_t acc[R];
-  const uint8_t* Sp = S + static_cast<size_t>(p) * (N + 1);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = i0 + r;
-    s_ch[r] = i <= n ? Sp[i] : 0;
-    Ml[r] = kGO + i * kGE;  // M(i, 0)
-    Yl[r] = kGO + i * kGE;  // Y(i, 0)
-    acc[r] = 0;
+  if constexpr (!kStrips) {
+    for (int j = tid; j <= m; j += blockDim.x) Ts[j] = Tp[j];
   }
-  // M(i0-1, 0): the diagonal of the first row's first column
-  int diag_top = i0 == 1 ? 0 : kGO + (i0 - 1) * kGE;
-  int outM = 0, outX = 0;  // M and X of the bottom row, last column
-  const int2* ring_in = ring + (w > 0 ? w - 1 : 0) * kRing;
-  int2* ring_out = ring + w * kRing;
-  const bool to_ring = lane == 31 && w + 1 < weff;
-  __syncthreads();
+  const uint8_t* Sp = S + static_cast<size_t>(p) * (N + 1);
 
-  for (int ph = 0; ph < phases; ++ph) {
-    if (w < weff) {
-      const int s0 = (ph - w) * kTile - 32 * w;
-      const int hi = min(s0 + kTile, m + 32);
-      for (int s = max(s0, 1); s < hi; ++s) {
-        const int j = s - lane;
-        int upM = __shfl_up_sync(0xffffffffu, outM, 1);
-        int upX = __shfl_up_sync(0xffffffffu, outX, 1);
-        if (j < 1 || j > m) continue;
-        // lane 0 takes the row above from warp w-1's ring, or row 0, where
-        // M and X are GAP_OPEN + j * GAP_EXTEND; every lane reads lane 0's
-        // slot, so the read needs no branch
-        const int2 v = w > 0 ? ring_in[s & (kRing - 1)]
-                             : make_int2(kGO + j * kGE, kGO + j * kGE);
-        upM = lane == 0 ? v.x : upM;
-        upX = lane == 0 ? v.y : upX;
-        const int tj = Ts[j];
-        int dM = diag_top;  // M(i-1, j-1) of the thread's first row
-        diag_top = upM;
+  // ---- fill: one strip of rows (several in strip mode, in turn) ----
+  for (int r0 = 0; r0 < (kStrips ? n : 1); r0 += kStripRows) {
+    const int i0 = r0 + tid * R + 1;  // first row of this thread
+    const bool owns = i0 <= N;        // its rows have code words
+    // warps that own a row <= n; the rest only keep the barriers
+    const int ns = kStrips ? min(n - r0, kStripRows) : n;
+    const int weff = (ns > 0 && m > 0) ? ((ns + R - 1) / R + 31) >> 5 : 0;
+    const int phases =
+        weff ? weff - 1 + (m + 32 * weff + kTile - 1) / kTile : 0;
+    int s_ch[R], Ml[R], Yl[R];
+    uint32_t acc[R];
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          // X consumes S, from (i-1, j); Y consumes T, from (i, j-1). The
-          // chain from row to row is three instructions: xo, x, mc.
-          const int xo = upM + kGO;
-          const int x = __viaddmax_s32(upX, kGE, xo);
-          const int xb = __viaddmax_s32(upX, kGE, xo + 1);  // bit 0: opened
-          const int y = __viaddmax_s32(Yl[r], kGE, Ml[r] + kGO + 1);
-          const int yc = y & kClean;
-          const int sub = dM + (s_ch[r] == tj ? kSubMatch : kSubMismatch);
-          const int mc = __vimax3_s32(sub, x, yc);
-          const int mt = __vimax3_s32(sub + kTagDiag, x + kTagLeft, yc);
-          acc[r] = __funnelshift_r(acc[r], y, 1);   // Y opened
-          acc[r] = __funnelshift_r(acc[r], xb, 1);  // X opened
-          acc[r] = __funnelshift_r(acc[r], mt, 2);  // M's tag
-          dM = Ml[r];
-          Ml[r] = mc;
-          Yl[r] = yc;
-          upM = mc;
-          upX = x;
-        }
-        outM = upM;
-        outX = upX;
-        if (to_ring) ring_out[j & (kRing - 1)] = make_int2(upM, upX);
-        if (((j - 1) & 7) == 7 && owns) {
-          uint32_t* dst = codes + ((j - 1) >> 3) * nr + i0 - 1;
-          if constexpr (R % 4 == 0) {
+    for (int r = 0; r < R; ++r) {
+      const int i = i0 + r;
+      s_ch[r] = i <= n ? Sp[i] : 0;
+      Ml[r] = kGO + i * kGE;  // M(i, 0)
+      Yl[r] = kGO + i * kGE;  // Y(i, 0)
+      acc[r] = 0;
+    }
+    // M(i0-1, 0): the diagonal of the first row's first column
+    int diag_top = i0 == 1 ? 0 : kGO + (i0 - 1) * kGE;
+    int outM = 0, outX = 0;  // M and X of the bottom row, last column
+    const int2* ring_in = ring + (w > 0 ? w - 1 : 0) * kRing;
+    int2* ring_out = ring + w * kRing;
+    const bool to_ring = lane == 31 && w + 1 < weff;
+    // strip mode: the strip's last row goes to `edge` when a strip follows
+    // (in each phase warp 0 reads columns that the last warp reaches only
+    // 22 or more phases later, so the one row suffices), and the row above
+    // a later strip's first row comes from it
+    const bool to_edge =
+        kStrips && tid == blockDim.x - 1 && r0 + kStripRows < n;
+    const bool from_edge = kStrips && r0 > 0;
+    __syncthreads();
+
+    for (int ph = 0; ph < phases; ++ph) {
+      if (w < weff) {
+        const int s0 = (ph - w) * kTile - 32 * w;
+        const int hi = min(s0 + kTile, m + 32);
+        for (int s = max(s0, 1); s < hi; ++s) {
+          const int j = s - lane;
+          int upM = __shfl_up_sync(0xffffffffu, outM, 1);
+          int upX = __shfl_up_sync(0xffffffffu, outX, 1);
+          if (j < 1 || j > m) continue;
+          // lane 0 takes the row above from warp w-1's ring, or row 0, where
+          // M and X are GAP_OPEN + j * GAP_EXTEND (or the strip before's
+          // last row); every lane reads lane 0's slot, so the read needs no
+          // branch
+          const int2 v = w > 0       ? ring_in[s & (kRing - 1)]
+                         : from_edge ? edge[j]
+                                     : make_int2(kGO + j * kGE, kGO + j * kGE);
+          upM = lane == 0 ? v.x : upM;
+          upX = lane == 0 ? v.y : upX;
+          const int tj = kStrips ? Tp[j] : Ts[j];
+          int dM = diag_top;  // M(i-1, j-1) of the thread's first row
+          diag_top = upM;
 #pragma unroll
-            for (int q = 0; q < R; q += 4)
-              *reinterpret_cast<uint4*>(dst + q) =
-                  make_uint4(acc[q], acc[q + 1], acc[q + 2], acc[q + 3]);
-          } else if constexpr (R % 2 == 0) {
+          for (int r = 0; r < R; ++r) {
+            // X consumes S, from (i-1, j); Y consumes T, from (i, j-1). The
+            // chain from row to row is three instructions: xo, x, mc.
+            const int xo = upM + kGO;
+            const int x = __viaddmax_s32(upX, kGE, xo);
+            const int xb = __viaddmax_s32(upX, kGE, xo + 1);  // bit 0: opened
+            const int y = __viaddmax_s32(Yl[r], kGE, Ml[r] + kGO + 1);
+            const int yc = y & kClean;
+            const int sub = dM + (s_ch[r] == tj ? kSubMatch : kSubMismatch);
+            const int mc = __vimax3_s32(sub, x, yc);
+            const int mt = __vimax3_s32(sub + kTagDiag, x + kTagLeft, yc);
+            acc[r] = __funnelshift_r(acc[r], y, 1);   // Y opened
+            acc[r] = __funnelshift_r(acc[r], xb, 1);  // X opened
+            acc[r] = __funnelshift_r(acc[r], mt, 2);  // M's tag
+            dM = Ml[r];
+            Ml[r] = mc;
+            Yl[r] = yc;
+            upM = mc;
+            upX = x;
+          }
+          outM = upM;
+          outX = upX;
+          if (to_ring) ring_out[j & (kRing - 1)] = make_int2(upM, upX);
+          if (to_edge) edge[j] = make_int2(upM, upX);
+          if (((j - 1) & 7) == 7 && owns) {
+            uint32_t* dst = codes + ((j - 1) >> 3) * nr + i0 - 1;
+            if constexpr (R % 4 == 0) {
 #pragma unroll
-            for (int q = 0; q < R; q += 2)
-              *reinterpret_cast<uint2*>(dst + q) =
-                  make_uint2(acc[q], acc[q + 1]);
-          } else {
+              for (int q = 0; q < R; q += 4)
+                *reinterpret_cast<uint4*>(dst + q) =
+                    make_uint4(acc[q], acc[q + 1], acc[q + 2], acc[q + 3]);
+            } else if constexpr (R % 2 == 0) {
 #pragma unroll
-            for (int q = 0; q < R; ++q) dst[q] = acc[q];
+              for (int q = 0; q < R; q += 2)
+                *reinterpret_cast<uint2*>(dst + q) =
+                    make_uint2(acc[q], acc[q + 1]);
+            } else {
+#pragma unroll
+              for (int q = 0; q < R; ++q) dst[q] = acc[q];
+            }
           }
         }
       }
+      __syncthreads();
+    }
+    // the last, partial code word of each row
+    if (w < weff && owns && ((m - 1) & 7) != 7) {
+      const int shift = 4 * (7 - ((m - 1) & 7));
+      uint32_t* dst = codes + ((m - 1) >> 3) * nr + i0 - 1;
+#pragma unroll
+      for (int r = 0; r < R; ++r) dst[r] = acc[r] >> shift;
     }
     __syncthreads();
   }
-  // the last, partial code word of each row
-  if (w < weff && owns && ((m - 1) & 7) != 7) {
-    const int shift = 4 * (7 - ((m - 1) & 7));
-    uint32_t* dst = codes + ((m - 1) >> 3) * nr + i0 - 1;
-#pragma unroll
-    for (int r = 0; r < R; ++r) dst[r] = acc[r] >> shift;
-  }
-  __syncthreads();
 
   // ---- traceback: the forced-gap state machine, from (n, m) to (0, 0) ----
   // The next step's cell is (i-1, j), (i, j-1) or (i-1, j-1); their words
@@ -299,16 +337,20 @@ __global__ void __launch_bounds__(R < 32 ? 128 : 256)
   }
   __syncthreads();
   const int k = *k_s;
-  uint8_t* out = ops + static_cast<size_t>(p) * (N + M);
-  for (int q = tid; q < N + M; q += blockDim.x) out[q] = q < k ? op_s[q] : 0;
+  if constexpr (kStrips) {
+    for (int q = k + tid; q < N + M; q += blockDim.x) out[q] = 0;
+  } else {
+    for (int q = tid; q < N + M; q += blockDim.x)
+      out[q] = q < k ? op_s[q] : 0;
+  }
   if (tid == 0) count[p] = k;
 }
 
-template <int R, bool kGlobal>
+template <int R, bool kGlobal, bool kStrips = false>
 int launch(const void* S, const void* T, const void* n_len, const void* m_len,
            void* ops, void* count, void* scratch, int P, int N, int M,
            int threads, size_t smem, cudaStream_t stream) {
-  auto* kern = gotoh_align_kernel<R, kGlobal>;
+  auto* kern = gotoh_align_kernel<R, kGlobal, kStrips>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -366,6 +408,22 @@ int gotoh_align(const void* S, const void* T, const void* n_len,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef GOTOH_LAUNCH
+}
+
+// The strip mode, for any N and M: 32 rows a thread, 256 threads, the rows
+// filled in strips of 8,192; scratch holds every pair's code words (P *
+// code_rows(N, 32) * ceil(M/8) uint32) and then one edge row a pair (P *
+// (M+1) int2); smem must equal the strip layout's total.
+int gotoh_align_strips(const void* S, const void* T, const void* n_len,
+                       const void* m_len, void* ops, void* count,
+                       void* scratch, int P, int N, int M, size_t smem,
+                       void* stream) {
+  if (P < 1 || N < 1 || M < 1 || scratch == nullptr ||
+      smem != layout(N, M, 32, 256, true, true).total)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<32, true, true>(S, T, n_len, m_len, ops, count, scratch, P,
+                                N, M, 256, smem,
+                                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -29,7 +29,9 @@
 // degrees, colours), give the parallel part of a step to the lanes of a
 // warp (K1: one lane per adjacency slot, a ballot and popc giving the FIFO
 // order of the JAX cumsum; K2: the neighbour-degree decrements of a kill),
-// and run many windows side by side, one block each.
+// and run many windows side by side, one block each. K1 and K4 also stage
+// the window's graph in shared memory before they walk, so that a step's
+// chain of dependent loads stays on the SM (see each kernel's note).
 //
 // Integer inputs are int32, booleans one byte each (0 or 1).
 
@@ -45,54 +47,95 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+__host__ __device__ constexpr size_t round16(size_t x) {
+  return (x + 15) / 16 * 16;
+}
+
 // ---------------------------------------------------------------------------
 // K1 path_cover: the best-new-edge eka/BFS path cover (ref Graph.cc:
-// 1299-1501). One warp per window. The per-window scalars (component, head,
-// tail, best entry) are uniform across the warp; lane l expands adjacency
-// slot l of the popped entry. Shared memory: the Q-entry queue (item, dir,
-// parent, edge, len, score, flag), the covered-edge bits and the parent
-// walk's hop buffer.
+// 1299-1501), replacing lancet_tpu/tpu/pipeline.py::path_cover (:310).
+//
+// What bounds it: the serial chain of its longest window, not bytes. A
+// window's rounds, each a BFS of up to POPMAX pops, run in order, and each
+// pop waits on the one before (the FIFO's head and tail). In the first
+// design each pop made three dependent round trips to device memory (the
+// adjacency row, then each edge's direction, then its destination and the
+// destination's special flag and merlen). This design stages the window's
+// graph in shared memory first, with the whole block (kStageThreads): per
+// adjacency slot one 8-byte word {edge id (-1: empty, or a direction
+// whose start bit is neither 0 nor 1, which never matches), destination
+// item << 2 | start bit << 1 | destination bit}, and per item its length
+// delta (special ? 1 - K : merlen). Then one warp walks, lane l expanding
+// slot l of the popped entry: a pop is a 16-byte shared load of the queue
+// entry {item << 2 | dir << 1 | flag, edge, len, parent + 1 << 16 |
+// score}, the lane's slot word, a ballot and popc giving the FIFO order of
+// the JAX cumsum, then the covered bit and the delta, all in shared
+// memory. Where the staged words do not fit next to the queue, they go to
+// a scratch buffer in device memory ("global" mode, gpu/walks.py::
+// path_cover_plan). Preconditions: adjacency entries are -1 or edge ids,
+// e_dst names items in [0, NI), Q <= 65535.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(32) path_cover_kernel(
+constexpr int kStageThreads = 256;  // a walk block: stages with all threads
+
+__global__ void __launch_bounds__(kStageThreads) path_cover_kernel(
     const int32_t* __restrict__ adj, const int32_t* __restrict__ e_dst,
     const int32_t* __restrict__ e_dir, const int32_t* __restrict__ merlen,
     const uint8_t* __restrict__ special, const uint8_t* __restrict__ runnable,
     const int32_t* __restrict__ numcomp, const int32_t* __restrict__ reflens,
     int32_t* __restrict__ sel_edges, int32_t* __restrict__ sel_hops,
     int32_t* __restrict__ sel_comp, int32_t* __restrict__ n_sel_out,
-    uint8_t* __restrict__ fb_out, int NI, int D2, int EE, int K, int N,
-    int Cmax, int dfs_limit, int max_indel, int Q, int POPMAX, int JMAX,
-    int PN) {
-  extern __shared__ int32_t sm[];
-  int32_t* qi = sm;
-  int32_t* qd = qi + Q;
-  int32_t* qp = qd + Q;
-  int32_t* qe = qp + Q;
-  int32_t* ql = qe + Q;
-  int32_t* qs = ql + Q;
-  uint32_t* cov = reinterpret_cast<uint32_t*>(qs + Q);
+    uint8_t* __restrict__ fb_out, int2* stage_g, int NI, int D2, int EE,
+    int K, int N, int Cmax, int dfs_limit, int max_indel, int Q, int POPMAX,
+    int JMAX, int PN) {
+  extern __shared__ __align__(16) uint8_t smb[];
   const int ncw = (EE + 31) / 32;
-  int32_t* hop = reinterpret_cast<int32_t*>(cov + ncw);
-  uint8_t* qf = reinterpret_cast<uint8_t*>(hop + PN);
-
+  int4* qe4 = reinterpret_cast<int4*>(smb);
+  uint32_t* cov = reinterpret_cast<uint32_t*>(smb + round16(Q * 16));
+  int32_t* hop = reinterpret_cast<int32_t*>(reinterpret_cast<uint8_t*>(cov) +
+                                            round16(ncw * 4));
+  uint8_t* staged = reinterpret_cast<uint8_t*>(hop) + round16(PN * 4);
   const int w = blockIdx.x;
-  const int lane = threadIdx.x;
-  const unsigned lt_mask = (1u << lane) - 1u;
-  const int32_t* adj_w = adj + static_cast<size_t>(w) * NI * D2;
+  const int tid = threadIdx.x;
+  const size_t nslot = static_cast<size_t>(NI) * D2;
+  if (stage_g != nullptr)
+    staged = reinterpret_cast<uint8_t*>(stage_g) +
+             static_cast<size_t>(w) * (nslot * 8 + round16(NI * 4));
+  int2* slot = reinterpret_cast<int2*>(staged);
+  int32_t* dl = reinterpret_cast<int32_t*>(staged + nslot * 8);
+
+  // ---- staging, the whole block ----
+  const int32_t* adj_w = adj + static_cast<size_t>(w) * nslot;
   const int32_t* dst_w = e_dst + static_cast<size_t>(w) * EE;
   const int32_t* dir_w = e_dir + static_cast<size_t>(w) * EE;
   const int32_t* ml_w = merlen + static_cast<size_t>(w) * NI;
   const uint8_t* sp_w = special + static_cast<size_t>(w) * NI;
+  for (int i = tid; i < NI; i += kStageThreads)
+    dl[i] = sp_w[i] ? 1 - K : ml_w[i];
+#pragma unroll 4
+  for (size_t j = tid; j < nslot; j += kStageThreads) {
+    const int e = adj_w[j];
+    int2 v = make_int2(-1, 0);
+    if (e >= 0) {
+      const int es = min(e, EE - 1);
+      const int ed = dir_w[es];
+      if ((ed >> 1) == 0 || (ed >> 1) == 1)
+        v = make_int2(e, clampi(dst_w[es], 0, NI - 1) << 2 | (ed & 3));
+    }
+    slot[j] = v;
+  }
   int32_t* se_w = sel_edges + static_cast<size_t>(w) * JMAX * PN;
-  for (int i = lane; i < JMAX * PN; i += 32) se_w[i] = -1;
-  for (int i = lane; i < JMAX; i += 32) {
+  for (int i = tid; i < JMAX * PN; i += kStageThreads) se_w[i] = -1;
+  for (int i = tid; i < JMAX; i += kStageThreads) {
     sel_hops[w * JMAX + i] = 0;
     sel_comp[w * JMAX + i] = 0;
   }
-  for (int i = lane; i < ncw; i += 32) cov[i] = 0;
-  __syncwarp();
+  for (int i = tid; i < ncw; i += kStageThreads) cov[i] = 0;
+  __syncthreads();
+  if (tid >= 32) return;  // one warp walks
 
+  const int lane = tid;
+  const unsigned lt_mask = (1u << lane) - 1u;
   const int nc = numcomp[w];
   int n_sel = 0;
   bool fallback = false;
@@ -107,15 +150,7 @@ __global__ void __launch_bounds__(32) path_cover_kernel(
       const int src_item = N + 2 * (c_w - 1);
       const int sink_item = src_item + 1;
       const int reflen = reflens[w * Cmax + cidx];
-      if (lane == 0) {
-        qi[0] = src_item;
-        qd[0] = 0;
-        qp[0] = -1;
-        qe[0] = -1;
-        ql[0] = K;
-        qs[0] = 0;
-        qf[0] = 1;
-      }
+      if (lane == 0) qe4[0] = make_int4(src_item << 2 | 1, -1, K, 0);
       __syncwarp();
       int head = 0, tail = 1, visits = 0;
       bool on = true;
@@ -124,9 +159,10 @@ __global__ void __launch_bounds__(32) path_cover_kernel(
           on = false;
           break;
         }
-        const int hs = min(head, Q - 1);
-        const int it = qi[hs], dr = qd[hs], ln = ql[hs], sc = qs[hs];
-        const bool fl = qf[hs] != 0;
+        const int4 q = qe4[min(head, Q - 1)];
+        const int it = q.x >> 2, dr = (q.x >> 1) & 1, ln = q.z;
+        const int sc = q.w & 0xffff;
+        const bool fl = q.x & 1;
         const bool at_sink = it == sink_item && !fl;
         if (at_sink && (bi < 0 || sc > bs)) {  // first-found best: strict >
           bi = head;
@@ -134,30 +170,22 @@ __global__ void __launch_bounds__(32) path_cover_kernel(
         }
         if (!at_sink && !(ln > reflen + max_indel)) {
           const int its = clampi(it, 0, NI - 1);
-          const int e = lane < D2 ? adj_w[its * D2 + lane] : -1;
-          int es = 0, ed = 0;
-          bool okc = false;
-          if (e >= 0) {
-            es = min(e, EE - 1);
-            ed = dir_w[es];
-            okc = (ed >> 1) == dr;
-          }
+          const int2 v = lane < D2 ? slot[its * D2 + lane] : make_int2(-1, 0);
+          const bool okc = v.x >= 0 && ((v.y >> 1) & 1) == dr;
           const unsigned bal = __ballot_sync(kFull, okc);
           const int cnt = __popc(bal);
           const int room = max(Q - tail, 0);
           if (okc) {
             const int tgt = tail + __popc(bal & lt_mask);
             if (tgt < Q) {
-              const int dst = dst_w[es];
-              const int dsts = clampi(dst, 0, NI - 1);
+              const int es = min(v.x, EE - 1);
               const bool cov_e = (cov[es >> 5] >> (es & 31)) & 1u;
-              qi[tgt] = dst;
-              qd[tgt] = ed & 1;
-              qp[tgt] = head;
-              qe[tgt] = e;
-              ql[tgt] = ln + (sp_w[dsts] ? 1 - K : ml_w[dsts]);
-              qs[tgt] = sc + (cov_e ? 0 : 1);
-              qf[tgt] = fl && cov_e;
+              const int dsts = v.y >> 2;
+                  qe4[tgt] = make_int4(
+                  dsts << 2 | (v.y & 1) << 1 | (fl && cov_e), v.x,
+                  ln + dl[dsts],
+                  static_cast<int>(static_cast<uint32_t>(head + 1) << 16 |
+                                   (sc + (cov_e ? 0 : 1))));
             }
           }
           if (cnt > room) over_q = true;
@@ -171,23 +199,22 @@ __global__ void __launch_bounds__(32) path_cover_kernel(
     }
     fallback |= over_q;
     const bool has = lane_on && bi >= 0 && !over_q;
-    // walk the parents of the best entry (one lane), marking covered
+    // walk the parents of the best entry (one lane), marking covered; the
+    // walk stops at the source (hop[p] past nh is never read)
     int cur = has ? bi : -1;
     int nh = 0;
     if (lane == 0) {
-      for (int p = 0; p < PN; ++p) {
-        const int cs = clampi(cur, 0, Q - 1);
-        const int e = cur >= 0 ? qe[cs] : -1;
-        if (cur >= 0 && e >= 0) {
-          const int ce = min(e, EE - 1);
-          cov[ce >> 5] |= 1u << (ce & 31);
-          hop[p] = e;
-          ++nh;
-          cur = qp[cs];
-        } else {
-          hop[p] = -1;
+      for (int p = 0; p < PN && cur >= 0; ++p) {
+        const int4 q = qe4[min(cur, Q - 1)];
+        if (q.y < 0) {
           cur = -1;
+          break;
         }
+        const int ce = min(q.y, EE - 1);
+        cov[ce >> 5] |= 1u << (ce & 31);
+        hop[p] = q.y;
+        ++nh;
+        cur = static_cast<int>(static_cast<uint32_t>(q.w) >> 16) - 1;
       }
     }
     __syncwarp();
@@ -310,83 +337,182 @@ __global__ void __launch_bounds__(256) almost_repeat_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K4 cycle_dfs: the exact hasCycleRec replay (ref Graph.cc:593-681) for one
-// component of one window per block: two rooted searches, (source, F) then
+// K4 cycle_dfs: the exact hasCycleRec replay (ref Graph.cc:593-681),
+// replacing lancet_tpu/tpu/stages.py::has_cycle_seq (:839). Per active
+// component (lane_mask, source alive) two rooted searches, (source, F) then
 // (source, R), sharing node colours (WHITE 0, GREY 1, BLACK 2); a GREY hit
-// in either orientation is a cycle; specials are never entered. The stack
-// (NI+2 frames of node, dir, next adjacency slot) and the colours sit in
-// shared memory (53.5 KB at the largest bucket's NI 4,112, opted in above
-// the default 48 KB). One thread walks; the warp clears the colours.
+// in either orientation is a cycle; specials are never entered.
+//
+// What bounds it: the serial chain of its longest component's DFS, not
+// bytes. In the first design one thread a (window, component) block walked
+// with four dependent device-memory loads a step (adjacency slot, the
+// edge's direction, its destination, the destination's special flag), and
+// W x Cmax blocks were launched, most of them empty. This design launches
+// one block a window. Its threads first stage the window's graph in shared
+// memory as a filtered successor list: item i's entries at i * D2, in slot
+// order up to the first -1, each one packed word (destination item << 2 |
+// start bit << 1 | destination bit), their count beside. Entries into a
+// special item, and those whose start bit is neither 0 nor 1, are dropped
+// there: special is fixed for the call and both skips only advance the
+// slot, so the order of the visits, which decides the verdict through the
+// shared colours, is kept. The start bit is tested in the walk (it depends
+// on the frame's direction). A step is then two dependent shared loads
+// (the entry, then the destination's colour and count side by side); the
+// top frame stays in registers and the frames below it are packed words
+// (item << 13 | count << 7 | slot << 1 | dir).
+// The window's active components are walked by the block's warps, one lane
+// each, each with its own colours and stack (components are not shown to
+// colour disjoint items), as many at once as shared memory holds and the
+// rest in turn. Where the staged list does not fit, it goes to a scratch
+// buffer in device memory ("global" mode; gpu/walks.py::cycle_dfs_plan
+// picks the mode and the number of walkers by bytes). D2 <= 63, NI < 2^19.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(32) cycle_dfs_kernel(
+__global__ void __launch_bounds__(kStageThreads) cycle_dfs_kernel(
     const int32_t* __restrict__ adj, const int32_t* __restrict__ e_dst,
     const int32_t* __restrict__ e_dir, const uint8_t* __restrict__ alive,
     const uint8_t* __restrict__ special, const uint8_t* __restrict__ lane_mask,
-    uint8_t* __restrict__ flags, int NI, int D2, int EE, int N, int Cmax) {
-  extern __shared__ int32_t sm[];
-  const int blk = blockIdx.x;
-  const int w = blk / Cmax;
-  const int c = blk % Cmax;
-  const int src = N + 2 * c;
+    uint8_t* __restrict__ flags, uint32_t* ent_g, int NI, int D2, int EE,
+    int N, int Cmax, int walkers) {
+  extern __shared__ __align__(16) uint8_t smb[];
+  const int w = blockIdx.x;
+  const int tid = threadIdx.x;
   const size_t ib = static_cast<size_t>(w) * NI;
-  const bool active =
-      src < NI && alive[ib + src] != 0 && lane_mask[w * Cmax + c] != 0;
-  if (!active) {
-    if (threadIdx.x == 0) flags[w * Cmax + c] = 0;
-    return;
+  uint8_t* cnt = smb;
+  int32_t* act = reinterpret_cast<int32_t*>(smb + round16(NI));
+  int32_t* n_act = act + Cmax;
+  uint32_t* ent = reinterpret_cast<uint32_t*>(
+      smb + round16(NI) + round16((static_cast<size_t>(Cmax) + 1) * 4));
+  uint8_t* region = reinterpret_cast<uint8_t*>(ent);
+  if (ent_g != nullptr) {
+    ent = ent_g + ib * D2;
+  } else {
+    region += round16(static_cast<size_t>(NI) * D2 * 4);
   }
-  const int SD = NI + 2;
-  int32_t* s_node = sm;
-  int32_t* s_dir = s_node + SD;
-  int32_t* s_ei = s_dir + SD;
-  uint8_t* color = reinterpret_cast<uint8_t*>(s_ei + SD);
-  for (int i = threadIdx.x; i < NI; i += blockDim.x) color[i] = 0;
-  __syncwarp();
-  if (threadIdx.x != 0) return;
-  const int32_t* adj_w = adj + ib * D2;
+
+  // the active components, in component order
+  for (int c = tid; c < Cmax; c += kStageThreads) {
+    const int src = N + 2 * c;
+    const bool on =
+        src < NI && alive[ib + src] != 0 && lane_mask[w * Cmax + c] != 0;
+    act[c] = on;
+    if (!on) flags[w * Cmax + c] = 0;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int c = 0; c < Cmax; ++c)
+      if (act[c]) act[n++] = c;
+    *n_act = n;
+  }
+  __syncthreads();
+  const int na = *n_act;
+  if (na == 0) return;
+
+  // ---- staging, the whole block: each edge's packed word (0xffffffff:
+  // dropped), then each item's filtered successor list ----
+  uint32_t* ew = reinterpret_cast<uint32_t*>(region);  // the walkers' space
   const int32_t* dst_w = e_dst + static_cast<size_t>(w) * EE;
   const int32_t* dir_w = e_dir + static_cast<size_t>(w) * EE;
-  const uint8_t* sp_w = special + ib;
-  bool cyc = false;
-  for (int d0 = 0; d0 < 2 && !cyc; ++d0) {
-    int sp = 1;
-    s_node[0] = src;
-    s_dir[0] = d0;
-    s_ei[0] = 0;
-    color[src] = 1;
-    while (sp > 0 && !cyc) {
-      const int tp = sp - 1;
-      const int nds = clampi(s_node[tp], 0, NI - 1);
-      const int dr = s_dir[tp];
-      const int ei = s_ei[tp];
-      const int e = ei < D2 ? adj_w[nds * D2 + ei] : -1;
-      if (e < 0) {  // exhausted: pop, node -> BLACK
-        color[nds] = 2;
-        --sp;
-        continue;
-      }
-      s_ei[tp] = ei + 1;
-      const int es = min(e, EE - 1);
-      const int ed = dir_w[es];
-      if ((ed >> 1) != dr) continue;
-      const int v = dst_w[es];
-      const int vs = clampi(v, 0, NI - 1);
-      if (sp_w[vs]) continue;
-      const int vcol = color[vs];
-      if (vcol == 1) {
-        cyc = true;
-      } else if (vcol == 0) {
-        color[vs] = 1;
-        const int ns = min(sp, SD - 1);
-        s_node[ns] = v;
-        s_dir[ns] = ed & 1;
-        s_ei[ns] = 0;
-        ++sp;
-      }
-    }
+  for (int e = tid; e < EE; e += kStageThreads) {
+    const int ed = dir_w[e];
+    const int v = clampi(dst_w[e], 0, NI - 1);
+    const bool keep =
+        ((ed >> 1) == 0 || (ed >> 1) == 1) && special[ib + v] == 0;
+    ew[e] = keep ? static_cast<uint32_t>(v) << 2 | (ed & 3) : 0xffffffffu;
   }
-  flags[w * Cmax + c] = cyc;
+  __syncthreads();
+  const int32_t* adj_w = adj + ib * D2;
+  for (int i = tid; i < NI; i += kStageThreads) {
+    const int32_t* row = adj_w + static_cast<size_t>(i) * D2;
+    uint32_t* out = ent + static_cast<size_t>(i) * D2;
+    int k = 0;
+    bool open = true;  // no -1 seen yet in the row
+#pragma unroll 4
+    for (int q = 0; q < D2; ++q) {
+      const int e = row[q];
+      open = open && e >= 0;
+      const uint32_t x = open ? ew[min(e, EE - 1)] : 0xffffffffu;
+      if (x != 0xffffffffu) out[k++] = x;
+    }
+    cnt[i] = static_cast<uint8_t>(k);
+  }
+  __syncthreads();
+
+  // ---- the walks: warp v < walkers, lane 0, components v, v + walkers,
+  // ... of the active list ----
+  const int wid = tid >> 5;
+  const int lane = tid & 31;
+  if (wid >= walkers) return;
+  const size_t per = round16(static_cast<size_t>(NI) * 4) + round16(NI);
+  uint32_t* stk = reinterpret_cast<uint32_t*>(region + wid * per);
+  uint8_t* col = region + wid * per + round16(static_cast<size_t>(NI) * 4);
+  for (int a = wid; a < na; a += walkers) {
+    const int c = act[a];
+    for (int i = lane * 16; i < NI; i += 32 * 16)
+      *reinterpret_cast<uint4*>(col + i) = make_uint4(0, 0, 0, 0);
+    __syncwarp();
+    if (lane == 0) {
+      const int src = N + 2 * c;
+      bool cyc = false;
+      for (int d0 = 0; d0 < 2 && !cyc; ++d0) {
+        col[src] = 1;
+        int item = src, dir = d0, depth = 0;
+        int pos = item * D2, end = pos + cnt[item];
+        for (;;) {
+          if (pos == end) {  // exhausted: pop, node -> BLACK
+            col[item] = 2;
+            if (depth == 0) break;
+            const uint32_t f = stk[--depth];
+            item = static_cast<int>(f >> 13);
+            dir = f & 1;
+            const int base = item * D2;
+            pos = base + ((f >> 1) & 63);
+            end = base + ((f >> 7) & 63);
+            continue;
+          }
+          const uint32_t x = ent[pos++];
+          if (((x >> 1) & 1) != static_cast<uint32_t>(dir)) continue;
+          const int v = static_cast<int>(x >> 2);
+          const int vcnt = cnt[v];  // loaded beside the colour, not after
+          const int vcol = col[v];
+          if (vcol == 1) {
+            cyc = true;
+            break;
+          }
+          if (vcol == 0) {
+            col[v] = 1;
+            const int base = item * D2;
+            stk[depth++] = static_cast<uint32_t>(item) << 13 |
+                           static_cast<uint32_t>(end - base) << 7 |
+                           static_cast<uint32_t>(pos - base) << 1 | dir;
+            item = v;
+            dir = x & 1;
+            pos = v * D2;
+            end = pos + vcnt;
+          }
+        }
+      }
+      flags[w * Cmax + c] = cyc;
+    }
+    __syncwarp();
+  }
+}
+
+// A measurement probe, not a walk: one thread chases `steps` dependent
+// loads through a ring in shared memory, so that the time of a launch over
+// steps is the latency of one dependent shared load on this card
+// (chip_smoke.py's chain floor of the walks).
+__global__ void smem_chase_kernel(int steps, int* out) {
+  __shared__ int ring[1024];
+  for (int i = threadIdx.x; i < 1024; i += blockDim.x)
+    ring[i] = (i * 389 + 1) & 1023;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int x = 0;
+#pragma unroll 16
+  for (int i = 0; i < steps; ++i) x = ring[x];
+  *out = x;
 }
 
 int set_smem(const void* kern, size_t smem) {
@@ -398,28 +524,53 @@ int set_smem(const void* kern, size_t smem) {
 
 constexpr size_t kSmemLimit = 232448;  // bytes a block may use on Hopper
 
+// Dynamic shared memory of a K1 block (gpu/walks.py::path_cover_plan
+// computes the same): the queue of 16-byte entries, the covered-edge bits,
+// the hop buffer and, in shared mode, the staged slot words and deltas.
+size_t path_cover_smem(int NI, int D2, int EE, int Q, int PN, bool global) {
+  const size_t staged = static_cast<size_t>(NI) * D2 * 8 + round16(NI * 4);
+  return round16(static_cast<size_t>(Q) * 16) +
+         round16(static_cast<size_t>((EE + 31) / 32) * 4) +
+         round16(static_cast<size_t>(PN) * 4) + (global ? 0 : staged);
+}
+
+// Dynamic shared memory of a K4 block (gpu/walks.py::cycle_dfs_plan
+// computes the same): the per-item counts, the active list and its length,
+// in shared mode
+// the successor lists, then the walkers' stacks and colours, which the
+// staging pass first uses for the edges' packed words.
+size_t cycle_dfs_smem(int NI, int D2, int EE, int Cmax, int walkers,
+                      bool global) {
+  const size_t per = round16(static_cast<size_t>(NI) * 4) + round16(NI);
+  const size_t region = static_cast<size_t>(walkers) * per;
+  const size_t ew = round16(static_cast<size_t>(EE) * 4);
+  return round16(NI) + round16((static_cast<size_t>(Cmax) + 1) * 4) +
+         (global ? 0 : round16(static_cast<size_t>(NI) * D2 * 4)) +
+         (region > ew ? region : ew);
+}
+
 }  // namespace
 
 extern "C" {
 
-// K1: W windows, adjacency [W, NI, D2] (D2 <= 32), edges [W, EE].
+// K1: W windows, adjacency [W, NI, D2] (D2 <= 32), edges [W, EE]. With
+// stage (global mode) the staged words go there, W * (NI * D2 * 8 +
+// round16(NI * 4)) bytes; smem must equal path_cover_smem's total.
 int path_cover(const void* adj, const void* e_dst, const void* e_dir,
                const void* merlen, const void* special, const void* runnable,
                const void* numcomp, const void* reflens, void* sel_edges,
                void* sel_hops, void* sel_comp, void* n_sel, void* fallback,
-               int W, int NI, int D2, int EE, int K, int N, int Cmax,
-               int dfs_limit, int max_indel, int Q, int POPMAX, int JMAX,
-               int PN, void* stream) {
-  if (W < 1 || NI < 1 || D2 < 1 || D2 > 32 || EE < 1 || Q < 1 || Cmax < 1 ||
-      JMAX < 1 || PN < 1)
+               void* stage, int W, int NI, int D2, int EE, int K, int N,
+               int Cmax, int dfs_limit, int max_indel, int Q, int POPMAX,
+               int JMAX, int PN, size_t smem, void* stream) {
+  if (W < 1 || NI < 1 || D2 < 1 || D2 > 32 || EE < 1 || Q < 1 ||
+      Q > 65535 || Cmax < 1 || JMAX < 1 || PN < 1 || smem > kSmemLimit ||
+      smem != path_cover_smem(NI, D2, EE, Q, PN, stage != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(Q) * 25 +
-                      static_cast<size_t>((EE + 31) / 32) * 4 +
-                      static_cast<size_t>(PN) * 4 + 16;
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   int rc = set_smem(reinterpret_cast<const void*>(path_cover_kernel), smem);
   if (rc != 0) return rc;
-  path_cover_kernel<<<W, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  path_cover_kernel<<<W, kStageThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(adj), static_cast<const int32_t*>(e_dst),
       static_cast<const int32_t*>(e_dir), static_cast<const int32_t*>(merlen),
       static_cast<const uint8_t*>(special),
@@ -427,8 +578,9 @@ int path_cover(const void* adj, const void* e_dst, const void* e_dir,
       static_cast<const int32_t*>(numcomp),
       static_cast<const int32_t*>(reflens), static_cast<int32_t*>(sel_edges),
       static_cast<int32_t*>(sel_hops), static_cast<int32_t*>(sel_comp),
-      static_cast<int32_t*>(n_sel), static_cast<uint8_t*>(fallback), NI, D2,
-      EE, K, N, Cmax, dfs_limit, max_indel, Q, POPMAX, JMAX, PN);
+      static_cast<int32_t*>(n_sel), static_cast<uint8_t*>(fallback),
+      static_cast<int2*>(stage), NI, D2, EE, K, N, Cmax, dfs_limit,
+      max_indel, Q, POPMAX, JMAX, PN);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -466,24 +618,36 @@ int almost_repeat_paths(const void* seq, const void* lens, void* out, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4: W windows x Cmax components, adjacency [W, NI, D2], edges [W, EE].
+// K4: W windows x Cmax components, adjacency [W, NI, D2] (D2 <= 63),
+// edges [W, EE]; walkers (1-8) warps walk at once. With ent (global mode)
+// the successor lists go there, W * NI * D2 uint32; smem must equal
+// cycle_dfs_smem's total.
 int cycle_dfs(const void* adj, const void* e_dst, const void* e_dir,
               const void* alive, const void* special, const void* lane_mask,
-              void* flags, int W, int NI, int D2, int EE, int N, int Cmax,
-              void* stream) {
-  if (W < 1 || NI < 1 || D2 < 1 || EE < 1 || Cmax < 1)
+              void* flags, void* ent, int W, int NI, int D2, int EE, int N,
+              int Cmax, int walkers, size_t smem, void* stream) {
+  if (W < 1 || NI < 1 || NI >= (1 << 19) || D2 < 1 || D2 > 63 || EE < 1 ||
+      Cmax < 1 || walkers < 1 || walkers > kStageThreads / 32 ||
+      smem > kSmemLimit ||
+      smem != cycle_dfs_smem(NI, D2, EE, Cmax, walkers, ent != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(NI + 2) * 12 +
-                      (static_cast<size_t>(NI) + 15) / 16 * 16;
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   int rc = set_smem(reinterpret_cast<const void*>(cycle_dfs_kernel), smem);
   if (rc != 0) return rc;
-  cycle_dfs_kernel<<<W * Cmax, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  cycle_dfs_kernel<<<W, kStageThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(adj), static_cast<const int32_t*>(e_dst),
       static_cast<const int32_t*>(e_dir), static_cast<const uint8_t*>(alive),
       static_cast<const uint8_t*>(special),
-      static_cast<const uint8_t*>(lane_mask), static_cast<uint8_t*>(flags), NI,
-      D2, EE, N, Cmax);
+      static_cast<const uint8_t*>(lane_mask), static_cast<uint8_t*>(flags),
+      static_cast<uint32_t*>(ent), NI, D2, EE, N, Cmax, walkers);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The probe: one block of 32 threads; out one int32 on the card.
+int smem_chase(int steps, void* out, void* stream) {
+  if (steps < 0) return static_cast<int>(cudaErrorInvalidValue);
+  smem_chase_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      steps, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,8 +9,10 @@ raises if the kernel library cannot be built or a launch is refused. There
 is no fallback from the card to the plain version.
 `plan(N, M)` picks, from the batch's widths alone, where the kernel keeps
 the traceback codes: in shared memory ("smem") when they fit, else in a
-scratch buffer in device memory ("global"). Each launch adds one to
-`LAUNCHES["gotoh_align_" + mode]`.
+scratch buffer in device memory ("global"); a batch wider than one block's
+8,192 rows (or whose shared staging does not fit) takes the "strips" mode,
+codes in device memory and the rows filled in strips of 8,192. Each launch
+adds one to `LAUNCHES["gotoh_align_" + mode]`.
 
 Layouts are the JAX package's: S [P, N+1] and T [P, M+1] uint8 with the
 characters 1-indexed and zero padding; the plain fill's tb [D, P, N+1]
@@ -41,8 +43,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 RING = 128  # slots of each ring between warps (csrc/gotoh.cu kRing)
 ROWS_PER_THREAD = (4, 5, 6, 8, 10, 12, 16, 24, 32)  # instantiations
+STRIP_ROWS = 32 * 256  # rows of a block; the strip mode's strip
 
-LAUNCHES = {"gotoh_align_smem": 0, "gotoh_align_global": 0}
+LAUNCHES = {"gotoh_align_smem": 0, "gotoh_align_global": 0,
+            "gotoh_align_strips": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -165,7 +169,7 @@ def traceback_plain(tbs, n_len, m_len, N: int, M: int):
 # ---------------------------------------------------------------------------
 
 class Plan(NamedTuple):
-    mode: str  # "smem" or "global": where the traceback codes live
+    mode: str  # "smem", "global" or "strips": see the module's docstring
     rows_per_thread: int
     threads: int
     smem: int  # bytes of dynamic shared memory a block takes
@@ -191,22 +195,38 @@ def smem_bytes(N: int, M: int, R: int, threads: int,
             + _r16(N + M) + 16)
 
 
+def strip_smem_bytes() -> int:
+    """Dynamic shared memory of a strip-mode block: the rings between its 8
+    warps and the op count (T's characters and the ops stay in device
+    memory)."""
+    return _r16(7 * RING * 8) + 16
+
+
+def strip_scratch_words(P: int, N: int, M: int) -> int:
+    """int32 words of the strip mode's scratch: every pair's code words,
+    then one edge row of M+1 (M, X) pairs a pair."""
+    return P * code_rows(N, 32) * ((M + 7) // 8) + 2 * P * (M + 1)
+
+
 def plan(N: int, M: int) -> Plan:
     """The launch of `gotoh_align` for batch widths N, M: the fewest rows
     per thread that keep a block within 4 warps (one per scheduler of the
     SM; up to 8 warps at 32 rows), and the shared mode wherever the codes
-    fit in a block's shared memory."""
-    for R in ROWS_PER_THREAD:
-        threads = (-(-N // R) + 31) // 32 * 32
-        if threads <= 128 or (R == 32 and threads <= 256):
-            break
-    else:
-        raise ValueError(f"gotoh_align: N={N} exceeds the kernel's "
-                         f"{32 * 256} rows")
-    smem = smem_bytes(N, M, R, threads, False)
-    if smem <= SMEM_LIMIT:
-        return Plan("smem", R, threads, smem)
-    return Plan("global", R, threads, smem_bytes(N, M, R, threads, True))
+    fit in a block's shared memory. N above STRIP_ROWS, or a global-mode
+    block whose staged T and ops overflow shared memory, takes the strip
+    mode (32 rows a thread, 256 threads)."""
+    if N <= STRIP_ROWS:
+        for R in ROWS_PER_THREAD:
+            threads = (-(-N // R) + 31) // 32 * 32
+            if threads <= 128 or (R == 32 and threads <= 256):
+                break
+        smem = smem_bytes(N, M, R, threads, False)
+        if smem <= SMEM_LIMIT:
+            return Plan("smem", R, threads, smem)
+        smem = smem_bytes(N, M, R, threads, True)
+        if smem <= SMEM_LIMIT:
+            return Plan("global", R, threads, smem)
+    return Plan("strips", 32, 256, strip_smem_bytes())
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +258,9 @@ def _load() -> ctypes.CDLL:
             lib.gotoh_align.restype = ci
             lib.gotoh_align.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                         ci, ci, ci, ci, ctypes.c_size_t, vp]
+            lib.gotoh_align_strips.restype = ci
+            lib.gotoh_align_strips.argtypes = [vp] * 7 + [ci] * 3 + [
+                ctypes.c_size_t, vp]
             _lib = lib
         return _lib
 
@@ -286,18 +309,23 @@ def align(S, T, n_len, m_len, N: int, M: int):
     if P == 0:
         return ops, count
     glob = pl.mode == "global"
-    scratch = (torch.empty((P, code_rows(N, pl.rows_per_thread)
-                            * ((M + 7) // 8)), dtype=torch.int32,
-                           device=dev) if glob else None)
+    ptrs = (S.data_ptr(), T.data_ptr(), n_len.data_ptr(), m_len.data_ptr(),
+            ops.data_ptr(), count.data_ptr())
     # the launch (and its cudaFuncSetAttribute) goes to the current
     # device: make that the inputs' device
     with torch.cuda.device(dev):
-        rc = lib.gotoh_align(S.data_ptr(), T.data_ptr(), n_len.data_ptr(),
-                             m_len.data_ptr(), ops.data_ptr(),
-                             count.data_ptr(),
-                             scratch.data_ptr() if glob else None, P, N, M,
-                             pl.rows_per_thread, pl.threads, int(glob),
-                             pl.smem, _stream(dev))
+        if pl.mode == "strips":
+            scratch = torch.empty(strip_scratch_words(P, N, M),
+                                  dtype=torch.int32, device=dev)
+            rc = lib.gotoh_align_strips(*ptrs, scratch.data_ptr(), P, N, M,
+                                        pl.smem, _stream(dev))
+        else:
+            scratch = (torch.empty((P, code_rows(N, pl.rows_per_thread)
+                                    * ((M + 7) // 8)), dtype=torch.int32,
+                                   device=dev) if glob else None)
+            rc = lib.gotoh_align(*ptrs, scratch.data_ptr() if glob else None,
+                                 P, N, M, pl.rows_per_thread, pl.threads,
+                                 int(glob), pl.smem, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"gotoh_align ({pl.mode}) launch failed: CUDA "
                            f"error {rc}")

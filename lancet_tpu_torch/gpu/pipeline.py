@@ -258,9 +258,10 @@ def path_cover_plain(adj, e_dst, e_dir, merlen, special, runnable, numcomp,
     most POPMAX lockstep pops over a Q-entry queue, then the parent walk
     of the best entry. Returns the dict of path_cover (fallback without
     the adjacency overflow). With a `counts` dict, adds the pops of all
-    lanes to counts["pops"] and marks the input elements the walk reads
-    (stages.touch: "adj_rows", "e_dir", "e_dst", and "nodes" for merlen
-    and special)."""
+    lanes to counts["pops"] and those of each window to
+    counts["lanes"]["pops"] [W], and marks the input elements the walk
+    reads (stages.touch: "adj_rows", "e_dir", "e_dst", and "nodes" for
+    merlen and special)."""
     W, NI, D2 = adj.shape
     EE = e_dst.shape[1]
     dev = adj.device
@@ -316,6 +317,8 @@ def path_cover_plain(adj, e_dst, e_dir, merlen, special, runnable, numcomp,
             act = act & ~lim
             if counts is not None:
                 counts["pops"] = counts.get("pops", 0) + int(act.sum())
+                counts.setdefault("lanes", {}).setdefault(
+                    "pops", torch.zeros(W, dtype=i64, device=dev)).add_(act)
             hs = torch.clamp(head, 0, Q - 1)
             it, dr, ln = qi[wrow, hs], qd[wrow, hs], ql[wrow, hs]
             fl, sc = qf[wrow, hs], qs[wrow, hs]

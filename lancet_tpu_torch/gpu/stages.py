@@ -748,8 +748,12 @@ def cycle_dfs_plain(adj, e_dst, e_dir, alive, special, N, Cmax, lane_mask,
     `while_loop` step for step: per component c, two rooted searches
     (source, F) then (source, R) sharing node colours. Returns [W, Cmax]
     bool. With a `counts` dict, adds the DFS steps of all lanes to
-    counts["steps"] and marks the input elements the walk reads (stages.
-    touch: "adj", "e_dir", "e_dst", "special")."""
+    counts["steps"] and those of each (window, component) to
+    counts["lanes"]["steps"] [W, Cmax], and marks the input elements the
+    walk reads (stages.touch: "adj", "e_dir", "e_dst", "special"): the
+    steps the replay needs, so none of a second search after the first
+    found a cycle (the lockstep loop runs it and ORs the verdicts; the
+    kernels stop)."""
     W, NI, D2 = adj.shape
     EE = e_dst.shape[1]
     dev = adj.device
@@ -781,10 +785,14 @@ def cycle_dfs_plain(adj, e_dst, e_dir, alive, special, N, Cmax, lane_mask,
                 ei = s_ei[wrow, tp]
                 nds = torch.clamp(nd, 0, NI - 1)
                 if counts is not None:
-                    counts["steps"] = counts.get("steps", 0) + int(act.sum())
+                    need = act & ~cyc_any
+                    counts["steps"] = counts.get("steps", 0) + int(need.sum())
+                    counts.setdefault("lanes", {}).setdefault(
+                        "steps", torch.zeros((W, Cmax), dtype=torch.int64,
+                                             device=dev))[:, c] += need
                     touch(counts, "adj", NI * D2,
                           (nds * D2 + torch.clamp(ei, 0, D2 - 1))[:, None],
-                          (act & (ei < D2))[:, None])
+                          (need & (ei < D2))[:, None])
                 e = adj[wrow, nds, torch.clamp(ei, 0, D2 - 1)]
                 exhausted = act & ((ei >= D2) | (e < 0))
                 color[wrow, nds] = torch.where(exhausted, 2, color[wrow, nds])
@@ -796,9 +804,12 @@ def cycle_dfs_plain(adj, e_dst, e_dir, alive, special, N, Cmax, lane_mask,
                 v = e_dst[wrow, es]
                 vs = torch.clamp(v, 0, NI - 1)
                 if counts is not None:
-                    touch(counts, "e_dir", EE, es[:, None], step[:, None])
-                    touch(counts, "e_dst", EE, es[:, None], match[:, None])
-                    touch(counts, "special", NI, vs[:, None], match[:, None])
+                    touch(counts, "e_dir", EE, es[:, None],
+                          (step & ~cyc_any)[:, None])
+                    touch(counts, "e_dst", EE, es[:, None],
+                          (match & ~cyc_any)[:, None])
+                    touch(counts, "special", NI, vs[:, None],
+                          (match & ~cyc_any)[:, None])
                 probe = match & ~special[wrow, vs]
                 vcol = color[wrow, vs]
                 cyc = cyc | (probe & (vcol == 1))

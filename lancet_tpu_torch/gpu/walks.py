@@ -19,6 +19,11 @@ flags included.
 - K4 `cycle_dfs` (`tpu/stages.py::has_cycle_seq`, :839-926): the exact
   hasCycleRec replay for the components the cycle screen flags.
 
+K1 and K4 stage each window's graph in shared memory before they walk;
+`path_cover_plan` and `cycle_dfs_plan` pick, from the shapes alone, whether
+the staged graph fits there ("smem") or goes to a scratch buffer in device
+memory ("global"), and how many of K4's walkers run at once.
+
 Each wrapper takes tensors on one device and raises, before any work,
 when its inputs span two. On the CPU it runs the plain
 version (gpu.pipeline.path_cover_plain, gpu.stages.seq_removal_plain,
@@ -35,20 +40,91 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from typing import NamedTuple
 
 import torch
 
 from .._build import build_shared
 from . import count_launch, input_device
-from .gotoh import NVCC_FLAGS, _nvcc, _stream
+from .gotoh import NVCC_FLAGS, SMEM_LIMIT, _nvcc, _r16, _stream
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "walks.cu")
 LAUNCHES = {"path_cover": 0, "seq_removal": 0, "almost_repeat_paths": 0,
             "cycle_dfs": 0}
 
+STAGE_THREADS = 256  # K1 and K4 blocks (csrc/walks.cu kStageThreads)
+
 _lib = None
 _lib_lock = threading.Lock()
+
+
+class WalkPlan(NamedTuple):
+    mode: str  # "smem" or "global": where the staged graph lives
+    smem: int  # bytes of dynamic shared memory a block takes
+    walkers: int = 1  # K4: warps that walk components at once
+
+
+def path_cover_smem(NI: int, D2: int, EE: int, Q: int, PN: int,
+                    global_mode: bool) -> int:
+    """A K1 block's shared memory, as csrc/walks.cu's path_cover_smem: the
+    queue of 16-byte entries, the covered-edge bits, the hop buffer and,
+    in the shared mode, the staged slot words (8 bytes a slot) and the
+    per-item length deltas."""
+    staged = NI * D2 * 8 + _r16(NI * 4)
+    return (_r16(Q * 16) + _r16((EE + 31) // 32 * 4) + _r16(PN * 4)
+            + (0 if global_mode else staged))
+
+
+def path_cover_plan(NI: int, D2: int, EE: int, Q: int, PN: int) -> WalkPlan:
+    """K1's launch: the staged graph in shared memory where it fits beside
+    the queue, else in device memory. Raises for more than 32 adjacency
+    slots (a lane each) or a queue of more than 65,535 entries (a queue
+    entry packs its parent in 16 bits)."""
+    if D2 > 32:
+        raise ValueError(f"path_cover takes at most 32 adjacency slots, "
+                         f"got {D2}")
+    if Q > 65535:
+        raise ValueError(f"path_cover takes a queue of at most 65,535 "
+                         f"entries, got {Q}")
+    for mode in ("smem", "global"):
+        smem = path_cover_smem(NI, D2, EE, Q, PN, mode == "global")
+        if smem <= SMEM_LIMIT:
+            return WalkPlan(mode, smem)
+    raise ValueError(f"path_cover: the queue of Q={Q} entries does not fit "
+                     f"in a block's shared memory")
+
+
+def cycle_dfs_smem(NI: int, D2: int, EE: int, Cmax: int, walkers: int,
+                   global_mode: bool) -> int:
+    """A K4 block's shared memory, as csrc/walks.cu's cycle_dfs_smem: the
+    per-item counts, the active list and its length, in the shared mode
+    the successor lists (4 bytes a slot), then each walker's stack (4
+    bytes an item) and colours (1), which the staging first uses for the
+    edges' words."""
+    region = max(walkers * (_r16(NI * 4) + _r16(NI)), _r16(EE * 4))
+    return (_r16(NI) + _r16((Cmax + 1) * 4)
+            + (0 if global_mode else _r16(NI * D2 * 4)) + region)
+
+
+def cycle_dfs_plan(NI: int, D2: int, EE: int, Cmax: int) -> WalkPlan:
+    """K4's launch: the successor lists in shared memory where they fit
+    with at least one walker, else in device memory; then as many walkers
+    (at most Cmax and the block's 8 warps) as the rest holds. Raises for
+    more than 63 adjacency slots or 2**19 items (a stack frame packs the
+    slot and the count in 6 bits each and the item in 19)."""
+    if D2 > 63 or NI >= 1 << 19:
+        raise ValueError(f"cycle_dfs takes at most 63 adjacency slots and "
+                         f"2**19 items, got D2={D2}, NI={NI}")
+    most = min(Cmax, STAGE_THREADS // 32)
+    for mode in ("smem", "global"):
+        for walkers in range(most, 0, -1):
+            smem = cycle_dfs_smem(NI, D2, EE, Cmax, walkers,
+                                  mode == "global")
+            if smem <= SMEM_LIMIT:
+                return WalkPlan(mode, smem, walkers)
+    raise ValueError(f"cycle_dfs: one walker's stack and colours for "
+                     f"NI={NI} items do not fit in a block's shared memory")
 
 
 def reset_launches() -> None:
@@ -68,13 +144,15 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            for name, n_ptr, n_int in (("path_cover", 13, 13),
-                                       ("seq_removal", 8, 6),
-                                       ("almost_repeat_paths", 3, 4),
-                                       ("cycle_dfs", 7, 6)):
+            sz = ctypes.c_size_t
+            for name, n_ptr, n_int, tail in (
+                    ("path_cover", 14, 13, [sz, vp]),
+                    ("seq_removal", 8, 6, [vp]),
+                    ("almost_repeat_paths", 3, 4, [vp]),
+                    ("cycle_dfs", 8, 7, [sz, vp])):
                 fn = getattr(lib, name)
                 fn.restype = ci
-                fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
+                fn.argtypes = [vp] * n_ptr + [ci] * n_int + tail
             _lib = lib
         return _lib
 
@@ -110,10 +188,12 @@ def path_cover(adj, e_dst, e_dir, merlen, special, runnable, numcomp,
                reflens, *, K, N, Cmax, dfs_limit, max_indel, Q=512,
                POPMAX=1024, JMAX=8, PN=24):
     """The eka/BFS path cover walk. adj [W, NI, D2] edge ids in okey order
-    (-1 empty); e_dst, e_dir [W, EE]; merlen [W, NI]; special [W, NI];
-    runnable [W, Cmax]; numcomp [W]; reflens [W, Cmax]. Returns dict
-    sel_edges [W, JMAX, PN], sel_hops, sel_comp [W, JMAX], n_sel [W],
-    fallback [W] (queue / pop / path / job overflows, unfinished comps)."""
+    (-1 empty); e_dst, e_dir [W, EE] (e_dst of the edges adj names in [0,
+    NI)); merlen [W, NI]; special [W, NI]; runnable [W, Cmax]; numcomp [W];
+    reflens [W, Cmax]. Returns dict sel_edges [W, JMAX, PN], sel_hops,
+    sel_comp [W, JMAX], n_sel [W], fallback [W] (queue / pop / path / job
+    overflows, unfinished comps). On the card one block a window stages
+    its graph (path_cover_plan) and one warp walks it."""
     kw = dict(K=K, N=N, Cmax=Cmax, dfs_limit=dfs_limit, max_indel=max_indel,
               Q=Q, POPMAX=POPMAX, JMAX=JMAX, PN=PN)
     dev = _device("path_cover", adj, e_dst, e_dir, merlen, special, runnable,
@@ -125,9 +205,7 @@ def path_cover(adj, e_dst, e_dir, merlen, special, runnable, numcomp,
                                 numcomp, reflens, **kw)
     W, NI, D2 = adj.shape
     EE = e_dst.shape[1]
-    if D2 > 32:
-        raise ValueError(f"path_cover takes at most 32 adjacency slots, "
-                         f"got {D2}")
+    pl = path_cover_plan(NI, D2, EE, Q, PN)
     out = dict(
         sel_edges=torch.empty((W, JMAX, PN), dtype=torch.int32, device=dev),
         sel_hops=torch.empty((W, JMAX), dtype=torch.int32, device=dev),
@@ -138,13 +216,16 @@ def path_cover(adj, e_dst, e_dir, merlen, special, runnable, numcomp,
         return _widen(out)
     ins = (_i32(adj), _i32(e_dst), _i32(e_dir), _i32(merlen), _u8(special),
            _u8(runnable), _i32(numcomp), _i32(reflens))
+    stage = (torch.empty(W * (NI * D2 * 8 + _r16(NI * 4)), dtype=torch.uint8,
+                         device=dev) if pl.mode == "global" else None)
     with torch.cuda.device(dev):  # the launch goes to the current device
         rc = _load().path_cover(
             *[t.data_ptr() for t in ins],
             *[out[k].data_ptr() for k in ("sel_edges", "sel_hops",
                                           "sel_comp", "n_sel", "fallback")],
+            None if stage is None else stage.data_ptr(),
             W, NI, D2, EE, K, N, Cmax, min(int(dfs_limit), 2**31 - 1),
-            int(max_indel), Q, POPMAX, JMAX, PN, _stream(dev))
+            int(max_indel), Q, POPMAX, JMAX, PN, pl.smem, _stream(dev))
     _launched("path_cover", rc)
     return _widen(out)
 
@@ -223,12 +304,12 @@ def almost_repeat(seq, lens, K, max_mismatch):
 # ---------------------------------------------------------------------------
 
 def cycle_dfs(adj, e_dst, e_dir, alive, special, N, Cmax, lane_mask):
-    """The hasCycleRec replay of each flagged component: one block per
-    (window, component). adj [W, NI, D2] edge ids in okey order; e_dst,
-    e_dir [W, EE]; alive, special [W, NI]; lane_mask [W, Cmax] (None =
-    every component). Each block keeps its stack (NI+2 frames) and the
-    node colours in shared memory, (NI+2)*12 + NI bytes. Returns [W, Cmax]
-    bool."""
+    """The hasCycleRec replay of each flagged component. adj [W, NI, D2]
+    edge ids in okey order; e_dst, e_dir [W, EE]; alive, special [W, NI];
+    lane_mask [W, Cmax] (None = every component). On the card one block a
+    window stages the window's successor lists (cycle_dfs_plan) and its
+    warps walk the active components, each with its own stack and colours
+    in shared memory. Returns [W, Cmax] bool."""
     dev = _device("cycle_dfs", adj, e_dst, e_dir, alive, special, lane_mask)
     if dev.type == "cpu":
         from .stages import cycle_dfs_plain
@@ -240,13 +321,18 @@ def cycle_dfs(adj, e_dst, e_dir, alive, special, N, Cmax, lane_mask):
     flags = torch.empty((W, Cmax), dtype=torch.uint8, device=dev)
     if W == 0:
         return flags.to(torch.bool)
+    pl = cycle_dfs_plan(NI, D2, EE, Cmax)
     if lane_mask is None:
         lane_mask = torch.ones((W, Cmax), dtype=torch.bool, device=dev)
     ins = (_i32(adj), _i32(e_dst), _i32(e_dir), _u8(alive), _u8(special),
            _u8(lane_mask))
+    ent = (torch.empty((W, NI * D2), dtype=torch.int32, device=dev)
+           if pl.mode == "global" else None)
     with torch.cuda.device(dev):
         rc = _load().cycle_dfs(*[t.data_ptr() for t in ins],
-                               flags.data_ptr(), W, NI, D2, EE, N, Cmax,
+                               flags.data_ptr(),
+                               None if ent is None else ent.data_ptr(), W,
+                               NI, D2, EE, N, Cmax, pl.walkers, pl.smem,
                                _stream(dev))
     _launched("cycle_dfs", rc)
     return flags.to(torch.bool)

@@ -6,9 +6,11 @@ must equal the JAX lax.scan fill `_dp_fill`, the Pallas kernel
 `_dp_and_traceback`, bit for bit on every cell the traceback can read; the
 port's `batch_align(device="cpu")` must equal the JAX `batch_align` and the
 oracle `global_align_aff`. `gotoh.plan` must pick the shared-memory mode
-exactly where the codes fit. The `cuda` test holds the fused kernel
-`gotoh_align`, in both modes, against the plain versions on a card and
-skips without one.
+exactly where the codes fit, keep its plans for N <= 8,192, and plan the
+strip mode beyond (S of 8,193 bases aligned by the port equal to the JAX
+package's alignment). The `cuda` tests hold the fused kernel `gotoh_align`,
+in all three modes, against the plain versions on a card and skip without
+one.
 
 The JAX side is imported inside the tests that use it, so the `cuda` test
 also runs where JAX is not installed:
@@ -202,6 +204,50 @@ def test_plan_picks_mode_by_bytes():
     assert pl.smem >= 585 * 74 * 4
 
 
+# plans of the N <= 8,192 the main path uses (its DP groups span 569-591
+# bp) and of the global mode, as they were before the strip mode
+PINNED_PLANS = {(569, 591): ("smem", 5, 128, 173568),
+                (585, 591): ("smem", 5, 128, 178032),
+                (591, 591): ("smem", 5, 128, 180992),
+                (1100, 1100): ("global", 10, 128, 6400),
+                (8192, 600): ("global", 32, 256, 16592)}
+
+
+def test_plan_strips_beyond_one_block():
+    for (N, M), want in PINNED_PLANS.items():
+        assert tuple(gotoh.plan(N, M)) == want, (N, M)
+    for N in (8_193, 20_000):
+        for M in (1, 50, 591):
+            pl = gotoh.plan(N, M)
+            assert pl == ("strips", 32, 256, gotoh.strip_smem_bytes())
+            assert pl.smem <= gotoh.SMEM_LIMIT
+    assert gotoh.plan(gotoh.STRIP_ROWS, 50).mode == "global"
+    # a global-mode block whose staged T and ops overflow shared memory
+    M = 8192
+    while gotoh.smem_bytes(300, M, 4, 96, True) <= gotoh.SMEM_LIMIT:
+        M += 8192
+    assert gotoh.plan(300, M).mode == "strips"
+    # every pair's codes, then one (M, X) row of M+1 entries a pair
+    assert (gotoh.strip_scratch_words(3, 20_000, 50)
+            == 3 * 20_000 * 7 + 2 * 3 * 51)
+
+
+def test_long_reference_equals_jax():
+    """One S of 8,193 bases (beyond a block's rows: the strip mode on a
+    card) against T of 1 and 50 bases: the port's batch_align on the CPU
+    equals the JAX package's."""
+    from lancet_tpu.tpu import align_batch as jab
+
+    rng = random.Random(81)
+    s = "".join(rng.choice("ACGT") for _ in range(8_193))
+    pairs = [(s, "".join(rng.choice("ACGT") for _ in range(m)))
+             for m in (1, 50)]
+    assert gotoh.plan(8_193, 50).mode == "strips"
+    got = tab.batch_align(pairs, device="cpu")
+    assert got == jab.batch_align(pairs)
+    assert all(a.replace("-", "") == s for a, _ in got)
+
+
 def _padded(pairs, N, M):
     """The batch of `pairs` padded to widths N, M (padding never changes a
     result), as tensors."""
@@ -243,3 +289,47 @@ def test_kernels_match_plain_on_card():
         assert torch.equal(cnt, cnt_p), mode
     assert (tab.batch_align(pairs, device="cuda")
             == tab.batch_align(pairs, device="cpu"))
+
+
+def _long_pairs():
+    """Pairs whose S exceeds a block's 8,192 rows: random S of 8,193 and
+    20,000 bases against short random T, and S of 9,000 and 16,500 bases
+    against edited copies (the path crosses the strips' edges)."""
+    rng = random.Random(6)
+    pairs = []
+    for n, m in ((8_193, 1), (8_193, 50), (20_000, 7), (20_000, 50)):
+        pairs.append(("".join(rng.choice("ACGT") for _ in range(n)),
+                      "".join(rng.choice("ACGT") for _ in range(m))))
+    for n in (9_000, 16_500):
+        s = "".join(rng.choice("ACGT") for _ in range(n))
+        t = list(s)
+        for _ in range(20):
+            p = rng.randrange(len(t))
+            t[p] = rng.choice("ACGT") if rng.random() < 0.5 else ""
+        pairs.append((s, "".join(t)))
+    return pairs
+
+
+@pytest.mark.cuda
+def test_strips_match_plain_on_card():
+    """The strip mode on the card equals traceback_plain there, for S of
+    8,193 and 20,000 bases, in one batch and each S alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    pairs = _long_pairs()
+    groups = [pairs[:2], pairs[2:4], pairs]
+    for group in groups:
+        S, T, n_len, m_len, N, M = tab._pack(group)
+        assert gotoh.plan(N, M).mode == "strips"
+        S, T, n_len, m_len = (torch.from_numpy(a).to(dev)
+                              for a in (S, T, n_len, m_len))
+        before = gotoh.LAUNCHES["gotoh_align_strips"]
+        ops, cnt = gotoh.align(S, T, n_len, m_len, N, M)
+        torch.cuda.synchronize()
+        assert gotoh.LAUNCHES["gotoh_align_strips"] == before + 1
+        tb_p = gotoh.dp_fill_plain(S, T, n_len, m_len, N, M)
+        ops_p, cnt_p = gotoh.traceback_plain(tb_p, n_len, m_len, N, M)
+        del tb_p
+        assert torch.equal(ops, ops_p), N
+        assert torch.equal(cnt, cnt_p), N

@@ -34,7 +34,7 @@ from lancet_tpu_torch.gpu import dbg as tdbg  # noqa: E402
 from lancet_tpu_torch.gpu import pack as tpack  # noqa: E402
 from lancet_tpu_torch.gpu import pipeline as tpl  # noqa: E402
 from lancet_tpu_torch.gpu import stages as tst  # noqa: E402
-from lancet_tpu_torch.gpu import walks  # noqa: E402
+from lancet_tpu_torch.gpu import walkcases, walks  # noqa: E402
 
 # One intra-op thread: the test workers share the host's cores, and
 # PyTorch's OpenMP threads, spinning while oversubscribed, slow every
@@ -615,7 +615,9 @@ def test_plain_walks_mark_the_elements_they_read():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """K1-K4 bit-equal to their plain versions on synthetic inputs."""
+    """K1-K4 bit-equal to their plain versions on synthetic inputs, and K1
+    and K4 on the crafted cases of gpu.walkcases (each staging mode
+    included)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     dev = torch.device("cuda", 0)
@@ -662,6 +664,23 @@ def test_kernels_match_plain_on_card():
         **kw)
     for k in want:
         assert torch.equal(got[k].cpu(), want[k]), k
+
+    for name, c in walkcases.cycle_cases().items():
+        before = walks.LAUNCHES["cycle_dfs"]
+        got = walkcases.run_cycle(c, dev)
+        torch.cuda.synchronize()
+        assert walks.LAUNCHES["cycle_dfs"] == before + 1
+        want = walkcases.run_cycle(c)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), name
+    for name, c in walkcases.path_cover_cases().items():
+        before = walks.LAUNCHES["path_cover"]
+        got = walkcases.run_cover(c, dev)
+        torch.cuda.synchronize()
+        assert walks.LAUNCHES["path_cover"] == before + 1
+        want = walkcases.run_cover(c)
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), (name, k)
 
 
 def test_pack_equals_jax():
