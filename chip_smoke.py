@@ -47,9 +47,10 @@ Phases, each printing one JSON line:
      hets, internal tandem duplications whose cycles reach the exact cycle
      replay), its VCF equal to the native path's; the four walk kernels
      (csrc/walks.cu) must launch, gotoh_align and repeat_gates too on case
-     1; every path_cover and cycle_dfs launch of case 1's second run, of
-     case 2 and of phase mesh (b) is held bit-equal to the plain version
-     on its own inputs; then one kernels line per walk: the call with the
+     1; every path_cover, almost_repeat_paths and cycle_dfs launch of case
+     1's second run, of case 2 and of phase mesh (b) is held bit-equal to
+     the plain version on its own inputs; then one kernels line per walk:
+     the call with the
      most work of the two cases, its outputs bit-equal to the plain
      version on the card, timed beside it, the card's bound and the
      walk's chain floor (its longest serial chain of steps times the
@@ -78,8 +79,9 @@ Phases, each printing one JSON line:
      20,000 bases (long_ref, the strip mode); its ops and counts held
      bit-equal to the plain PyTorch versions run on the card, and timed
      with CUDA events beside the plain versions and the card's bound;
-     path_cover and cycle_dfs on the crafted cases of gpu/walkcases.py
-     (each staging mode), held bit-equal to the plain versions.
+     path_cover, cycle_dfs and almost_repeat_paths on the crafted cases of
+     gpu/walkcases.py (each staging mode; K3's word and tile edges), held
+     bit-equal to the plain versions.
 Then the kernels' summary line, nvidia-smi's line, and last the device
 line. Every path's launch counts are set to 0 just before it runs and read
 just after. Any failure exits non-zero before the last line. Without a
@@ -149,17 +151,21 @@ DEVGRAPH_STATS = {"n_dev_windows": 357, "n_dev_fallback": 0,
 # merlen loads, the tests); cycle_dfs 6 per DFS step (the successor
 # entry's load, its start-bit test, the colour and count loads, the colour
 # test, the end test; a push or pop of a packed frame besides);
-# almost_repeat_paths 3 per compared position (two byte loads and a
-# compare-add).
+# almost_repeat_paths 2 per (shift, position) mismatch bit a no-hit string
+# needs (4 positions a word: the shifted word's load and funnel shift, the
+# xor, the carry-free byte test's and, add and or-and, the gathering
+# multiply and shift, the insert: 9 for 4; the window tests besides).
 WALK_OPS = {"path_cover": 10, "seq_removal": 8, "cycle_dfs": 6,
-            "almost_repeat_paths": 3}
+            "almost_repeat_paths": 2}
 # Dependent shared-memory loads on a walk's serial chain per unit of work,
 # for its chain floor: path_cover 3 a pop (the queue entry, the slot word,
 # then the covered bit and the length delta), cycle_dfs 2 a step (the
 # successor entry, then its destination's colour and count side by side;
 # steps up to the first cycle a component finds), seq_removal 1 a slot
 # (the degree; its slot id and merlen come from device memory),
-# almost_repeat_paths 1 a compared position (two independent byte loads).
+# almost_repeat_paths 1 a 32-position mismatch word of its busiest thread
+# (the word's shared loads issue together, then its ~80 integer
+# instructions and the window tests: a loose floor).
 WALK_CHAIN_LOADS = {"path_cover": 3, "seq_removal": 1, "cycle_dfs": 2,
                     "almost_repeat_paths": 1}
 CHASE_STEPS = (1 << 20, 1 << 22)  # the shared-memory latency probe
@@ -777,7 +783,7 @@ def _walk_work(name: str, args) -> int:
     return int(args[5].sum())  # path_cover: runnable components
 
 
-_CHECKED = ("path_cover", "cycle_dfs")  # walks held on every call
+_CHECKED = ("path_cover", "almost_repeat", "cycle_dfs")  # held every call
 
 
 @contextlib.contextmanager
@@ -846,9 +852,10 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
 
 
 def check_walk_calls(calls: list, case: str) -> dict:
-    """Each captured card call of path_cover or cycle_dfs against the plain
-    version on its own inputs, bit for bit; returns {walk: {calls,
-    mismatches}} and raises on a mismatch. Empties `calls`."""
+    """Each captured card call of path_cover, almost_repeat or cycle_dfs
+    against the plain version on its own inputs, bit for bit; returns
+    {walk: {calls, mismatches}} and raises on a mismatch. Empties
+    `calls`."""
     import torch
 
     from lancet_tpu_torch.gpu import pipeline, stages
@@ -860,6 +867,9 @@ def check_walk_calls(calls: list, case: str) -> dict:
         if n == "path_cover":
             want = pipeline.path_cover_plain(*args, **kw)
             bad = sum(int((got[k] != want[k]).sum()) for k in want)
+        elif n == "almost_repeat":
+            bad = int((got != pipeline.almost_repeat_plain(*args,
+                                                           **kw)).sum())
         else:
             bad = int((got != stages.cycle_dfs_plain(*args, **kw)).sum())
         res[n]["calls"] += 1
@@ -991,6 +1001,33 @@ def smem_latency_ns() -> dict:
             "source": "csrc/walks.cu smem_chase_kernel, this run"}
 
 
+def almost_repeat_words(n: int, K: int, plan) -> tuple[int, int]:
+    """csrc/walks.cu K3 on a string of n codes with no hit: the 32-position
+    mismatch words its tiles build, over all threads and on the busiest
+    thread (tile t goes to thread t % (blocks x threads) of the string's
+    cluster; a tile of nv starts builds ceil(nv / 32) + 1 words, one more
+    for K > 32)."""
+    import numpy as np
+
+    maxp = n - K - 1
+    if maxp < 1:
+        return 0, 0
+    G, T = plan.tile, plan.blocks * plan.threads
+    npairs = (maxp + 1) // 2
+    t = np.arange(npairs * ((maxp + G) // G + 1))
+    pair, i = t % npairs, t // npairs
+    d1, d2 = 1 + pair, maxp - pair
+    segs1 = (maxp - d1 + G) // G
+    second = i >= segs1
+    d = np.where(second, d2, d1)
+    seg = np.where(second, i - segs1, i)
+    empty = second & ((d2 == d1) | (seg * G > maxp - d2))
+    nv = np.minimum(G, maxp - d - seg * G + 1)
+    words = np.where(empty, 0, (nv + 31) // 32 + 1 + (K > 32))
+    per = np.bincount(t % T, weights=words, minlength=T)
+    return int(words.sum()), int(per.max())
+
+
 def walk_case(name: str, args, kw: dict, rate: dict, chase: dict) -> dict:
     """One walk kernel on inputs captured from the devgraph runs: its
     outputs bit-equal to the plain version on the card, then timed beside
@@ -998,8 +1035,9 @@ def walk_case(name: str, args, kw: dict, rate: dict, chase: dict) -> dict:
     launch and the widening of its outputs) and by the kernel's own
     device time (torch.profiler), the card's bound, and the
     chain floor: the walk's longest serial chain on this data (counted by
-    the plain version) x WALK_CHAIN_LOADS x the measured latency of a
-    dependent shared-memory load."""
+    the plain version; for almost_repeat from its tile plan) x
+    WALK_CHAIN_LOADS x the measured latency of a dependent shared-memory
+    load."""
     import torch
 
     from lancet_tpu_torch.gpu import pipeline, stages, walks
@@ -1071,19 +1109,17 @@ def walk_case(name: str, args, kw: dict, rate: dict, chase: dict) -> dict:
         W, J, LP = seq.shape
         nbytes = int(lens.clamp(0, LP).sum()) + 5 * W * J
         K = args[2]
+        plan = walks.almost_repeat_plan(LP, K)
         units = chain = 0
-        for n, hit in zip(lens.reshape(-1).tolist(),
+        for n, hit in zip(lens.clamp(0, LP).reshape(-1).tolist(),
                           got.reshape(-1).tolist()):
             maxp = n - K - 1
             if hit:
                 units += K + 1  # one window compared at the least
-                chain = max(chain, K + 1)
             elif maxp > 0:
-                units += sum(K + 1 + 2 * (maxp - d)
-                             for d in range(1, maxp + 1))
-                # a thread a shift: thread 0 scans d = 1, 257, ...
-                chain = max(chain, sum(K + 1 + 2 * (maxp - d)
-                                       for d in range(1, maxp + 1, 256)))
+                # every shift's mismatch bits over [0, n - d)
+                units += sum(n - d for d in range(1, maxp + 1))
+                chain = max(chain, almost_repeat_words(n, K, plan)[1])
     else:
         W, C = args[0].shape[0], args[6]
         nbytes = (4 * seen("adj") + 4 * seen("e_dir") + 4 * seen("e_dst")
@@ -1147,7 +1183,7 @@ def mesh_main_case(workdir: str, region: str, mesh, case: str, vcf: str,
 def mesh_devgraph_case(workdir: str, n: int, vcf_g: str, summary_g: str,
                        st_g: dict, sums_g: dict) -> dict:
     """(b) Device-graph case 1 with its windows over n entries of cuda:0;
-    every path_cover and cycle_dfs call held against its plain version
+    every _CHECKED walk call held against its plain version
     after the run (its inputs and outputs copied during it, so t_devgraph
     includes the copies)."""
     from lancet_tpu_torch.parallel.mesh import make_mesh
@@ -1660,7 +1696,7 @@ def main() -> int:
     if long_ref["mode"] != "strips":
         raise AssertionError(f"long_ref took mode {long_ref['mode']}")
 
-    # the two staged walks on the crafted cases, each staging mode
+    # three walks on the crafted cases: each staging mode, K3's edges
     from lancet_tpu_torch.gpu import walkcases, walks
 
     crafted = {}
@@ -1683,10 +1719,17 @@ def main() -> int:
                                           cp["Q"], cp["PN"]).mode,
             "mismatches": sum(int((got[k].cpu() != want[k]).sum())
                               for k in want)}
+    for name, c in walkcases.almost_repeat_cases().items():
+        got = walkcases.run_almost_repeat(c, "cuda")
+        want = walkcases.run_almost_repeat(c)
+        pl = walks.almost_repeat_plan(c["seq"].shape[2], c["K"])
+        crafted[f"almost_repeat_paths/{name}"] = {
+            "plan": pl._asdict(),
+            "mismatches": int((got.cpu() != want).sum())}
     emit({"phase": "kernels", "case": "walks_crafted", "tolerance": 0,
           "cases": crafted})
     if any(r["mismatches"] for r in crafted.values()):
-        raise AssertionError(f"a staged walk disagrees with its plain "
+        raise AssertionError(f"a walk kernel disagrees with its plain "
                              f"version on a crafted case: {crafted}")
 
     def mean(vals):

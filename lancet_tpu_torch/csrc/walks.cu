@@ -35,8 +35,10 @@
 //
 // Integer inputs are int32, booleans one byte each (0 or 1).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -298,42 +300,151 @@ __global__ void __launch_bounds__(32) seq_removal_kernel(
 
 // ---------------------------------------------------------------------------
 // K3 almost_repeat_paths: isAlmostRepeat of a path string (ref util.cc:
-// 317-360): is there a shift d >= 1 and an offset p with p + d <= maxp =
-// len - K - 1 whose (K+1)-windows at p and p+d differ in at most
-// max_mismatch places? One block per string with its bytes in shared
-// memory; each thread takes shifts d, slides the window over p keeping the
-// mismatch count (add the entering position, drop the leaving one), and
-// stops at a hit, which every thread then sees.
+// 317-360), replacing lancet_tpu/tpu/pipeline.py::_is_almost_repeat_paths
+// (:680): is there a shift d >= 1 and a window start p with p + d <= maxp
+// = len - K - 1 whose (K+1)-windows at p and p+d differ in at most mm
+// places?
+//
+// The identity it relies on: with neq[q] = s[q] != s[q+d], shift d hits
+// exactly when some window [p, p+K] inside [0, len-d) holds at most mm
+// ones of neq (never for mm < 0). A window's verdict needs only the neq
+// bits of its own positions, so any split of a shift's starts into
+// segments is exact, each segment read with its K-wide halo.
+//
+// What bounds it: first the longest thread's chain, then the integer issue
+// rate of the SMs a string gets. The first design gave each of 256
+// threads whole shifts d = 1+t, 257+t, ...: ~1,900 compared positions on
+// thread 0's chain for a 600-base path while threads of large shifts
+// idled, 256 threads an SM, and a hit seen only between shifts. This
+// design deals the string's (shift, start) plane evenly over the threads
+// of a cluster of S blocks (a call holds ~2 paths a window, so one block a
+// string would leave most SMs idle; 8 blocks of 512 threads for the
+// engine's strings): shift d is
+// paired with shift maxp+1-d (their starts sum to maxp+1), each pair's
+// starts cut into tiles of G starts (gpu/walks.py::almost_repeat_plan
+// picks S, the block and G), tile t of pair t % npairs, segment t /
+// npairs, so a warp's lanes read neighbouring shifts of one segment. Each
+// block stages the string in its own shared memory; a hit is written to
+// every block's flag of the cluster (distributed shared memory), and
+// cluster rank 0 writes the verdict after the cluster's last barrier. Per
+// tile the issue cost is cut two ways: the neq bits
+// come 4 positions at a time from 32-bit words of the staged string (a
+// funnel shift aligns the word at q + d, a carry-free byte test and a
+// multiply gather the 4 mismatch bits), 32 bits a word; then each window
+// start's count is two funnel shifts and two popcounts over the words,
+// and since a count drops by at most one a start, a count c > mm skips the
+// next c - mm - 1 starts, none of which can hit. Every thread polls its
+// block's hit flag before each tile and each 32 starts.
+// K <= 63 (a window's bits span two words); reads reach kArPad bytes past
+// the string, zeroed in shared memory.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(256) almost_repeat_kernel(
+constexpr int kArMaxThreads = 1024;
+constexpr int kArPad = 128;  // bytes past a string its tiles may read
+
+// The neq bits of 32 positions: bit j = s[q + j] != s[q + d + j], for q =
+// 4 * qw (a multiple of 16 bytes: the two 16-byte loads) and b = q + d.
+__device__ __forceinline__ uint32_t neq32(const uint32_t* __restrict__ w,
+                                          int qw, int b) {
+  const uint4 a0 = *reinterpret_cast<const uint4*>(w + qw);
+  const uint4 a1 = *reinterpret_cast<const uint4*>(w + qw + 4);
+  const uint32_t a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  const uint32_t* bw = w + (b >> 2);
+  const uint32_t sh = (b & 3) * 8;
+  uint32_t lo = bw[0], bits = 0;
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    const uint32_t hi = bw[g + 1];
+    const uint32_t x = a[g] ^ __funnelshift_r(lo, hi, sh);
+    // bit 7 of each byte: the byte of x is not 0 (no carry leaves a byte)
+    const uint32_t m = (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+    // bits 7, 15, 23, 31 -> 28, 29, 30, 31; the cross terms stay below 24
+    bits |= (m * 0x00204081u) >> 28 << (4 * g);
+    lo = hi;
+  }
+  return bits;
+}
+
+__global__ void __launch_bounds__(kArMaxThreads) almost_repeat_kernel(
     const uint8_t* __restrict__ seq, const int32_t* __restrict__ lens,
-    uint8_t* __restrict__ out, int LP, int K, int mm) {
-  extern __shared__ uint8_t s[];
+    uint8_t* __restrict__ out, int LP, int K, int mm, int G) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) uint32_t sw[];
   __shared__ int found;
-  const int b = blockIdx.x;
+  uint8_t* s = reinterpret_cast<uint8_t*>(sw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / S;  // a cluster a string
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
   const int len = min(max(lens[b], 0), LP);
-  const uint8_t* row = seq + static_cast<size_t>(b) * LP;
-  for (int i = threadIdx.x; i < len; i += blockDim.x) s[i] = row[i];
-  if (threadIdx.x == 0) found = 0;
-  __syncthreads();
   const int maxp = len - K - 1;
-  for (int d = 1 + threadIdx.x; d <= maxp; d += blockDim.x) {
-    if (*reinterpret_cast<volatile int*>(&found)) break;
-    int m = 0;
-    for (int q = 0; q <= K; ++q) m += s[q] != s[q + d];
-    bool hit = m <= mm;
-    for (int p = 1; !hit && p <= maxp - d; ++p) {
-      m += (s[p + K] != s[p + K + d]) - (s[p - 1] != s[p - 1 + d]);
-      hit = m <= mm;
+  if (mm < 0 || maxp < 1) {  // no budget, or no shift: the whole cluster
+    if (rank == 0 && tid == 0) out[b] = 0;
+    return;
+  }
+  const uint8_t* row = seq + static_cast<size_t>(b) * LP;
+  for (int i = tid; i < len; i += T) s[i] = row[i];
+  for (int i = len + tid; i < len + kArPad; i += T) s[i] = 0;
+  if (tid == 0) found = 0;
+  cluster.sync();  // every flag is 0 before any block may set it
+  volatile int* vfound = &found;
+  // a window's K+1 bits: the low word's, then the high word's
+  const uint32_t mlo = K >= 31 ? 0xffffffffu : (2u << K) - 1u;
+  const uint32_t mhi =
+      K < 32 ? 0u : (K >= 63 ? 0xffffffffu : (1u << (K - 31)) - 1u);
+  const bool third = K >= 33;  // start 31's window passes bit 63
+  const int npairs = (maxp + 1) / 2;
+  const int tpp = (maxp + G) / G + 1;  // tiles a pair: both shifts' segments
+  const int ntiles = npairs * tpp;
+  for (int t = rank * T + tid; t < ntiles && !*vfound; t += S * T) {
+    const int pair = t % npairs;
+    const int i = t / npairs;
+    const int d1 = 1 + pair, d2 = maxp - pair;
+    const int segs1 = (maxp - d1 + G) / G;
+    int d = d1, seg = i;
+    if (i >= segs1) {
+      d = d2;
+      seg = i - segs1;
+      if (d2 == d1 || seg * G > maxp - d2) continue;  // an empty tile
+    }
+    const int p0 = seg * G;
+    const int nv = min(G, maxp - d - p0 + 1);  // the tile's starts
+    // word j of the tile: the neq bits of positions p0 + 32j ...
+    const int qw = p0 >> 2, bq = p0 + d;
+    uint32_t w0 = neq32(sw, qw, bq);
+    uint32_t w1 = neq32(sw, qw + 8, bq + 32);
+    uint32_t w2 = third ? neq32(sw, qw + 16, bq + 64) : 0u;
+    bool hit = false;
+    for (int c = 0;;) {
+      const int nr = min(32, nv - 32 * c);
+      for (int r = 0; r < nr;) {
+        const int m = __popc(__funnelshift_r(w0, w1, r) & mlo) +
+                      __popc(__funnelshift_r(w1, w2, r) & mhi);
+        if (m <= mm) {
+          hit = true;
+          break;
+        }
+        r += m - mm;  // the next m - mm - 1 starts count more than mm
+      }
+      if (hit || 32 * ++c >= nv || *vfound) break;
+      w0 = w1;
+      if (third) {
+        w1 = w2;
+        w2 = neq32(sw, qw + 8 * (c + 2), bq + 32 * (c + 2));
+      } else {
+        w1 = neq32(sw, qw + 8 * (c + 1), bq + 32 * (c + 1));
+      }
     }
     if (hit) {
-      found = 1;
+      for (int r = 0; r < S; ++r)
+        *static_cast<volatile int*>(cluster.map_shared_rank(&found, r)) = 1;
       break;
     }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) out[b] = found != 0;
+  cluster.sync();  // the flags final; no block's memory is read after it
+  if (rank == 0 && tid == 0) out[b] = found != 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -549,6 +660,12 @@ size_t cycle_dfs_smem(int NI, int D2, int EE, int Cmax, int walkers,
          (region > ew ? region : ew);
 }
 
+// Dynamic shared memory of a K3 block (gpu/walks.py::almost_repeat_smem
+// computes the same): the string's bytes and kArPad bytes past them.
+size_t almost_repeat_smem(int LP) {
+  return round16(static_cast<size_t>(LP) + kArPad);
+}
+
 }  // namespace
 
 extern "C" {
@@ -604,17 +721,38 @@ int seq_removal(const void* slots, const void* nbr, const void* deg,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3: B strings [B, LP] of base codes, lengths [B].
+// K3: B strings [B, LP] of base codes, lengths [B]; K <= 63; blocks a
+// string (the cluster size, 1-8), threads a block (a multiple of 32, at
+// most 1,024) and tile (window starts, a multiple of 32 and of 16 bytes)
+// from gpu/walks.py::almost_repeat_plan; smem must equal
+// almost_repeat_smem(LP).
 int almost_repeat_paths(const void* seq, const void* lens, void* out, int B,
-                        int LP, int K, int max_mismatch, void* stream) {
-  if (B < 1 || LP < 1 || K < 0 || static_cast<size_t>(LP) > kSmemLimit - 64)
+                        int LP, int K, int max_mismatch, int blocks,
+                        int threads, int tile, size_t smem, void* stream) {
+  if (B < 1 || LP < 1 || K < 0 || K > 63 || blocks < 1 || blocks > 8 ||
+      threads < 32 || threads > kArMaxThreads || threads % 32 != 0 ||
+      tile < 32 || tile % 32 != 0 || smem != almost_repeat_smem(LP) ||
+      smem > kSmemLimit - 16 || static_cast<long long>(B) * blocks > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (static_cast<size_t>(LP) + 15) / 16 * 16;
   int rc = set_smem(reinterpret_cast<const void*>(almost_repeat_kernel), smem);
   if (rc != 0) return rc;
-  almost_repeat_kernel<<<B, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(seq), static_cast<const int32_t*>(lens),
-      static_cast<uint8_t*>(out), LP, K, max_mismatch);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B * blocks));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(blocks);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  rc = static_cast<int>(cudaLaunchKernelEx(
+      &cfg, almost_repeat_kernel, static_cast<const uint8_t*>(seq),
+      static_cast<const int32_t*>(lens), static_cast<uint8_t*>(out), LP, K,
+      max_mismatch, tile));
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 

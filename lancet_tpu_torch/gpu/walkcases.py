@@ -1,9 +1,12 @@
-"""Crafted graphs for the two walks that stage a window's graph in shared
-memory (csrc/walks.cu K1 `path_cover`, K4 `cycle_dfs`): the corners where
-their order of work decides the result, their overflow flags, and shapes
-that take each staging mode. `tests/test_torch_walks_crafted.py` holds the
-plain versions on these cases against the JAX package, and `chip_smoke.py`
-the kernels against the plain versions on the card.
+"""Crafted inputs for three walks of csrc/walks.cu: graphs for the two
+that stage a window's graph in shared memory (K1 `path_cover`, K4
+`cycle_dfs`): the corners where their order of work decides the result,
+their overflow flags, and shapes that take each staging mode; and path
+strings for K3 `almost_repeat_paths`: hits at the edges of its shift,
+start, tile and word ranges, mismatch budgets at and past their limits,
+odd codes and the engine's longest strings. `tests/test_torch_walks_crafted.py`
+holds the plain versions on these cases against the JAX package, and
+`chip_smoke.py` the kernels against the plain versions on the card.
 
 Each case is a dict of numpy arrays and ints, one lane (window) per row,
 with the edge lists' creation order as their okey order (so a lane's
@@ -260,3 +263,170 @@ def path_cover_cases() -> dict:
     c["expect_fallback"] = [False, False]
     cases["global_mode"] = c
     return cases
+
+
+def _plant(row, p: int, d: int, K: int, n_mis: int, rng, guard=False):
+    """Copy row[p:p+K+1] to row[p+d:...] position by position (so that a
+    copy overlapping its source repeats with period d), then change n_mis
+    of the copied codes, away from the window's ends (a neighbouring start
+    that dropped one would need as many chance matches as it dropped).
+    With `guard`, the codes just before the source and just after the copy
+    are made to differ from their partners at shift d, so that no
+    neighbouring start matches exactly."""
+    for q in range(K + 1):
+        row[p + d + q] = row[p + q]
+    for q in rng.choice(np.arange(K // 4, K + 1 - K // 4), n_mis,
+                        replace=False):
+        row[p + d + q] = (row[p + d + q] + 1) % 4
+    if guard:
+        if p >= 1:
+            row[p - 1] = (row[p - 1 + d] + 1) % 4
+        if p + d + K + 1 < len(row):
+            row[p + d + K + 1] = (row[p + K + 1] + 1) % 4
+
+
+def _repeat_case(rows, lens, K, mm, expect, LP):
+    """One call: the strings as [1, J, LP] int8 (codes past a length
+    random), lens [1, J] and the verdicts worked out by construction."""
+    seq = np.stack([np.asarray(r, np.int64) for r in rows])[None]
+    assert seq.shape[2] == LP
+    return dict(seq=seq.astype(np.int8), lens=np.array([lens], np.int64),
+                K=K, mm=mm, expect=np.array([expect], bool))
+
+
+def almost_repeat_cases() -> dict:
+    """almost_repeat_paths inputs (one K and max_mismatch a case, as a
+    call takes them) and the verdicts [1, J] each string was built to
+    give. Random strings are of the codes 0-3 at K >= 15, where a chance
+    window of at most mm mismatches is unlikely (< 0.3% a string); the
+    tests hold the verdicts against the JAX package as well."""
+    rng = np.random.default_rng(1728)
+    cases = {}
+
+    def rand(LP):
+        return rng.integers(0, 4, LP)
+
+    # the largest shift d = maxp (p = 0) with exactly mm = 2 mismatches,
+    # then mm + 1
+    K, LP, L = 15, 256, 200
+    maxp = L - K - 1
+    rows = [rand(LP) for _ in range(2)]
+    _plant(rows[0], 0, maxp, K, 2, rng)
+    _plant(rows[1], 0, maxp, K, 3, rng)
+    cases["largest_shift"] = _repeat_case(rows, [L, L], K, 2,
+                                          [True, False], LP)
+    # an exact copy whose window ends at the last code (p = maxp - d),
+    # then the same string one code shorter, where that window passes the
+    # end (and the start before it is guarded)
+    row = rand(LP)
+    _plant(row, maxp - 37, 37, K, 0, rng, guard=True)
+    cases["last_start"] = _repeat_case([row, row], [L, L - 1], K, 0,
+                                       [True, False], LP)
+
+    # exactly mm mismatches beside mm + 1, at mm 3 and at mm 0
+    K, LP = 19, 128
+    for mm in (3, 0):
+        rows = [rand(LP) for _ in range(2)]
+        _plant(rows[0], 30, 20, K, mm, rng)
+        _plant(rows[1], 30, 20, K, mm + 1, rng)
+        cases[f"mm{mm}_at_and_past"] = _repeat_case(
+            rows, [LP - 3, LP - 3], K, mm, [True, False], LP)
+
+    # len K+1 (no shift) and K+2 (one shift, d = 1 and p = 0), a string of
+    # period 2 at len K+2, an empty slot, an all-N string and a random one
+    K, LP = 15, 40
+    rows = [np.zeros(LP, np.int64), np.zeros(LP, np.int64),
+            np.arange(LP) % 2, rand(LP), np.full(LP, 4), rand(LP)]
+    cases["short_strings"] = _repeat_case(
+        rows, [K + 1, K + 2, K + 2, 0, LP, LP], K, 1,
+        [False, True, False, False, True, False], LP)
+
+    # a budget below 0 never hits; K+1 mismatches or more always, once
+    # there is a shift
+    K, LP = 15, 64
+    rows = [np.zeros(LP, np.int64), rand(LP), rand(LP), rand(LP)]
+    cases["mm_negative"] = _repeat_case(rows, [LP, LP, K + 2, 0], K, -1,
+                                        [False] * 4, LP)
+    for mm in (K + 1, 10**6):
+        cases[f"mm_{mm}"] = _repeat_case(
+            rows, [LP, K + 1, K + 2, 0], K, mm, [True, False, True, False],
+            LP)
+
+    # N codes (4): two copies of a window holding Ns match each other;
+    # an N against a base is a mismatch; an all-N string repeats
+    K, LP = 17, 160
+    rows = [rand(LP) for _ in range(3)]
+    rows[0][40:40 + K + 1:3] = 4
+    _plant(rows[0], 40, 55, K, 0, rng)
+    rows[1][40:40 + K + 1:3] = 4
+    _plant(rows[1], 40, 55, K, 0, rng)
+    rows[1][40 + 55 + 3] = 2  # one N of the copy becomes a base
+    rows[2][:] = 4
+    cases["n_codes"] = _repeat_case(rows, [LP, LP, 120], K, 0,
+                                    [True, False, True], LP)
+
+    # codes outside 0-4 (any int8 value compares by equality)
+    K, LP = 17, 160
+    odd = np.array([-128, 127, -1, 50])
+    rows = [odd[rand(LP)] for _ in range(2)]
+    for q in range(K + 1):
+        rows[0][70 + 33 + q] = rows[0][70 + q]
+    cases["odd_codes"] = _repeat_case(rows, [LP, LP], K, 2, [True, False],
+                                      LP)
+
+    # the engine's string width LP 1,728, full and one short: no repeat,
+    # the largest shift, the last start
+    K, LP = 19, 1728
+    rows = [rand(LP) for _ in range(3)]
+    maxp = LP - K - 1
+    _plant(rows[1], 0, maxp, K, 2, rng)
+    _plant(rows[2], maxp - 1 - 900, 900, K, 1, rng)
+    cases["full_lp"] = _repeat_case(rows, [LP, LP, LP - 1], K, 2,
+                                    [False, True, True], LP)
+
+    # exact hits (mm 0, neighbours guarded) at the edges of the kernel's
+    # 32-start words and 64-start tiles (K <= 32) for shifts 1, 2 and 5,
+    # on strings whose start counts straddle those edges, and one string
+    # with no hit at 129 starts of shift 1
+    K, LP = 19, 224
+    spec = [(64, 1, 63), (65, 1, 64), (64, 2, 62), (100, 5, 31),
+            (100, 5, 32), (128, 128, 0), (96, 3, 93 - 1)]
+    rows, lens = [], []
+    for maxp, d, p in spec:
+        r = rand(LP)
+        _plant(r, p, d, K, 0, rng, guard=True)
+        rows.append(r)
+        lens.append(maxp + K + 1)
+    rows.append(rand(LP))
+    lens.append(128 + K + 1)
+    cases["tile_edges"] = _repeat_case(rows, lens, K, 0,
+                                       [True] * len(spec) + [False], LP)
+
+    # K 33 (a window's bits pass a second word; tiles of 128 starts): hits
+    # at starts 31, 32, 127 and 128; K 63, the largest, at exactly mm and
+    # mm + 1, with len K+1 and K+2
+    K, LP = 33, 320
+    rows, lens = [], []
+    for p in (31, 32, 127, 128):
+        r = rand(LP)
+        _plant(r, p, 7, K, 0, rng, guard=True)
+        rows.append(r)
+        lens.append(p + 7 + K + 1 + 20)
+    cases["k33_word_and_tile_edges"] = _repeat_case(rows, lens, K, 0,
+                                                    [True] * 4, LP)
+    K, LP = 63, 300
+    rows = [rand(LP) for _ in range(2)] + [np.zeros(LP, np.int64)] * 2
+    _plant(rows[0], 10, 150, K, 5, rng)
+    _plant(rows[1], 10, 150, K, 6, rng)
+    cases["k63"] = _repeat_case(rows, [LP, LP, K + 1, K + 2], K, 5,
+                                [True, False, False, True], LP)
+    return cases
+
+
+def run_almost_repeat(c: dict, dev="cpu"):
+    """An almost-repeat case through the port's walks.almost_repeat on
+    `dev`: is_rep [1, J] bool."""
+    from . import walks
+
+    return walks.almost_repeat(_t(c["seq"], dev), _t(c["lens"], dev),
+                               c["K"], c["mm"])

@@ -22,7 +22,10 @@ flags included.
 K1 and K4 stage each window's graph in shared memory before they walk;
 `path_cover_plan` and `cycle_dfs_plan` pick, from the shapes alone, whether
 the staged graph fits there ("smem") or goes to a scratch buffer in device
-memory ("global"), and how many of K4's walkers run at once.
+memory ("global"), and how many of K4's walkers run at once. K3 cuts each
+string's (shift, window start) plane into tiles dealt evenly over the
+threads of a cluster of blocks; `almost_repeat_plan` picks the cluster,
+block and tile sizes from (LP, K).
 
 Each wrapper takes tensors on one device and raises, before any work,
 when its inputs span two. On the CPU it runs the plain
@@ -127,6 +130,45 @@ def cycle_dfs_plan(NI: int, D2: int, EE: int, Cmax: int) -> WalkPlan:
                      f"NI={NI} items do not fit in a block's shared memory")
 
 
+class RepeatPlan(NamedTuple):
+    blocks: int  # K3: blocks a path string (a thread block cluster)
+    threads: int  # a block's threads
+    tile: int  # window starts of one shift a tile (a multiple of 32)
+    smem: int  # bytes of dynamic shared memory a block takes
+
+
+AR_PAD = 128  # K3 reads up to 99 bytes past a string's end (csrc/walks.cu)
+AR_MAX_K = 63  # K3 holds a (K+1)-window's mismatch bits in two words
+
+
+def almost_repeat_smem(LP: int) -> int:
+    """A K3 block's shared memory, as csrc/walks.cu's almost_repeat_smem:
+    the string's bytes and AR_PAD bytes past them, rounded to 16."""
+    return _r16(LP + AR_PAD)
+
+
+def almost_repeat_plan(LP: int, K: int) -> RepeatPlan:
+    """K3's launch for strings of at most LP codes at window K+1: blocks
+    of 512 threads, a cluster of 8 a string where a string can pass 512
+    codes (a call holds ~2 paths a window, so one block a string leaves
+    most SMs idle; of 1, 2 or 4 blocks of 1,024 and 4 or 8 of 512, 8 of
+    512 took the least device time summed over the device graph path's
+    calls, walks_ab.py), else one; tiles of 64 window starts, 128 for K >
+    32, whose windows span a third word of mismatch bits (a longer tile
+    spreads that word over more starts). Raises for K outside [0, 63] (a
+    window's bits fill at most two 32-bit words) or a string beyond a
+    block's shared memory."""
+    if not 0 <= K <= AR_MAX_K:
+        raise ValueError(f"almost_repeat_paths takes K in [0, {AR_MAX_K}], "
+                         f"got {K}")
+    smem = almost_repeat_smem(LP)
+    if LP < 1 or smem > SMEM_LIMIT - 16:  # 16: the block's hit flag
+        raise ValueError(f"almost_repeat_paths: strings of LP={LP} codes do "
+                         f"not fit in a block's shared memory")
+    return RepeatPlan(8 if LP > 512 else 1, 512, 64 if K <= 32 else 128,
+                      smem)
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -148,7 +190,7 @@ def _load() -> ctypes.CDLL:
             for name, n_ptr, n_int, tail in (
                     ("path_cover", 14, 13, [sz, vp]),
                     ("seq_removal", 8, 6, [vp]),
-                    ("almost_repeat_paths", 3, 4, [vp]),
+                    ("almost_repeat_paths", 3, 7, [sz, vp]),
                     ("cycle_dfs", 8, 7, [sz, vp])):
                 fn = getattr(lib, name)
                 fn.restype = ci
@@ -279,7 +321,9 @@ def seq_removal(slots, nbr, deg, cond):
 
 def almost_repeat(seq, lens, K, max_mismatch):
     """isAlmostRepeat of each path string. seq [W, J, LP] base codes; lens
-    [W, J]. Returns [W, J] bool."""
+    [W, J]. Returns [W, J] bool. On the card a cluster of blocks a string
+    deals its (shift, window start) tiles over its threads
+    (almost_repeat_plan)."""
     dev = _device("almost_repeat_paths", seq, lens)
     if dev.type == "cpu":
         from .pipeline import almost_repeat_plain
@@ -289,12 +333,16 @@ def almost_repeat(seq, lens, K, max_mismatch):
     out = torch.empty((W, J), dtype=torch.uint8, device=dev)
     if W * J == 0:
         return out.to(torch.bool)
+    pl = almost_repeat_plan(LP, int(K))
+    # a budget past any window's K+1 mismatches is one past K+1
+    mm = max(min(int(max_mismatch), AR_MAX_K + 1), -1)
     s8 = _u8(seq)
     ln = _i32(lens)
     with torch.cuda.device(dev):
         rc = _load().almost_repeat_paths(s8.data_ptr(), ln.data_ptr(),
                                          out.data_ptr(), W * J, LP, int(K),
-                                         int(max_mismatch), _stream(dev))
+                                         mm, pl.blocks, pl.threads, pl.tile,
+                                         pl.smem, _stream(dev))
     _launched("almost_repeat_paths", rc)
     return out.to(torch.bool)
 

@@ -615,9 +615,9 @@ def test_plain_walks_mark_the_elements_they_read():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """K1-K4 bit-equal to their plain versions on synthetic inputs, and K1
-    and K4 on the crafted cases of gpu.walkcases (each staging mode
-    included)."""
+    """K1-K4 bit-equal to their plain versions on synthetic inputs, and K1,
+    K3 and K4 on the crafted cases of gpu.walkcases (each staging mode,
+    K3's word and tile edges included)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     dev = torch.device("cuda", 0)
@@ -681,6 +681,12 @@ def test_kernels_match_plain_on_card():
         want = walkcases.run_cover(c)
         for k in want:
             assert torch.equal(got[k].cpu(), want[k]), (name, k)
+    for name, c in walkcases.almost_repeat_cases().items():
+        before = walks.LAUNCHES["almost_repeat_paths"]
+        got = walkcases.run_almost_repeat(c, dev)
+        torch.cuda.synchronize()
+        assert walks.LAUNCHES["almost_repeat_paths"] == before + 1
+        assert torch.equal(got.cpu(), walkcases.run_almost_repeat(c)), name
 
 
 def test_pack_equals_jax():

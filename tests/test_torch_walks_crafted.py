@@ -10,11 +10,18 @@ window's graph in shared memory.
   the first found), queue overflow, the POPMAX and dfs_limit stops, a path
   longer than PN, and a window whose staged graph takes the global mode;
 - `walks.cycle_dfs_plan` and `walks.path_cover_plan` on the device graph
-  engine's shapes and at the byte boundaries.
+  engine's shapes and at the byte boundaries;
+- `almost_repeat_plain` (isAlmostRepeat on path strings): hits at the
+  largest shift and the last start, mismatch budgets at, past and below
+  their limits, N and odd codes, strings of the engine's full LP 1,728,
+  and hits at the edges of the kernel's words and tiles, up to K 63; and
+  `walks.almost_repeat_plan`.
 
 The `cuda` test of tests/test_torch_graphwalks.py holds the kernels
 bit-equal to the plain versions on every case on the card.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -29,6 +36,7 @@ torch.set_num_threads(1)
 
 CYCLE = walkcases.cycle_cases()
 COVER = walkcases.path_cover_cases()
+REPEAT = walkcases.almost_repeat_cases()
 
 
 @pytest.mark.parametrize("name", sorted(CYCLE))
@@ -160,3 +168,55 @@ def test_path_cover_plan():
                                               True)
     with pytest.raises(ValueError):
         walks.path_cover_plan(528, 24, 1568, 16_000, 24)
+
+
+@functools.cache
+def _jax_almost_repeat():
+    """The JAX `_is_almost_repeat_paths`, jitted as the JAX engine runs it
+    (K and LP static), so that cases of one shape and K share a compile."""
+    import jax
+
+    import lancet_tpu.tpu.pipeline as jpl
+
+    return jax.jit(jpl._is_almost_repeat_paths, static_argnums=(2, 4))
+
+
+@pytest.mark.parametrize("name", sorted(REPEAT))
+def test_almost_repeat_case_equals_jax(name):
+    import jax.numpy as jnp
+
+    c = REPEAT[name]
+    LP = c["seq"].shape[2]
+    want = np.asarray(_jax_almost_repeat()(
+        jnp.asarray(c["seq"]), jnp.asarray(c["lens"]), c["K"],
+        jnp.int32(c["mm"]), LP))
+    got = walkcases.run_almost_repeat(c).numpy()
+    assert np.array_equal(want, got), (want, got)
+    assert np.array_equal(got, c["expect"]), got
+
+
+@pytest.mark.parametrize("LP,K,plan", [
+    (1728, 11, (8, 512, 64)),   # the engine's strings at its first k
+    (1728, 63, (8, 512, 128)),  # its last k: a window spans two words
+    (512, 32, (1, 512, 64)),    # the last K whose windows fit two words
+    (513, 33, (8, 512, 128)),
+    (40, 0, (1, 512, 64)),
+])
+def test_almost_repeat_plan(LP, K, plan):
+    pl = walks.almost_repeat_plan(LP, K)
+    assert (pl.blocks, pl.threads, pl.tile) == plan
+    # the string and the 99 bytes a tile may read past it, zeroed
+    assert pl.smem == walks.almost_repeat_smem(LP) >= LP + 99
+    assert pl.smem % 16 == 0 and pl.smem <= walks.SMEM_LIMIT
+
+
+def test_almost_repeat_plan_refuses_what_the_kernel_does_not_take():
+    # a window's K+1 mismatch bits fill at most two 32-bit words; the
+    # string and its pad must fit in a block's shared memory
+    for K in (-1, 64):
+        with pytest.raises(ValueError):
+            walks.almost_repeat_plan(1728, K)
+    with pytest.raises(ValueError):
+        walks.almost_repeat_plan(walks.SMEM_LIMIT, 11)
+    with pytest.raises(ValueError):
+        walks.almost_repeat_plan(0, 11)
