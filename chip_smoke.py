@@ -13,12 +13,15 @@ Phases, each printing one JSON line:
      cell of the fused Gotoh kernel's fill loop and per step of its
      traceback loop, for each instantiation, with the DPX opcodes the fill
      loop holds, and the toolkit headers that declare __vibmax_s32; the
-     SASS counts per position-step of the repeat-gate kernel's scan loop;
+     SASS counts per word of the repeat-gate kernel's two word loops;
   3. gates, one line per case: the kernel repeat_gates held bit-equal to
      the plain PyTorch version gates_plain on the card, on all 5,195
-     default-corpus windows (timed with CUDA events beside the plain
-     version and the card's bound) and on the adversarial windows of
-     tests/test_torch_repeats.py for several ks lists and max_mismatch;
+     default-corpus windows (the two-phase path's call: timed with CUDA
+     events and by its own device time beside the plain version and the
+     card's bounds), on the adversarial windows of
+     tests/test_torch_repeats.py for several ks lists and max_mismatch,
+     and on every crafted case of gpu/gatecases.py, each also at the
+     GATE_FORCED (blocks, threads, tile) launches;
   4. main path: the default corpus (520 kb, 5,195 windows) through
      runner.run(device="cuda") with 8 threads, the Gotoh kernel's launch
      counts (one shared-memory-mode launch per DP group), then the same
@@ -49,8 +52,10 @@ Phases, each printing one JSON line:
      (csrc/walks.cu) must launch, gotoh_align and repeat_gates too on case
      1; every path_cover, almost_repeat_paths and cycle_dfs launch of case
      1's second run, of case 2 and of phase mesh (b) is held bit-equal to
-     the plain version on its own inputs; then one kernels line per walk:
-     the call with the
+     the plain version on its own inputs; every repeat_gates call of case
+     1's second run and of case 2 is held against gates_plain, and the one
+     with the most (shift, position) pairs timed with its bounds (a gates
+     line); then one kernels line per walk: the call with the
      most work of the two cases, its outputs bit-equal to the plain
      version on the card, timed beside it, the card's bound and the
      walk's chain floor (its longest serial chain of steps times the
@@ -71,7 +76,8 @@ Phases, each printing one JSON line:
      process of theirs is left; (d) the main path with LANCET_TPU_GATES=1
      against the main path without it, alternating (GATES_AB): every VCF
      equals the main path's and repeat_gates launched in every run with
-     the sweep;
+     the sweep; every chunk of the first run with the sweep is held
+     against gates_plain (a gates line);
   9. kernels, one line per case: the fused kernel gotoh_align on each kept
      group's own pairs, on the tie-heavy pairs of tests/test_torch_align.py,
      on one seeded group of 132 related pairs of ~1,100 bp whose codes
@@ -121,14 +127,33 @@ ISSUE_LANES_PER_SM_CLK = 128
 # count.
 FILL_OPS_PER_CELL = 17
 TRACE_OPS_PER_STEP = 10
-# Integer operations of one position-step of the repeat-gate scan at
-# max_mismatch 2, by hand (csrc/repeats.cu): the byte compare, the three
-# selects of the mismatch ring, and two add-and-max (the zero run and the
-# stretch, one DPX VIADDMNMX each). The bound takes the smaller of this and
-# the SASS count.
+# Integer operations of the repeat-gate function a (shift, position) pair
+# at max_mismatch 2, by hand: the byte compare, the three selects of a
+# mismatch ring, and two add-and-max (the zero run and the stretch); kept
+# as a function-level count so that the repeat_gates row of PERF.md stays
+# comparable from one design to the next.
 GATE_OPS_PER_STEP = 6
+# The redesigned kernel's own count of what a batch needs under its plan
+# (csrc/repeats.cu, whose work counters give the words and tests of a
+# launch): 72 a mismatch word of 32 positions built from bytes (9 a 4
+# positions, as K3's WALK_OPS: the shifted word's load and funnel shift,
+# the xor, the carry-free byte test's and, add and or-and, the gathering
+# multiply and shift, the insert), 10 one built from the two bit planes of
+# a window of A, C, G and T (3 paired loads, 3 address operations, 2
+# funnel shifts, 2 xor-or), 4 a window test (a funnel shift, the mask, the
+# popcount, the compare); a position of the plain scan GATE_OPS_PER_STEP.
+# Each word count is the smaller of this and the SASS count of its word
+# loop.
+GATE_OPS_PER_WORD = 72
+GATE_OPS_PER_PLANE_WORD = 10
+GATE_OPS_PER_TEST = 4
 GATE_ODD_KS = [31, 4, 6, 7, 12, 10, 64, 0]  # tests/test_torch_repeats.py
 GATE_MISMATCHES = (-1, 0, 1, 2, 3, 8, 40)
+# the crafted cases are also launched at other (blocks, threads, tile) than
+# their plan's: the two-phase path's (1, 128, 1,024), the device graph
+# path's (2, 320, 128), a small batch's (8, 512, 32) and odd ones
+GATE_FORCED = ((1, 128, 1024), (2, 320, 128), (8, 512, 32), (1, 32, 64),
+               (3, 1024, 256))
 FALLBACK_REGION = "chr1:300-40300"  # 400 windows of the default corpus
 MESH_ON_ONE_CARD = 4  # entries of cuda:0 in the main path's mesh case
 DEVGRAPH_MESHES = (1, 2, 4)  # entries of cuda:0, device-graph cases
@@ -329,36 +354,57 @@ _LDS_BYTES = {"LDS.U8": 1, "LDS.S8": 1, "LDS.U16": 2, "LDS": 4, "LDS.64": 8,
               "LDS.128": 16}
 
 
+def _loops(ops):
+    """Every loop of a function: (first, last) instruction indices of a
+    backward branch's target and the branch."""
+    at = {addr: k for k, (addr, _) in enumerate(ops)}
+    loops = []
+    for k, (_, toks) in enumerate(ops):
+        m = re.search(r"\b0x([0-9a-f]+)$", " ".join(toks))
+        if toks[0].startswith("BRA") and m:
+            tgt = at.get(int(m.group(1), 16))
+            if tgt is not None and tgt <= k:
+                loops.append((tgt, k))
+    return loops
+
+
 def sass_gate_counts(so: str):
-    """Static SASS counts of repeat_gates' scan loop, per max_mismatch
-    instantiation ("MM2"; "MMn1" the two-pointer pass): the innermost loop
-    that loads shared bytes (LDS.U8), divided by its position-steps, each
-    of which reads two bytes (the compiler merges the aligned ones of an
-    unrolled loop into 32-bit loads, so steps = shared bytes loaded / 2);
-    the loop with the most steps where there are several. Returns
-    ({key: counts}, None), or (None, the reason)."""
+    """Static SASS counts of repeat_gates' two word loops, per
+    instantiation ("W2" to "W5": the mismatch words a thread holds): a
+    loop that holds the chunk's test loops (POPC) and slides in one new
+    word, built from bytes ("bytes": two 16-byte shared loads, LDS.128) or
+    from bit planes ("planes": 8-byte shared loads, LDS.64, only); its
+    instructions outside the loops it holds, a word an iteration. Returns
+    ({key: {bytes, planes}}, None), or (None, the reason)."""
     funcs, why = _sass_functions(so)
     if funcs is None:
         return None, why
     out = {}
     for name, ops in funcs.items():
-        m = re.search(r"repeat_gates_kernelILi(n?)(\d+)EE", name)
-        if not m:
+        m = re.search(r"repeat_gates_kernelILi(\d+)EE", name)
+        if not m or m.group(1) == "0":  # 0: the plain scan
             continue
-        key = f"MM{m.group(1)}{m.group(2)}"
-        best = None
-        for body in _inner_loops(ops):
-            if not any(t[0].startswith("LDS.U8") for t in body):
+        key = f"W{m.group(1)}"
+        loops = _loops(ops)
+        found = {}
+        for lo, hi in loops:
+            inner = [o for o in loops if o != (lo, hi) and lo <= o[0]
+                     and o[1] <= hi]
+            if not any(t[0] == "POPC" for a, b in inner
+                       for _, t in ops[a:b + 1]):
                 continue
-            steps = sum(_LDS_BYTES.get(t[0], 0) for t in body) // 2
-            if steps and (best is None or steps > best[0]):
-                best = (steps, _classify(body))
-        if best is None:
-            return None, f"{key}: the scan loop was not found in the SASS"
-        out[key] = {"steps_per_iteration": best[0],
-                    **{k: v / best[0] for k, v in best[1].items()}}
-    if "MM2" not in out:
-        return None, "repeat_gates_kernel<2>: not in the SASS"
+            body = [ops[k][1] for k in range(lo, hi + 1)
+                    if not any(a <= k <= b for a, b in inner)]
+            lds = [t[0] for t in body if t[0].startswith("LDS")]
+            kind = ("bytes" if "LDS.128" in lds else
+                    "planes" if "LDS.64" in lds else None)
+            if kind and (kind not in found or hi - lo < found[kind][0]):
+                found[kind] = (hi - lo, _classify(body))
+        if set(found) != {"bytes", "planes"}:
+            return None, f"{key}: a word loop was not found in the SASS"
+        out[key] = {k: v[1] for k, v in found.items()}
+    if "W2" not in out or "W5" not in out:
+        return None, "repeat_gates_kernel<2> or <5>: not in the SASS"
     return out, None
 
 
@@ -557,10 +603,38 @@ def kernel_phase(pairs, rate: dict, plain_reps: int = PLAIN_REPS) -> dict:
     }
 
 
-def gates_case(windows, ks, mm: int, rate: dict, timed: bool) -> dict:
+def gate_bound(W: int, L: int, nk: int, steps: int, work, plan,
+               rate: dict) -> dict:
+    """The card's least time (ms) for a repeat_gates call: its bytes (the
+    windows, lengths and ks read once, both rows written once) over the
+    memory rate, and its integer operations over the issue rate, counted
+    twice: at the function-level GATE_OPS_PER_STEP a (shift, position)
+    pair (the row's count since the first design), and as what these
+    inputs need under the kernel's plan (its words and window tests, from
+    the kernel's own counters)."""
+    nbytes = W * L + 4 * W + 4 * nk + 2 * W * nk
+    words, tests, plane_words = (int(v) for v in work)
+    if plan.words:
+        plan_ops = (rate["gate_ops_per_word"] * words
+                    + rate["gate_ops_per_plane_word"] * plane_words
+                    + GATE_OPS_PER_TEST * tests)
+    else:  # the plain scan counts positions
+        plan_ops = GATE_OPS_PER_STEP * words
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "operations": GATE_OPS_PER_STEP * steps / rate["int_ops_per_s"]
+            * 1e3,
+            "plan_operations": plan_ops / rate["int_ops_per_s"] * 1e3,
+            "nbytes": nbytes, "words": words, "plane_words": plane_words,
+            "tests": tests, "plan_int_ops": plan_ops}
+
+
+def gates_case(windows, ks, mm: int, rate: dict, timed: bool,
+               forced=()) -> dict:
     """repeat_gates on one batch of windows: its gates and exact rows
-    bit-equal to gates_plain on the card; with `timed`, timed beside it and
-    the card's bound."""
+    bit-equal to gates_plain on the card, at gates_plan's launch and at
+    each (blocks, threads, tile) of `forced`; with `timed`, timed beside
+    it (CUDA events around the wrapper, and the kernel's own device time)
+    with the card's bound."""
     import torch
 
     from lancet_tpu_torch.gpu import repeats
@@ -568,36 +642,82 @@ def gates_case(windows, ks, mm: int, rate: dict, timed: bool) -> dict:
     dev = torch.device("cuda", 0)
     seq, lens = repeats.pack(windows)
     seq_d, lens_d = (torch.from_numpy(a).to(dev) for a in (seq, lens))
-    g, e = repeats.gates(seq_d, lens_d, ks, mm)
+    work = torch.zeros(3, dtype=torch.int64, device=dev)
+    g, e = repeats.gates(seq_d, lens_d, ks, mm, work)
     torch.cuda.synchronize()
     pg, pe = repeats.gates_plain(seq_d, lens_d, tuple(ks), mm)
     # verdicts that differ (0 or 1 each); the kernel must agree on all
     err = max(int((g != pg).sum()), int((e != pe).sum()))
+    W, L = seq.shape
+    pl = repeats.gates_plan(W, L, ks, mm)
+    for b, t, tile in forced:
+        g2, e2 = torch.zeros_like(g), torch.zeros_like(e)
+        repeats.launch(seq_d, lens_d, tuple(ks), mm,
+                       pl._replace(blocks=b, threads=t, tile=tile), g2, e2)
+        torch.cuda.synchronize()
+        err = max(err, int((g2 != pg).sum()), int((e2 != pe).sum()))
     if err:
         raise AssertionError(f"W={len(windows)} mm={mm} ks={ks}: "
                              f"repeat_gates disagrees with gates_plain on "
                              f"{err} verdicts")
-    W, L = seq.shape
     steps = int(sum(int(n) * (int(n) - 1) // 2 for n in lens))
     out = {"W": W, "L": L, "nk": len(ks), "max_mismatch": mm,
-           "threads": repeats.plan_threads(L), "position_steps": steps,
-           "gated": int(g.sum()), "exact": int(e.sum()),
-           "tolerance": 0, "max_abs_err": err}
+           "plan": pl._asdict(), "forced_plans": len(forced),
+           "position_steps": steps, "gated": int(g.sum()),
+           "exact": int(e.sum()), "tolerance": 0, "max_abs_err": err}
     if not timed:
         return out
     ms = spread(cuda_times(lambda: repeats.gates(seq_d, lens_d, ks, mm),
                            *KERNEL_REPS))
+    dms = [device_ms(lambda: repeats.gates(seq_d, lens_d, ks, mm),
+                     "repeat_gates_kernel", 10) for _ in range(3)]
     plain_ms = spread(cuda_times(
         lambda: repeats.gates_plain(seq_d, lens_d, tuple(ks), mm),
         PLAIN_REPS))
-    # read the bytes, lengths and ks once; write both rows once
-    nbytes = W * L + 4 * W + 4 * len(ks) + 2 * W * len(ks)
-    nops = rate["gate_ops_per_step"] * steps
-    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "operations": nops / rate["int_ops_per_s"] * 1e3}
-    return {**out, "ms": ms, "plain_ms": plain_ms, "bound": bound,
-            "bytes": nbytes, "int_ops": nops,
+    bound = gate_bound(W, L, len(ks), steps, work.tolist(), pl, rate)
+    return {**out, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": spread([d for d in dms if d is not None])
+            if any(d is not None for d in dms) else None,
+            "bound": {k: bound[k] for k in ("bytes", "operations",
+                                            "plan_operations")},
+            "bytes": bound["nbytes"], "int_ops": GATE_OPS_PER_STEP * steps,
+            "plan_int_ops": bound["plan_int_ops"], "words": bound["words"],
+            "plane_words": bound["plane_words"], "tests": bound["tests"],
             "steps_per_s": steps / (ms["median"] / 1e3)}
+
+
+@contextlib.contextmanager
+def capture_gates(calls: list):
+    """While active: append (windows, ks, max_mismatch) of every
+    repeat_gates call (the device graph path's k rounds, the eager sweep's
+    chunks) to `calls`."""
+    from lancet_tpu_torch.gpu import repeats
+
+    real = repeats.repeat_gates
+
+    def gate(windows, ks, max_mismatch, *a, **k):
+        calls.append((list(windows), list(ks), int(max_mismatch)))
+        return real(windows, ks, max_mismatch, *a, **k)
+
+    repeats.repeat_gates = gate
+    try:
+        yield
+    finally:
+        repeats.repeat_gates = real
+
+
+def check_gate_calls(calls: list, case: str, rate: dict) -> dict:
+    """Each captured repeat_gates call held bit-equal to gates_plain on
+    the card; the call with the most (shift, position) pairs timed with
+    its bound. Raises on a mismatch."""
+    if not calls:
+        raise AssertionError(f"{case}: no repeat_gates call was captured")
+    res = [gates_case(w, ks, mm, rate, timed=False) for w, ks, mm in calls]
+    big = max(range(len(calls)), key=lambda i: res[i]["position_steps"])
+    return {"calls": len(calls),
+            "max_abs_err": max(r["max_abs_err"] for r in res),
+            "shapes": [[r["W"], r["L"], r["nk"]] for r in res],
+            "largest": gates_case(*calls[big], rate, timed=True)}
 
 
 def default_windows(workdir: str, region: str) -> list[str]:
@@ -1335,12 +1455,14 @@ def mh_worker(argv: list) -> int:
     return 0
 
 
-def gates_case_main(workdir: str, region: str, vcf: str, summary: str):
+def gates_case_main(workdir: str, region: str, vcf: str, summary: str,
+                    chunks: list):
     """(d) The main path with the eager gate sweep (LANCET_TPU_GATES=1) in
     an A/B against the main path without it, in the order GATES_AB (off
     and on alternating, each arm in the same slots on average): every VCF
-    equal, repeat_gates launched in every run with the sweep. Returns the
-    launch counts of the last run with the sweep."""
+    equal, repeat_gates launched in every run with the sweep; the first
+    run with the sweep's repeat_gates calls are appended to `chunks`.
+    Returns the launch counts of the last run with the sweep."""
     t_total = {"off": [], "on": []}
     t_gates = []
     launches_on: dict = {}
@@ -1350,7 +1472,9 @@ def gates_case_main(workdir: str, region: str, vcf: str, summary: str):
             os.environ["LANCET_TPU_GATES"] = "1"
         reset_counts()
         try:
-            v, summ = run_captured(workdir, region, st, device="cuda")
+            with capture_gates(chunks if arm == "on" and not t_gates
+                               else []):
+                v, summ = run_captured(workdir, region, st, device="cuda")
         finally:
             os.environ.pop("LANCET_TPU_GATES", None)
         t_total[arm].append(st["t_total"])
@@ -1417,10 +1541,14 @@ def main() -> int:
             "hand_fill_ops_per_cell": FILL_OPS_PER_CELL,
             "hand_trace_ops_per_step": TRACE_OPS_PER_STEP,
             "per_instantiation": per,
-            "hand_gate_ops_per_step": GATE_OPS_PER_STEP,
-            "gate_ops_per_step": min(GATE_OPS_PER_STEP,
-                                     gsass["MM2"]["arith"]) if gsass
-            else None}
+            "gate_ops_per_step": GATE_OPS_PER_STEP,
+            "hand_gate_ops_per_word": GATE_OPS_PER_WORD,
+            "gate_ops_per_word": min(GATE_OPS_PER_WORD,
+                                     gsass["W5"]["bytes"]["arith"])
+            if gsass else None,
+            "gate_ops_per_plane_word": min(GATE_OPS_PER_PLANE_WORD,
+                                          gsass["W5"]["planes"]["arith"])
+            if gsass else None, "gate_ops_per_test": GATE_OPS_PER_TEST}
     emit({"phase": "build", "seconds": secs, "libraries": libs,
           "ptxas": ptxas, "dpx_headers": dpx_headers(),
           "sass": sass if sass is not None else {"not_measured": why},
@@ -1439,7 +1567,11 @@ def main() -> int:
     t_corpus = time.perf_counter() - t0
 
     # 3. the repeat-gate kernel against its plain version: every window of
-    # the default corpus, then the adversarial windows
+    # the default corpus (the two-phase path's call), the adversarial
+    # windows, then the crafted cases of gpu/gatecases.py, each also at the
+    # GATE_FORCED launches
+    from lancet_tpu_torch.gpu import gatecases
+
     cfg0 = Config()
     ks = list(range(cfg0.min_k, cfg0.max_k + 1, 2))
     gres = gates_case(default_windows(workdir, region), ks,
@@ -1456,6 +1588,16 @@ def main() -> int:
           "cases": n_adv, "ks_lists": [ks, GATE_ODD_KS],
           "max_mismatch": list(GATE_MISMATCHES), "tolerance": 0,
           "max_abs_err": gres["max_abs_err"]})
+    gcrafted = {}
+    for name, c in gatecases.gate_cases().items():
+        r = gates_case(c["windows"], c["ks"], c["mm"], rate, timed=False,
+                       forced=GATE_FORCED)
+        gcrafted[name] = {k: r[k] for k in ("W", "L", "nk", "max_mismatch",
+                                            "plan", "forced_plans",
+                                            "max_abs_err")}
+        gres["max_abs_err"] = max(gres["max_abs_err"], r["max_abs_err"])
+    emit({"phase": "gates", "case": "crafted", "tolerance": 0,
+          "forced": GATE_FORCED, "cases": gcrafted})
 
     # 4. main path on the default corpus
     st: dict = {}
@@ -1581,7 +1723,9 @@ def main() -> int:
     st_g2: dict = {}
     sums_g: dict = {}  # the attempt outputs' counters, for phase mesh
     calls: list = []
-    with instrument_devgraph(kept, None, calls), sum_attempts(sums_g):
+    gcalls: list = []  # repeat_gates calls of devgraph cases 1 and 2
+    with instrument_devgraph(kept, None, calls), sum_attempts(sums_g), \
+            capture_gates(gcalls):
         vcf_g2, _ = run_devgraph(workdir, DEVGRAPH_REGION, st_g2)
     checked_g = check_walk_calls(calls, "devgraph case 1")
     busy = profile_devgraph(workdir, DEVGRAPH_REGION, st_g["t_total"])
@@ -1623,11 +1767,14 @@ def main() -> int:
     st_a: dict = {}
     ops: dict = {}
     reset_counts()
-    with instrument_devgraph(kept, ops, calls):
+    with instrument_devgraph(kept, ops, calls), capture_gates(gcalls):
         vcf_a, summary_a = run_devgraph(advdir, adv_region, st_a,
                                         num_threads=2)
     launches_a = launch_counts()
     checked_a = check_walk_calls(calls, "devgraph case 2")
+    gdev = check_gate_calls(gcalls, "devgraph cases 1 and 2", rate)
+    emit({"phase": "gates", "case": "devgraph_calls", **gdev})
+    gres["max_abs_err"] = max(gres["max_abs_err"], gdev["max_abs_err"])
     emit({"phase": "devgraph", "case": "adversarial", "region": adv_region,
           "itd_events": list(corpus.ITD_EVENTS), "num_threads": 2,
           **{k: st_a[k] for k in ("t_total", "n_windows", "n_dev_windows",
@@ -1672,7 +1819,11 @@ def main() -> int:
     launches_m += [mesh_devgraph_case(workdir, n, vcf_g, summary_g, st_g,
                                       sums_g) for n in DEVGRAPH_MESHES]
     launches_mh = multihost_case(workdir, region, vcf, st)
-    launches_d = gates_case_main(workdir, region, vcf, summary)
+    gsweep: list = []  # the eager sweep's chunks, from its first run
+    launches_d = gates_case_main(workdir, region, vcf, summary, gsweep)
+    gsw = check_gate_calls(gsweep, "the eager gate sweep", rate)
+    emit({"phase": "gates", "case": "sweep_chunks", **gsw})
+    gres["max_abs_err"] = max(gres["max_abs_err"], gsw["max_abs_err"])
     emit({"phase": "mesh", "case": "summary", "cards": count,
           "cases_run": [c for c, _ in mesh_cases]
           + [f"devgraph_{n}" for n in DEVGRAPH_MESHES]
@@ -1769,7 +1920,12 @@ def main() -> int:
             "ms": mean([r["ms"]["median"] for r in cases]),
             "plain_ms": mean([r["plain_ms"]["median"] for r in cases]),
             "bound_ms": bnd[by], "bound_by": by, "library_ms": None})
-    gby = max(gres["bound"], key=gres["bound"].get)
+    # the bound of what these inputs need under the kernel's plan; the
+    # function-level count (GATE_OPS_PER_STEP) beside it
+    gb = {"bytes": gres["bound"]["bytes"],
+          "operations": gres["bound"]["plan_operations"]}
+    gby = max(gb, key=gb.get)
+    big = gdev["largest"]
     line.append({
         "name": "repeat_gates", "route": "cuda",
         "source": "lancet_tpu_torch/csrc/repeats.cu",
@@ -1780,7 +1936,19 @@ def main() -> int:
         "launches_by_path": by_path("repeat_gates"),
         "on_main_path": False, "max_abs_err": gres["max_abs_err"],
         "ms": gres["ms"]["median"], "plain_ms": gres["plain_ms"]["median"],
-        "bound_ms": gres["bound"][gby], "bound_by": gby, "library_ms": None})
+        "bound_ms": gb[gby], "bound_by": gby,
+        "function_bound_ms": gres["bound"]["operations"],
+        "device_ms": gres["device_ms"]["median"]
+        if gres["device_ms"] else None,
+        "devgraph_largest": {
+            "W": big["W"], "L": big["L"], "nk": big["nk"],
+            "ms": big["ms"]["median"],
+            "device_ms": big["device_ms"]["median"]
+            if big["device_ms"] else None,
+            "bound_ms": max(big["bound"]["bytes"],
+                            big["bound"]["plan_operations"]),
+            "function_bound_ms": big["bound"]["operations"]},
+        "library_ms": None})
     for name, kname in _WALKS.items():
         r = wres[name]
         by = max(r["bound"], key=r["bound"].get)

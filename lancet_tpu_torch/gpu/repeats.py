@@ -11,6 +11,12 @@ scan over the shifts d with [W, L] mismatch prefix sums shared across k).
 Semantics preserved exactly, including the reference's quirks: the final
 k-mer offset L-k is excluded, and the "almost" window is K+1 long.
 
+The kernel reduces a window to two numbers, the longest exact run Z and
+the longest stretch A within the mismatch budget over all shifts, clamped
+to the k list, and deals the window's (shift, start) plane in tiles over
+a cluster of blocks; `gates_plan` picks the cluster, the block, the tile
+and the mismatch words a thread holds from (W, L, ks, max_mismatch).
+
 `gates` takes tensors on one device: on the CPU it runs `gates_plain`; on
 a CUDA device it launches the kernel on that device and raises if the
 kernel library cannot be built or the launch is refused. There is no
@@ -25,18 +31,28 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .._build import build_shared
 from . import count_launch, resolve_device
-from .gotoh import NVCC_FLAGS, _check, _nvcc, _stream
+from .gotoh import NVCC_FLAGS, SMEM_LIMIT, _check, _nvcc, _stream
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "repeats.cu")
-MAX_THREADS = 256  # csrc/repeats.cu kMaxThreads
 PLAIN_ROWS = 256  # windows a step of the plain version holds at once
+# csrc/repeats.cu: a cluster of at most 8 blocks a window, at most 5
+# mismatch words in a thread's registers, 64 zeroed bytes past a window
+MAX_CLUSTER = 8
+MAX_WORDS = 5
+PAD = 64
+MAX_TILE = 1024  # window starts a tile, a multiple of 32
+H100_SMS = 132
+# the kernel's threads an SM holds at once: ~50 registers a thread (ptxas,
+# csrc/repeats.cu) leave room for ~1,150 of 2,048
+THREADS_PER_SM = 1024
 
 LAUNCHES = {"repeat_gates": 0}
 
@@ -99,13 +115,93 @@ def gates_plain(seq, lens, ks: tuple, max_mismatch: int):
     return gates, exact_acc
 
 
-def plan_threads(L: int) -> int:
-    """Block size for windows of width L: the L // 2 shift pairs of the
-    longest window split into the fewest rounds of at most MAX_THREADS
-    threads, the threads rounded up to whole warps."""
-    pairs = max(1, L // 2)
-    rounds = -(-pairs // MAX_THREADS)
-    return (-(-pairs // rounds) + 31) // 32 * 32
+class GatePlan(NamedTuple):
+    words: int  # mismatch words a thread holds (2-5); 0: the plain scan
+    blocks: int  # blocks a window (a thread block cluster)
+    threads: int  # a block's threads
+    tile: int  # window starts of one shift a tile (a multiple of 32)
+    smem: int  # bytes of dynamic shared memory a block takes
+    kmin: int  # the least and largest k, clamped to L + 1
+    kmax: int
+
+
+def gates_smem(L: int, words: int) -> int:
+    """A block's shared memory, as csrc/repeats.cu's repeat_gates_smem:
+    the window's bytes, rounded to 16, and, where words are built, PAD
+    zeroed bytes past them and the two bit planes of as many positions."""
+    if not words:
+        return (L + 15) // 16 * 16
+    n = L + PAD
+    return (n + 15) // 16 * 16 + (n + 31) // 32 * 8
+
+
+def clamp_ks(ks, L: int) -> tuple[int, int]:
+    """(kmin, kmax) of a k list as the kernel takes them: no window of
+    width L repeats past L + 1, so both are clamped there."""
+    kmax = min(max(ks), L + 1)
+    return min(min(ks), kmax), kmax
+
+
+def first_starts(n: int, kmin: int, kmax: int, max_mismatch: int) -> int:
+    """maxp of a window of length n: shift s (1 <= s <= maxp) holds the
+    window starts [0, maxp - s] of the first windows tested, Z's
+    max(kmin-1, 0)+1 bits inside [0, n-1-s) and A's kmin+1 inside [0,
+    n-s); 0 where no window is tested (csrc/repeats.cu computes the
+    same)."""
+    bz, ba = max(kmin - 1, 0), kmin if max_mismatch >= 0 else 0
+    acap = kmax + 1 if max_mismatch >= 0 else 0
+    c0 = min(bz + 2 if bz < kmax else 1 << 31, ba + 1 if ba < acap
+             else 1 << 31)
+    return 0 if c0 == 1 << 31 else max(n - c0, 0)
+
+
+def tile_count(maxp: int, tile: int) -> int:
+    """Tiles of a window: (maxp + 1) // 2 pairs of shifts (1+i, maxp-i),
+    whose starts laid end to end make maxp + 1, each cut into tiles of
+    `tile` starts (the last one shorter)."""
+    if maxp < 1:
+        return 0
+    return (maxp + 1) // 2 * ((maxp + tile) // tile)
+
+
+def gates_plan(W: int, L: int, ks, max_mismatch: int,
+               sms: int = H100_SMS) -> GatePlan:
+    """The launch of one batch of W windows of width L: the words a thread
+    holds, from the widest window tested (kmax+1, or kmax without an A
+    budget; 0, the plain scan, past MAX_WORDS words or where the window
+    and its pad do not fit a block's shared memory); threads a window
+    enough to fill the card's sms x THREADS_PER_SM threads when W is
+    small (at most a cluster of MAX_CLUSTER blocks of 512, and no more
+    than the tiles of 32 starts), as blocks of at most 512; then the tile
+    (a multiple of 32 up to MAX_TILE starts) that gives a window's
+    busiest thread the fewest starts, a word of halo each tile counted,
+    the longest of those. Raises for a window beyond a block's shared
+    memory."""
+    if W < 1 or L < 1 or not ks:
+        raise ValueError(f"gates_plan needs W, L >= 1 and a k, got W={W}, "
+                         f"L={L}, ks={ks}")
+    kmin, kmax = clamp_ks(ks, L)
+    widest = max(kmax + 1 if max_mismatch >= 0 else kmax, 1)
+    words = -(-widest // 32) + 1
+    if words > MAX_WORDS or gates_smem(L, words) > SMEM_LIMIT - 16:
+        words = 0
+    smem = gates_smem(L, words)
+    if smem > SMEM_LIMIT - 16:  # 16: the block's bars
+        raise ValueError(f"repeat_gates: windows of L={L} bytes do not fit "
+                         f"in a block's shared memory")
+    maxp = first_starts(L, kmin, kmax, max_mismatch)
+    per_window = sms * THREADS_PER_SM // W // 128 * 128
+    per_window = min(max(per_window, 128), MAX_CLUSTER * 512,
+                     max(32, (tile_count(maxp, 32) + 31) // 32 * 32))
+    blocks = -(-per_window // 512)
+    threads = (-(-per_window // blocks) + 31) // 32 * 32
+    halo = 32 if words else widest  # positions a tile reads past its end
+
+    def busiest(g):  # the starts and halos of a window's busiest thread
+        return -(-tile_count(maxp, g) // (blocks * threads)) * (g + halo)
+
+    tile = min(range(MAX_TILE, 31, -32), key=busiest)
+    return GatePlan(words, blocks, threads, tile, smem, kmin, kmax)
 
 
 def build() -> str:
@@ -121,16 +217,18 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.repeat_gates.restype = ci
-            lib.repeat_gates.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                         ci, vp]
+            lib.repeat_gates.argtypes = [vp] * 6 + [ci] * 10 + [
+                ctypes.c_size_t, vp]
             _lib = lib
         return _lib
 
 
-def gates(seq, lens, ks, max_mismatch: int):
+def gates(seq, lens, ks, max_mismatch: int, work=None):
     """Repeat gates of a batch: `gates_plain` on the CPU, one
-    `repeat_gates` launch on the card. Returns (gates, exact) bool
-    [W, len(ks)]."""
+    `repeat_gates` launch on the card (gates_plan). Returns (gates, exact)
+    bool [W, len(ks)]. `work`, an int64 [3] tensor on the card, gets the
+    kernel's mismatch words built from bytes (positions, for the plain
+    scan), window tests and words built from bit planes added to it."""
     dev = seq.device
     if seq.dim() != 2:
         raise ValueError(f"seq must be [W, L], got {tuple(seq.shape)}")
@@ -139,27 +237,52 @@ def gates(seq, lens, ks, max_mismatch: int):
         raise ValueError(f"unsupported device {dev}")
     _check("seq", seq, torch.uint8, (W, L), dev)
     _check("lens", lens, torch.int32, (W,), dev)
+    if work is not None:
+        _check("work", work, torch.int64, (3,), dev)
     ks = tuple(int(k) for k in ks)
     if any(k < 0 for k in ks):
         raise ValueError(f"every k must be >= 0, got {ks}")
     if dev.type == "cpu":
         return gates_plain(seq, lens, ks, max_mismatch)
-    nk = len(ks)
-    g = torch.zeros((W, nk), dtype=torch.bool, device=dev)
-    e = torch.zeros((W, nk), dtype=torch.bool, device=dev)
-    if W == 0 or nk == 0 or L == 0:
+    g = torch.zeros((W, len(ks)), dtype=torch.bool, device=dev)
+    e = torch.zeros((W, len(ks)), dtype=torch.bool, device=dev)
+    if W == 0 or not ks or L == 0:
         return g, e
+    launch(seq, lens, ks, max_mismatch,
+           gates_plan(W, L, ks, max_mismatch, _sms(dev)), g, e, work)
+    count_launch(LAUNCHES, "repeat_gates")
+    return g, e
+
+
+def launch(seq, lens, ks: tuple, max_mismatch: int, pl: GatePlan, g, e,
+           work=None) -> None:
+    """One repeat_gates launch of plan `pl` on checked card tensors,
+    writing the bool [W, nk] outputs g and e (gates() counts it; the
+    comparisons of other plans call it directly)."""
+    dev = seq.device
+    W, L = seq.shape
     lib = _load()
+    # a budget past the widest window's bits is one past it
+    mm = max(min(int(max_mismatch), pl.kmax + 1), -1)
     ks_d = torch.tensor(ks, dtype=torch.int32).to(dev)
     with torch.cuda.device(dev):  # the launch goes to the current device
         rc = lib.repeat_gates(seq.data_ptr(), lens.data_ptr(),
-                              ks_d.data_ptr(), g.data_ptr(), e.data_ptr(), W,
-                              L, nk, int(max_mismatch), plan_threads(L),
+                              ks_d.data_ptr(), g.data_ptr(), e.data_ptr(),
+                              None if work is None else work.data_ptr(), W,
+                              L, len(ks), mm, pl.kmin, pl.kmax, pl.words,
+                              pl.blocks, pl.threads, pl.tile, pl.smem,
                               _stream(dev))
     if rc != 0:
         raise RuntimeError(f"repeat_gates launch failed: CUDA error {rc}")
-    count_launch(LAUNCHES, "repeat_gates")
-    return g, e
+
+
+_SMS: dict = {}
+
+
+def _sms(dev) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
 
 
 def pack(windows: list[str]):
