@@ -50,9 +50,12 @@ Phases, each printing one JSON line:
      hets, internal tandem duplications whose cycles reach the exact cycle
      replay), its VCF equal to the native path's; the four walk kernels
      (csrc/walks.cu) must launch, gotoh_align and repeat_gates too on case
-     1; every path_cover, almost_repeat_paths and cycle_dfs launch of case
-     1's second run, of case 2 and of phase mesh (b) is held bit-equal to
-     the plain version on its own inputs; every repeat_gates call of case
+     1; every path_cover, seq_removal (the whole removal pass:
+     seq_removal_pass_plain), almost_repeat_paths and cycle_dfs launch of
+     case 1's second run, of case 2 and of phase mesh (b) is held bit-equal
+     to the plain version on its own inputs; a removal pass of case 2 takes
+     at most REMOVAL_MAX_ATEN_OPS aten ops on the card (its launch and its
+     outputs' allocation); every repeat_gates call of case
      1's second run and of case 2 is held against gates_plain, and the one
      with the most (shift, position) pairs timed with its bounds (a gates
      line); then one kernels line per walk: the call with the
@@ -85,9 +88,11 @@ Phases, each printing one JSON line:
      20,000 bases (long_ref, the strip mode); its ops and counts held
      bit-equal to the plain PyTorch versions run on the card, and timed
      with CUDA events beside the plain versions and the card's bound;
-     path_cover, cycle_dfs and almost_repeat_paths on the crafted cases of
-     gpu/walkcases.py (each staging mode; K3's word and tile edges), held
-     bit-equal to the plain versions.
+     path_cover, cycle_dfs, almost_repeat_paths and seq_removal on the
+     crafted cases of gpu/walkcases.py (each staging mode; K3's word and
+     tile edges; the removal pass's chained kills, ties, overflows and
+     empty windows, one launch each), held bit-equal to the plain
+     versions.
 Then the kernels' summary line, nvidia-smi's line, and last the device
 line. Every path's launch counts are set to 0 just before it runs and read
 just after. Any failure exits non-zero before the last line. Without a
@@ -172,8 +177,8 @@ DEVGRAPH_STATS = {"n_dev_windows": 357, "n_dev_fallback": 0,
 # (csrc/walks.cu), as lower bounds: path_cover 10 per BFS pop (the queue
 # entry's one 16-byte load and its three field extracts, the sink and best
 # tests, the expand test, the lane's slot-word load, head and tail);
-# seq_removal 8 per rank slot (the slot, its degree, removed flag and
-# merlen loads, the tests); cycle_dfs 6 per DFS step (the successor
+# seq_removal 8 per swept slot (the entry's ballot and shuffle, its
+# degree and flag loads, the tests); cycle_dfs 6 per DFS step (the successor
 # entry's load, its start-bit test, the colour and count loads, the colour
 # test, the end test; a push or pop of a packed frame besides);
 # almost_repeat_paths 2 per (shift, position) mismatch bit a no-hit string
@@ -187,12 +192,18 @@ WALK_OPS = {"path_cover": 10, "seq_removal": 8, "cycle_dfs": 6,
 # then the covered bit and the length delta), cycle_dfs 2 a step (the
 # successor entry, then its destination's colour and count side by side;
 # steps up to the first cycle a component finds), seq_removal 1 a slot
-# (the degree; its slot id and merlen come from device memory),
+# (its degree and flag side by side; the slot's item comes by a shuffle)
+# and REMOVAL_KILL_LOADS more a kill (the item's first and last edge, an
+# edge word, the neighbour's flag before its atomic),
 # almost_repeat_paths 1 a 32-position mismatch word of its busiest thread
 # (the word's shared loads issue together, then its ~80 integer
 # instructions and the window tests: a loose floor).
 WALK_CHAIN_LOADS = {"path_cover": 3, "seq_removal": 1, "cycle_dfs": 2,
                     "almost_repeat_paths": 1}
+REMOVAL_KILL_LOADS = 3
+# aten ops of one removal pass on the card: the kernel's four outputs, one
+# allocation each (the launch itself goes through ctypes), one op to spare
+REMOVAL_MAX_ATEN_OPS = 5
 CHASE_STEPS = (1 << 20, 1 << 22)  # the shared-memory latency probe
 LONG_WINDOW = 9000  # --window-size of phase long_window (> 8,192)
 LONG_DEFAULT_REGION = "chr1:20000-29000"  # 7 windows at LONG_WINDOW
@@ -877,15 +888,36 @@ _WALK_SOURCES = {"path_cover": "lancet_tpu/tpu/pipeline.py:310",
                  "seq_removal": "lancet_tpu/tpu/stages.py:580",
                  "almost_repeat_paths": "lancet_tpu/tpu/pipeline.py:680",
                  "cycle_dfs": "lancet_tpu/tpu/stages.py:839"}
-# torch-op functions of the device graph engine whose calls and aten ops
-# (about one kernel launch each) are counted
-_OP_COUNTED = ("tandem_at", "cycle_screen", "compress_round")
+# functions of the device graph engine whose calls and aten ops (about
+# one kernel launch each) are counted: the torch-op functions, and the
+# removal pass (one K2 launch and its outputs' allocation)
+_OP_COUNTED = ("tandem_at", "cycle_screen", "compress_round",
+               "_seq_removal_pass")
 
 
 def _tree(x, fn):
     if isinstance(x, (tuple, list)):
         return type(x)(_tree(y, fn) for y in x)
+    if isinstance(x, dict):
+        return {k: _tree(v, fn) for k, v in x.items()}
     return fn(x)
+
+
+def _on_card(args) -> bool:
+    """Whether a walk call's first tensor (in a removal pass: its state's
+    alive) lies on a card."""
+    a = args[0]
+    return (a["alive"] if isinstance(a, dict) else a).is_cuda
+
+
+def _walk_args(name: str, args: list) -> list:
+    """A walk call's arguments as kept: a removal pass's state reduced to
+    the keys the pass reads."""
+    if name != "seq_removal":
+        return args
+    from lancet_tpu_torch.gpu import walks
+
+    return [{k: args[0][k] for k in walks.REMOVAL_KEYS}] + list(args[1:])
 
 
 def _walk_work(name: str, args) -> int:
@@ -896,14 +928,15 @@ def _walk_work(name: str, args) -> int:
         _, _, _, alive, _, N, Cmax, mask = args
         src = alive[:, N + 2 * torch.arange(Cmax, device=alive.device)]
         return int((mask & src).sum()) if mask is not None else 0
-    if name == "seq_removal":
-        return int((args[0] >= 0).sum())
+    if name == "seq_removal":  # live items
+        return int((args[0]["alive"] & ~args[0]["special"]).sum())
     if name == "almost_repeat":
         return int(args[1].clamp(min=0).sum())
     return int(args[5].sum())  # path_cover: runnable components
 
 
-_CHECKED = ("path_cover", "almost_repeat", "cycle_dfs")  # held every call
+_CHECKED = ("path_cover", "seq_removal", "almost_repeat",
+            "cycle_dfs")  # held every call
 
 
 @contextlib.contextmanager
@@ -921,9 +954,11 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
 
     class Count(TorchDispatchMode):
         n = 0
+        paused = False  # the instrument's own copies are not counted
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            Count.n += 1
+            if not Count.paused:
+                Count.n += 1
             return func(*args, **(kwargs or {}))
 
     real_w = {n: getattr(walks, n) for n in _WALKS}
@@ -934,15 +969,24 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
 
     def wrap_walk(n):
         def f(*a, **k):
-            if kept is not None and a[0].is_cuda:
-                work = _walk_work(n, a)
-                if n not in kept or kept[n][0] < work:
-                    kept[n] = (work, copy(list(a)), dict(k))
+            card = _on_card(a)
+            paused, Count.paused = Count.paused, True
+            try:
+                if kept is not None and card:
+                    work = _walk_work(n, a)
+                    if n not in kept or kept[n][0] < work:
+                        kept[n] = (work, copy(_walk_args(n, list(a))),
+                                   dict(k))
+            finally:
+                Count.paused = paused
             out = real_w[n](*a, **k)
-            if calls is not None and n in _CHECKED and a[0].is_cuda:
-                calls.append((n, copy(list(a)), dict(k),
-                              copy(out) if not isinstance(out, dict) else
-                              {key: v.clone() for key, v in out.items()}))
+            if calls is not None and n in _CHECKED and card:
+                Count.paused = True
+                try:
+                    calls.append((n, copy(_walk_args(n, list(a))), dict(k),
+                                  copy(out)))
+                finally:
+                    Count.paused = paused
             return out
         return f
 
@@ -971,10 +1015,30 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
             setattr(stages, n, f)
 
 
+def removal_plain(st, cond, U, D2):
+    """seq_removal_pass_plain's outputs as the K2 wrapper returns them:
+    (alive, e_alive, removed_any, over)."""
+    from lancet_tpu_torch.gpu import stages
+
+    out, removed_any, over = stages.seq_removal_pass_plain(st, cond, U, D2)
+    return out["alive"], out["e_alive"], removed_any, over
+
+
+def _mismatches(got, want) -> int:
+    """Elements that differ between two walk outputs (a tensor, or a dict
+    or tuple of them)."""
+    if isinstance(want, dict):
+        return sum(int((got[k].cpu() != want[k].cpu()).sum()) for k in want)
+    if isinstance(want, tuple):
+        return sum(int((g.cpu() != w.cpu()).sum())
+                   for g, w in zip(got, want))
+    return int((got.cpu() != want.cpu()).sum())
+
+
 def check_walk_calls(calls: list, case: str) -> dict:
-    """Each captured card call of path_cover, almost_repeat or cycle_dfs
-    against the plain version on its own inputs, bit for bit; returns
-    {walk: {calls, mismatches}} and raises on a mismatch. Empties
+    """Each captured card call of path_cover, seq_removal, almost_repeat
+    or cycle_dfs against the plain version on its own inputs, bit for bit;
+    returns {walk: {calls, mismatches}} and raises on a mismatch. Empties
     `calls`."""
     import torch
 
@@ -986,12 +1050,13 @@ def check_walk_calls(calls: list, case: str) -> dict:
         n, args, kw, got = calls.pop(0)
         if n == "path_cover":
             want = pipeline.path_cover_plain(*args, **kw)
-            bad = sum(int((got[k] != want[k]).sum()) for k in want)
+        elif n == "seq_removal":
+            want = removal_plain(*args, **kw)
         elif n == "almost_repeat":
-            bad = int((got != pipeline.almost_repeat_plain(*args,
-                                                           **kw)).sum())
+            want = pipeline.almost_repeat_plain(*args, **kw)
         else:
-            bad = int((got != stages.cycle_dfs_plain(*args, **kw)).sum())
+            want = stages.cycle_dfs_plain(*args, **kw)
+        bad = _mismatches(got, want)
         res[n]["calls"] += 1
         res[n]["mismatches"] += int(bad > 0)
     if any(r["mismatches"] for r in res.values()):
@@ -1148,6 +1213,31 @@ def almost_repeat_words(n: int, K: int, plan) -> tuple[int, int]:
     return int(words.sum()), int(per.max())
 
 
+def removal_accounting(st, cond, U, D2, alive_out) -> dict:
+    """What one removal pass needs on this data: the bytes (each input
+    element it must read once: every item's alive and special byte, a live
+    item's rank, merlen and, for links, mincov and guard, thr a window,
+    every edge's alive byte and an alive edge's two ends; each output
+    once), the slots swept and the kills, and its serial chain in
+    dependent shared loads: the busiest window's slots plus
+    REMOVAL_KILL_LOADS a kill (WALK_CHAIN_LOADS is 1 a slot)."""
+    W, NI = st["alive"].shape
+    EE = st["e_src"].shape[1]
+    links = cond[0] == "links"
+    live = (st["alive"] & ~st["special"]).sum(dim=1)
+    slots = live.clamp(max=U)
+    kills = (st["alive"] & ~alive_out).sum(dim=1)
+    n_live = int(live.sum())
+    nbytes = (2 * W * NI + (16 + (9 if links else 0)) * n_live
+              + (8 * W if links else 0) + W * EE
+              + 16 * int(st["e_alive"].sum())  # the inputs
+              + W * NI + W * EE + 2 * W)  # alive', e_alive', the flags
+    return {"bytes": nbytes, "slots": int(slots.sum()),
+            "kills": int(kills.sum()), "live": n_live,
+            "chain": int((slots + REMOVAL_KILL_LOADS * kills).max())
+            if W else 0}
+
+
 def walk_case(name: str, args, kw: dict, rate: dict, chase: dict) -> dict:
     """One walk kernel on inputs captured from the devgraph runs: its
     outputs bit-equal to the plain version on the card, then timed beside
@@ -1169,10 +1259,8 @@ def walk_case(name: str, args, kw: dict, rate: dict, chase: dict) -> dict:
         def plain(c=None):
             return pipeline.path_cover_plain(*args, **kw, counts=c)
     elif name == "seq_removal":
-        kill = stages.removal_kill_fn(args[3])
-
         def plain(c=None):
-            return stages.seq_removal_plain(args[0], args[1], args[2], kill)
+            return removal_plain(*args)
     elif name == "almost_repeat":
         def plain(c=None):
             return pipeline.almost_repeat_plain(*args, **kw)
@@ -1183,14 +1271,13 @@ def walk_case(name: str, args, kw: dict, rate: dict, chase: dict) -> dict:
     torch.cuda.synchronize()
     want = plain(counts)
     torch.cuda.synchronize()
-    if isinstance(want, dict):
-        err = sum(int((got[k].cpu() != want[k].cpu()).sum()) for k in want)
-    else:
-        err = int((got.cpu() != want.cpu()).sum())
+    err = _mismatches(got, want)
     if err:
         raise AssertionError(f"{kname} disagrees with its plain version on "
                              f"{err} outputs")
-    narrow = _tree(list(args), _narrow)
+    # K2 takes the engine's state as it is; the others int32 and bytes
+    narrow = (list(args) if name == "seq_removal"
+              else _tree(list(args), _narrow))
     ms = spread(cuda_times(lambda: fn(*narrow, **kw), *KERNEL_REPS))
     dev_ms = device_ms(lambda: fn(*narrow, **kw), _KERNEL_NAMES[kname])
     plain_ms = spread(cuda_times(plain, WALK_PLAIN_REPS))
@@ -1213,17 +1300,8 @@ def walk_case(name: str, args, kw: dict, rate: dict, chase: dict) -> dict:
         # one warp walks a window's components in turn
         chain = int(counts["lanes"]["pops"].max())
     elif name == "seq_removal":
-        slots, nbr = args[0], args[1]
-        W, NI, D2 = nbr.shape
-        n_slots = int((slots >= 0).sum())
-        kills = int(got.sum())
-        links = args[3][0] == "links"
-        # per slot its id, degree and merlen; per kill its neighbour row
-        # (and, for links, the mincov and guard it passed); thr per window
-        nbytes = (12 * n_slots + (4 * D2 + (5 if links else 0)) * kills
-                  + (4 * W if links else 0) + W * NI)
-        units = n_slots
-        chain = int((slots >= 0).sum(dim=1).max())  # a window's sweep
+        acc = removal_accounting(*args, got[0])
+        nbytes, units, chain = acc["bytes"], acc["slots"], acc["chain"]
     elif name == "almost_repeat":
         seq, lens = args[0], args[1]
         W, J, LP = seq.shape
@@ -1251,7 +1329,9 @@ def walk_case(name: str, args, kw: dict, rate: dict, chase: dict) -> dict:
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "operations": nops / rate["int_ops_per_s"] * 1e3}
     chain_ms = chain * WALK_CHAIN_LOADS[kname] * chase["ns_per_load"] / 1e6
-    return {"name": kname, "shape": list(args[0].shape),
+    shape = (list(args[0]["alive"].shape) + [args[0]["e_src"].shape[1]]
+             if name == "seq_removal" else list(args[0].shape))
+    return {"name": kname, "shape": shape,
             "work_units": units, "tolerance": 0, "max_abs_err": err,
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound": bound, "chain_units": chain, "chain_loads": WALK_CHAIN_LOADS[kname],
@@ -1788,6 +1868,11 @@ def main() -> int:
     if vcf_a != vcf_an or summary_a != summary_an:
         raise AssertionError("the device graph engine's adversarial VCF "
                              "differs from the native main path's")
+    rops = ops.get("_seq_removal_pass", {"calls": 0, "aten_ops": 0})
+    if not rops["calls"] or rops["aten_ops"] > (REMOVAL_MAX_ATEN_OPS
+                                                * rops["calls"]):
+        raise AssertionError(f"the removal pass took {rops} aten ops on the "
+                             f"card (at most {REMOVAL_MAX_ATEN_OPS} a call)")
     walk_launches = {k: launches_g[k] + launches_a[k]
                      for k in _WALKS.values()}
     if min(walk_launches.values()) < 1 or kept["cycle_dfs"][0] < 1:
@@ -1847,7 +1932,8 @@ def main() -> int:
     if long_ref["mode"] != "strips":
         raise AssertionError(f"long_ref took mode {long_ref['mode']}")
 
-    # three walks on the crafted cases: each staging mode, K3's edges
+    # the four walks on the crafted cases: each staging mode, K3's edges,
+    # the removal pass's corners
     from lancet_tpu_torch.gpu import walkcases, walks
 
     crafted = {}
@@ -1877,6 +1963,17 @@ def main() -> int:
         crafted[f"almost_repeat_paths/{name}"] = {
             "plan": pl._asdict(),
             "mismatches": int((got.cpu() != want).sum())}
+    for name, c in walkcases.removal_cases().items():
+        before = walks.LAUNCHES["seq_removal"]
+        got = walkcases.run_removal(c, "cuda")
+        launched = walks.LAUNCHES["seq_removal"] - before
+        want = walkcases.run_removal(c)
+        W, NI = c["st"]["alive"].shape
+        crafted[f"seq_removal/{name}"] = {
+            "W": W, "NI": NI, "EE": c["st"]["e_src"].shape[1],
+            "U": c["U"], "D2": c["D2"], "mode": c["mode"],
+            "launches": launched, "mismatches": _mismatches(got, want)
+            + int(launched != 1)}
     emit({"phase": "kernels", "case": "walks_crafted", "tolerance": 0,
           "cases": crafted})
     if any(r["mismatches"] for r in crafted.values()):
@@ -1962,7 +2059,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"]["median"],
             "plain_ms": r["plain_ms"]["median"], "bound_ms": r["bound"][by],
             "bound_by": by, "device_ms": r["device_ms"],
-            "chain_floor_ms": r["chain_floor_ms"], "library_ms": None})
+            "chain_floor_ms": r["chain_floor_ms"], "library_ms": None,
+            **({"aten_ops_per_call": rops["aten_ops"] / rops["calls"]}
+               if kname == "seq_removal" else {})})
     emit({"kernels": line, "t_smoke": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,10 +18,12 @@ N+2c+1 are component c+1's fake source and sink):
   keep_hi (the kept donor interval within the mer's K bases).
 
 Two functions are sequential walks: `_seq_removal_pass` (the map-rank
-order removal sweep) and `has_cycle_seq` (the hasCycleRec replay). On a
-CUDA tensor each launches its hand-written kernel (gpu.walks: K2
-`seq_removal`, K4 `cycle_dfs`); on the CPU it runs its plain version here,
-the JAX lockstep loop step for step. Every other function is torch ops on
+order removal sweep, with the slot order, neighbour lists and removal
+around it) and `has_cycle_seq` (the hasCycleRec replay). On a CUDA tensor
+each launches its hand-written kernel (gpu.walks: K2 `seq_removal`, the
+whole pass in one launch; K4 `cycle_dfs`); on the CPU it runs its plain
+version here (`seq_removal_pass_plain`, `cycle_dfs_plain`), the JAX
+lockstep loop step for step. Every other function is torch ops on
 the tensors' device. Loops that JAX runs as device `while_loop`s run as
 host loops that sync on a predicate computed on the device.
 
@@ -546,22 +548,36 @@ def seq_removal_plain(slots, nbr, deg, kill_fn):
     return removed
 
 
+def seq_removal_pass_plain(st, cond, U, D2):
+    """The removal pass's plain version (see _seq_removal_pass), the JAX
+    function's composition: the slot order, the neighbour table and
+    degrees, the lockstep sweep, the removal. Returns (updated st,
+    removed_any [W], over [W])."""
+    NI = st["alive"].shape[1]
+    slots, over = _rank_slots(st, U)
+    nbr, deg, over2 = _nbr_table(st, NI, D2)
+    removed = seq_removal_plain(slots, nbr, deg, removal_kill_fn(cond))
+    return remove_items(st, removed), removed.any(dim=1), over | over2
+
+
 def _seq_removal_pass(st, cond, U, D2):
     """One sequential map-rank-order sweep: remove items satisfying the
     condition, updating neighbour degrees as the reference's in-place edge
     surgery does (removeTips/removeShortLinks iterate the live map).
 
     `cond` is ("tips", merlen, max_tip) or ("links", merlen, max_link,
-    mincov, thr, guard): the two conditions of cleanup. On a CUDA tensor
-    the sweep is the `seq_removal` kernel (gpu.walks), else
-    seq_removal_plain. Returns (updated st, removed_any [W], over [W])."""
+    mincov, thr, guard): the two conditions of cleanup. The pass is the
+    `seq_removal` wrapper (gpu.walks): on a CUDA tensor one kernel launch
+    (plus its outputs' allocation, and no host sync), else
+    seq_removal_pass_plain. Returns (updated st: alive and e_alive new,
+    every other key passed through; removed_any [W], over [W])."""
     from . import walks
 
-    NI = st["alive"].shape[1]
-    slots, over = _rank_slots(st, U)
-    nbr, deg, over2 = _nbr_table(st, NI, D2)
-    removed = walks.seq_removal(slots, nbr, deg, cond)
-    return remove_items(st, removed), removed.any(dim=1), over | over2
+    alive, e_alive, removed_any, over = walks.seq_removal(st, cond, U, D2)
+    out = dict(st)
+    out["alive"] = alive
+    out["e_alive"] = e_alive
+    return out, removed_any, over
 
 
 def removal_kill_fn(cond):

@@ -1,12 +1,16 @@
-"""Crafted inputs for three walks of csrc/walks.cu: graphs for the two
-that stage a window's graph in shared memory (K1 `path_cover`, K4
-`cycle_dfs`): the corners where their order of work decides the result,
-their overflow flags, and shapes that take each staging mode; and path
-strings for K3 `almost_repeat_paths`: hits at the edges of its shift,
-start, tile and word ranges, mismatch budgets at and past their limits,
-odd codes and the engine's longest strings. `tests/test_torch_walks_crafted.py`
-holds the plain versions on these cases against the JAX package, and
-`chip_smoke.py` the kernels against the plain versions on the card.
+"""Crafted inputs for the four walks of csrc/walks.cu: graphs for the two
+that stage a window's graph in shared memory and walk it (K1
+`path_cover`, K4 `cycle_dfs`): the corners where their order of work
+decides the result, their overflow flags, and shapes that take each
+staging mode; path strings for K3 `almost_repeat_paths`: hits at the edges
+of its shift, start, tile and word ranges, mismatch budgets at and past
+their limits, odd codes and the engine's longest strings; and states for
+K2 `seq_removal`, the whole removal pass: chained kills, rank ties, more
+live items than slots, a source past D2 edges, self-loops, duplicate
+edges and edges to dead items or anchors, empty windows, the guard of the
+links mode. `tests/test_torch_walks_crafted.py` holds the plain versions
+on these cases against the JAX package, and `chip_smoke.py` the kernels
+against the plain versions on the card.
 
 Each case is a dict of numpy arrays and ints, one lane (window) per row,
 with the edge lists' creation order as their okey order (so a lane's
@@ -430,3 +434,207 @@ def run_almost_repeat(c: dict, dev="cpu"):
 
     return walks.almost_repeat(_t(c["seq"], dev), _t(c["lens"], dev),
                                c["K"], c["mm"])
+
+
+def _removal_case(lanes, NI, EE, U, D2, mode, max_len, thr=None):
+    """One removal-pass call. Each lane is a dict: `live` (regular live
+    items), `special` (live anchors), `dead` items are the rest; `rank`
+    {item: rank} (default: the item id), `merlen` {item: len} (default
+    1), `mincov` and `guard` {item: value} (links mode; default 0 and
+    False), `edges` [(src, dst)] alive in that order, `dead_edges` [(src,
+    dst)] listed dead after them (their endpoints may lie outside [0,
+    NI))."""
+    W = len(lanes)
+    a = dict(alive=np.zeros((W, NI), bool), special=np.zeros((W, NI), bool),
+             rank=np.tile(np.arange(NI, dtype=np.int64), (W, 1)),
+             merlen=np.ones((W, NI), np.int64),
+             mincov=np.zeros((W, NI), np.int64),
+             guard=np.zeros((W, NI), bool),
+             e_src=np.zeros((W, EE), np.int64),
+             e_dst=np.zeros((W, EE), np.int64),
+             e_alive=np.zeros((W, EE), bool))
+    for w, ln in enumerate(lanes):
+        for i in ln.get("live", ()):
+            a["alive"][w, i] = True
+        for i in ln.get("special", ()):
+            a["alive"][w, i] = a["special"][w, i] = True
+        for key in ("rank", "merlen", "mincov", "guard"):
+            for i, v in ln.get(key, {}).items():
+                a[key][w, i] = v
+        edges = list(ln.get("edges", ()))
+        dead = list(ln.get("dead_edges", ()))
+        assert len(edges) + len(dead) <= EE
+        for e, (s, d) in enumerate(edges + dead):
+            a["e_src"][w, e], a["e_dst"][w, e] = s, d
+            a["e_alive"][w, e] = e < len(edges)
+    st = {k: a[k] for k in ("alive", "special", "rank", "merlen", "e_src",
+                            "e_dst", "e_alive")}
+    return dict(st=st, mode=mode, max_len=max_len, mincov=a["mincov"],
+                thr=np.zeros(W, np.int64) if thr is None
+                else np.asarray(thr, np.int64),
+                guard=a["guard"], U=U, D2=D2)
+
+
+def _both_ways(*pairs):
+    """Each (a, b) as the two directed edges a -> b and b -> a."""
+    return [e for a, b in pairs for e in ((a, b), (b, a))]
+
+
+def removal_cases() -> dict:
+    """Removal-pass inputs (the state, the mode and its scalars, U, D2)
+    and, where worked out by hand, the items each lane removes
+    ("expect_removed") and the overflow flags ("expect_over")."""
+    cases = {}
+
+    # a chain 0-1-2-3 of short items hung on item 4 (long: never killed).
+    # Lane 0 sweeps the chain from its free end: each kill makes the next
+    # slot a tip, so the whole chain goes. Lane 1 sweeps it from 3 (degree
+    # 2 at its slot, kept) towards 0: only 0, the one tip, goes. Lane 2:
+    # two chains in one window, and a tip whose neighbour is an anchor
+    chain = _both_ways((0, 1), (1, 2), (2, 3), (3, 4))
+    cases["chained_tips"] = _removal_case([
+        dict(live=range(5), merlen={4: 50}, edges=chain),
+        dict(live=range(5), merlen={4: 50}, edges=chain,
+             rank={0: 4, 1: 3, 2: 2, 3: 1, 4: 0}),
+        dict(live=range(8), special=[9], merlen={4: 50},
+             edges=chain + _both_ways((5, 6), (6, 7), (7, 9)))],
+        NI=10, EE=32, U=10, D2=4, mode="tips", max_len=10)
+    cases["chained_tips"]["expect_removed"] = [[0, 1, 2, 3], [0],
+                                               [0, 1, 2, 3, 5, 6, 7]]
+
+    # z (long) - a - b, a and b of equal rank: the lower id goes first.
+    # Lane 0 (a = 1, b = 2): a has degree 2 at its slot and stays, b goes.
+    # Lane 1 (a = 2, b = 1): b goes first, then a is a tip and goes. Lane
+    # 2: five items of one rank in a star around item 0 (long)
+    cases["rank_ties"] = _removal_case([
+        dict(live=[0, 1, 2], merlen={0: 50}, rank={0: 3, 1: 7, 2: 7},
+             edges=_both_ways((0, 1), (1, 2))),
+        dict(live=[0, 1, 2], merlen={0: 50}, rank={0: 3, 1: 7, 2: 7},
+             edges=_both_ways((0, 2), (2, 1))),
+        dict(live=range(6), merlen={0: 50}, rank={i: 2 for i in range(6)},
+             edges=_both_ways(*[(0, i) for i in range(1, 6)]))],
+        NI=8, EE=24, U=8, D2=8, mode="tips", max_len=10)
+    cases["rank_ties"]["expect_removed"] = [[2], [1, 2], [1, 2, 3, 4, 5]]
+
+    # more live items than slots: lane 0 has 6 isolated tips and U 4, so
+    # the last two in rank order stay and over is set; lane 1 exactly U
+    iso = dict(rank={0: 5, 1: 0, 2: 4, 3: 1, 4: 3, 5: 2})
+    cases["n_over_u"] = _removal_case([
+        dict(live=range(6), **iso), dict(live=range(4), **iso)],
+        NI=8, EE=4, U=4, D2=2, mode="tips", max_len=10)
+    cases["n_over_u"]["expect_removed"] = [[1, 3, 5, 4], [1, 3, 2, 0]]
+    cases["n_over_u"]["expect_over"] = [True, False]
+
+    # a hub (item 0) of 6 alive edges at D2 3 in the links mode: its kill
+    # lowers only the first three in edge order (to 5, 2, 4), which then
+    # hold degree 1 and stay; 1, 3 and 6 keep degree 2 and go. Lane 1: the
+    # same edges with every mincov above thr: no kill, only over shows.
+    # Lane 2 stays within D2
+    hub = [(0, 5), (0, 2), (0, 4), (0, 1), (0, 3), (0, 6)]
+    back = [(v, 0) for _, v in hub] + _both_ways(*[(v, 7) for v in
+                                                    range(1, 7)])
+    cases["deg_over_d2"] = _removal_case([
+        dict(live=range(8), merlen={7: 50}, mincov={i: 1 for i in range(8)},
+             edges=hub + back),
+        dict(live=range(8), merlen={7: 50}, mincov={i: 9 for i in range(8)},
+             edges=hub + back),
+        dict(live=range(4), mincov={0: 1, 1: 1},
+             edges=_both_ways((0, 1), (1, 2), (0, 3)))],
+        NI=8, EE=40, U=8, D2=3, mode="links", max_len=10, thr=[2, 2, 2])
+    cases["deg_over_d2"]["expect_removed"] = [[0, 1, 3, 6], [], [0]]
+    cases["deg_over_d2"]["expect_over"] = [True, True, False]
+
+    # self-loops, duplicate edges, edges to dead items and to an anchor,
+    # and dead edges with endpoints outside [0, NI). Lane 0: item 0's
+    # self-loop counts in its degree (2: no tip), item 8's lone self-loop
+    # makes it a tip that lowers nothing of its own; the tips 5 and 6 lower
+    # 1 to a tip, whose edge 1 -> 2, listed twice, lowers 2 (degree 3) by
+    # two to a tip. Lane 1: an alive edge from 3 to the dead item 6 and from
+    # 4 to the anchor 7; tips whose edges die with them
+    cases["loops_and_dead_ends"] = _removal_case([
+        dict(live=[0, 1, 2, 3, 4, 5, 6, 8], merlen={3: 50, 4: 50},
+             rank={5: 0, 6: 1, 1: 2, 2: 3, 0: 4, 3: 5, 4: 6, 8: 7},
+             edges=[(0, 0), (0, 3), (8, 8), (1, 2), (1, 2), (1, 5), (5, 1),
+                    (6, 1), (2, 1), (2, 3), (2, 4), (3, 2)],
+             dead_edges=[(-5, 99), (40, -1)]),
+        dict(live=range(6), special=[7], merlen={5: 50},
+             edges=[(3, 6), (6, 3), (4, 7), (7, 4), (5, 4)],
+             dead_edges=[(99, 99)])],
+        NI=10, EE=16, U=10, D2=4, mode="tips", max_len=10)
+    cases["loops_and_dead_ends"]["expect_removed"] = [[1, 2, 5, 6, 8],
+                                                      [0, 1, 2, 3, 4]]
+
+    # an empty window; a window of anchors only, with edges among them;
+    # a window of one isolated item; each also alone (W 1)
+    empty = dict()
+    anchors = dict(special=range(4), edges=_both_ways((0, 1), (2, 3)))
+    one = dict(live=[2])
+    cases["empty_windows"] = _removal_case(
+        [empty, anchors, one], NI=4, EE=8, U=4, D2=2, mode="tips",
+        max_len=10)
+    cases["empty_windows"]["expect_removed"] = [[], [], [2]]
+    for name, ln, want in (("w1_empty", empty, []),
+                           ("w1_anchors", anchors, []),
+                           ("w1_one", one, [2])):
+        cases[name] = _removal_case([ln], NI=4, EE=8, U=4, D2=2,
+                                    mode="tips", max_len=10)
+        cases[name]["expect_removed"] = [want]
+
+    # the links mode's static tests: a bubble 0 -> {1, 2} -> 3 (both
+    # branches of degree 2). Lane 0: the guard keeps branch 1, branch 2
+    # goes. Lane 1: mincov above thr keeps branch 1, merlen at max_len
+    # keeps branch 2. Lane 2 (thr 0): nothing passes mincov
+    bub = _both_ways((0, 1), (0, 2), (1, 3), (2, 3))
+    long_ends = {0: 50, 3: 50}
+    cases["links_guard"] = _removal_case([
+        dict(live=range(4), merlen=long_ends, mincov={1: 1, 2: 1},
+             guard={1: True}, edges=bub),
+        dict(live=range(4), merlen={**long_ends, 2: 10},
+             mincov={1: 3, 2: 1}, edges=bub),
+        dict(live=range(4), merlen=long_ends, mincov={1: 1, 2: 1},
+             edges=bub)],
+        NI=4, EE=8, U=4, D2=4, mode="links", max_len=10, thr=[2, 2, 0])
+    cases["links_guard"]["expect_removed"] = [[2], [], []]
+
+    # the engine's cleanup shape (NI 528, EE 1,568, U 256, D2 24), seeded
+    # random graphs: sparse short items (the engine's case), a dense lane
+    # (sources past D2), a lane of 300 live items (n > U), and a lane of
+    # 512 live items whose every edge is alive
+    rng = np.random.default_rng(528)
+    NI, EE = 528, 1568
+    lanes = []
+    for n_live, n_edges, n_ranks in ((40, 90, 40), (60, 1500, 20),
+                                     (300, 700, 300), (512, EE, 500)):
+        live = rng.choice(NI - 16, n_live, replace=False)
+        src = rng.choice(live, n_edges)
+        dst = rng.choice(np.concatenate([live, np.arange(NI - 16, NI)]),
+                         n_edges)
+        lanes.append(dict(
+            live=live.tolist(), special=range(NI - 16, NI),
+            rank={int(i): int(rng.integers(0, n_ranks)) for i in live},
+            merlen={int(i): int(rng.integers(1, 30)) for i in live},
+            edges=list(zip(src.tolist(), dst.tolist()))))
+    cases["engine_shape"] = _removal_case(lanes, NI=NI, EE=EE, U=256,
+                                          D2=24, mode="tips", max_len=12)
+    cases["engine_shape"]["expect_over"] = [False, True, True, True]
+    return cases
+
+
+def removal_cond(c: dict, dev="cpu"):
+    """A removal case's condition tuple on `dev`, as cleanup builds it."""
+    merlen = _t(c["st"]["merlen"], dev)
+    if c["mode"] == "tips":
+        return ("tips", merlen, c["max_len"])
+    return ("links", merlen, c["max_len"], _t(c["mincov"], dev),
+            _t(c["thr"], dev), _t(c["guard"], dev))
+
+
+def run_removal(c: dict, dev="cpu"):
+    """A removal case through the port's stages._seq_removal_pass on
+    `dev`: (alive [W, NI], e_alive [W, EE], removed_any [W], over [W])."""
+    from . import stages
+
+    st = {k: _t(v, dev) for k, v in c["st"].items()}
+    out, removed_any, over = stages._seq_removal_pass(
+        st, removal_cond(c, dev), c["U"], c["D2"])
+    return out["alive"], out["e_alive"], removed_any, over

@@ -12,15 +12,17 @@ flags included.
 
 - K1 `path_cover` (JAX `tpu/pipeline.py::path_cover`, :310-500): the
   eka/BFS path cover of every component;
-- K2 `seq_removal` (`tpu/stages.py::_seq_removal_pass`, :580-622): the
-  map-rank-order removal sweep of removeTips / removeShortLinks;
+- K2 `seq_removal` (`tpu/stages.py::_seq_removal_pass`, :580-622): one
+  whole removal pass of removeTips / removeShortLinks (the map-rank slot
+  order, the neighbour lists and degrees, the sweep and the removal);
 - K3 `almost_repeat_paths` (`tpu/pipeline.py::_is_almost_repeat_paths`,
   :680-717): isAlmostRepeat on the path strings;
 - K4 `cycle_dfs` (`tpu/stages.py::has_cycle_seq`, :839-926): the exact
   hasCycleRec replay for the components the cycle screen flags.
 
-K1 and K4 stage each window's graph in shared memory before they walk;
-`path_cover_plan` and `cycle_dfs_plan` pick, from the shapes alone, whether
+K1, K2 and K4 stage each window's graph in shared memory before they walk
+(`seq_removal_plan` sizes K2's block); `path_cover_plan` and
+`cycle_dfs_plan` pick, from the shapes alone, whether
 the staged graph fits there ("smem") or goes to a scratch buffer in device
 memory ("global"), and how many of K4's walkers run at once. K3 cuts each
 string's (shift, window start) plane into tiles dealt evenly over the
@@ -29,7 +31,7 @@ block and tile sizes from (LP, K).
 
 Each wrapper takes tensors on one device and raises, before any work,
 when its inputs span two. On the CPU it runs the plain
-version (gpu.pipeline.path_cover_plain, gpu.stages.seq_removal_plain,
+version (gpu.pipeline.path_cover_plain, gpu.stages.seq_removal_pass_plain,
 gpu.pipeline.almost_repeat_plain, gpu.stages.cycle_dfs_plain: the JAX
 loops step for step); on a CUDA device it launches the kernel on that
 device and raises
@@ -130,6 +132,38 @@ def cycle_dfs_plan(NI: int, D2: int, EE: int, Cmax: int) -> WalkPlan:
                      f"NI={NI} items do not fit in a block's shared memory")
 
 
+REMOVAL_MAX_NI = 32767  # K2 packs an edge's two item ids in 16 bits each
+
+
+def seq_removal_smem(NI: int, EE: int, U: int) -> int:
+    """A K2 block's shared memory, as csrc/walks.cu's seq_removal_smem: two
+    counters, the live items' keys (8 bytes an item), the edge words (4 an
+    edge), the degrees and first and last alive edges (12 an item), the
+    slot entries (2 a slot, at most NI) and the item flags (1 an item)."""
+    return (16 + _r16(NI * 8) + _r16(EE * 4) + _r16(NI * 12)
+            + _r16(min(U, NI) * 2) + _r16(NI))
+
+
+def seq_removal_plan(NI: int, EE: int, U: int, D2: int) -> WalkPlan:
+    """K2's launch: one block a window with its whole state in shared
+    memory (17,888 bytes at the engine's NI 528, EE 1,568, U 256: under 48
+    KB, so a launch sets no attribute). Raises for more than 32,767 items
+    (an edge word packs its two ids in 16 bits), for D2 < 1 or U < 0, or
+    for a window beyond a block's shared memory."""
+    if not 1 <= NI <= REMOVAL_MAX_NI:
+        raise ValueError(f"seq_removal takes 1 to {REMOVAL_MAX_NI} items, "
+                         f"got NI={NI}")
+    if D2 < 1 or U < 0 or EE < 0:
+        raise ValueError(f"seq_removal takes D2 >= 1, U >= 0 and EE >= 0, "
+                         f"got D2={D2}, U={U}, EE={EE}")
+    smem = seq_removal_smem(NI, EE, U)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"seq_removal: a window of NI={NI} items and "
+                         f"EE={EE} edges does not fit in a block's shared "
+                         f"memory")
+    return WalkPlan("smem", smem)
+
+
 class RepeatPlan(NamedTuple):
     blocks: int  # K3: blocks a path string (a thread block cluster)
     threads: int  # a block's threads
@@ -189,7 +223,7 @@ def _load() -> ctypes.CDLL:
             sz = ctypes.c_size_t
             for name, n_ptr, n_int, tail in (
                     ("path_cover", 14, 13, [sz, vp]),
-                    ("seq_removal", 8, 6, [vp]),
+                    ("seq_removal", 14, 6, [ctypes.c_longlong, sz, vp]),
                     ("almost_repeat_paths", 3, 7, [sz, vp]),
                     ("cycle_dfs", 8, 7, [sz, vp])):
                 fn = getattr(lib, name)
@@ -282,37 +316,61 @@ def _widen(out):
 # K2 seq_removal
 # ---------------------------------------------------------------------------
 
-def seq_removal(slots, nbr, deg, cond):
-    """The map-rank-order removal sweep. slots [W, U] item ids in map-rank
-    order (-1 empty); nbr [W, NI, D2] alive-edge destinations; deg [W, NI]
-    live out-degrees; cond = ("tips", merlen, max_tip) or ("links",
-    merlen, max_link, mincov, thr, guard). Returns removed [W, NI] bool."""
-    dev = _device("seq_removal", slots, nbr, deg,
-                  *[c for c in cond if torch.is_tensor(c)])
-    if dev.type == "cpu":
-        from .stages import removal_kill_fn, seq_removal_plain
+REMOVAL_KEYS = ("alive", "special", "rank", "e_src", "e_dst", "e_alive")
 
-        return seq_removal_plain(slots, nbr, deg, removal_kill_fn(cond))
-    W, U = slots.shape
-    NI, D2 = nbr.shape[1], nbr.shape[2]
-    removed = torch.empty((W, NI), dtype=torch.uint8, device=dev)
+
+def _removal_inputs(st, cond):
+    """K2's inputs as the kernel reads them: the state's tensors as they are
+    (bool, int64; contiguous), then mincov, thr and guard for the links
+    mode (None for the tips mode). No copy where the engine's state already
+    has these dtypes."""
+    def i64(t):
+        return t.to(torch.int64).contiguous()
+
+    def b(t):
+        return t.to(torch.bool).contiguous()
+
+    ins = (b(st["alive"]), b(st["special"]), i64(st["rank"]), i64(cond[1]),
+           i64(st["e_src"]), i64(st["e_dst"]), b(st["e_alive"]))
+    links = ((i64(cond[3]), i64(cond[4]), b(cond[5])) if cond[0] == "links"
+             else (None, None, None))
+    return ins, links
+
+
+def seq_removal(st, cond, U, D2):
+    """One removal pass (see gpu.stages._seq_removal_pass) on the state
+    dict `st` (alive, special, rank, e_src, e_dst, e_alive are read); cond
+    = ("tips", merlen, max_tip) or ("links", merlen, max_link, mincov, thr,
+    guard). Returns (alive [W, NI], e_alive [W, EE], removed_any [W], over
+    [W]), all bool. On the card one launch: one block a window stages the
+    window (seq_removal_plan), sorts its slots, sweeps and removes."""
+    links = cond[0] == "links"
+    dev = _device("seq_removal", *[st[k] for k in REMOVAL_KEYS], cond[1],
+                  *(cond[3:6] if links else ()))
+    if dev.type == "cpu":
+        from .stages import seq_removal_pass_plain
+
+        out, removed_any, over = seq_removal_pass_plain(st, cond, U, D2)
+        return out["alive"], out["e_alive"], removed_any, over
+    W, NI = st["alive"].shape
+    EE = st["e_src"].shape[1]
+    pl = seq_removal_plan(NI, EE, U, D2)
+    outs = (torch.empty((W, NI), dtype=torch.bool, device=dev),
+            torch.empty((W, EE), dtype=torch.bool, device=dev),
+            torch.empty((W,), dtype=torch.bool, device=dev),
+            torch.empty((W,), dtype=torch.bool, device=dev))
     if W == 0:
-        return removed.to(torch.bool)
-    if D2 > 32:
-        raise ValueError(f"seq_removal takes at most 32 neighbour slots, "
-                         f"got {D2}")
-    merlen = _i32(cond[1])
-    mode, max_len = (0 if cond[0] == "tips" else 1), int(cond[2])
-    # the tips mode reads no mincov, thr or guard
-    mincov, thr, guard = ((merlen,) * 3 if mode == 0 else
-                          (_i32(cond[3]), _i32(cond[4]), _u8(cond[5])))
-    ins = (_i32(slots), _i32(nbr), _i32(deg), merlen, mincov, guard, thr)
+        return outs
+    ins, extra = _removal_inputs(st, cond)
+    max_len = max(min(int(cond[2]), 2**63 - 1), -2**63)
     with torch.cuda.device(dev):
-        rc = _load().seq_removal(*[t.data_ptr() for t in ins],
-                                 removed.data_ptr(), W, U, NI, D2, mode,
-                                 max_len, _stream(dev))
+        rc = _load().seq_removal(
+            *[t.data_ptr() for t in ins],
+            *[None if t is None else t.data_ptr() for t in extra],
+            *[t.data_ptr() for t in outs], W, NI, EE, U, D2, int(links),
+            max_len, pl.smem, _stream(dev))
     _launched("seq_removal", rc)
-    return removed.to(torch.bool)
+    return outs
 
 
 # ---------------------------------------------------------------------------

@@ -615,9 +615,10 @@ def test_plain_walks_mark_the_elements_they_read():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """K1-K4 bit-equal to their plain versions on synthetic inputs, and K1,
-    K3 and K4 on the crafted cases of gpu.walkcases (each staging mode,
-    K3's word and tile edges included)."""
+    """K1-K4 bit-equal to their plain versions on synthetic inputs (K2 in
+    both modes, with sources past D2), and on the crafted cases of
+    gpu.walkcases (each staging mode, K3's word and tile edges, the
+    removal pass's corners included)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     dev = torch.device("cuda", 0)
@@ -636,16 +637,23 @@ def test_kernels_match_plain_on_card():
                                                 special)], NI - 8, 4,
                           mask.to(dev))
     assert torch.equal(got.cpu(), want)
-    slots = torch.from_numpy(np.stack([rng.permutation(NI)[:U]
-                                       for _ in range(W)]))
-    nbr = torch.from_numpy(rng.integers(-1, NI, (W, NI, D2)))
-    deg = torch.from_numpy(rng.integers(0, 4, (W, NI)))
     merlen = torch.from_numpy(rng.integers(1, 9, (W, NI)))
-    cond = ("tips", merlen, 6)
-    want = walks.seq_removal(slots, nbr, deg, cond)
-    got = walks.seq_removal(slots.to(dev), nbr.to(dev), deg.to(dev),
-                            ("tips", merlen.to(dev), 6))
-    assert torch.equal(got.cpu(), want)
+    st = dict(alive=alive, special=special,
+              rank=torch.from_numpy(np.stack([rng.permutation(NI)
+                                              for _ in range(W)])),
+              e_src=torch.from_numpy(rng.integers(0, NI, (W, EE))),
+              e_dst=e_dst,
+              e_alive=torch.from_numpy(rng.random((W, EE)) < 0.3))
+    for cond in (("tips", merlen, 6),
+                 ("links", merlen, 6, merlen % 4, torch.full((W,), 2),
+                  merlen > 7)):
+        want = walks.seq_removal(st, cond, U, 6)
+        got = walks.seq_removal(
+            {k: v.to(dev) for k, v in st.items()},
+            tuple(c.to(dev) if torch.is_tensor(c) else c for c in cond),
+            U, 6)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), cond[0]
     seq = torch.from_numpy(rng.integers(0, 4, (W, 4, 200)))
     lens = torch.from_numpy(rng.integers(0, 200, (W, 4)))
     want = walks.almost_repeat(seq, lens, 11, 3)
@@ -687,6 +695,13 @@ def test_kernels_match_plain_on_card():
         torch.cuda.synchronize()
         assert walks.LAUNCHES["almost_repeat_paths"] == before + 1
         assert torch.equal(got.cpu(), walkcases.run_almost_repeat(c)), name
+    for name, c in walkcases.removal_cases().items():
+        before = walks.LAUNCHES["seq_removal"]
+        got = walkcases.run_removal(c, dev)
+        torch.cuda.synchronize()
+        assert walks.LAUNCHES["seq_removal"] == before + 1
+        for g, w in zip(got, walkcases.run_removal(c)):
+            assert torch.equal(g.cpu(), w), name
 
 
 def test_pack_equals_jax():

@@ -277,8 +277,10 @@ def _walk_inputs():
             torch.zeros((W, C), dtype=i32), K=11, N=NI - 2 * C, Cmax=C,
             dfs_limit=10, max_indel=5),
         seq_removal=lambda t: walks.seq_removal(
-            torch.full((W, NI), -1, dtype=i32), adj, t(node),
-            ("tips", node, 5)),
+            dict(alive=flag, special=flag, rank=node.long(),
+                 e_src=e.long(), e_dst=e.long(),
+                 e_alive=t(torch.zeros((W, EE), dtype=torch.bool))),
+            ("tips", node.long(), 5), NI, D2),
         almost_repeat=lambda t: walks.almost_repeat(
             torch.zeros((W, 2, 16), dtype=torch.uint8),
             t(torch.zeros((W, 2), dtype=i32)), 5, 2),

@@ -15,7 +15,16 @@ window's graph in shared memory.
   largest shift and the last start, mismatch budgets at, past and below
   their limits, N and odd codes, strings of the engine's full LP 1,728,
   and hits at the edges of the kernel's words and tiles, up to K 63; and
-  `walks.almost_repeat_plan`.
+  `walks.almost_repeat_plan`;
+- the removal pass (`seq_removal_pass_plain` and the port's
+  `_seq_removal_pass`) against the JAX `_seq_removal_pass`: chained tips,
+  rank ties, more live items than slots, a source past D2 edges,
+  self-loops, duplicate edges, edges to dead items and anchors, empty
+  windows, W 1, the links mode's guard, the engine's cleanup shape; a
+  numpy replay of the K2 kernel's own steps (its keys, slot entries, the
+  sweep 32 slots at a time with each kill's edge scan) against the plain
+  version on those cases and on seeded random graphs; `walks.
+  seq_removal_plan`; and the K2 wrapper's inputs taken with no copy.
 
 The `cuda` test of tests/test_torch_graphwalks.py holds the kernels
 bit-equal to the plain versions on every case on the card.
@@ -37,6 +46,7 @@ torch.set_num_threads(1)
 CYCLE = walkcases.cycle_cases()
 COVER = walkcases.path_cover_cases()
 REPEAT = walkcases.almost_repeat_cases()
+REMOVAL = walkcases.removal_cases()
 
 
 @pytest.mark.parametrize("name", sorted(CYCLE))
@@ -146,6 +156,14 @@ def test_walk_plans_refuse_what_the_kernels_do_not_take():
     # one walker's stack and colours beyond a block's shared memory
     with pytest.raises(ValueError):
         walks.cycle_dfs_plan(60_000, 16, 1568, 8)
+    # the removal pass: an edge word packs two item ids in 16 bits; at
+    # least one neighbour slot; a window beyond a block's shared memory
+    for shape in ((32768, 1568, 256, 24), (0, 1568, 256, 24),
+                  (528, 1568, 256, 0), (528, 1568, -1, 24),
+                  (528, 60_000, 256, 24), (20_000, 1568, 256, 24)):
+        with pytest.raises(ValueError):
+            walks.seq_removal_plan(*shape)
+    assert walks.seq_removal_plan(10_000, 0, 0, 64).mode == "smem"
 
 
 def test_path_cover_plan():
@@ -220,3 +238,234 @@ def test_almost_repeat_plan_refuses_what_the_kernel_does_not_take():
         walks.almost_repeat_plan(walks.SMEM_LIMIT, 11)
     with pytest.raises(ValueError):
         walks.almost_repeat_plan(0, 11)
+
+
+# ---------------------------------------------------------------------------
+# the removal pass (K2)
+# ---------------------------------------------------------------------------
+
+def _jax_removal_cond(c):
+    """The JAX cleanup's condition function for a removal case."""
+    import jax.numpy as jnp
+
+    def take(a, items):
+        return jnp.take_along_axis(jnp.asarray(a), items[:, None], 1)[:, 0]
+
+    merlen, max_len = c["st"]["merlen"], c["max_len"]
+    if c["mode"] == "tips":
+        return lambda items, deg: (deg <= 1) & (take(merlen, items)
+                                                < max_len)
+    return lambda items, deg: ((deg >= 2) & (take(merlen, items) < max_len)
+                               & (take(c["mincov"], items)
+                                  <= jnp.asarray(c["thr"]))
+                               & ~take(c["guard"], items))
+
+
+@pytest.mark.parametrize("name", sorted(REMOVAL))
+def test_removal_case_equals_jax(name):
+    """seq_removal_pass_plain and the port's _seq_removal_pass (on the CPU,
+    through the K2 wrapper) against the JAX _seq_removal_pass, bit for
+    bit (tolerance 0): alive, e_alive, removed_any and over; every other
+    state key passed through; and the items removed by hand."""
+    import jax.numpy as jnp
+
+    import lancet_tpu.tpu.stages as jstages
+    from lancet_tpu_torch.gpu import stages
+
+    c = REMOVAL[name]
+    jst, jany, jover = jstages._seq_removal_pass(
+        {k: jnp.asarray(v) for k, v in c["st"].items()},
+        _jax_removal_cond(c), c["U"], c["D2"])
+    want = (np.asarray(jst["alive"]), np.asarray(jst["e_alive"]),
+            np.asarray(jany), np.asarray(jover))
+    st = {k: torch.from_numpy(v.copy()) for k, v in c["st"].items()}
+    pst, pany, pover = stages.seq_removal_pass_plain(
+        st, walkcases.removal_cond(c), c["U"], c["D2"])
+    plain = (pst["alive"], pst["e_alive"], pany, pover)
+    for got in (plain, walkcases.run_removal(c)):
+        for w, g in zip(want, got):
+            assert np.array_equal(w, g.numpy())
+    for k in ("rank", "merlen", "e_src", "e_dst", "special"):
+        assert pst[k] is st[k]
+    removed = [sorted(np.flatnonzero(c["st"]["alive"][w]
+                                     & ~want[0][w]).tolist())
+               for w in range(want[0].shape[0])]
+    if "expect_removed" in c:
+        assert removed == [sorted(r) for r in c["expect_removed"]]
+    if "expect_over" in c:
+        assert want[3].tolist() == c["expect_over"]
+    assert want[2].tolist() == [bool(r) for r in removed]
+
+
+_DEAD_EDGE = 0xFFFFFFFF
+
+
+def removal_replay(c, seed=0):
+    """csrc/walks.cu K2, window by window, in numpy: the staged flags (bit
+    0 alive, bit 1 removed, bit 2 the static test), degrees, first and
+    last alive edges and edge words (the atomics in a shuffled order), the
+    live keys appended in a shuffled order, each live item's slot as the
+    count of keys below its own, the slot entries (-1 where the static
+    test fails), the one-warp sweep 32 slots at a time
+    with each kill's scan of its edge words 32 at a time (the first D2 of
+    its own by ballot and popc), then the removal. Returns (alive,
+    e_alive, removed_any, over) as numpy."""
+    rng = np.random.default_rng(seed)
+    st = c["st"]
+    W, NI = st["alive"].shape
+    EE = st["e_src"].shape[1]
+    U, D2, tips = c["U"], c["D2"], c["mode"] == "tips"
+    out = (np.zeros((W, NI), bool), np.zeros((W, EE), bool),
+           np.zeros(W, bool), np.zeros(W, bool))
+    for w in range(W):
+        cand = st["merlen"][w] < c["max_len"]
+        if not tips:
+            cand &= (c["mincov"][w] <= c["thr"][w]) & ~c["guard"][w]
+        flag = st["alive"][w] * (1 + 4 * cand)
+        deg = np.zeros(NI, np.int64)
+        first = np.full(NI, 2**31 - 1)
+        last = np.full(NI, -1)
+        live = [i for i in range(NI) if flag[i] and not st["special"][w, i]]
+        keys = [int(st["rank"][w, i]) * 65536 + i
+                for i in rng.permutation(live)]
+        ew = np.full(EE, _DEAD_EDGE, np.int64)
+        for e in rng.permutation(EE):
+            if st["e_alive"][w, e]:
+                s = int(np.clip(st["e_src"][w, e], 0, NI - 1))
+                d = int(np.clip(st["e_dst"][w, e], 0, NI - 1))
+                deg[s] += 1
+                first[s] = min(first[s], e)
+                last[s] = max(last[s], e)
+                ew[e] = s << 16 | d
+        n = len(keys)
+        ns = min(n, U)
+        deg_over = bool((deg > D2).any())  # before the sweep lowers any
+        slot = np.full(min(U, NI), -2)
+        for kk in keys:
+            pos = sum(k < kk for k in keys)
+            if pos < ns:
+                it = kk & 0xFFFF
+                slot[pos] = it if flag[it] & 4 else -1
+        assert (slot[:ns] != -2).all()  # the slots < ns are all written
+        removed_any = False
+        for b in range(0, ns, 32):
+            for it in slot[b:b + 32]:
+                if it < 0:
+                    continue
+                d = deg[it]
+                if not (flag[it] & 3 == 1 and (d <= 1 if tips else d >= 2)):
+                    continue
+                taken, lo, hi = 0, first[it], last[it]
+                while lo <= hi and taken < D2:
+                    mine = [e for e in range(lo, min(lo + 32, hi + 1))
+                            if ew[e] >> 16 == it]
+                    for r, e in enumerate(mine):
+                        nb = ew[e] & 0xFFFF
+                        if taken + r < D2 and nb != it and not flag[nb] & 2:
+                            deg[nb] -= 1
+                    taken += len(mine)
+                    lo += 32
+                flag[it] |= 2
+                removed_any = True
+        out[0][w] = flag & 3 == 1
+        out[1][w] = [v != _DEAD_EDGE and not flag[v >> 16] & 2
+                     and not flag[v & 0xFFFF] & 2 for v in ew]
+        out[2][w] = removed_any
+        out[3][w] = n > U or deg_over
+    return out
+
+
+def _random_removal_case(seed, mode):
+    """A seeded random state as tests/test_torch_graphwalks.py's
+    test_seq_removal_plain_equals_jax builds it: W 4, NI 48, EE 160, U 32,
+    D2 6, rising edge and item densities, the last four items anchors."""
+    rng = np.random.default_rng(seed)
+    W, NI, EE = 4, 48, 160
+    st = dict(alive=rng.random((W, NI)) < np.array(
+        [0.5, 0.6, 0.95, 0.95])[:, None],
+              special=np.zeros((W, NI), bool),
+              rank=np.stack([rng.permutation(NI) for _ in range(W)]),
+              merlen=rng.integers(1, 9, (W, NI)),
+              e_src=rng.integers(0, NI - 4, (W, EE)),
+              e_dst=rng.integers(0, NI - 4, (W, EE)),
+              e_alive=rng.random((W, EE)) < np.array(
+                  [0.2, 0.35, 0.5, 0.9])[:, None])
+    st["special"][:, NI - 4:] = True
+    return dict(st=st, mode=mode, max_len=6,
+                mincov=rng.integers(0, 6, (W, NI)),
+                thr=np.array([2, 3, 4, 5]),
+                guard=rng.random((W, NI)) < 0.2, U=32, D2=6)
+
+
+@pytest.mark.parametrize("name", sorted(REMOVAL) + [
+    f"random_{m}_{s}" for m in ("tips", "links") for s in (11, 12, 13)])
+def test_removal_replay_equals_plain(name):
+    """The K2 kernel's own steps (removal_replay) give
+    seq_removal_pass_plain's outputs bit for bit, whatever the order of
+    its atomics."""
+    from lancet_tpu_torch.gpu import stages
+
+    if name.startswith("random_"):
+        _, mode, seed = name.split("_")
+        c = _random_removal_case(int(seed), mode)
+    else:
+        c = REMOVAL[name]
+    st = {k: torch.from_numpy(np.asarray(v).copy())
+          for k, v in c["st"].items()}
+    pst, pany, pover = stages.seq_removal_pass_plain(
+        st, walkcases.removal_cond(c), c["U"], c["D2"])
+    want = (pst["alive"], pst["e_alive"], pany, pover)
+    for seed in (0, 1):
+        got = removal_replay(c, seed)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w.numpy())
+
+
+def test_seq_removal_plan():
+    # the engine's cleanup shape: NI 528, EE 1,568, U 256
+    pl = walks.seq_removal_plan(528, 1568, 256, 24)
+    # counters 16, keys 528 x 8, edge words 1,568 x 4, degree / first /
+    # last 528 x 12, slots 256 x 2, flags 528 (rounded up to 16): under 48
+    # KB, so a launch sets no attribute
+    assert pl.smem == 16 + 4224 + 6272 + 6336 + 512 + 528 == 17888
+    assert pl.smem == walks.seq_removal_smem(528, 1568, 256)
+    # slots past NI take no room; D2 takes none
+    assert (walks.seq_removal_smem(528, 1568, 10**6)
+            == walks.seq_removal_smem(528, 1568, 528))
+    assert walks.seq_removal_plan(528, 1568, 256, 64) == pl
+    # the boundary follows the bytes: the most edges that fit, then one
+    # more, at the engine's items
+    EE = 1568
+    while walks.seq_removal_smem(528, EE + 4, 256) <= walks.SMEM_LIMIT:
+        EE += 4
+    assert walks.seq_removal_plan(528, EE, 256, 24).smem <= walks.SMEM_LIMIT
+    with pytest.raises(ValueError):
+        walks.seq_removal_plan(528, EE + 4, 256, 24)
+
+
+def test_removal_inputs_copy_nothing():
+    """The K2 wrapper hands the engine's state to the kernel as it is: its
+    tensors, already bool and int64, pass with no aten op (no conversion
+    and no copy); other dtypes are converted."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    c = REMOVAL["links_guard"]
+    st = {k: torch.from_numpy(v.copy()) for k, v in c["st"].items()}
+    cond = walkcases.removal_cond(c)
+    with Count():
+        ins, extra = walks._removal_inputs(st, cond)
+    assert Count.n == 0
+    assert all(a is b for a, b in zip(ins, (
+        st["alive"], st["special"], st["rank"], cond[1], st["e_src"],
+        st["e_dst"], st["e_alive"])))
+    assert all(a is b for a, b in zip(extra, cond[3:]))
+    st["rank"] = st["rank"].to(torch.int32)
+    ins, _ = walks._removal_inputs(st, ("tips",) + cond[1:3])
+    assert ins[2].dtype == torch.int64

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""A/B of three walk kernels and the repeat gates against a parent
-commit's, on one card.
+"""A/B of the walk kernels, the removal pass and the repeat gates against
+a parent commit's, on one card.
 
     mkdir -p build/parent
     git archive <parent commit> lancet_tpu_torch/csrc/walks.cu \\
         lancet_tpu_torch/csrc/repeats.cu | tar -x -C build/parent
-    python3 walks_ab.py --parent build/parent
+    python3 walks_ab.py --parent build/parent [--only walks|removal|gates]
 
-Captures every path_cover, almost_repeat_paths and cycle_dfs call of
+Walks: captures every path_cover, almost_repeat_paths and cycle_dfs call of
 chip_smoke.py's two device-graph cases (the JAX bench's region and the
 adversarial windows), builds the parent's csrc/walks.cu beside this
 tree's, holds the two kernels bit-equal on every call, and times both, in
@@ -17,15 +17,32 @@ gpu/walkcases.py: the kernel's own device time (torch.profiler's CUDA
 activity) and CUDA events around back-to-back launches (which also see the
 host's time between launches). The parent's entry points are
 path_cover(14 pointers, 13 ints, size_t, stream), cycle_dfs(8 pointers, 7
-ints, size_t, stream) and almost_repeat_paths(3 pointers, 4 ints, stream),
-the last that of csrc/walks.cu before K3 dealt tiles over a block (its
-first design, one thread a shift). It also times, by device time, every
-seq_removal launch of the same two cases (this tree's kernel only): the
-sum over its launches and the largest call with its shape. Prints one
-JSON line a walk or kernel, the card's name and power limit, and a last
-line {"ok": true}; exits non-zero on a mismatch or without a card.
-`--only walks` or `--only gates` times one half (the parent directory then
-needs only that half's source).
+ints, size_t, stream), almost_repeat_paths(3 pointers, 7 ints, size_t,
+stream) and seq_removal(8 pointers, 6 ints, stream): those of
+csrc/walks.cu before K2 ran the whole removal pass.
+
+The removal pass (`--only removal`): captures every card call of
+stages._seq_removal_pass in the same two cases and runs each as two
+versions, in turns: the parent's pass (this tree's _rank_slots,
+_nbr_table and remove_items, as torch ops, around the parent's K2 sweep
+behind its own int32 wrapper, as the parent commit ran it) and this
+tree's (one K2 launch); both held bit-equal to each other and to
+seq_removal_pass_plain on every call. Per version: the device time of
+all of a pass's device events and their count (torch.profiler), the K2
+kernel's own device time, the aten ops a pass dispatches
+(TorchDispatchMode), and the host's time to issue a pass and to finish it
+(perf_counter, before and after a synchronize), summed over the calls and
+on the largest call (the most live items), with this tree's byte bound
+and chain floor on it (chip_smoke.removal_accounting, the smem_chase
+latency). Then device-graph case 1 end to end with each version patched
+in, in turns (parent, this, this, parent, parent, this): t_dg_assemble,
+t_total and windows/s, the VCF equal, and one profiled run each for the
+card's busy share and device events.
+
+Prints one JSON line a walk, pass or kernel, the card's name and power
+limit, and a last line {"ok": true}; exits non-zero on a mismatch or
+without a card. `--only` times one part (the parent directory then needs
+only that part's source: walks.cu for walks and removal).
 
 The repeat gates: the parent's csrc/repeats.cu (repeat_gates(5 pointers,
 5 ints, stream), one block a window of plan_threads' threads: its first
@@ -71,10 +88,11 @@ def _build_parent(parent: str) -> ctypes.CDLL:
                                    [_nvcc()] + NVCC_FLAGS + [src]))
     vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     lib.path_cover.restype = lib.cycle_dfs.restype = ci
-    lib.almost_repeat_paths.restype = ci
+    lib.almost_repeat_paths.restype = lib.seq_removal.restype = ci
     lib.path_cover.argtypes = [vp] * 14 + [ci] * 13 + [sz, vp]
     lib.cycle_dfs.argtypes = [vp] * 8 + [ci] * 7 + [sz, vp]
-    lib.almost_repeat_paths.argtypes = [vp] * 3 + [ci] * 4 + [vp]
+    lib.almost_repeat_paths.argtypes = [vp] * 3 + [ci] * 7 + [sz, vp]
+    lib.seq_removal.argtypes = [vp] * 8 + [ci] * 6 + [vp]
     return lib
 
 
@@ -309,7 +327,8 @@ def _launchers(name: str, args, kw: dict, parent_lib):
 
         def par():
             check(parent_lib.almost_repeat_paths(
-                *p_in, o_par[0].data_ptr(), W * J, LP, K, mm, stream))
+                *p_in, o_par[0].data_ptr(), W * J, LP, K, mm_new, pl.blocks,
+                pl.threads, pl.tile, pl.smem, stream))
 
         def new(blocks=pl.blocks, threads=pl.threads):
             check(lib.almost_repeat_paths(
@@ -356,49 +375,243 @@ def _spread(ts):
 
 
 @contextlib.contextmanager
-def capture_removals(removals: list):
-    """While active: append a copy of the inputs of every card call of
-    walks.seq_removal to `removals`."""
+def capture_passes(passes: list):
+    """While active: append a copy of the arguments (st reduced to the keys
+    the pass reads, cond, U, D2) of every card call of
+    stages._seq_removal_pass to `passes`."""
     import torch
 
     import chip_smoke as cs
-    from lancet_tpu_torch.gpu import walks
+    from lancet_tpu_torch.gpu import stages, walks
 
-    real = walks.seq_removal
+    real = stages._seq_removal_pass
 
-    def removal(*a, **k):
-        if a[0].is_cuda:
-            removals.append(cs._tree(list(a), lambda t: t.clone()
-                                     if torch.is_tensor(t) else t))
-        return real(*a, **k)
+    def f(st, cond, U, D2):
+        if st["alive"].is_cuda:
+            passes.append(cs._tree(
+                [{k: st[k] for k in walks.REMOVAL_KEYS}, cond, U, D2],
+                lambda t: t.clone() if torch.is_tensor(t) else t))
+        return real(st, cond, U, D2)
 
-    walks.seq_removal = removal
+    stages._seq_removal_pass = f
     try:
         yield
     finally:
-        walks.seq_removal = real
+        stages._seq_removal_pass = real
 
 
-def time_removals(removals: list) -> list:
-    """Device time (ms, 3 launches each) of every captured seq_removal
-    call (this tree's kernel only): the sum over the calls and the largest
-    call (the most rank slots)."""
+def parent_pass(lib):
+    """The parent commit's _seq_removal_pass on the card: this tree's
+    _rank_slots, _nbr_table and remove_items around the parent's K2 sweep
+    (slots [W, U], neighbours [W, NI, D2], degrees; int32 and byte
+    inputs), with the parent's wrapper's conversions."""
+    import torch
+
+    from lancet_tpu_torch.gpu import gotoh, stages, walks
+
+    def sweep(slots, nbr, deg, cond):
+        dev = slots.device
+        W, U = slots.shape
+        NI, D2 = nbr.shape[1], nbr.shape[2]
+        removed = torch.empty((W, NI), dtype=torch.uint8, device=dev)
+        merlen = walks._i32(cond[1])
+        mode, max_len = (0 if cond[0] == "tips" else 1), int(cond[2])
+        mincov, thr, guard = ((merlen,) * 3 if mode == 0 else
+                              (walks._i32(cond[3]), walks._i32(cond[4]),
+                               walks._u8(cond[5])))
+        ins = (walks._i32(slots), walks._i32(nbr), walks._i32(deg), merlen,
+               mincov, guard, thr)
+        with torch.cuda.device(dev):
+            rc = lib.seq_removal(*[t.data_ptr() for t in ins],
+                                 removed.data_ptr(), W, U, NI, D2, mode,
+                                 max_len, gotoh._stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"parent seq_removal failed: CUDA error {rc}")
+        return removed.to(torch.bool)
+
+    def run(st, cond, U, D2):
+        NI = st["alive"].shape[1]
+        slots, over = stages._rank_slots(st, U)
+        nbr, deg, over2 = stages._nbr_table(st, NI, D2)
+        removed = sweep(slots, nbr, deg, cond)
+        return (stages.remove_items(st, removed), removed.any(dim=1),
+                over | over2)
+
+    return run
+
+
+def _outputs(res):
+    """A pass's (st, removed_any, over) as (alive, e_alive, removed_any,
+    over)."""
+    st, removed_any, over = res
+    return st["alive"], st["e_alive"], removed_any, over
+
+
+def _pass_profile(fn, n: int) -> dict:
+    """torch.profiler over n calls of a pass: the device time of all its
+    device events a call, their count a call, and the K2 kernel's own
+    device time a call (ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"device_ms": sum(e.time_range.elapsed_us() for e in ev) / n / 1e3,
+            "device_events": len(ev) / n,
+            "kernel_ms": sum(e.time_range.elapsed_us() for e in ev
+                             if "seq_removal_kernel" in e.name) / n / 1e3}
+
+
+def _aten_ops(fn) -> int:
+    """The aten ops one call of fn dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def _host_ms(fn, reps: int) -> dict:
+    """Median host ms to issue one call of fn (it returns) and to finish
+    it (a synchronize after), each from an idle card."""
+    import statistics
+    import time
+
+    import torch
+
+    issue, done = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        issue.append((t1 - t0) * 1e3)
+        done.append((t2 - t0) * 1e3)
+    return {"issue_ms": statistics.median(issue),
+            "done_ms": statistics.median(done)}
+
+
+def removal_ab(passes: list, parent_lib) -> tuple[list, bool]:
+    """The pass-level A/B on every captured call: the parent's pass and
+    this tree's, bit-equal to each other and to seq_removal_pass_plain,
+    each profiled (3 calls), counted and timed on the host, the order
+    alternating from call to call; then the largest call in TURNS turns
+    of PER_TURN calls. Returns (JSON lines, all equal)."""
+    import torch
+
     import chip_smoke as cs
-    from lancet_tpu_torch.gpu import walks
+    from lancet_tpu_torch.gpu import stages
 
-    rrows = []
-    for args in removals:
-        ms = cs.device_ms(lambda: walks.seq_removal(*args),
-                          "seq_removal_kernel", 3)
-        rrows.append({"shape": list(args[1].shape),
-                      "slots": int((args[0] >= 0).sum()), "device_ms": ms})
-    if not rrows:
-        return []
-    return [{"kernel": "seq_removal", "calls": len(rrows),
-             "device_ms_sum": sum(r["device_ms"] or 0 for r in rrows),
-             "missed": sum(r["device_ms"] is None for r in rrows),
-             "largest": max(rrows, key=lambda r: r["slots"]),
-             "source": "torch.profiler CUDA activity"}]
+    par = parent_pass(parent_lib)
+    versions = {"parent": par, "this": stages._seq_removal_pass}
+    keys = ("device_ms", "device_events", "kernel_ms")
+    total = {v: dict.fromkeys(keys + ("aten_ops", "issue_ms", "done_ms"),
+                              0.0) for v in versions}
+    mism = 0
+    big, big_live = None, -1
+    for i, args in enumerate(passes):
+        want = cs.removal_plain(*args)
+        order = list(versions.items())
+        for ver, fn in (order if i % 2 == 0 else order[::-1]):
+            got = _outputs(fn(*args))
+            torch.cuda.synchronize()
+            mism += cs._mismatches(got, want) > 0
+            t = total[ver]
+            for k, v in _pass_profile(lambda: fn(*args), 3).items():
+                t[k] += v
+            t["aten_ops"] += _aten_ops(lambda: fn(*args))
+            for k, v in _host_ms(lambda: fn(*args), 5).items():
+                t[k] += v
+        live = int((args[0]["alive"] & ~args[0]["special"]).sum())
+        if live > big_live:
+            big, big_live = args, live
+    n = max(len(passes), 1)
+    lines = [{"pass": "seq_removal", "calls": len(passes),
+              "calls_mismatched": mism,
+              "sum_over_calls": total,
+              "per_call": {v: {k: x / n for k, x in t.items()}
+                           for v, t in total.items()},
+              "source": "torch.profiler CUDA activity; TorchDispatchMode; "
+                        "perf_counter"}]
+    dev = {v: [] for v in versions}
+    host = {v: [] for v in versions}
+    for turn in range(TURNS):
+        order = list(versions.items())
+        for ver, fn in (order if turn % 2 == 0 else order[::-1]):
+            dev[ver].append(_pass_profile(lambda: fn(*big), PER_TURN))
+            host[ver].append(_host_ms(lambda: fn(*big), PER_TURN))
+    got = cs.removal_plain(*big)
+    acc = cs.removal_accounting(*big, got[0])
+    chase = cs.smem_latency_ns()
+    lines.append({
+        "pass": "seq_removal", "largest": {
+            "W": big[0]["alive"].shape[0], "NI": big[0]["alive"].shape[1],
+            "EE": big[0]["e_src"].shape[1], "U": big[2], "D2": big[3],
+            "mode": big[1][0], **acc},
+        "device": {v: {k: cs.spread([d[k] for d in ds]) for k in keys}
+                   for v, ds in dev.items()},
+        "host": {v: {k: cs.spread([h[k] for h in hs])
+                     for k in ("issue_ms", "done_ms")}
+                 for v, hs in host.items()},
+        "aten_ops": {v: _aten_ops(lambda: fn(*big))
+                     for v, fn in versions.items()},
+        "bound_ms": {"bytes": acc["bytes"] / cs.HBM_BYTES_PER_S * 1e3},
+        "chain_floor_ms": acc["chain"] * cs.WALK_CHAIN_LOADS["seq_removal"]
+        * chase["ns_per_load"] / 1e6, "smem_ns_per_load": chase["ns_per_load"],
+        "source": "torch.profiler CUDA activity; perf_counter"})
+    return lines, mism == 0
+
+
+def removal_e2e(parent_lib, workdir: str) -> tuple[dict, bool]:
+    """Device-graph case 1 with the parent's pass and with this tree's
+    patched in, in turns (parent, this, this, parent, parent, this):
+    t_dg_assemble, t_total and windows/s, each VCF equal to the first;
+    then one profiled run each (chip_smoke.profile_devgraph: the card's
+    busy share and device events)."""
+    import chip_smoke as cs
+    from lancet_tpu_torch.gpu import stages
+
+    real = stages._seq_removal_pass
+    versions = {"parent": parent_pass(parent_lib), "this": real}
+    runs = {v: [] for v in versions}
+    vcfs = set()
+    busy = {}
+    try:
+        for ver in ("parent", "this", "this", "parent", "parent", "this"):
+            stages._seq_removal_pass = versions[ver]
+            st: dict = {}
+            vcf, _ = cs.run_devgraph(workdir, cs.DEVGRAPH_REGION, st)
+            vcfs.add(vcf)
+            runs[ver].append({k: st[k] for k in (
+                "t_total", "t_devgraph", "t_dg_assemble", "t_dg_a_dispatch",
+                "n_windows")} | {"windows_per_s": st["n_windows"]
+                                 / st["t_total"]})
+        for ver, fn in versions.items():
+            stages._seq_removal_pass = fn
+            busy[ver] = cs.profile_devgraph(
+                workdir, cs.DEVGRAPH_REGION,
+                sum(r["t_total"] for r in runs[ver]) / len(runs[ver]))
+    finally:
+        stages._seq_removal_pass = real
+    return {"pass": "seq_removal", "case": "devgraph_case_1",
+            "region": cs.DEVGRAPH_REGION, "runs": runs, "device_busy": busy,
+            "vcf_equal": len(vcfs) == 1}, len(vcfs) == 1
 
 
 def _compare(par, new, o_par, o_new) -> int:
@@ -424,8 +637,9 @@ def main() -> int:
                     help="a directory holding the parent's "
                          "lancet_tpu_torch/csrc/walks.cu and "
                          "lancet_tpu_torch/csrc/repeats.cu")
-    ap.add_argument("--only", choices=("walks", "gates"),
-                    help="time only the walks or only the repeat gates")
+    ap.add_argument("--only", choices=("walks", "removal", "gates"),
+                    help="time only the walks, the removal pass or the "
+                         "repeat gates")
     a = ap.parse_args()
     import torch
 
@@ -437,8 +651,8 @@ def main() -> int:
     from lancet_tpu_torch import corpus
 
     parent_lib = None if a.only == "gates" else _build_parent(a.parent)
-    parent_gates = None if a.only == "walks" else _build_parent_gates(
-        a.parent)
+    parent_gates = (_build_parent_gates(a.parent)
+                    if a.only in (None, "gates") else None)
     workdir = os.path.join(HERE, "build", "smoke_corpus")
     region = corpus.write_default_corpus(workdir)
     advdir = os.path.join(HERE, "build", "smoke_adversarial")
@@ -448,15 +662,22 @@ def main() -> int:
     kept: dict = {}
     calls: list = []
     gates: list = []
-    removals: list = []
-    with cs.capture_gates(gates), capture_removals(removals), \
+    passes: list = []
+    with cs.capture_gates(gates), capture_passes(passes), \
             cs.instrument_devgraph(kept, None, calls):
         cs.run_devgraph(workdir, cs.DEVGRAPH_REGION, {})
         cs.run_devgraph(advdir, adv_region, {}, num_threads=2)
     torch.cuda.synchronize()
 
     ok = True
-    if a.only != "gates":
+    if a.only in (None, "removal"):
+        lines, rok = removal_ab(passes, parent_lib)
+        for line in lines:
+            print(json.dumps(line), flush=True)
+        line, eok = removal_e2e(parent_lib, workdir)
+        print(json.dumps(line), flush=True)
+        ok &= rok and eok
+    if a.only in (None, "walks"):
         # the crafted cases of gpu/walkcases.py, each call captured the
         # same way
         from lancet_tpu_torch.gpu import walkcases
@@ -540,9 +761,7 @@ def main() -> int:
                     "hits": int(o_new[0].sum())}
             print(json.dumps(line), flush=True)
             ok &= mism == 0 and mism_largest == 0
-        for line in time_removals(removals):
-            print(json.dumps(line), flush=True)
-    if a.only != "walks":
+    if a.only in (None, "gates"):
         # the repeat gates: the device-graph calls above, the eager sweep's
         # chunks and the two-phase call
         from lancet_tpu_torch.config import Config
