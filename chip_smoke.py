@@ -58,11 +58,32 @@ Phases, each printing one JSON line:
      outputs' allocation); every repeat_gates call of case
      1's second run and of case 2 is held against gates_plain, and the one
      with the most (shift, position) pairs timed with its bounds (a gates
-     line); then one kernels line per walk: the call with the
-     most work of the two cases, its outputs bit-equal to the plain
-     version on the card, timed beside it, the card's bound and the
+     line); the calls and aten ops of the _OP_COUNTED functions of both
+     cases' instrumented runs; then one kernels line per walk: the call
+     with the most work of the two cases, its outputs bit-equal to the
+     plain version on the card, timed beside it, the card's bound and the
      walk's chain floor (its longest serial chain of steps times the
      latency of a dependent shared-memory load, measured here);
+  7b. hard: the JAX benchmark's hard corpus (corpus.hard_corpus, 1,995
+     windows, 8 threads): the main path on cuda and cpu, equal VCFs and
+     summaries, BENCH_r05's 183 records and KMERSIZE histogram, its 201 DP
+     pairs through gotoh_align; the device graph engine on the same
+     region, timed, then instrumented, then profiled: its VCF and summary
+     equal to the main path's, its stats equal to HARD_DEVGRAPH_STATS
+     (windows replayed past k 63 and at the pipeline's caps, each with its
+     site's family), every walk and repeat_gates call held bit-equal to
+     its plain version, the aten ops of the _OP_COUNTED functions, and one
+     kernels line per walk on its largest call there;
+  7c. lr: the JAX benchmark's linked-reads corpus (corpus.lr_corpus, 595
+     windows, lr_mode): the main path on cuda and cpu, then with
+     LANCET_TPU_DEVGRAPH=1 (the runner keeps LR on the native path: no
+     walk kernel launches), then the two-phase process pool with the
+     native runner off (every repeat_gates call held against
+     gates_plain); every VCF equal, 29 records;
+  7d. dp_parity, one line per run: gotoh_align against its plain
+     versions on the DP pairs the run sampled (stats["dp_samples"]: the
+     default corpus's main path, the hard corpus's main path and device
+     graph run), every op and count equal;
   8. mesh, one line per case: (a) the main path with make_mesh() (every
      card) and with a 4-entry mesh over cuda:0 (and, with two cards or
      more, make_mesh(2) over distinct cards), each VCF and summary equal to
@@ -173,6 +194,24 @@ DEVGRAPH_REGION = "chr1:300-120000"
 DEVGRAPH_STATS = {"n_dev_windows": 357, "n_dev_fallback": 0,
                   "dev_fallback_causes": {},
                   "k_histogram": {11: 15, 13: 231, 15: 99, 17: 10, 19: 2}}
+# the JAX benchmark's hard corpus (corpus.hard_corpus, chr1:300-199700,
+# 1,995 windows) on the main path: its records and KMERSIZE histogram
+# (BENCH_r05.json "hard", where the reference binary matched all 183) and
+# DP pairs (the port's and the JAX package's runs on the CPU)
+HARD_RECORDS = 183
+HARD_KMERSIZE = {11: 10, 13: 113, 15: 17, 25: 4, 27: 15, 29: 5, 31: 6,
+                 37: 5, 39: 5, 41: 3}
+HARD_DP_PAIRS = 201
+# the device graph engine on the whole hard corpus: the port's run with
+# device="cpu" (the JAX device engine does not finish this corpus on a
+# CPU; its VCF equals the native path's, which tier-1 ties to the JAX
+# package)
+HARD_DEVGRAPH_STATS = {
+    "n_dev_windows": 568, "n_dev_fallback": 115,
+    "dev_fallback_causes": {"pipeline_caps": 55, "k_gt_63": 60},
+    "k_histogram": {11: 7, 13: 164, 15: 42, 17: 6, 21: 2, 25: 21, 27: 79,
+                    29: 30, 31: 30, 33: 1, 35: 1, 37: 22, 39: 29, 41: 19}}
+LR_RECORDS = 29  # the LR corpus (corpus.lr_corpus): BENCH_r05.json "lr"
 # Integer operations of the four walks per unit of work, by hand
 # (csrc/walks.cu), as lower bounds: path_cover 10 per BFS pop (the queue
 # entry's one 16-byte load and its three field extracts, the sink and best
@@ -209,8 +248,10 @@ LONG_WINDOW = 9000  # --window-size of phase long_window (> 8,192)
 LONG_DEFAULT_REGION = "chr1:20000-29000"  # 7 windows at LONG_WINDOW
 WALK_PLAIN_REPS = 2  # the plain walks loop on the host: seconds a call
 KERNEL_REPS = (5, 10)  # batches x launches per batch, per case
-PLAIN_REPS = 3  # one call each: the plain versions take ~1 s a call
-LONG_PLAIN_REPS = 1  # long_ref's plain versions take ~10-30 s a call
+# one call each, the check's call the first: the plain versions take ~1 s
+# a call, long_ref's ~10-30 s
+PLAIN_REPS = 3
+LONG_PLAIN_REPS = 1
 LARGE_GROUP = (132, 1000, 1100, 3)  # pairs, min and max length, seed
 # the repeats_ties pairs of tests/test_torch_align.py: homopolymer runs of
 # unequal length, tandem repeats shifted by one unit, identical strings,
@@ -490,6 +531,20 @@ def cuda_times(fn, batches: int, per_batch: int = 1) -> list[float]:
     return out
 
 
+def timed_call(fn):
+    """(fn's result, its ms between CUDA events on the current stream)."""
+    import torch
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
 def device_ms(fn, kernel: str, n: int = 20):
     """The mean device time (ms) of the kernels whose name holds `kernel`
     over n calls of `fn`, from torch.profiler's CUDA activity: the kernel
@@ -579,9 +634,7 @@ def kernel_phase(pairs, rate: dict, plain_reps: int = PLAIN_REPS) -> dict:
                                                          M), n_d, m_d, N, M)
 
     ops, cnt = gotoh.align(S, T, n_d, m_d, N, M)
-    torch.cuda.synchronize()
-    ops_p, cnt_p = plain()
-    torch.cuda.synchronize()
+    (ops_p, cnt_p), first_ms = timed_call(plain)
     err = max(int((ops.int() - ops_p.int()).abs().max()),
               int((cnt - cnt_p).abs().max()))
     if err:
@@ -591,7 +644,7 @@ def kernel_phase(pairs, rate: dict, plain_reps: int = PLAIN_REPS) -> dict:
 
     ms = spread(cuda_times(lambda: gotoh.align(S, T, n_d, m_d, N, M),
                            *KERNEL_REPS))
-    plain_ms = spread(cuda_times(plain, plain_reps))
+    plain_ms = spread([first_ms] + cuda_times(plain, plain_reps - 1))
 
     cells = int((n_len.astype("int64") * m_len).sum())
     steps = int(cnt.sum())
@@ -655,8 +708,8 @@ def gates_case(windows, ks, mm: int, rate: dict, timed: bool,
     seq_d, lens_d = (torch.from_numpy(a).to(dev) for a in (seq, lens))
     work = torch.zeros(3, dtype=torch.int64, device=dev)
     g, e = repeats.gates(seq_d, lens_d, ks, mm, work)
-    torch.cuda.synchronize()
-    pg, pe = repeats.gates_plain(seq_d, lens_d, tuple(ks), mm)
+    (pg, pe), first_ms = timed_call(
+        lambda: repeats.gates_plain(seq_d, lens_d, tuple(ks), mm))
     # verdicts that differ (0 or 1 each); the kernel must agree on all
     err = max(int((g != pg).sum()), int((e != pe).sum()))
     W, L = seq.shape
@@ -682,9 +735,9 @@ def gates_case(windows, ks, mm: int, rate: dict, timed: bool,
                            *KERNEL_REPS))
     dms = [device_ms(lambda: repeats.gates(seq_d, lens_d, ks, mm),
                      "repeat_gates_kernel", 10) for _ in range(3)]
-    plain_ms = spread(cuda_times(
+    plain_ms = spread([first_ms] + cuda_times(
         lambda: repeats.gates_plain(seq_d, lens_d, tuple(ks), mm),
-        PLAIN_REPS))
+        PLAIN_REPS - 1))
     bound = gate_bound(W, L, len(ks), steps, work.tolist(), pl, rate)
     return {**out, "ms": ms, "plain_ms": plain_ms,
             "device_ms": spread([d for d in dms if d is not None])
@@ -757,17 +810,31 @@ def reset_counts() -> None:
     walks.reset_launches()
 
 
+def vcf_records(vcf: str) -> list[str]:
+    return [ln for ln in vcf.splitlines() if ln and ln[0] != "#"]
+
+
+def kmersizes(vcf: str) -> dict:
+    """{KMERSIZE: records} of a VCF."""
+    hist: dict = {}
+    for rec in vcf_records(vcf):
+        k = int(re.search(r"KMERSIZE=(\d+)", rec).group(1))
+        hist[k] = hist.get(k, 0) + 1
+    return dict(sorted(hist.items()))
+
+
 def run_captured(workdir: str, region: str, stats: dict, num_threads=8,
-                 window_size: int | None = None, **kw):
-    """runner.run on the corpus (8 threads and the default window size
-    unless given); returns (VCF, stderr)."""
+                 window_size: int | None = None, lr_mode: bool = False,
+                 **kw):
+    """runner.run on the corpus (8 threads, the default window size and LR
+    mode off unless given); returns (VCF, stderr)."""
     from lancet_tpu_torch.config import Config
     from lancet_tpu_torch.runner import run
 
     cfg = Config(tumor_bam=os.path.join(workdir, "tumor.bam"),
                  normal_bam=os.path.join(workdir, "normal.bam"),
                  ref_fasta=os.path.join(workdir, "ref.fa"), region=region,
-                 num_threads=num_threads,
+                 num_threads=num_threads, lr_mode=lr_mode,
                  **({} if window_size is None
                     else {"window_size": window_size}))
     err = io.StringIO()
@@ -777,12 +844,12 @@ def run_captured(workdir: str, region: str, stats: dict, num_threads=8,
     return vcf, err.getvalue()
 
 
-def run_engine_path(workdir: str, region: str, stats: dict):
+def run_engine_path(workdir: str, region: str, stats: dict, **kw):
     """The two-phase process pool on the card, the native runner off."""
     os.environ["LANCET_TPU_NO_SHARDRUN"] = "1"
     try:
         return run_captured(workdir, region, stats, processes=True,
-                            engine="batched", device="cuda")
+                            engine="batched", device="cuda", **kw)
     finally:
         del os.environ["LANCET_TPU_NO_SHARDRUN"]
 
@@ -863,8 +930,7 @@ def long_window_case(case: str, workdir: str, region: str) -> dict:
                              default=0),
             "launches": launches, "t_total": st["t_total"],
             "t_total_cpu": st_cpu["t_total"],
-            "vcf_records": sum(1 for ln in vcf.splitlines()
-                               if ln and ln[0] != "#"),
+            "vcf_records": len(vcf_records(vcf)),
             "vcf_equal_cpu": vcf == vcf_cpu,
             "summary_equal_cpu": summary == summary_cpu}
     emit(line)
@@ -888,11 +954,15 @@ _WALK_SOURCES = {"path_cover": "lancet_tpu/tpu/pipeline.py:310",
                  "seq_removal": "lancet_tpu/tpu/stages.py:580",
                  "almost_repeat_paths": "lancet_tpu/tpu/pipeline.py:680",
                  "cycle_dfs": "lancet_tpu/tpu/stages.py:839"}
-# functions of the device graph engine whose calls and aten ops (about
-# one kernel launch each) are counted: the torch-op functions, and the
-# removal pass (one K2 launch and its outputs' allocation)
+# functions of the device graph engine (gpu/stages.py) whose calls and
+# aten ops (about one kernel launch each) are counted: the torch-op
+# functions of run_attempt and cleanup, and the removal pass (one K2
+# launch and its outputs' allocation). A count includes the calls it
+# makes to the others: compress_round's holds its links and chain_jump,
+# low_cov_pass's its item_mincovs.
 _OP_COUNTED = ("tandem_at", "cycle_screen", "compress_round",
-               "_seq_removal_pass")
+               "_seq_removal_pass", "components", "chain_jump",
+               "low_cov_pass", "compact_state", "item_mincovs", "links")
 
 
 def _tree(x, fn):
@@ -944,12 +1014,14 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
                         calls: list | None = None):
     """While active: keep, per walk, a copy of the inputs of its card call
     with the most work (`kept`); count the calls of the _OP_COUNTED
-    functions and the aten ops they dispatch (`ops`); append a copy of the
-    inputs and outputs of every card call of the _CHECKED walks to `calls`
+    functions and the aten ops they dispatch, nested calls' included
+    (`ops`); append a copy of the inputs and outputs of every card call of
+    the _CHECKED walks, with the k of the attempt that made it, to `calls`
     (on the caller's stream, from any thread), for check_walk_calls."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
+    from lancet_tpu_torch.engine import devicepipe
     from lancet_tpu_torch.gpu import stages, walks
 
     class Count(TorchDispatchMode):
@@ -963,6 +1035,12 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
 
     real_w = {n: getattr(walks, n) for n in _WALKS}
     real_s = {n: getattr(stages, n) for n in _OP_COUNTED}
+    real_a = devicepipe._assemble
+    local = threading.local()  # the attempt's k; the counted depth
+
+    def assemble(b, ranks, raw, K, *a, **k):
+        local.K = K
+        return real_a(b, ranks, raw, K, *a, **k)
 
     def copy(x):
         return _tree(x, lambda t: t.clone() if torch.is_tensor(t) else t)
@@ -984,7 +1062,7 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
                 Count.paused = True
                 try:
                     calls.append((n, copy(_walk_args(n, list(a))), dict(k),
-                                  copy(out)))
+                                  copy(out), getattr(local, "K", None)))
                 finally:
                     Count.paused = paused
             return out
@@ -994,8 +1072,13 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
         def f(*a, **k):
             c = ops.setdefault(n, {"calls": 0, "aten_ops": 0})
             before = Count.n
-            with Count():
-                out = real_s[n](*a, **k)
+            depth = getattr(local, "depth", 0)
+            local.depth = depth + 1
+            try:  # one mode, the outermost call's: an op counts once
+                with Count() if depth == 0 else contextlib.nullcontext():
+                    out = real_s[n](*a, **k)
+            finally:
+                local.depth = depth
             c["calls"] += 1
             c["aten_ops"] += Count.n - before
             return out
@@ -1006,6 +1089,7 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
     if ops is not None:
         for n in _OP_COUNTED:
             setattr(stages, n, wrap_op(n))
+    devicepipe._assemble = assemble
     try:
         yield
     finally:
@@ -1013,6 +1097,7 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
             setattr(walks, n, f)
         for n, f in real_s.items():
             setattr(stages, n, f)
+        devicepipe._assemble = real_a
 
 
 def removal_plain(st, cond, U, D2):
@@ -1037,8 +1122,10 @@ def _mismatches(got, want) -> int:
 
 def check_walk_calls(calls: list, case: str) -> dict:
     """Each captured card call of path_cover, seq_removal, almost_repeat
-    or cycle_dfs against the plain version on its own inputs, bit for bit;
-    returns {walk: {calls, mismatches}} and raises on a mismatch. Empties
+    or cycle_dfs against the plain version on its own inputs, bit for bit
+    (cycle_dfs's on a copy on the host: its step loop of small ops runs
+    many times faster there than launched op by op on the card); returns
+    {walk: {calls, mismatches}} and raises on a mismatch. Empties
     `calls`."""
     import torch
 
@@ -1047,7 +1134,7 @@ def check_walk_calls(calls: list, case: str) -> dict:
     torch.cuda.synchronize()
     res = {n: {"calls": 0, "mismatches": 0} for n in _CHECKED}
     while calls:
-        n, args, kw, got = calls.pop(0)
+        n, args, kw, got, _ = calls.pop(0)
         if n == "path_cover":
             want = pipeline.path_cover_plain(*args, **kw)
         elif n == "seq_removal":
@@ -1055,7 +1142,9 @@ def check_walk_calls(calls: list, case: str) -> dict:
         elif n == "almost_repeat":
             want = pipeline.almost_repeat_plain(*args, **kw)
         else:
-            want = stages.cycle_dfs_plain(*args, **kw)
+            want = stages.cycle_dfs_plain(
+                *_tree(args, lambda t: t.cpu() if torch.is_tensor(t) else t),
+                **kw)
         bad = _mismatches(got, want)
         res[n]["calls"] += 1
         res[n]["mismatches"] += int(bad > 0)
@@ -1103,7 +1192,9 @@ def profile_devgraph(workdir: str, region: str, t_unprofiled: float) -> dict:
     (the sum of its kernel and copy intervals, which do not overlap on one
     stream) against the wall time of this run and of the unprofiled run
     (the profiler slows the host, not the card), and the kernels that take
-    most. A profiler that cannot trace the card gives "not_measured"."""
+    most. The profile's raw events are read: building the profiler's event
+    tree over a run's million host events takes minutes. A profiler that
+    cannot trace the card gives "not_measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1124,11 +1215,10 @@ def profile_devgraph(workdir: str, region: str, t_unprofiled: float) -> dict:
         raise
     try:
         prof.stop()
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                ms, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
-                                   n + 1)
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                ms, n = by_name.get(e.name(), (0.0, 0))
+                by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
     except (AttributeError, RuntimeError) as e:
         return {"not_measured": f"profiler: {e}"}
     if not by_name:
@@ -1577,6 +1667,286 @@ def gates_case_main(workdir: str, region: str, vcf: str, summary: str,
     return launches_on
 
 
+@contextlib.contextmanager
+def replayed_windows(out: list):
+    """While active: append (cause, k, window midpoint) for every window
+    the device graph engine hands back to the native ladder: at an
+    attempt's caps (the causes that attempt added, and its k), or before
+    any attempt (k_gt_63, k None: gated at every device k; the shape
+    screen would count here too, but the pinned stats hold none)."""
+    from lancet_tpu_torch.engine import devicepipe
+
+    real_run, real_cc = (devicepipe.run_device_graph,
+                         devicepipe._complete_chunk)
+    marked: dict = {}
+
+    def complete(st_if, cfg, K, stats, *a, **k):
+        before = dict(stats.get("dev_fallback_causes", {}))
+        fresh = [t for t in st_if["chunk"] if not t.fallback]
+        real_cc(st_if, cfg, K, stats, *a, **k)
+        after = stats.get("dev_fallback_causes", {})
+        added = "/".join(sorted(c for c in after
+                                if after[c] != before.get(c, 0)))
+        for t in fresh:
+            if t.fallback:
+                marked[id(t)] = (added, K)
+
+    def run(tasks, *a, **k):
+        real_run(tasks, *a, **k)
+        for t in tasks:
+            if t.fallback:
+                cause, K = marked.get(id(t), ("k_gt_63", None))
+                out.append((cause, K, t.refstart + len(t.rawseq) // 2))
+
+    devicepipe.run_device_graph, devicepipe._complete_chunk = run, complete
+    try:
+        yield
+    finally:
+        devicepipe.run_device_graph = real_run
+        devicepipe._complete_chunk = real_cc
+
+
+def dp_parity(case: str, pairs: list) -> dict:
+    """The port's counterpart of bench.py's pallas_parity_check: gotoh_align
+    against dp_fill_plain + traceback_plain on the card, on the DP pairs a
+    run sampled (stats["dp_samples"]); every op and count must be equal.
+    Emits and returns the dp_parity line."""
+    import torch
+
+    from lancet_tpu_torch.gpu import gotoh
+    from lancet_tpu_torch.gpu.align_batch import _pack
+
+    if not pairs:
+        raise AssertionError(f"dp_parity {case}: the run sampled no DP pair")
+    dev = torch.device("cuda", 0)
+    S, T, n_len, m_len, N, M = _pack(pairs)
+    S, T, n_d, m_d = (torch.from_numpy(a).to(dev)
+                      for a in (S, T, n_len, m_len))
+    ops, cnt = gotoh.align(S, T, n_d, m_d, N, M)
+    ops_p, cnt_p = gotoh.traceback_plain(
+        gotoh.dp_fill_plain(S, T, n_d, m_d, N, M), n_d, m_d, N, M)
+    P = len(pairs)
+    bad = int(((ops != ops_p).reshape(P, -1).any(1)
+               | (cnt != cnt_p).reshape(P, -1).any(1)).sum())
+    line = {"phase": "dp_parity", "case": case, "samples": P,
+            "longest_N": max(len(a) for a, _ in pairs),
+            "longest_M": max(len(b) for _, b in pairs),
+            "mode": gotoh.plan(N, M).mode, "tolerance": 0,
+            "pairs_differing": bad, "equal": bad == 0}
+    emit(line)
+    if bad:
+        raise AssertionError(f"dp_parity {case}: gotoh_align differs from "
+                             f"its plain version on {bad} of {P} pairs")
+    return line
+
+
+def hard_phase(rate: dict, chase: dict) -> dict:
+    """The JAX benchmark's hard corpus (corpus.hard_corpus, 1,995 windows)
+    on the card: (a) the main path with device cuda and cpu, equal VCFs and
+    summaries with BENCH_r05's records and KMERSIZE histogram; (b) the
+    device graph engine, timed, then instrumented (every walk call and
+    repeat_gates call held against its plain version, the counted
+    functions' aten ops, each replayed window's cause, k and site family),
+    then profiled, its VCF and summary equal to (a)'s and its stats equal
+    to HARD_DEVGRAPH_STATS; each walk's largest call as a kernels line.
+    Returns the launch counts and DP samples of both runs."""
+    from lancet_tpu_torch import corpus
+
+    t_phase = time.perf_counter()
+    hdir = os.path.join(HERE, "build", "smoke_hard")
+    os.makedirs(hdir, exist_ok=True)
+    refseq, tumor, normal, region = corpus.hard_corpus()
+    corpus.write_pair(hdir, refseq, "chr1", tumor, normal)
+    t_corpus = time.perf_counter() - t_phase
+
+    # (a) the main path
+    st: dict = {}
+    groups: list = []
+    reset_counts()
+    vcf, summary = run_main_path("cuda", hdir, region, st, groups)
+    launches = launch_counts()
+    st_cpu: dict = {}
+    vcf_cpu, summary_cpu = run_main_path("cpu", hdir, region, st_cpu)
+    hist = kmersizes(vcf)
+    n_gotoh = sum(launches[f"gotoh_align_{m}"]
+                  for m in ("smem", "global", "strips"))
+    emit({"phase": "hard", "case": "main_path", "region": region,
+          "t_corpus": t_corpus, "num_threads": 8,
+          "windows_per_s": st["n_windows"] / st["t_total"],
+          **{k: st[k] for k in ("t_total", "t_host", "t_dp", "t_dp_wait",
+                                "n_windows", "n_jobs", "n_dp", "n_groups",
+                                "n_fallback")},
+          "t_total_cpu": st_cpu["t_total"], "launches": launches,
+          "dp_groups": [len(g) for g in groups],
+          "vcf_records": len(vcf_records(vcf)), "kmersize_histogram": hist,
+          "max_kmersize": max(hist), "vcf_equal_cpu": vcf == vcf_cpu,
+          "summary_equal_cpu": summary == summary_cpu})
+    if vcf != vcf_cpu or summary != summary_cpu:
+        raise AssertionError("hard: device='cuda' and device='cpu' runs "
+                             "differ")
+    if len(vcf_records(vcf)) != HARD_RECORDS or hist != HARD_KMERSIZE:
+        raise AssertionError(f"hard: {len(vcf_records(vcf))} records, "
+                             f"KMERSIZE {hist}; BENCH_r05 has "
+                             f"{HARD_RECORDS}, {HARD_KMERSIZE}")
+    if st["n_dp"] != HARD_DP_PAIRS or n_gotoh < 1:
+        raise AssertionError(f"hard: {st['n_dp']} DP pairs, {n_gotoh} "
+                             "gotoh_align launches")
+
+    # (b) the device graph engine: timed, instrumented, profiled
+    st_g: dict = {}
+    reset_counts()
+    vcf_g, summary_g = run_devgraph(hdir, region, st_g)
+    launches_g = launch_counts()
+    st_g2: dict = {}
+    ops: dict = {}
+    calls: list = []
+    gcalls: list = []
+    replays: list = []
+    with instrument_devgraph(None, ops, calls), capture_gates(gcalls), \
+            replayed_windows(replays):
+        vcf_g2, summary_g2 = run_devgraph(hdir, region, st_g2)
+    busy = profile_devgraph(hdir, region, st_g["t_total"])
+    got_stats = {k: st_g[k] for k in HARD_DEVGRAPH_STATS}
+    dkeys = ("t_total", "t_host", "t_unpack", "t_devgraph", "t_dg_pack",
+             "t_dg_build", "t_dg_ranks", "t_dg_assemble", "t_dg_a_dispatch",
+             "t_dg_a_exec", "t_dg_a_fetch", "t_dg_finish", "t_dp",
+             "t_finish", "n_windows", "n_jobs", "n_dp", "n_dev_attempts")
+    families: dict = {}
+    replay_ks: dict = {}
+    for cause, K, mid in replays:
+        fam = families.setdefault(cause, {})
+        fam[corpus.hard_family(mid)] = fam.get(corpus.hard_family(mid), 0) + 1
+        ks = replay_ks.setdefault(cause, {})
+        ks[str(K)] = ks.get(str(K), 0) + 1
+    # each walk's call with the most work, and its k, before the calls go
+    largest: dict = {}
+    for n, args, kw, _, K in calls:
+        work = _walk_work(n, args)
+        if n not in largest or largest[n][0] < work:
+            largest[n] = (work, args, kw, K)
+    captured = {n: sum(1 for c in calls if c[0] == n) for n in _CHECKED}
+    call_ks = {n: sorted({K for m, *_, K in calls if m == n})
+               for n in _CHECKED}
+    t0 = time.perf_counter()
+    checked = check_walk_calls(calls, "hard devgraph")
+    gdev = check_gate_calls(gcalls, "hard devgraph", rate)
+    t_checks = time.perf_counter() - t0
+    emit({"phase": "gates", "case": "hard_devgraph_calls",
+          "ks": [c[1] for c in gcalls], **gdev})
+    emit({"phase": "hard", "case": "devgraph", "region": region,
+          "num_threads": 8, "windows_per_s": st_g["n_windows"]
+          / st_g["t_total"], **{k: st_g[k] for k in dkeys}, **got_stats,
+          "launches": launches_g, "walk_calls_checked": checked,
+          "walk_calls_captured": captured, "walk_call_ks": call_ks,
+          "gate_calls_captured": len(gcalls),
+          "gate_calls_checked": gdev["calls"],
+          "t_checks": t_checks, "torch_op_functions": ops,
+          "replayed_families": families, "replayed_ks": replay_ks,
+          "instrumented_t_total": st_g2["t_total"], "device_busy": busy,
+          "max_kmersize": max(kmersizes(vcf_g)),
+          "vcf_equal_native": vcf_g == vcf,
+          "summary_equal_native": summary_g == summary,
+          "stats_equal_pinned": got_stats == HARD_DEVGRAPH_STATS})
+    if (vcf_g != vcf or summary_g != summary or vcf_g2 != vcf
+            or summary_g2 != summary):
+        raise AssertionError("hard: the device graph engine's VCF or "
+                             "summary differs from the native main path's")
+    if got_stats != HARD_DEVGRAPH_STATS:
+        raise AssertionError(f"hard: device-graph stats {got_stats} differ "
+                             f"from {HARD_DEVGRAPH_STATS}")
+    for k in ("gotoh_align_smem", "repeat_gates", *_WALKS.values()):
+        if launches_g[k] < 1:
+            raise AssertionError(f"hard: the devgraph run launched no {k}")
+    walks_h = {}
+    for name in _WALKS:
+        _, args, kw, K = largest[name]
+        walks_h[name] = walk_case(name, args, kw, rate, chase)
+        emit({"phase": "kernels", "case": f"hard_{_WALKS[name]}", "K": K,
+              "launches": launches_g[_WALKS[name]], **walks_h[name]})
+    emit({"phase": "hard", "case": "done",
+          "t_phase": time.perf_counter() - t_phase})
+    return {"launches_main": launches, "launches_devgraph": launches_g,
+            "dp_samples_main": st.get("dp_samples", []),
+            "dp_samples_devgraph": st_g.get("dp_samples", []),
+            "walks": walks_h, "gates_max_abs_err": gdev["max_abs_err"]}
+
+
+def lr_phase(rate: dict) -> dict:
+    """The JAX benchmark's linked-reads corpus (corpus.lr_corpus, 595
+    windows, lr_mode) on the card: (a) the main path with device cuda and
+    cpu; (b) with LANCET_TPU_DEVGRAPH=1, which the runner sends to the
+    native path (no walk kernel launches); (c) the two-phase process pool,
+    the native runner off, every repeat_gates call held against
+    gates_plain. Every VCF equal, LR_RECORDS records. Returns the launch
+    counts of (a), (b) and (c)."""
+    from lancet_tpu_torch import corpus
+
+    t_phase = time.perf_counter()
+    ldir = os.path.join(HERE, "build", "smoke_lr")
+    os.makedirs(ldir, exist_ok=True)
+    refseq, tumor, normal, region = corpus.lr_corpus()
+    corpus.write_pair(ldir, refseq, "chr1", tumor, normal)
+    st: dict = {}
+    reset_counts()
+    vcf, summary = run_main_path("cuda", ldir, region, st, lr_mode=True)
+    launches = launch_counts()
+    st_cpu: dict = {}
+    vcf_cpu, summary_cpu = run_main_path("cpu", ldir, region, st_cpu,
+                                         lr_mode=True)
+    st_d: dict = {}
+    reset_counts()
+    vcf_d, summary_d = run_devgraph(ldir, region, st_d, lr_mode=True)
+    launches_d = launch_counts()
+    st_e: dict = {}
+    gcalls: list = []
+    reset_counts()
+    with capture_gates(gcalls):
+        vcf_e, summary_e = run_engine_path(ldir, region, st_e, lr_mode=True)
+    launches_e = launch_counts()
+    stop_pool_servers()
+    gates = check_gate_calls(gcalls, "lr two-phase", rate)
+    emit({"phase": "gates", "case": "lr_two_phase_calls", **gates})
+    walks_d = {k: launches_d[k] for k in _WALKS.values()}
+    emit({"phase": "lr", "region": region, "num_threads": 8,
+          "windows_per_s": st["n_windows"] / st["t_total"],
+          **{k: st[k] for k in ("t_total", "n_windows", "n_jobs", "n_dp")},
+          "t_total_cpu": st_cpu["t_total"], "launches": launches,
+          "vcf_records": len(vcf_records(vcf)),
+          "kmersize_histogram": kmersizes(vcf),
+          "vcf_equal_cpu": vcf == vcf_cpu,
+          "summary_equal_cpu": summary == summary_cpu,
+          "devgraph_env": {"t_total": st_d["t_total"],
+                           "walk_launches": walks_d,
+                           "vcf_equal": vcf_d == vcf,
+                           "summary_equal": summary_d == summary},
+          "two_phase": {"windows_per_s": st_e["n_windows"]
+                        / st_e["t_total"],
+                        **{k: st_e[k] for k in ("t_total", "t_gates",
+                                                "t_host", "t_dp",
+                                                "t_finish")},
+                        "n_dead_workers": st_e.get("n_dead_workers", 0),
+                        "launches": launches_e, "vcf_equal": vcf_e == vcf,
+                        "summary_equal": summary_e == summary},
+          "t_phase": time.perf_counter() - t_phase})
+    if vcf != vcf_cpu or summary != summary_cpu:
+        raise AssertionError("lr: device='cuda' and device='cpu' runs "
+                             "differ")
+    if len(vcf_records(vcf)) != LR_RECORDS:
+        raise AssertionError(f"lr: {len(vcf_records(vcf))} records, "
+                             f"{LR_RECORDS} expected")
+    if vcf_d != vcf or any(walks_d.values()):
+        raise AssertionError(f"lr with LANCET_TPU_DEVGRAPH=1: VCF equal "
+                             f"{vcf_d == vcf}, walk launches {walks_d}")
+    if vcf_e != vcf or summary_e != summary or st_e.get("n_dead_workers"):
+        raise AssertionError("lr: the two-phase path's VCF or summary "
+                             "differs, or a worker died")
+    if launches_e["repeat_gates"] < 1:
+        raise AssertionError(f"lr: the two-phase path launched "
+                             f"{launches_e}")
+    return {"main": launches, "devgraph_env": launches_d,
+            "two_phase": launches_e, "gates_max_abs_err": gates["max_abs_err"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -1687,7 +2057,7 @@ def main() -> int:
     launches = launch_counts()
     st_cpu: dict = {}
     vcf_cpu, summary_cpu = run_main_path("cpu", workdir, region, st_cpu)
-    n_rec = sum(1 for ln in vcf.splitlines() if ln and ln[0] != "#")
+    n_rec = len(vcf_records(vcf))
     keys = ("t_total", "t_pipeline", "t_host", "t_dp", "t_dp_prep",
             "t_dp_send", "t_dp_wait", "t_finish", "t_render", "n_windows",
             "n_jobs", "n_dp", "n_groups", "n_fallback")
@@ -1804,7 +2174,8 @@ def main() -> int:
     sums_g: dict = {}  # the attempt outputs' counters, for phase mesh
     calls: list = []
     gcalls: list = []  # repeat_gates calls of devgraph cases 1 and 2
-    with instrument_devgraph(kept, None, calls), sum_attempts(sums_g), \
+    ops_g: dict = {}
+    with instrument_devgraph(kept, ops_g, calls), sum_attempts(sums_g), \
             capture_gates(gcalls):
         vcf_g2, _ = run_devgraph(workdir, DEVGRAPH_REGION, st_g2)
     checked_g = check_walk_calls(calls, "devgraph case 1")
@@ -1820,11 +2191,11 @@ def main() -> int:
           "windows_per_s": st_g["n_windows"] / st_g["t_total"],
           **{k: st_g[k] for k in dkeys}, **got_stats,
           "launches": launches_g, "walk_calls_checked": checked_g,
+          "torch_op_functions": ops_g,
           "second_run_t_total": st_g2["t_total"], "device_busy": busy,
           "native_main_path": {"windows_per_s": st_n["n_windows"]
                                / st_n["t_total"], "t_total": st_n["t_total"]},
-          "vcf_records": sum(1 for ln in vcf_g.splitlines()
-                             if ln and ln[0] != "#"),
+          "vcf_records": len(vcf_records(vcf_g)),
           "vcf_equal_native": vcf_g == vcf_n,
           "summary_equal_native": summary_g == summary_n,
           "stats_equal_jax": got_stats == DEVGRAPH_STATS})
@@ -1887,6 +2258,19 @@ def main() -> int:
         wres[name] = walk_case(name, args, kw, rate, chase)
         emit({"phase": "kernels", "case": f"devgraph_{_WALKS[name]}",
               **wres[name]})
+
+    # 7b. the JAX benchmark's hard corpus: the main path and the device
+    # graph engine, whose k ladder climbs past 63; 7c. its linked-reads
+    # corpus on the main, device-graph-set and two-phase paths; 7d. the DP
+    # parity check on the DP pairs the main path and the hard corpus's runs
+    # sampled
+    hard = hard_phase(rate, chase)
+    lr = lr_phase(rate)
+    gres["max_abs_err"] = max(gres["max_abs_err"], hard["gates_max_abs_err"],
+                              lr["gates_max_abs_err"])
+    parity = [dp_parity("default_main_path", st.get("dp_samples", [])),
+              dp_parity("hard_main_path", hard["dp_samples_main"]),
+              dp_parity("hard_devgraph", hard["dp_samples_devgraph"])]
 
     # 8. the mesh: (a) the main path over every card and over 4 entries of
     # cuda:0 (and over 2 cards where there are two); (b) device-graph case
@@ -1992,7 +2376,12 @@ def main() -> int:
                 "devgraph": launches_g[name] + launches_a[name],
                 "mesh": sum(lm[name] for lm in launches_m),
                 "multihost": launches_mh[name],
-                "gates_switch": launches_d[name]}
+                "gates_switch": launches_d[name],
+                "hard_main_path": hard["launches_main"][name],
+                "hard_devgraph": hard["launches_devgraph"][name],
+                "lr_main_path": lr["main"][name],
+                "lr_devgraph_env": lr["devgraph_env"][name],
+                "lr_two_phase": lr["two_phase"][name]}
 
     line = []
     for mode, cases in (("smem", kres), ("global", [large]),
@@ -2007,13 +2396,15 @@ def main() -> int:
             "name": f"gotoh_align_{mode}", "route": "cuda",
             "source": "lancet_tpu_torch/csrc/gotoh.cu",
             "replaces": "lancet_tpu/tpu/pallas_gotoh.py:113",
-            "also_replaces": "lancet_tpu/tpu/align_batch.py:143",
+            "also_replaces": "lancet_tpu/tpu/align_batch.py:128",
             "launches": (long_corpus["launches"]["gotoh_align_strips"]
                          if mode == "strips" else
                          launches[f"gotoh_align_{mode}"]),
             "launches_by_path": by_path(f"gotoh_align_{mode}"),
             "on_main_path": mode == "smem",
             "max_abs_err": max(r["max_abs_err"] for r in cases),
+            **({"dp_parity_pairs": sum(p["samples"] for p in parity)}
+               if mode == "smem" else {}),
             "ms": mean([r["ms"]["median"] for r in cases]),
             "plain_ms": mean([r["plain_ms"]["median"] for r in cases]),
             "bound_ms": bnd[by], "bound_by": by, "library_ms": None})
@@ -2056,9 +2447,12 @@ def main() -> int:
             # the devgraph path is these kernels' path
             "launches": walk_launches[kname],
             "launches_by_path": by_path(kname), "on_main_path": False,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"]["median"],
+            "max_abs_err": max(r["max_abs_err"],
+                               hard["walks"][name]["max_abs_err"]),
+            "ms": r["ms"]["median"],
             "plain_ms": r["plain_ms"]["median"], "bound_ms": r["bound"][by],
             "bound_by": by, "device_ms": r["device_ms"],
+            "hard_largest_device_ms": hard["walks"][name]["device_ms"],
             "chain_floor_ms": r["chain_floor_ms"], "library_ms": None,
             **({"aten_ops_per_call": rops["aten_ops"] / rops["calls"]}
                if kname == "seq_removal" else {})})

@@ -5,7 +5,9 @@ reads tiled over it with planted somatic events, written as FASTA + BAM.
 chr1 at about 40x in tumor and normal, 100 bp reads every 5 bp, one SNV or
 indel (1-6 bp) every 2 kb at a tumor VAF of 0.5. Its region,
 chr1:300-519700, gives 5,195 windows at the default window size and
-padding.
+padding. `hard_corpus` and `lr_corpus` copy the JAX benchmark's hard
+(window families that climb the k ladder) and linked-reads (BX and HP
+tags) corpora.
 """
 
 from __future__ import annotations
@@ -276,3 +278,111 @@ def adversarial_corpus(itd: bool = True):
         normal += hap_reads(refseq, None, c - 700, c + 700, 100, 5,
                             f"ni{idx}_", 0, 600 + idx)
     return refseq, tumor, normal, "chr1:400-15600"
+
+
+HARD_CHROM_LEN = 200_000
+HARD_FAMILIES = ("str", "nearrep", "homopoly", "dense", "highcov", "plain",
+                 "dup70")
+
+
+def hard_corpus():
+    """The JAX benchmark's hard corpus (`bench.py:82-172`) -> (refseq,
+    tumor, normal, region): a 200 kb chromosome with one window family
+    every 2 kb, in the order of HARD_FAMILIES: STR runs around a unit
+    insertion, a 24 bp near-repeat duplication, a homopolymer with a 1 bp
+    deletion, a forest of germline het SNVs, a ~100x coverage spike, a
+    plain SNV, and an exact 70 bp tandem duplication (also ~100x). The
+    region, chr1:300-199700, gives 1,995 windows."""
+    base = list(make_reference(HARD_CHROM_LEN, seed=555))
+    half = EVENT_SPACING // 2
+    centers = list(range(half, HARD_CHROM_LEN - half, EVENT_SPACING))
+    fams = [HARD_FAMILIES[idx % 7] for idx in range(len(centers))]
+    for c, fam in zip(centers, fams):
+        if fam == "str":  # (AC)x18 and (AGC)x10 flanking the event
+            base[c - 60:c - 60 + 36] = "AC" * 18
+            base[c + 20:c + 20 + 30] = "AGC" * 10
+        elif fam == "nearrep":  # a 24 bp block 60 bp on, 1 mismatch
+            seg = list(base[c - 30:c - 6])
+            seg[11] = _OTHER[seg[11]]
+            base[c + 30:c + 30 + 24] = seg
+        elif fam == "homopoly":
+            base[c - 40:c - 16] = "A" * 24
+        elif fam == "dup70":  # the 70 bp before c - 80, repeated
+            base[c - 80:c - 10] = base[c - 150:c - 80]
+    refseq = "".join(base)
+    tumor: list[Aln] = []
+    normal: list[Aln] = []
+    for idx, (c, fam) in enumerate(zip(centers, fams)):
+        lo, hi = c - half, c + half
+        step, extra_edits = STEP, []
+        if fam == "str":
+            edit = ("i", c + 21, "AGC")  # a unit insertion inside the STR
+        elif fam == "dup70":
+            edit = ("s", c + 40, _OTHER[refseq[c + 40]])
+            step = 2
+        elif fam == "nearrep":
+            edit = ("s", c + 60, _OTHER[refseq[c + 60]])
+        elif fam == "homopoly":
+            edit = ("d", c - 30, 1)
+        elif fam == "dense":
+            edit = ("s", c, _OTHER[refseq[c]])
+            extra_edits = [("s", c + off, _OTHER[refseq[c + off]])
+                           for off in (-90, -60, -33, 27, 54, 81)]
+        elif fam == "highcov":
+            edit = ("s", c, _OTHER[refseq[c]])
+            step = 2
+        else:
+            edit = ("s", c, _OTHER[refseq[c]])
+        tumor += hap_reads(refseq, edit, lo, hi, READ_LEN, step,
+                           f"t{idx}_", 0.5, 3000 + idx)
+        for j, e in enumerate(extra_edits):
+            # germline hets: in both samples, so no somatic call
+            tumor += hap_reads(refseq, e, max(lo, e[1] - 140),
+                               min(hi, e[1] + 140), READ_LEN, 11,
+                               f"tx{idx}_{j}_", 0.5, 4000 + 7 * idx + j)
+            normal += hap_reads(refseq, e, max(lo, e[1] - 140),
+                                min(hi, e[1] + 140), READ_LEN, 11,
+                                f"nx{idx}_{j}_", 0.5, 5000 + 7 * idx + j)
+        normal += hap_reads(refseq, None, lo, hi, READ_LEN, step,
+                            f"n{idx}_", 0, 6000 + idx)
+    return refseq, tumor, normal, f"chr1:300-{HARD_CHROM_LEN - 300}"
+
+
+def hard_family(pos: int) -> str:
+    """The family of the hard corpus's event site nearest to `pos`."""
+    idx = min(max(round((pos - EVENT_SPACING // 2) / EVENT_SPACING), 0),
+              (HARD_CHROM_LEN - EVENT_SPACING) // EVENT_SPACING - 1)
+    return HARD_FAMILIES[idx % 7]
+
+
+LR_CHROM_LEN = 60_000
+
+
+def lr_corpus():
+    """The JAX benchmark's linked-reads corpus (`bench.py:179-216`) ->
+    (refseq, tumor, normal, region): a 60 kb chromosome with a somatic SNV
+    every 2 kb, every read tagged with a BX barcode (one of 6) and an HP
+    haplotype (2 on reads that carry the alternate base, else 1; 0 for a
+    fifth of the reads). The region, chr1:300-59700, gives 595 windows."""
+    rng = random.Random(909)
+    refseq = make_reference(LR_CHROM_LEN, seed=808)
+    tumor: list[Aln] = []
+    normal: list[Aln] = []
+    half = EVENT_SPACING // 2
+    for idx, c in enumerate(range(half, LR_CHROM_LEN - half,
+                                  EVENT_SPACING)):
+        edit = ("s", c, _OTHER[refseq[c]])
+        t = hap_reads(refseq, edit, c - half, c + half, READ_LEN, STEP,
+                      f"t{idx}_", 0.5, 7000 + idx)
+        n = hap_reads(refseq, None, c - half, c + half, READ_LEN, STEP,
+                      f"n{idx}_", 0, 8000 + idx)
+        for al in t + n:
+            off = c - al.pos
+            has_alt = 0 <= off < READ_LEN and al.seq[off] != refseq[c]
+            bc = rng.randrange(6)
+            al.tags["BX"] = ("Z", f"BX{bc:03d}-1")
+            al.tags["HP"] = ("i", (2 if has_alt else 1)
+                             if rng.random() < 0.8 else 0)
+        tumor += t
+        normal += n
+    return refseq, tumor, normal, f"chr1:300-{LR_CHROM_LEN - 300}"

@@ -337,6 +337,12 @@ def run_shards(cfg, windows, tumor, normal, stats: dict | None = None,
                 "latin-1")
             pairs.append((w.rawseq[src : src + dist], pathseq))
         t_mid = time.perf_counter()
+        if stats is not None and pairs:
+            # real DP pairs, up to 64 over the run, for a DP parity check
+            samples = stats.setdefault("dp_samples", [])
+            if len(samples) < 64:
+                step = max(1, len(pairs) // (64 - len(samples)))
+                samples.extend(pairs[::step][: 64 - len(samples)])
         state = mesh_batch_align_async(pairs, mesh)
         t1 = time.perf_counter()
         t_dp_prep += t_mid - t0
@@ -504,6 +510,11 @@ def run_shards_device(cfg, windows, tumor, normal, stats: dict | None = None,
     t0 = time.perf_counter()
     all_jobs = [(t, j) for t in tasks if not t.fallback for j in t.jobs]
     dp_jobs = [(t, j) for t, j in all_jobs if j.needs_dp]
+    if stats is not None and dp_jobs:
+        # real DP pairs, up to 64, for a DP parity check
+        step = max(1, len(dp_jobs) // 64)
+        stats["dp_samples"] = [(j.refseq, j.pathseq)
+                               for _, j in dp_jobs[::step]][:64]
     aligned = {}
     if dp_jobs:
         out = batch_align_wait(mesh_batch_align_async(

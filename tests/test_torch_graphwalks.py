@@ -180,7 +180,7 @@ def _job_tuple(j):
 def test_jobs_and_stats_equal_jax(engines):
     """The port's device graph engine and the JAX one on one scenario:
     the same VCF and summary, the same PathJobs per window (every field)
-    and task outcomes, and the same device-graph stats."""
+    and task outcomes, and the same device-graph stats and DP samples."""
     jvcf, jerr, jstats = engines["jax"]
     pvcf, perr, pstats = engines["port"]
     assert (pvcf, perr) == (jvcf, jerr)
@@ -189,6 +189,8 @@ def test_jobs_and_stats_equal_jax(engines):
     for key in ("n_dev_windows", "n_dev_fallback", "dev_fallback_causes",
                 "k_histogram", "n_jobs", "n_dp", "n_dev_attempts"):
         assert pstats[key] == jstats[key], key
+    # the DP pairs sampled for a parity check, list for list
+    assert pstats.get("dp_samples") == jstats.get("dp_samples")
     assert len(engines["rec"]["jobs"]) == len(engines["rec"]["chunks"]) >= 1
 
 
