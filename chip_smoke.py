@@ -6,9 +6,9 @@
 Phases, each printing one JSON line:
   1. device: the card's name and count, and nvidia-smi's name and power
      limit;
-  2. build: the native C++ plane (g++) and the three CUDA kernel libraries
-     (nvcc, sm_90a: csrc/gotoh.cu, csrc/repeats.cu, csrc/walks.cu), built
-     side by side
+  2. build: the native C++ plane (g++) and the four CUDA kernel libraries
+     (nvcc, sm_90a: csrc/gotoh.cu, csrc/repeats.cu, csrc/walks.cu,
+     csrc/screens.cu), built side by side
      from the sources in the checkout; the SASS instruction counts per
      cell of the fused Gotoh kernel's fill loop and per step of its
      traceback loop, for each instantiation, with the DPX opcodes the fill
@@ -49,13 +49,16 @@ Phases, each printing one JSON line:
      corpus.adversarial_corpus (STR runs, near repeats, homopolymers, dense
      hets, internal tandem duplications whose cycles reach the exact cycle
      replay), its VCF equal to the native path's; the four walk kernels
-     (csrc/walks.cu) must launch, gotoh_align and repeat_gates too on case
-     1; every path_cover, seq_removal (the whole removal pass:
-     seq_removal_pass_plain), almost_repeat_paths and cycle_dfs launch of
-     case 1's second run, of case 2 and of phase mesh (b) is held bit-equal
-     to the plain version on its own inputs; a removal pass of case 2 takes
-     at most REMOVAL_MAX_ATEN_OPS aten ops on the card (its launch and its
-     outputs' allocation); every repeat_gates call of case
+     (csrc/walks.cu) and the two screens (csrc/screens.cu: cycle_screen on
+     both cases, tandem_at on case 2) must launch, gotoh_align and
+     repeat_gates too on case 1; every path_cover, seq_removal (the whole
+     removal pass: seq_removal_pass_plain), almost_repeat_paths, cycle_dfs,
+     tandem_at and cycle_screen launch of case 1's second run, of case 2
+     and of phase mesh (b) is held bit-equal to the plain version on its
+     own inputs; a removal pass of case 2 takes at most
+     REMOVAL_MAX_ATEN_OPS aten ops on the card (its launch and its
+     outputs' allocation), a screen call SCREEN_MAX_ATEN_OPS; every
+     repeat_gates call of case
      1's second run and of case 2 is held against gates_plain, and the one
      with the most (shift, position) pairs timed with its bounds (a gates
      line); the calls and aten ops of the _OP_COUNTED functions of both
@@ -63,7 +66,11 @@ Phases, each printing one JSON line:
      with the most work of the two cases, its outputs bit-equal to the
      plain version on the card, timed beside it, the card's bound and the
      walk's chain floor (its longest serial chain of steps times the
-     latency of a dependent shared-memory load, measured here);
+     latency of a dependent shared-memory load, measured here); and one
+     kernels line per screen: its call with the most work, bit-equal to
+     the plain version on the card, timed beside it (CUDA events, its own
+     device time), its aten ops a call and the plain version's, and the
+     card's bound on this data (screen_accounting);
   7b. hard: the JAX benchmark's hard corpus (corpus.hard_corpus, 1,995
      windows, 8 threads): the main path on cuda and cpu, equal VCFs and
      summaries, BENCH_r05's 183 records and KMERSIZE histogram, its 201 DP
@@ -71,9 +78,10 @@ Phases, each printing one JSON line:
      region, timed, then instrumented, then profiled: its VCF and summary
      equal to the main path's, its stats equal to HARD_DEVGRAPH_STATS
      (windows replayed past k 63 and at the pipeline's caps, each with its
-     site's family), every walk and repeat_gates call held bit-equal to
-     its plain version, the aten ops of the _OP_COUNTED functions, and one
-     kernels line per walk on its largest call there;
+     site's family), every walk, screen and repeat_gates call held
+     bit-equal to its plain version, the aten ops of the _OP_COUNTED
+     functions (at most SCREEN_MAX_ATEN_OPS a screen call), and one
+     kernels line per walk and screen on its largest call there;
   7c. lr: the JAX benchmark's linked-reads corpus (corpus.lr_corpus, 595
      windows, lr_mode): the main path on cuda and cpu, then with
      LANCET_TPU_DEVGRAPH=1 (the runner keeps LR on the native path: no
@@ -112,8 +120,9 @@ Phases, each printing one JSON line:
      path_cover, cycle_dfs, almost_repeat_paths and seq_removal on the
      crafted cases of gpu/walkcases.py (each staging mode; K3's word and
      tile edges; the removal pass's chained kills, ties, overflows and
-     empty windows, one launch each), held bit-equal to the plain
-     versions.
+     empty windows, one launch each), and tandem_at and cycle_screen on
+     the batches of gpu/screencases.py (at its TANDEM_PARAMS and
+     SCREEN_ROUNDS), held bit-equal to the plain versions.
 Then the kernels' summary line, nvidia-smi's line, and last the device
 line. Every path's launch counts are set to 0 just before it runs and read
 just after. Any failure exits non-zero before the last line. Without a
@@ -481,7 +490,7 @@ def build_all():
     ({name: seconds}, {name: library}, ptxas lines). Raises with the
     compiler's error text."""
     from lancet_tpu_torch import native
-    from lancet_tpu_torch.gpu import gotoh, repeats, walks
+    from lancet_tpu_torch.gpu import gotoh, repeats, screens, walks
 
     secs, libs, errs = {}, {}, {}
 
@@ -495,7 +504,8 @@ def build_all():
 
     ts = [threading.Thread(target=one, args=a)
           for a in (("native", native.build), ("gotoh_cu", gotoh.build),
-                    ("repeats_cu", repeats.build), ("walks_cu", walks.build))]
+                    ("repeats_cu", repeats.build), ("walks_cu", walks.build),
+                    ("screens_cu", screens.build))]
     for t in ts:
         t.start()
     for t in ts:
@@ -505,7 +515,7 @@ def build_all():
             print(f"build of {name} failed:\n{e}", file=sys.stderr)
         raise RuntimeError(f"build failed: {sorted(errs)}")
     ptxas = {}
-    for name in ("gotoh_cu", "repeats_cu", "walks_cu"):
+    for name in ("gotoh_cu", "repeats_cu", "walks_cu", "screens_cu"):
         with open(os.path.join(HERE, libs[name]) + ".log") as f:
             ptxas[name] = [ln.strip() for ln in f
                            if "registers" in ln or "spill" in ln]
@@ -547,10 +557,12 @@ def timed_call(fn):
 
 def device_ms(fn, kernel: str, n: int = 20):
     """The mean device time (ms) of the kernels whose name holds `kernel`
-    over n calls of `fn`, from torch.profiler's CUDA activity: the kernel
-    alone, without the host's launch and allocation time between kernels
-    that CUDA events around a call also see. None where the profiler
-    records no such kernel."""
+    over n calls of `fn`, from torch.profiler's CUDA activity (the
+    profile's raw events: the event tree of `prof.events()` missed a short
+    kernel in three profiles of one call): the kernel alone, without the
+    host's launch and allocation time between kernels that CUDA events
+    around a call also see. None where the profiler records no such
+    kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -563,10 +575,10 @@ def device_ms(fn, kernel: str, n: int = 20):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        ts = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        ts = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA and kernel in e.name()]
         if ts:
-            return sum(ts) / len(ts) / 1e3
+            return sum(ts) / len(ts) / 1e6
     return None
 
 
@@ -614,7 +626,8 @@ def long_pairs():
 
 def kernel_phase(pairs, rate: dict, plain_reps: int = PLAIN_REPS) -> dict:
     """gotoh_align on one group of pairs: its ops and counts bit-equal to
-    the plain versions on the card, then timed beside them and the card's
+    the plain versions on the card, then timed beside them (CUDA events
+    around the wrapper, and the kernel's own device time) and the card's
     bound."""
     import torch
 
@@ -644,6 +657,8 @@ def kernel_phase(pairs, rate: dict, plain_reps: int = PLAIN_REPS) -> dict:
 
     ms = spread(cuda_times(lambda: gotoh.align(S, T, n_d, m_d, N, M),
                            *KERNEL_REPS))
+    dev_ms = device_ms(lambda: gotoh.align(S, T, n_d, m_d, N, M),
+                       "gotoh_align_kernel")
     plain_ms = spread([first_ms] + cuda_times(plain, plain_reps - 1))
 
     cells = int((n_len.astype("int64") * m_len).sum())
@@ -661,7 +676,8 @@ def kernel_phase(pairs, rate: dict, plain_reps: int = PLAIN_REPS) -> dict:
         "m_range": [int(m_len.min()), int(m_len.max())],
         "cells": cells, "trace_steps": steps,
         "tolerance": 0,  # bit-equal on every op and count
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": bound,
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain_ms, "bound": bound,
         "cells_per_s": cells / (ms["median"] / 1e3),
         "bytes": nbytes, "int_ops": nops,
     }
@@ -797,17 +813,19 @@ def default_windows(workdir: str, region: str) -> list[str]:
 
 
 def launch_counts() -> dict:
-    from lancet_tpu_torch.gpu import gotoh, repeats, walks
+    from lancet_tpu_torch.gpu import gotoh, repeats, screens, walks
 
-    return {**gotoh.LAUNCHES, **repeats.LAUNCHES, **walks.LAUNCHES}
+    return {**gotoh.LAUNCHES, **repeats.LAUNCHES, **walks.LAUNCHES,
+            **screens.LAUNCHES}
 
 
 def reset_counts() -> None:
-    from lancet_tpu_torch.gpu import gotoh, repeats, walks
+    from lancet_tpu_torch.gpu import gotoh, repeats, screens, walks
 
     gotoh.reset_launches()
     repeats.reset_launches()
     walks.reset_launches()
+    screens.reset_launches()
 
 
 def vcf_records(vcf: str) -> list[str]:
@@ -954,6 +972,33 @@ _WALK_SOURCES = {"path_cover": "lancet_tpu/tpu/pipeline.py:310",
                  "seq_removal": "lancet_tpu/tpu/stages.py:580",
                  "almost_repeat_paths": "lancet_tpu/tpu/pipeline.py:680",
                  "cycle_dfs": "lancet_tpu/tpu/stages.py:839"}
+# the two screens of csrc/screens.cu (their wrappers in gpu/screens.py),
+# captured and held every call like the walks, their kernels and the JAX
+# functions they replace
+_SCREENS = ("tandem_at", "cycle_screen")
+_SCREEN_KERNELS = {"tandem_at": "tandem_kernel",
+                   "cycle_screen": "cycle_screen_kernel"}
+_SCREEN_SOURCES = {"tandem_at": "lancet_tpu/tpu/stages.py:630",
+                   "cycle_screen": "lancet_tpu/tpu/stages.py:750"}
+# aten ops of one screen call on the card: the output's allocation (the
+# launch goes through ctypes; int64 and bool inputs are read as they are),
+# one op to spare
+SCREEN_MAX_ATEN_OPS = 2
+# Integer operations of tandem_at, by hand (csrc/screens.cu), as lower
+# bounds: a position of a string below min(lens, L) and unit length m
+# takes 3m + 2 (the match run's two shared loads and compare-and a base,
+# the break test; the report, units and primitivity tests of a break come
+# on top); a string with lens > 0 takes 3 a (position, ml < max_unit_len)
+# for its prefix sums. cycle_screen: 4 an edge and 3 a state each reach
+# round (the edge's flags, its word, the old reach byte, the store; a
+# state's compare and copy), 3 an edge and 3 a state each peel round (the
+# layer test, the edge's flags and source byte, the decrement), 8 an
+# item to flag (the comp load, four state bytes, the tests).
+TANDEM_OPS_RUN = 3
+TANDEM_OPS_STEP = 2
+TANDEM_OPS_PREFIX = 3
+SCREEN_OPS = {"reach_edge": 4, "reach_state": 3, "peel_edge": 3,
+              "peel_state": 3, "item": 8}
 # functions of the device graph engine (gpu/stages.py) whose calls and
 # aten ops (about one kernel launch each) are counted: the torch-op
 # functions of run_attempt and cleanup, and the removal pass (one K2
@@ -1002,27 +1047,32 @@ def _walk_work(name: str, args) -> int:
         return int((args[0]["alive"] & ~args[0]["special"]).sum())
     if name == "almost_repeat":
         return int(args[1].clamp(min=0).sum())
+    if name == "tandem_at":  # the strings probed
+        return int((args[1] > 0).sum())
+    if name == "cycle_screen":  # alive items
+        return int(args[4].sum())
     return int(args[5].sum())  # path_cover: runnable components
 
 
 _CHECKED = ("path_cover", "seq_removal", "almost_repeat",
-            "cycle_dfs")  # held every call
+            "cycle_dfs") + _SCREENS  # held every call
 
 
 @contextlib.contextmanager
 def instrument_devgraph(kept: dict | None, ops: dict | None,
                         calls: list | None = None):
-    """While active: keep, per walk, a copy of the inputs of its card call
-    with the most work (`kept`); count the calls of the _OP_COUNTED
-    functions and the aten ops they dispatch, nested calls' included
-    (`ops`); append a copy of the inputs and outputs of every card call of
-    the _CHECKED walks, with the k of the attempt that made it, to `calls`
-    (on the caller's stream, from any thread), for check_walk_calls."""
+    """While active: keep, per walk and screen, a copy of the inputs of its
+    card call with the most work (`kept`); count the calls of the
+    _OP_COUNTED functions and the aten ops they dispatch, nested calls'
+    included (`ops`); append a copy of the inputs and outputs of every card
+    call of the _CHECKED walks and screens, with the k of the attempt that
+    made it, to `calls` (on the caller's stream, from any thread), for
+    check_walk_calls."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from lancet_tpu_torch.engine import devicepipe
-    from lancet_tpu_torch.gpu import stages, walks
+    from lancet_tpu_torch.gpu import screens, stages, walks
 
     class Count(TorchDispatchMode):
         n = 0
@@ -1034,6 +1084,7 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
             return func(*args, **(kwargs or {}))
 
     real_w = {n: getattr(walks, n) for n in _WALKS}
+    real_sc = {n: getattr(screens, n) for n in _SCREENS}
     real_s = {n: getattr(stages, n) for n in _OP_COUNTED}
     real_a = devicepipe._assemble
     local = threading.local()  # the attempt's k; the counted depth
@@ -1045,7 +1096,7 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
     def copy(x):
         return _tree(x, lambda t: t.clone() if torch.is_tensor(t) else t)
 
-    def wrap_walk(n):
+    def wrap_walk(n, real):
         def f(*a, **k):
             card = _on_card(a)
             paused, Count.paused = Count.paused, True
@@ -1057,7 +1108,7 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
                                    dict(k))
             finally:
                 Count.paused = paused
-            out = real_w[n](*a, **k)
+            out = real(*a, **k)
             if calls is not None and n in _CHECKED and card:
                 Count.paused = True
                 try:
@@ -1084,8 +1135,10 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
             return out
         return f
 
-    for n in _WALKS:
-        setattr(walks, n, wrap_walk(n))
+    for n, f in real_w.items():
+        setattr(walks, n, wrap_walk(n, f))
+    for n, f in real_sc.items():
+        setattr(screens, n, wrap_walk(n, f))
     if ops is not None:
         for n in _OP_COUNTED:
             setattr(stages, n, wrap_op(n))
@@ -1095,6 +1148,8 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
     finally:
         for n, f in real_w.items():
             setattr(walks, n, f)
+        for n, f in real_sc.items():
+            setattr(screens, n, f)
         for n, f in real_s.items():
             setattr(stages, n, f)
         devicepipe._assemble = real_a
@@ -1121,12 +1176,12 @@ def _mismatches(got, want) -> int:
 
 
 def check_walk_calls(calls: list, case: str) -> dict:
-    """Each captured card call of path_cover, seq_removal, almost_repeat
-    or cycle_dfs against the plain version on its own inputs, bit for bit
-    (cycle_dfs's on a copy on the host: its step loop of small ops runs
-    many times faster there than launched op by op on the card); returns
-    {walk: {calls, mismatches}} and raises on a mismatch. Empties
-    `calls`."""
+    """Each captured card call of path_cover, seq_removal, almost_repeat,
+    cycle_dfs, tandem_at or cycle_screen against the plain version on its
+    own inputs, bit for bit (cycle_dfs's on a copy on the host: its step
+    loop of small ops runs many times faster there than launched op by op
+    on the card; the screens' on the card); returns {walk: {calls,
+    mismatches}} and raises on a mismatch. Empties `calls`."""
     import torch
 
     from lancet_tpu_torch.gpu import pipeline, stages
@@ -1141,6 +1196,10 @@ def check_walk_calls(calls: list, case: str) -> dict:
             want = removal_plain(*args, **kw)
         elif n == "almost_repeat":
             want = pipeline.almost_repeat_plain(*args, **kw)
+        elif n == "tandem_at":
+            want = stages.tandem_at_plain(*args, **kw)
+        elif n == "cycle_screen":
+            want = stages.cycle_screen_plain(*args, **kw)
         else:
             want = stages.cycle_dfs_plain(
                 *_tree(args, lambda t: t.cpu() if torch.is_tensor(t) else t),
@@ -1152,6 +1211,16 @@ def check_walk_calls(calls: list, case: str) -> dict:
         raise AssertionError(f"{case}: a walk kernel disagrees with its "
                              f"plain version: {res}")
     return res
+
+
+def check_screen_ops(ops: dict, case: str, names) -> None:
+    """Each of `names` ran on the card and took at most SCREEN_MAX_ATEN_OPS
+    aten ops a call (counted by instrument_devgraph)."""
+    for n in names:
+        c = ops.get(n, {"calls": 0, "aten_ops": 0})
+        if not c["calls"] or c["aten_ops"] > SCREEN_MAX_ATEN_OPS * c["calls"]:
+            raise AssertionError(f"{case}: {n} took {c} aten ops on the card "
+                                 f"(at most {SCREEN_MAX_ATEN_OPS} a call)")
 
 
 def run_devgraph(workdir: str, region: str, stats: dict, num_threads=8,
@@ -1426,6 +1495,137 @@ def walk_case(name: str, args, kw: dict, rate: dict, chase: dict) -> dict:
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound": bound, "chain_units": chain, "chain_loads": WALK_CHAIN_LOADS[kname],
             "chain_floor_ms": chain_ms, "bytes": nbytes, "int_ops": nops}
+
+
+def aten_ops(fn) -> int:
+    """The aten ops one call of fn dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def screen_rounds(args) -> tuple:
+    """cycle_screen's rounds on this data, per window: the reach rounds
+    (up to and including the first that changes nothing, at most T) and
+    the peel rounds (up to and including the first with an empty layer),
+    as the kernel runs them; the plain version's two loops with a window's
+    count stopping where its loop would."""
+    import torch
+
+    from lancet_tpu_torch.gpu import stages
+
+    e_src, e_dst, e_dir, e_alive, alive, special, _, N, NI, Cmax = args[:10]
+    T = args[10] if len(args) > 10 else 32
+    W = e_src.shape[0]
+    srcs = e_src.clamp(0, NI - 1)
+    dsts = e_dst.clamp(0, NI - 1)
+    eact = (e_alive & stages._take(alive, srcs) & stages._take(alive, dsts)
+            & ~stages._take(special, dsts))
+    s_st = srcs * 2 + stages.startbit(e_dir)
+    d_st = dsts * 2 + stages.destbit(e_dir)
+    reach = torch.zeros((W, 2 * NI), dtype=torch.bool, device=e_src.device)
+    for c in range(Cmax):
+        reach[:, 2 * (N + 2 * c)] |= alive[:, N + 2 * c]
+        reach[:, 2 * (N + 2 * c) + 1] |= alive[:, N + 2 * c]
+    rounds = torch.zeros(W, dtype=torch.int64, device=e_src.device)
+    on = torch.ones(W, dtype=torch.bool, device=e_src.device)
+    for _ in range(T):
+        rounds += on
+        m = stages._take(reach, s_st) & eact
+        new = reach | (stages.scatter_max(2 * NI, 0, d_st, m.long(), W) > 0)
+        on &= (new != reach).any(dim=1)
+        reach = new
+        if not bool(on.any()):
+            break
+    live = (alive & ~special).repeat_interleave(2, dim=1)
+    eact_p = eact & ~stages._take(special, srcs)
+    indeg = stages.scatter_add(2 * NI, d_st, eact_p.long(), W)
+    peels = torch.zeros_like(rounds)
+    on = torch.ones_like(on)
+    for _ in range(T):
+        peels += on
+        f = live & (indeg == 0)
+        indeg = indeg.scatter_add(
+            1, d_st, -(stages._take(f, s_st) & eact_p).long())
+        live &= ~f
+        on &= f.any(dim=1)
+        if not bool(on.any()):
+            break
+    return rounds.tolist(), peels.tolist()
+
+
+def screen_accounting(name: str, args) -> dict:
+    """What one screen call needs on this data. tandem_at: the bytes of
+    each string's codes below min(lens, L) (int64), its lens and its flag;
+    the operations of its positions and, for each string probed, its
+    prefix sums (TANDEM_OPS_*). cycle_screen: every input element once
+    (three int64 and one bool a edge, two bools and an int64 an item) and
+    the flags; the operations of each window's rounds (SCREEN_OPS)."""
+    if name == "tandem_at":
+        seqs, lens, _, mu = args[:4]
+        B, L = seqs.shape
+        mu = max(int(mu), 0)
+        positions = int(lens.clamp(0, L).sum())
+        probed = int((lens > 0).sum())
+        nops = (positions * sum(TANDEM_OPS_RUN * m + TANDEM_OPS_STEP
+                                for m in range(1, mu + 1))
+                + probed * L * max(mu - 1, 0) * TANDEM_OPS_PREFIX)
+        return {"bytes": 8 * positions + 9 * B, "int_ops": nops,
+                "positions": positions, "strings_probed": probed}
+    W, EE = args[0].shape
+    NI, Cmax = args[8], args[9]
+    rounds, peels = screen_rounds(args)
+    o = SCREEN_OPS
+    nops = (sum(rounds) * (o["reach_edge"] * EE + o["reach_state"] * 2 * NI)
+            + sum(peels) * (o["peel_edge"] * EE + o["peel_state"] * 2 * NI)
+            + W * NI * o["item"])
+    return {"bytes": 25 * W * EE + 10 * W * NI + W * Cmax, "int_ops": nops,
+            "reach_rounds": rounds, "peel_rounds": peels}
+
+
+def screen_case(name: str, args, kw: dict, rate: dict) -> dict:
+    """One screen kernel on inputs captured from the devgraph runs: its
+    output bit-equal to the plain version on the card, then timed beside
+    it (CUDA events around the wrapper; the kernel's own device time,
+    torch.profiler), the aten ops a call dispatches, and the card's bound
+    (screen_accounting)."""
+    import torch
+
+    from lancet_tpu_torch.gpu import screens, stages
+
+    fn = getattr(screens, name)
+    plain = getattr(stages, f"{name}_plain")
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = _mismatches(got, want)
+    if err:
+        raise AssertionError(f"{name} disagrees with its plain version on "
+                             f"{err} outputs")
+    ms = spread(cuda_times(lambda: fn(*args, **kw), *KERNEL_REPS))
+    dev_ms = device_ms(lambda: fn(*args, **kw), _SCREEN_KERNELS[name])
+    plain_ms = spread(cuda_times(lambda: plain(*args, **kw),
+                                 WALK_PLAIN_REPS))
+    acc = screen_accounting(name, args)
+    bound = {"bytes": acc["bytes"] / HBM_BYTES_PER_S * 1e3,
+             "operations": acc["int_ops"] / rate["int_ops_per_s"] * 1e3}
+    return {"name": name, "shape": [list(args[0].shape), *(
+        [list(args[4].shape)] if name == "cycle_screen" else [])],
+        "tolerance": 0, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain_ms, "bound": bound,
+        "aten_ops_per_call": aten_ops(lambda: fn(*args, **kw)),
+        "plain_aten_ops_per_call": aten_ops(lambda: plain(*args, **kw)),
+        **acc}
 
 
 def mesh_main_case(workdir: str, region: str, mesh, case: str, vcf: str,
@@ -1854,15 +2054,22 @@ def hard_phase(rate: dict, chase: dict) -> dict:
     if got_stats != HARD_DEVGRAPH_STATS:
         raise AssertionError(f"hard: device-graph stats {got_stats} differ "
                              f"from {HARD_DEVGRAPH_STATS}")
-    for k in ("gotoh_align_smem", "repeat_gates", *_WALKS.values()):
+    for k in ("gotoh_align_smem", "repeat_gates", *_WALKS.values(),
+              *_SCREENS):
         if launches_g[k] < 1:
             raise AssertionError(f"hard: the devgraph run launched no {k}")
+    check_screen_ops(ops, "hard devgraph", _SCREENS)
     walks_h = {}
     for name in _WALKS:
         _, args, kw, K = largest[name]
         walks_h[name] = walk_case(name, args, kw, rate, chase)
         emit({"phase": "kernels", "case": f"hard_{_WALKS[name]}", "K": K,
               "launches": launches_g[_WALKS[name]], **walks_h[name]})
+    for name in _SCREENS:
+        _, args, kw, K = largest[name]
+        walks_h[name] = screen_case(name, args, kw, rate)
+        emit({"phase": "kernels", "case": f"hard_{name}", "K": K,
+              "launches": launches_g[name], **walks_h[name]})
     emit({"phase": "hard", "case": "done",
           "t_phase": time.perf_counter() - t_phase})
     return {"launches_main": launches, "launches_devgraph": launches_g,
@@ -2245,11 +2452,13 @@ def main() -> int:
         raise AssertionError(f"the removal pass took {rops} aten ops on the "
                              f"card (at most {REMOVAL_MAX_ATEN_OPS} a call)")
     walk_launches = {k: launches_g[k] + launches_a[k]
-                     for k in _WALKS.values()}
+                     for k in (*_WALKS.values(), *_SCREENS)}
     if min(walk_launches.values()) < 1 or kept["cycle_dfs"][0] < 1:
-        raise AssertionError(f"a walk kernel did not launch, or no "
-                             f"component reached the cycle replay: "
+        raise AssertionError(f"a walk or screen kernel did not launch, or "
+                             f"no component reached the cycle replay: "
                              f"{walk_launches}")
+    check_screen_ops(ops_g, "devgraph case 1", ("cycle_screen",))
+    check_screen_ops(ops, "devgraph case 2", _SCREENS)
     chase = smem_latency_ns()
     emit({"phase": "kernels", "case": "smem_latency", **chase})
     wres = {}
@@ -2258,6 +2467,10 @@ def main() -> int:
         wres[name] = walk_case(name, args, kw, rate, chase)
         emit({"phase": "kernels", "case": f"devgraph_{_WALKS[name]}",
               **wres[name]})
+    for name in _SCREENS:
+        _, args, kw = kept[name]
+        wres[name] = screen_case(name, args, kw, rate)
+        emit({"phase": "kernels", "case": f"devgraph_{name}", **wres[name]})
 
     # 7b. the JAX benchmark's hard corpus: the main path and the device
     # graph engine, whose k ladder climbs past 63; 7c. its linked-reads
@@ -2358,6 +2571,27 @@ def main() -> int:
             "U": c["U"], "D2": c["D2"], "mode": c["mode"],
             "launches": launched, "mismatches": _mismatches(got, want)
             + int(launched != 1)}
+    # the screens on the crafted and seeded batches of gpu/screencases.py
+    from lancet_tpu_torch.gpu import screencases
+
+    seqs, lens, _ = screencases.tandem_batch()
+    crafted_screens = {n: 0 for n in _SCREENS}
+    for params in screencases.TANDEM_PARAMS:
+        got = screencases.run_tandem(seqs, lens, "cuda", params)
+        want = screencases.run_tandem(seqs, lens, "cpu", params)
+        bad = int((got.cpu() != want).sum())
+        crafted[f"tandem_at/pos{params[0]}_mu{params[1]}"] = {
+            "B": len(lens), "mismatches": bad}
+        crafted_screens["tandem_at"] = max(crafted_screens["tandem_at"], bad)
+    arrs, _, sN, sNI, sC = screencases.screen_batch()
+    for T in screencases.SCREEN_ROUNDS:
+        got = screencases.run_screen(arrs, sN, sNI, sC, "cuda", T)
+        want = screencases.run_screen(arrs, sN, sNI, sC, "cpu", T)
+        bad = int((got.cpu() != want).sum())
+        crafted[f"cycle_screen/T{T}"] = {"W": arrs["alive"].shape[0],
+                                         "mismatches": bad}
+        crafted_screens["cycle_screen"] = max(crafted_screens["cycle_screen"],
+                                              bad)
     emit({"phase": "kernels", "case": "walks_crafted", "tolerance": 0,
           "cases": crafted})
     if any(r["mismatches"] for r in crafted.values()):
@@ -2406,6 +2640,8 @@ def main() -> int:
             **({"dp_parity_pairs": sum(p["samples"] for p in parity)}
                if mode == "smem" else {}),
             "ms": mean([r["ms"]["median"] for r in cases]),
+            "device_ms": mean([r["device_ms"] for r in cases])
+            if all(r["device_ms"] is not None for r in cases) else None,
             "plain_ms": mean([r["plain_ms"]["median"] for r in cases]),
             "bound_ms": bnd[by], "bound_by": by, "library_ms": None})
     # the bound of what these inputs need under the kernel's plan; the
@@ -2456,6 +2692,25 @@ def main() -> int:
             "chain_floor_ms": r["chain_floor_ms"], "library_ms": None,
             **({"aten_ops_per_call": rops["aten_ops"] / rops["calls"]}
                if kname == "seq_removal" else {})})
+    for name in _SCREENS:
+        r = wres[name]
+        by = max(r["bound"], key=r["bound"].get)
+        line.append({
+            "name": name, "route": "cuda",
+            "source": "lancet_tpu_torch/csrc/screens.cu",
+            "replaces": _SCREEN_SOURCES[name],
+            "launches": walk_launches[name],
+            "launches_by_path": by_path(name), "on_main_path": False,
+            "max_abs_err": max(r["max_abs_err"],
+                               hard["walks"][name]["max_abs_err"],
+                               crafted_screens[name]),
+            "ms": r["ms"]["median"], "plain_ms": r["plain_ms"]["median"],
+            "bound_ms": r["bound"][by], "bound_by": by,
+            "device_ms": r["device_ms"],
+            "hard_largest_device_ms": hard["walks"][name]["device_ms"],
+            "aten_ops_per_call": r["aten_ops_per_call"],
+            "plain_aten_ops_per_call": r["plain_aten_ops_per_call"],
+            "library_ms": None})
     emit({"kernels": line, "t_smoke": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -606,6 +606,20 @@ def removal_kill_fn(cond):
 
 def tandem_at(seqs, lens, pos, max_unit_len, min_report_units,
               min_report_len, dist_from_str):
+    """Whether `pos` lies within dist_from_str of a reported tandem of each
+    string (see tandem_at_plain): seqs [B, L] codes, lens [B]; returns [B]
+    bool. The `tandem_at` wrapper (gpu.screens): on a CUDA tensor one
+    kernel launch (plus its output's allocation, and no host sync), else
+    tandem_at_plain."""
+    from . import screens
+
+    return screens.tandem_at(seqs, lens, pos, max_unit_len,
+                             min_report_units, min_report_len,
+                             dist_from_str)
+
+
+def tandem_at_plain(seqs, lens, pos, max_unit_len, min_report_units,
+                    min_report_len, dist_from_str):
     """Exact findTandems replay asking only whether `pos` lies within
     dist_from_str of a reported tandem (ref: util.cc:574-758, mirrored by
     engine.seqs.find_tandems incl. the offset-(-1) sentinel quirk).
@@ -699,6 +713,18 @@ def okey_adjacency(e_src, e_dst, e_dir, e_alive, e_okey, NI, D2):
 
 def cycle_screen(e_src, e_dst, e_dir, e_alive, alive, special, comp,
                  N, NI, Cmax, T=32):
+    """The conservative cycle screen, may_cycle [W, Cmax] (see
+    cycle_screen_plain). The `cycle_screen` wrapper (gpu.screens): on a
+    CUDA tensor one kernel launch (plus its output's allocation, and no
+    host sync), else cycle_screen_plain."""
+    from . import screens
+
+    return screens.cycle_screen(e_src, e_dst, e_dir, e_alive, alive, special,
+                                comp, N, NI, Cmax, T)
+
+
+def cycle_screen_plain(e_src, e_dst, e_dir, e_alive, alive, special, comp,
+                       N, NI, Cmax, T=32):
     """Conservative parallel screen for the node-coloured cycle DFS:
     may_cycle [W, Cmax]. False PROVES has_cycle_seq reports no cycle for
     that component: its reachable walk digraph is acyclic (a Kahn peel

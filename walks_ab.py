@@ -6,6 +6,7 @@ a parent commit's, on one card.
     git archive <parent commit> lancet_tpu_torch/csrc/walks.cu \\
         lancet_tpu_torch/csrc/repeats.cu | tar -x -C build/parent
     python3 walks_ab.py --parent build/parent [--only walks|removal|gates]
+    python3 walks_ab.py --only screens
 
 Walks: captures every path_cover, almost_repeat_paths and cycle_dfs call of
 chip_smoke.py's two device-graph cases (the JAX bench's region and the
@@ -43,6 +44,17 @@ Prints one JSON line a walk, pass or kernel, the card's name and power
 limit, and a last line {"ok": true}; exits non-zero on a mismatch or
 without a card. `--only` times one part (the parent directory then needs
 only that part's source: walks.cu for walks and removal).
+
+The screens (`--only screens`, no parent needed): device-graph case 1
+and the hard corpus's device graph run (corpus.hard_corpus, 1,995
+windows), each with stages.tandem_at and stages.cycle_screen patched to
+their plain versions (run on the card, op by op) and with the kernels of
+csrc/screens.cu, in turns (plain, kernel, kernel, plain): per run
+t_dg_a_dispatch, t_dg_assemble, t_devgraph, t_total and windows/s, with
+each version's spread; every VCF equal; then per version one instrumented
+run (the calls and aten ops of the counted functions,
+chip_smoke.instrument_devgraph) and one profiled run (the card's busy
+share and device events, chip_smoke.profile_devgraph).
 
 The repeat gates: the parent's csrc/repeats.cu (repeat_gates(5 pointers,
 5 ints, stream), one block a window of plan_threads' threads: its first
@@ -469,22 +481,6 @@ def _pass_profile(fn, n: int) -> dict:
                              if "seq_removal_kernel" in e.name) / n / 1e3}
 
 
-def _aten_ops(fn) -> int:
-    """The aten ops one call of fn dispatches."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            Count.n += 1
-            return func(*args, **(kwargs or {}))
-
-    with Count():
-        fn()
-    return Count.n
-
-
 def _host_ms(fn, reps: int) -> dict:
     """Median host ms to issue one call of fn (it returns) and to finish
     it (a synchronize after), each from an idle card."""
@@ -535,7 +531,7 @@ def removal_ab(passes: list, parent_lib) -> tuple[list, bool]:
             t = total[ver]
             for k, v in _pass_profile(lambda: fn(*args), 3).items():
                 t[k] += v
-            t["aten_ops"] += _aten_ops(lambda: fn(*args))
+            t["aten_ops"] += cs.aten_ops(lambda: fn(*args))
             for k, v in _host_ms(lambda: fn(*args), 5).items():
                 t[k] += v
         live = int((args[0]["alive"] & ~args[0]["special"]).sum())
@@ -569,7 +565,7 @@ def removal_ab(passes: list, parent_lib) -> tuple[list, bool]:
         "host": {v: {k: cs.spread([h[k] for h in hs])
                      for k in ("issue_ms", "done_ms")}
                  for v, hs in host.items()},
-        "aten_ops": {v: _aten_ops(lambda: fn(*big))
+        "aten_ops": {v: cs.aten_ops(lambda: fn(*big))
                      for v, fn in versions.items()},
         "bound_ms": {"bytes": acc["bytes"] / cs.HBM_BYTES_PER_S * 1e3},
         "chain_floor_ms": acc["chain"] * cs.WALK_CHAIN_LOADS["seq_removal"]
@@ -614,6 +610,63 @@ def removal_e2e(parent_lib, workdir: str) -> tuple[dict, bool]:
             "vcf_equal": len(vcfs) == 1}, len(vcfs) == 1
 
 
+SCREEN_KEYS = ("t_total", "t_devgraph", "t_dg_assemble", "t_dg_a_dispatch",
+               "t_dg_a_exec", "n_windows")
+
+
+def screens_ab(case: str, workdir: str, region: str) -> tuple[dict, bool]:
+    """Device-graph runs of `region` after one warm-up run: with the
+    screens' plain versions and with their kernels, in turns (plain,
+    kernel, kernel, plain); then one instrumented and one profiled run
+    each. Returns (JSON line, every
+    VCF equal)."""
+    import chip_smoke as cs
+    from lancet_tpu_torch.gpu import stages
+
+    real = (stages.tandem_at, stages.cycle_screen)
+    versions = {"plain": (stages.tandem_at_plain, stages.cycle_screen_plain),
+                "kernel": real}
+    runs = {v: [] for v in versions}
+    ops = {}
+    busy = {}
+    vcfs = set()
+    try:
+        vcfs.add(cs.run_devgraph(workdir, region, {})[0])  # warm-up
+        for ver in ("plain", "kernel", "kernel", "plain"):
+            stages.tandem_at, stages.cycle_screen = versions[ver]
+            st: dict = {}
+            vcf, _ = cs.run_devgraph(workdir, region, st)
+            vcfs.add(vcf)
+            runs[ver].append({k: st[k] for k in SCREEN_KEYS}
+                             | {"windows_per_s": st["n_windows"]
+                                / st["t_total"]})
+        for ver, fns in versions.items():
+            stages.tandem_at, stages.cycle_screen = fns
+            ops[ver] = {}
+            with cs.instrument_devgraph(None, ops[ver]):
+                vcf, _ = cs.run_devgraph(workdir, region, {})
+            vcfs.add(vcf)
+            for c in ops[ver].values():
+                c["per_call"] = c["aten_ops"] / max(c["calls"], 1)
+            busy[ver] = cs.profile_devgraph(
+                workdir, region,
+                sum(r["t_total"] for r in runs[ver]) / len(runs[ver]))
+    finally:
+        stages.tandem_at, stages.cycle_screen = real
+    spread = {v: {k: cs.spread([r[k] for r in rs])
+                  for k in (*SCREEN_KEYS[:-1], "windows_per_s")}
+              for v, rs in runs.items()}
+    return {"screens": case, "region": region, "order": ["plain", "kernel",
+                                                         "kernel", "plain"],
+            "runs": runs, "spread": spread,
+            "counted_functions": {v: {n: o[n] for n in ("tandem_at",
+                                                        "cycle_screen")
+                                      if n in o} for v, o in ops.items()},
+            "device_busy": busy, "vcf_equal": len(vcfs) == 1,
+            "source": "perf_counter stats of runner.run; TorchDispatchMode; "
+                      "torch.profiler CUDA activity"}, len(vcfs) == 1
+
+
 def _compare(par, new, o_par, o_new) -> int:
     import torch
 
@@ -633,14 +686,18 @@ def _kernel(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent", required=True,
+    ap.add_argument("--parent",
                     help="a directory holding the parent's "
                          "lancet_tpu_torch/csrc/walks.cu and "
-                         "lancet_tpu_torch/csrc/repeats.cu")
-    ap.add_argument("--only", choices=("walks", "removal", "gates"),
-                    help="time only the walks, the removal pass or the "
-                         "repeat gates")
+                         "lancet_tpu_torch/csrc/repeats.cu (all parts but "
+                         "the screens)")
+    ap.add_argument("--only", choices=("walks", "removal", "gates",
+                                       "screens"),
+                    help="time only the walks, the removal pass, the "
+                         "repeat gates or the screens")
     a = ap.parse_args()
+    if a.only != "screens" and not a.parent:
+        ap.error("--parent is needed unless --only screens")
     import torch
 
     if not torch.cuda.is_available():
@@ -650,6 +707,23 @@ def main() -> int:
     import chip_smoke as cs
     from lancet_tpu_torch import corpus
 
+    if a.only == "screens":
+        workdir = os.path.join(HERE, "build", "smoke_corpus")
+        corpus.write_default_corpus(workdir)
+        hdir = os.path.join(HERE, "build", "smoke_hard")
+        os.makedirs(hdir, exist_ok=True)
+        refseq, tumor, normal, hregion = corpus.hard_corpus()
+        corpus.write_pair(hdir, refseq, "chr1", tumor, normal)
+        ok = True
+        for case, wd, region in (("devgraph_case_1", workdir,
+                                  cs.DEVGRAPH_REGION),
+                                 ("hard", hdir, hregion)):
+            line, eq = screens_ab(case, wd, region)
+            print(json.dumps(line), flush=True)
+            ok &= eq
+        print(cs.nvidia_smi(), flush=True)
+        print(json.dumps({"ok": ok}), flush=True)
+        return 0 if ok else 1
     parent_lib = None if a.only == "gates" else _build_parent(a.parent)
     parent_gates = (_build_parent_gates(a.parent)
                     if a.only in (None, "gates") else None)
