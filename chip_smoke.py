@@ -69,8 +69,9 @@ Phases, each printing one JSON line:
      latency of a dependent shared-memory load, measured here); and one
      kernels line per screen: its call with the most work, bit-equal to
      the plain version on the card, timed beside it (CUDA events, its own
-     device time), its aten ops a call and the plain version's, and the
-     card's bound on this data (screen_accounting);
+     device time), its aten ops a call and the plain version's, the
+     card's bound on this data and the screen's chain floor
+     (screen_accounting);
   7b. hard: the JAX benchmark's hard corpus (corpus.hard_corpus, 1,995
      windows, 8 threads): the main path on cuda and cpu, equal VCFs and
      summaries, BENCH_r05's 183 records and KMERSIZE histogram, its 201 DP
@@ -989,16 +990,21 @@ SCREEN_MAX_ATEN_OPS = 2
 # takes 3m + 2 (the match run's two shared loads and compare-and a base,
 # the break test; the report, units and primitivity tests of a break come
 # on top); a string with lens > 0 takes 3 a (position, ml < max_unit_len)
-# for its prefix sums. cycle_screen: 4 an edge and 3 a state each reach
-# round (the edge's flags, its word, the old reach byte, the store; a
-# state's compare and copy), 3 an edge and 3 a state each peel round (the
-# layer test, the edge's flags and source byte, the decrement), 8 an
-# item to flag (the comp load, four state bytes, the tests).
+# for its prefix sums. cycle_screen: 6 an edge to stage (its four loads,
+# the pack, the flags' test), 5 an active edge each round of its window
+# (two label loads and their tests, the store or the decrement), 8 an
+# item (its loads, the labels, the flag tests).
 TANDEM_OPS_RUN = 3
 TANDEM_OPS_STEP = 2
 TANDEM_OPS_PREFIX = 3
-SCREEN_OPS = {"reach_edge": 4, "reach_state": 3, "peel_edge": 3,
-              "peel_state": 3, "item": 8}
+SCREEN_OPS = {"stage_edge": 6, "round_edge": 5, "item": 8}
+# A screen's chain floor: its longest serial chain x SCREEN_CHAIN_LOADS
+# dependent shared loads x the smem_chase latency. tandem_at: a position
+# of the longest probed string (a unit length's break test reads the
+# codes, then the ballot's offset feeds the hit test's loads); cycle_screen:
+# a round of the slowest window, max(reach rounds, peel rounds) (a source
+# label, then the destination's label or its in-degree).
+SCREEN_CHAIN_LOADS = 2
 # functions of the device graph engine (gpu/stages.py) whose calls and
 # aten ops (about one kernel launch each) are counted: the torch-op
 # functions of run_attempt and cleanup, and the removal pass (one K2
@@ -1515,10 +1521,11 @@ def aten_ops(fn) -> int:
 
 def screen_rounds(args) -> tuple:
     """cycle_screen's rounds on this data, per window: the reach rounds
-    (up to and including the first that changes nothing, at most T) and
-    the peel rounds (up to and including the first with an empty layer),
-    as the kernel runs them; the plain version's two loops with a window's
-    count stopping where its loop would."""
+    (up to and including the first that changes nothing, at most T), the
+    peel rounds (up to and including the first with an empty layer) and
+    the active edges; the plain version's two loops with a window's count
+    stopping where its loop would. The kernel runs both in the same
+    rounds, max(reach rounds, peel rounds) a window."""
     import torch
 
     from lancet_tpu_torch.gpu import stages
@@ -1560,16 +1567,20 @@ def screen_rounds(args) -> tuple:
         on &= f.any(dim=1)
         if not bool(on.any()):
             break
-    return rounds.tolist(), peels.tolist()
+    inside = (s_st >= 0) & (s_st < 2 * NI) & (d_st >= 0) & (d_st < 2 * NI)
+    return (rounds.tolist(), peels.tolist(),
+            (eact & inside).sum(dim=1).tolist())
 
 
 def screen_accounting(name: str, args) -> dict:
     """What one screen call needs on this data. tandem_at: the bytes of
     each string's codes below min(lens, L) (int64), its lens and its flag;
     the operations of its positions and, for each string probed, its
-    prefix sums (TANDEM_OPS_*). cycle_screen: every input element once
-    (three int64 and one bool a edge, two bools and an int64 an item) and
-    the flags; the operations of each window's rounds (SCREEN_OPS)."""
+    prefix sums (TANDEM_OPS_*); its chain, the longest probed string's
+    positions. cycle_screen: every input element once (three int64 and
+    one bool a edge, two bools and an int64 an item) and the flags; the
+    operations of the staging and of each window's rounds on its active
+    edges (SCREEN_OPS); its chain, the slowest window's rounds."""
     if name == "tandem_at":
         seqs, lens, _, mu = args[:4]
         B, L = seqs.shape
@@ -1580,24 +1591,27 @@ def screen_accounting(name: str, args) -> dict:
                                 for m in range(1, mu + 1))
                 + probed * L * max(mu - 1, 0) * TANDEM_OPS_PREFIX)
         return {"bytes": 8 * positions + 9 * B, "int_ops": nops,
-                "positions": positions, "strings_probed": probed}
+                "positions": positions, "strings_probed": probed,
+                "chain_units": int(lens.clamp(0, L).max()) if B else 0}
     W, EE = args[0].shape
     NI, Cmax = args[8], args[9]
-    rounds, peels = screen_rounds(args)
+    rounds, peels, active = screen_rounds(args)
+    both = [max(r, p) for r, p in zip(rounds, peels)]
     o = SCREEN_OPS
-    nops = (sum(rounds) * (o["reach_edge"] * EE + o["reach_state"] * 2 * NI)
-            + sum(peels) * (o["peel_edge"] * EE + o["peel_state"] * 2 * NI)
-            + W * NI * o["item"])
+    nops = (W * EE * o["stage_edge"] + W * NI * o["item"]
+            + o["round_edge"] * sum(b * a for b, a in zip(both, active)))
     return {"bytes": 25 * W * EE + 10 * W * NI + W * Cmax, "int_ops": nops,
-            "reach_rounds": rounds, "peel_rounds": peels}
+            "reach_rounds": rounds, "peel_rounds": peels,
+            "active_edges": active, "chain_units": max(both, default=0)}
 
 
-def screen_case(name: str, args, kw: dict, rate: dict) -> dict:
+def screen_case(name: str, args, kw: dict, rate: dict, chase: dict) -> dict:
     """One screen kernel on inputs captured from the devgraph runs: its
     output bit-equal to the plain version on the card, then timed beside
     it (CUDA events around the wrapper; the kernel's own device time,
-    torch.profiler), the aten ops a call dispatches, and the card's bound
-    (screen_accounting)."""
+    torch.profiler), the aten ops a call dispatches, the card's bound and
+    the chain floor (screen_accounting, SCREEN_CHAIN_LOADS, the smem_chase
+    latency)."""
     import torch
 
     from lancet_tpu_torch.gpu import screens, stages
@@ -1625,7 +1639,9 @@ def screen_case(name: str, args, kw: dict, rate: dict) -> dict:
         "plain_ms": plain_ms, "bound": bound,
         "aten_ops_per_call": aten_ops(lambda: fn(*args, **kw)),
         "plain_aten_ops_per_call": aten_ops(lambda: plain(*args, **kw)),
-        **acc}
+        "chain_loads": SCREEN_CHAIN_LOADS,
+        "chain_floor_ms": acc["chain_units"] * SCREEN_CHAIN_LOADS
+        * chase["ns_per_load"] / 1e6, **acc}
 
 
 def mesh_main_case(workdir: str, region: str, mesh, case: str, vcf: str,
@@ -2067,7 +2083,7 @@ def hard_phase(rate: dict, chase: dict) -> dict:
               "launches": launches_g[_WALKS[name]], **walks_h[name]})
     for name in _SCREENS:
         _, args, kw, K = largest[name]
-        walks_h[name] = screen_case(name, args, kw, rate)
+        walks_h[name] = screen_case(name, args, kw, rate, chase)
         emit({"phase": "kernels", "case": f"hard_{name}", "K": K,
               "launches": launches_g[name], **walks_h[name]})
     emit({"phase": "hard", "case": "done",
@@ -2469,7 +2485,7 @@ def main() -> int:
               **wres[name]})
     for name in _SCREENS:
         _, args, kw = kept[name]
-        wres[name] = screen_case(name, args, kw, rate)
+        wres[name] = screen_case(name, args, kw, rate, chase)
         emit({"phase": "kernels", "case": f"devgraph_{name}", **wres[name]})
 
     # 7b. the JAX benchmark's hard corpus: the main path and the device
@@ -2708,6 +2724,9 @@ def main() -> int:
             "bound_ms": r["bound"][by], "bound_by": by,
             "device_ms": r["device_ms"],
             "hard_largest_device_ms": hard["walks"][name]["device_ms"],
+            "chain_floor_ms": r["chain_floor_ms"],
+            "hard_largest_chain_floor_ms":
+                hard["walks"][name]["chain_floor_ms"],
             "aten_ops_per_call": r["aten_ops_per_call"],
             "plain_aten_ops_per_call": r["plain_aten_ops_per_call"],
             "library_ms": None})

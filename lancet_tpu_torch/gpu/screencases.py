@@ -7,7 +7,12 @@ unfilled slots (code 99) inside lens, N (4) runs, homopolymers and 2-, 3-
 and 4-base repeats ending before, at and after the probed position,
 non-primitive units (ATAT inside a 4-mer scan), repeats from position 0
 (the offset - 1 sentinel) and to the end of the string (the i + j + 1 ==
-lens break), repeats at the report thresholds, and seeded random strings
+lens break), repeats at the report thresholds, repeats that only the
+positions of phase m - 1 of their unit length m report (each other phase
+sees one unit fewer), units of 5 to 8 bases (the engine's unit length is
+4; TANDEM_PARAMS holds 8 too), probed rows among rows of length 0 whose
+codes would hit, repeats running past L with lens around L +
+max_unit_len + 1 (where the kernel caps lens), and seeded random strings
 of low entropy.
 
 `screen_batch()`: graphs for `cycle_screen` in the compact state's layout
@@ -15,7 +20,11 @@ of low entropy.
 + 1, special): a chain longer than T edges (the reach does not converge),
 a peel deeper than T layers, an item reached in both orientations, a
 cycle, components labelled above Cmax and at or below 0, dead and padded
-(-1) edges, dead anchors, and seeded random graphs.
+(-1) edges, dead anchors, a reach that needs more rounds than its peel and
+the reverse, a state reached by two frontier edges in one round, an
+in-degree brought to 0 by two edges (and a duplicate) in one round, reach
+chains of 4, 5 and 6 rounds and peels of 5 and 6 layers (T 5 equal to and
+one below them), and seeded random graphs.
 
 `tests/test_torch_screens.py` holds the plain versions on these batches
 against the JAX package and a replay of each kernel's loop, and
@@ -127,6 +136,34 @@ def tandem_batch(seed: int = 3, n_random: int = 96):
         + _bg(rng, 20))
     add("near_pos_two_tandems", [A] * 9 + [C, G] * 5 + [T] * 9
         + _bg(rng, 30))
+    # a repeat of unit length m from s = m - 1 (mod m): the positions of
+    # phase m - 1 see `units` units, every other phase one fewer, which the
+    # report thresholds (3 units, 7 bases) refuse
+    for unit, units, start in (([A, C], 4, P - 3), ([A, C, G], 3, P - 3),
+                               ([A, C, G, T], 3, P - 5)):
+        add(f"phase_m_minus_1_only_unit{''.join('ACGT'[b] for b in unit)}",
+            _bg(rng, start, avoid=unit[-1:]) + unit * units
+            + _bg(rng, 30, avoid=unit[:1]))
+    # units of 5 to 8 bases around the probed position, at each phase
+    for unit in ([A, C, G, T, T], [A, A, C, G, T, G], [C, A, T, G, G, A, T],
+                 [A, C, G, T, A, G, C, C]):
+        u = len(unit)
+        for start in (P - u, P - u + 1, P - 2, P):
+            add(f"unit{u}_x3_start{start - P:+d}",
+                _bg(rng, start, avoid=unit[-1:]) + unit * 3
+                + _bg(rng, 20, avoid=unit[:1]))
+    # probed rows among rows of length 0 whose codes would hit
+    for k in range(24):
+        if k in (7, 8, 15, 23):
+            add(f"probed_among_empty_{k}", _bg(rng, P - 4) + [G, T] * 5
+                + _bg(rng, 30))
+        else:
+            add(f"empty_homopolymer_{k}", [T] * 64, 0)
+    # a repeat running past L, lens around L + max_unit_len + 1 (69 at
+    # unit length 4, 73 at 8: past it the kernel caps lens)
+    for n in (66, 67, 68, 69, 70, 72, 73, 74):
+        add(f"lens_{n}_dinuc_tail", _bg(rng, 44) + [C, T] * 10, n)
+        add(f"lens_{n}_tetranuc_tail", _bg(rng, 40) + [A, C, G, T] * 6, n)
     # seeded rows of low entropy: runs and repeats from a few letters
     alphabets = ([A, C], [A, C, G, T], [A, A, A, C], [A, C, NN],
                  [A, C, UNFILLED], [G, T, T])
@@ -277,6 +314,42 @@ def screen_windows(seed: int = 5, n_random: int = 20) -> dict:
     out["self_loops"] = w
 
     out["empty"] = _window()
+
+    w = _window()  # the reach runs 14 rounds past a cycle; the peel stops
+    _comp(w, range(14), 1)  # after its first layer (the cycle feeds all)
+    _edges(w, [(src[0], 0, FF)] + _chain_edges([0, 1, 2, 0])
+           + _chain_edges(list(range(2, 14))))
+    out["reach_longer_than_peel"] = w
+
+    w = _window()  # 20 layers to peel; the reach takes 2 rounds
+    _comp(w, range(20), 2)
+    n = _edges(w, _chain_edges(list(range(20))))
+    _edges(w, [(src[1], 19, FF), (19, snk[1], FF)], n)
+    out["peel_longer_than_reach"] = w
+
+    w = _window()  # item 3 reached by two frontier edges in round 2
+    _comp(w, range(5), 1)
+    _edges(w, [(src[0], 1, FF), (src[0], 2, FF), (1, 3, FF), (2, 3, FF),
+               (3, 4, FR)])
+    out["two_frontier_edges"] = w
+
+    w = _window()  # item 2's in-degree falls from 3 to 0 in round 0
+    _comp(w, range(5), 1)
+    _edges(w, [(0, 2, FF), (1, 2, FF), (0, 2, FF), (2, 3, FF), (3, 4, FF),
+               (src[0], 4, FF)])
+    out["indeg_zero_from_two_edges"] = w
+
+    for r in (4, 5, 6):  # a reach chain of r rounds (T 5: above, at, below)
+        w = _window()
+        _comp(w, range(r), 1)
+        _edges(w, _chain_edges([src[0]] + list(range(r))))
+        out[f"reach_{r}_rounds"] = w
+    for n_l in (5, 6):  # a peel of n_l layers whose last item is reached
+        w = _window()
+        _comp(w, range(n_l), 1)
+        n = _edges(w, _chain_edges(list(range(n_l))))
+        _edges(w, [(src[0], n_l - 1, FF)], n)
+        out[f"peel_{n_l}_layers"] = w
 
     rng = np.random.default_rng(seed)
     NI = N + 2 * Cm

@@ -8,11 +8,13 @@ each of `cycle_screen`'s two fixpoint loops, every round. Here each is one
 kernel launch per call:
 
 - `tandem_at` (JAX `tpu/stages.py::tandem_at`, :630, a `lax.scan`): the
-  findTandems position probe of the short-link STR guard, one thread a
-  candidate string (`tandem_plan` sizes the block's shared memory);
+  findTandems position probe of the short-link STR guard, one warp a
+  candidate string, for each unit length 32 positions at a time across
+  the lanes (`tandem_plan` sizes the block's shared memory);
 - `cycle_screen` (`tpu/stages.py::cycle_screen`, :750, two
   `lax.while_loop`s): the conservative cycle screen, one block a window,
-  both fixpoints looped on the card (`cycle_screen_plan`).
+  both fixpoints in the same rounds on the card, one barrier a round
+  (`cycle_screen_plan`).
 
 Each wrapper takes tensors on one device and raises, before any work, when
 its inputs span two. On the CPU it runs the plain version
@@ -41,59 +43,77 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "screens.cu")
 LAUNCHES = {"tandem_at": 0, "cycle_screen": 0}
 
-TANDEM_ROWS = 32  # strings a tandem_at block, one thread each
-TANDEM_MAX_UNIT = 8  # unit lengths the register table holds
+TANDEM_WARPS = 8  # strings a tandem_at block, one warp each, at most
+TANDEM_MAX_UNIT = 8  # unit lengths the kernel is instantiated for
 SCREEN_MAX_ITEMS = 32767  # a state id (2 NI of them) fits 16 bits
+SCREEN_MAX_EDGES = 65535  # an in-degree fits 16 bits
 _I64 = (-2**63, 2**63 - 1)
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
+def _tandem_string_smem(L: int, max_unit_len: int) -> int:
+    """One string's shared memory: its codes with the sentinels a chain
+    reads (L + max_unit_len int64) and max_unit_len - 1 prefix-sum arrays
+    of L + 1 int32 counts."""
+    mu = max(max_unit_len, 0)
+    return _r16((L + mu) * 8) + _r16(max(mu - 1, 0) * (L + 1) * 4)
+
+
+def tandem_warps(L: int, max_unit_len: int) -> int:
+    """Strings (warps) a tandem_at block takes, as csrc/screens.cu's
+    tandem_warps: TANDEM_WARPS, or as many as fit in a block's shared
+    memory (0: one does not)."""
+    per = _tandem_string_smem(L, max_unit_len)
+    return TANDEM_WARPS if per == 0 else min(TANDEM_WARPS, SMEM_LIMIT // per)
+
+
 def tandem_smem(L: int, max_unit_len: int) -> int:
     """A tandem_at block's shared memory, as csrc/screens.cu's tandem_smem:
-    the rows' codes (int64, an odd stride) and each row's max_unit_len - 1
-    prefix-sum arrays of L + 1 int32 counts."""
-    return (_r16(TANDEM_ROWS * (L | 1) * 8)
-            + _r16(TANDEM_ROWS * max(max_unit_len - 1, 0) * (L + 1) * 4))
+    tandem_warps strings' codes and prefix sums."""
+    return tandem_warps(L, max_unit_len) * _tandem_string_smem(L,
+                                                               max_unit_len)
 
 
 def tandem_plan(L: int, max_unit_len: int) -> int:
-    """The bytes of shared memory a tandem_at block takes (41,600 at the
+    """The bytes of shared memory a tandem_at block takes (10,624 at the
     engine's L 64 and unit length 4: under 48 KB, so a launch sets no
-    attribute). Raises for a unit length past
-    TANDEM_MAX_UNIT (the register table's size) or strings whose rows do
-    not fit in a block's shared memory."""
+    attribute). Raises for a unit length past TANDEM_MAX_UNIT (the
+    kernel's instantiations) or a string whose rows do not fit in a
+    block's shared memory (L past ~6,400 at unit length 8)."""
     if max_unit_len > TANDEM_MAX_UNIT:
         raise ValueError(f"tandem_at takes max_unit_len <= "
                          f"{TANDEM_MAX_UNIT}, got {max_unit_len}")
-    smem = tandem_smem(L, max(max_unit_len, 0))
-    if smem > SMEM_LIMIT:
+    mu = max(max_unit_len, 0)
+    if tandem_warps(L, mu) < 1:
         raise ValueError(f"tandem_at: strings of L={L} codes do not fit in "
                          f"a block's shared memory")
-    return smem
+    return tandem_smem(L, mu)
 
 
 def cycle_screen_smem(NI: int, EE: int, Cmax: int) -> int:
     """A cycle_screen block's shared memory, as csrc/screens.cu's
-    cycle_screen_smem: the edge words (4 bytes an edge) and flags (1), the
-    items' alive and special flags, two reach buffers, live and the peel's
-    layer (1 a state each), the in-degrees (4 a state), the components'
-    flags."""
-    NS = 2 * NI
-    return (_r16(EE * 4) + _r16(EE) + 2 * _r16(NI) + 4 * _r16(NS)
-            + _r16(NS * 4) + _r16(Cmax + 2))
+    cycle_screen_smem: the list counters, the edge words (4 bytes an edge),
+    the reach and layer labels and the in-degrees (2 bytes a state each),
+    the items' flags (1) and components (2), two flags a component slot."""
+    return (16 + _r16(EE * 4) + 3 * _r16(NI * 4) + _r16(NI) + _r16(NI * 2)
+            + 2 * _r16(Cmax + 1))
 
 
 def cycle_screen_plan(NI: int, EE: int, N: int, Cmax: int) -> int:
-    """The bytes of shared memory a cycle_screen block takes (17,360 at the
+    """The bytes of shared memory a cycle_screen block takes (14,240 at the
     engine's NI 528, EE 1,568, Cmax 8). Raises for more than 32,767 items
-    (a state id in 16 bits), anchors N + 2c outside the items (the plain
-    version's index fails there), Cmax < 0 or a window beyond a block's
-    shared memory."""
+    (a state id in 16 bits) or 65,535 edges (an in-degree in 16 bits; a
+    block's shared memory holds ~58,000), anchors N + 2c outside the items
+    (the plain version's index fails there), Cmax < 0 or a window beyond a
+    block's shared memory."""
     if not 1 <= NI <= SCREEN_MAX_ITEMS:
         raise ValueError(f"cycle_screen takes 1 to {SCREEN_MAX_ITEMS} items, "
                          f"got NI={NI}")
+    if EE > SCREEN_MAX_EDGES:
+        raise ValueError(f"cycle_screen: a window of EE={EE} edges does not "
+                         f"fit in a block's shared memory")
     if Cmax < 0 or N < 0 or (Cmax > 0 and N + 2 * (Cmax - 1) >= NI):
         raise ValueError(f"cycle_screen: the anchors N + 2c (N={N}, c < "
                          f"Cmax={Cmax}) must be items of [0, {NI})")
@@ -176,8 +196,8 @@ def tandem_at(seqs, lens, pos, max_unit_len, min_report_units,
               min_report_len, dist_from_str):
     """The findTandems position probe (gpu.stages.tandem_at_plain) of each
     string: seqs [B, L] integer codes, lens [B]; returns [B] bool. On the
-    card one thread a string scans it with its offset table in registers
-    (tandem_plan)."""
+    card one warp a string tests 32 positions at a time for each unit
+    length (tandem_plan)."""
     dev = _device("tandem_at", seqs, lens)
     if dev.type == "cpu":
         from .stages import tandem_at_plain
@@ -213,8 +233,8 @@ def cycle_screen(e_src, e_dst, e_dir, e_alive, alive, special, comp, N, NI,
     """The conservative cycle screen (gpu.stages.cycle_screen_plain):
     e_src, e_dst, e_dir, e_alive [W, EE]; alive, special, comp [W, NI];
     returns may_cycle [W, Cmax] bool. On the card one block a window
-    stages its edges' state ids and flags and loops both fixpoints in
-    shared memory (cycle_screen_plan)."""
+    stages its active edges' state ids and runs both fixpoints in the same
+    rounds in shared memory (cycle_screen_plan)."""
     dev = _device("cycle_screen", e_src, e_dst, e_dir, e_alive, alive,
                   special, comp)
     if dev.type == "cpu":

@@ -4,9 +4,10 @@ a parent commit's, on one card.
 
     mkdir -p build/parent
     git archive <parent commit> lancet_tpu_torch/csrc/walks.cu \\
-        lancet_tpu_torch/csrc/repeats.cu | tar -x -C build/parent
+        lancet_tpu_torch/csrc/repeats.cu lancet_tpu_torch/csrc/screens.cu \\
+        | tar -x -C build/parent
     python3 walks_ab.py --parent build/parent [--only walks|removal|gates]
-    python3 walks_ab.py --only screens
+    python3 walks_ab.py --only screens [--parent build/parent]
 
 Walks: captures every path_cover, almost_repeat_paths and cycle_dfs call of
 chip_smoke.py's two device-graph cases (the JAX bench's region and the
@@ -45,7 +46,7 @@ limit, and a last line {"ok": true}; exits non-zero on a mismatch or
 without a card. `--only` times one part (the parent directory then needs
 only that part's source: walks.cu for walks and removal).
 
-The screens (`--only screens`, no parent needed): device-graph case 1
+The screens (`--only screens`), without a parent: device-graph case 1
 and the hard corpus's device graph run (corpus.hard_corpus, 1,995
 windows), each with stages.tandem_at and stages.cycle_screen patched to
 their plain versions (run on the card, op by op) and with the kernels of
@@ -54,7 +55,18 @@ t_dg_a_dispatch, t_dg_assemble, t_devgraph, t_total and windows/s, with
 each version's spread; every VCF equal; then per version one instrumented
 run (the calls and aten ops of the counted functions,
 chip_smoke.instrument_devgraph) and one profiled run (the card's busy
-share and device events, chip_smoke.profile_devgraph).
+share and device events, chip_smoke.profile_devgraph). With `--parent`
+(the parent's csrc/screens.cu; its entry points tandem_at(3 pointers, 3
+ints, 4 long longs, size_t, stream) and cycle_screen(8 pointers, 6 ints,
+size_t, stream), with its own shared-memory plans): captures every
+tandem_at and cycle_screen call of device-graph cases 1 and 2 and of the
+hard corpus's device graph run, holds the parent's kernel and this tree's
+bit-equal on each and on the crafted batches of gpu/screencases.py (at
+TANDEM_PARAMS and SCREEN_ROUNDS), and times the two in turns (parent,
+this, this, parent) by their own device time (torch.profiler): summed
+over each run's calls and, in TURNS turns of PER_TURN launches, on the
+call with the most work (with CUDA events, the bound and the chain floor
+of chip_smoke.screen_accounting).
 
 The repeat gates: the parent's csrc/repeats.cu (repeat_gates(5 pointers,
 5 ints, stream), one block a window of plan_threads' threads: its first
@@ -120,6 +132,211 @@ def _build_parent_gates(parent: str) -> ctypes.CDLL:
     lib.repeat_gates.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                                  + [ctypes.c_void_p])
     return lib
+
+
+def _build_parent_screens(parent: str) -> ctypes.CDLL:
+    from lancet_tpu_torch._build import build_shared
+    from lancet_tpu_torch.gpu.gotoh import NVCC_FLAGS, _nvcc
+
+    src = os.path.join(os.path.abspath(parent), "lancet_tpu_torch", "csrc",
+                       "screens.cu")
+    lib = ctypes.CDLL(build_shared(src, "libscreens_parent",
+                                   [_nvcc()] + NVCC_FLAGS + [src]))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    ll, sz = ctypes.c_longlong, ctypes.c_size_t
+    lib.tandem_at.restype = lib.cycle_screen.restype = ci
+    lib.tandem_at.argtypes = [vp] * 3 + [ci] * 3 + [ll] * 4 + [sz, vp]
+    lib.cycle_screen.argtypes = [vp] * 8 + [ci] * 6 + [sz, vp]
+    return lib
+
+
+def _parent_screen_smem(name: str, *shape) -> int:
+    """The parent's shared-memory plans (its gpu/screens.py): tandem_at 32
+    strings a block of one thread each (L, unit length), cycle_screen one
+    block a window of byte arrays over the states (NI, EE, Cmax)."""
+    from lancet_tpu_torch.gpu.gotoh import _r16
+
+    if name == "tandem_at":
+        L, mu = shape
+        return _r16(32 * (L | 1) * 8) + _r16(32 * max(mu - 1, 0) * (L + 1)
+                                             * 4)
+    NI, EE, Cmax = shape
+    return (_r16(EE * 4) + _r16(EE) + 2 * _r16(NI) + 4 * _r16(2 * NI)
+            + _r16(8 * NI) + _r16(Cmax + 2))
+
+
+def _screen_launchers(name: str, args, kw: dict, parent_lib, this_lib=None):
+    """(parent launch, this launch, outputs of each) of one screen call on
+    its inputs on the card, converted once: only the kernel's launch is
+    timed. The parent's launch takes the parent's shared-memory plans, this
+    tree's this tree's plans, on this tree's library or `this_lib`."""
+    import torch
+
+    from lancet_tpu_torch.gpu import screens
+
+    dev = torch.device("cuda", 0)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    lib = this_lib or screens._load()
+
+    def check(who, rc):
+        if rc != 0:
+            raise RuntimeError(f"{who} {name} failed: CUDA error {rc}")
+
+    if name == "tandem_at":
+        seqs, lens, pos, mu, units, length, dist = list(args) + [
+            kw[k] for k in ("max_unit_len", "min_report_units",
+                            "min_report_len", "dist_from_str")
+            if k in kw]
+        s, n = (t.to(dev, torch.int64).contiguous() for t in (seqs, lens))
+        B, L = s.shape
+        mu = max(int(mu), 0)
+        o_par = [torch.zeros(B, dtype=torch.bool, device=dev)]
+        o_new = [torch.zeros_like(o_par[0])]
+        rest = (int(pos), int(units), int(length), int(dist))
+
+        def launch(who, f, out, smem):
+            check(who, f(s.data_ptr(), n.data_ptr(), out.data_ptr(), B, L,
+                         mu, *rest, smem, stream))
+
+        def par():
+            launch("parent", parent_lib.tandem_at, o_par[0],
+                   _parent_screen_smem(name, L, mu))
+
+        def new():
+            launch("this", lib.tandem_at, o_new[0], screens.tandem_plan(L,
+                                                                        mu))
+        return par, new, o_par, o_new
+    a = list(args) + [kw.get("T", 32)] if len(args) < 11 else list(args)
+    ins = [t.to(dev, torch.int64).contiguous() for t in a[:3]] + [
+        t.to(dev, torch.bool).contiguous() for t in a[3:6]] + [
+        a[6].to(dev, torch.int64).contiguous()]
+    N, NI, Cmax, T = (int(x) for x in a[7:11])
+    W, EE = ins[0].shape
+    T = max(min(T, 2**31 - 1), -1)
+    o_par = [torch.zeros((W, Cmax), dtype=torch.bool, device=dev)]
+    o_new = [torch.zeros_like(o_par[0])]
+    ptrs = [t.data_ptr() for t in ins]
+
+    def launch(who, f, out, smem):
+        check(who, f(*ptrs, out.data_ptr(), W, NI, EE, N, Cmax, T, smem,
+                     stream))
+
+    def par():
+        launch("parent", parent_lib.cycle_screen, o_par[0],
+               _parent_screen_smem(name, NI, EE, Cmax))
+
+    def new():
+        launch("this", lib.cycle_screen, o_new[0],
+               screens.cycle_screen_plan(NI, EE, N, Cmax))
+    return par, new, o_par, o_new
+
+
+def screens_parent_ab(parent_lib) -> tuple[list, bool]:
+    """The screens' A/B against the parent's kernels: every captured card
+    call of devgraph cases 1 and 2 and of the hard corpus's device graph
+    run, and the crafted batches, bit-equal between the two and timed in
+    turns (see the module docstring). Returns (JSON lines, all equal)."""
+    import torch
+
+    import chip_smoke as cs
+    from lancet_tpu_torch import corpus
+    from lancet_tpu_torch.gpu import screencases as sc
+
+    workdir = os.path.join(HERE, "build", "smoke_corpus")
+    corpus.write_default_corpus(workdir)
+    advdir = os.path.join(HERE, "build", "smoke_adversarial")
+    os.makedirs(advdir, exist_ok=True)
+    refseq, tumor, normal, adv_region = corpus.adversarial_corpus()
+    corpus.write_pair(advdir, refseq, "chr1", tumor, normal)
+    hdir = os.path.join(HERE, "build", "smoke_hard")
+    os.makedirs(hdir, exist_ok=True)
+    refseq, tumor, normal, hregion = corpus.hard_corpus()
+    corpus.write_pair(hdir, refseq, "chr1", tumor, normal)
+    chase = cs.smem_latency_ns()
+    rate = {"int_ops_per_s": torch.cuda.get_device_properties(
+        0).multi_processor_count * cs.ISSUE_LANES_PER_SM_CLK
+        * cs.sm_clock_hz()[0]}
+    kernels = {"tandem_at": "tandem_kernel",
+               "cycle_screen": "cycle_screen_kernel"}
+    lines, ok = [], True
+    for case, wd, region, threads in (
+            ("devgraph_case_1", workdir, cs.DEVGRAPH_REGION, 8),
+            ("devgraph_case_2", advdir, adv_region, 2),
+            ("hard", hdir, hregion, 8)):
+        calls: list = []
+        with cs.instrument_devgraph(None, None, calls):
+            cs.run_devgraph(wd, region, {}, num_threads=threads)
+        torch.cuda.synchronize()
+        for name, kernel in kernels.items():
+            mine = [(c[1], c[2]) for c in calls if c[0] == name]
+            if not mine:
+                continue
+            total = {"parent": [], "this": []}
+            mism = 0
+            for i, (args, kw) in enumerate(mine):
+                par, new, o_par, o_new = _screen_launchers(name, args, kw,
+                                                           parent_lib)
+                mism += _compare(par, new, o_par, o_new) > 0
+                order = [("parent", par), ("this", new)]
+                for ver, fn in (order if i % 2 == 0 else order[::-1]):
+                    total[ver].append(cs.device_ms(fn, kernel, 3))
+            args, kw = max(mine, key=lambda c: cs._walk_work(name, c[0]))
+            par, new, o_par, o_new = _screen_launchers(name, args, kw,
+                                                       parent_lib)
+            mism_big = _compare(par, new, o_par, o_new)
+            dev = {"parent": [], "this": []}
+            ev = {"parent": [], "this": []}
+            for turn in range(TURNS):
+                order = (("parent", par), ("this", new))
+                for ver, fn in (order if turn % 2 == 0 else order[::-1]):
+                    dev[ver].append(cs.device_ms(fn, kernel, PER_TURN))
+                    ev[ver].extend(cs.cuda_times(fn, 1, PER_TURN))
+            acc = cs.screen_accounting(name, list(args) + (
+                [kw["T"]] if "T" in kw else []))
+            lines.append({
+                "kernel": name, "path": case, "calls": len(mine),
+                "calls_mismatched": mism,
+                "device_ms_all_calls": {
+                    v: {"sum": sum(t for t in ts if t is not None),
+                        "missed": sum(t is None for t in ts)}
+                    for v, ts in total.items()},
+                "largest": {"shape": list(args[0].shape),
+                            "work": cs._walk_work(name, args),
+                            "mismatches": mism_big},
+                "device_ms_largest": {v: _spread(t) for v, t in dev.items()},
+                "event_ms_largest": {v: cs.spread(t) for v, t in ev.items()},
+                "bound_ms": {"bytes": acc["bytes"] / cs.HBM_BYTES_PER_S
+                             * 1e3, "operations": acc["int_ops"]
+                             / rate["int_ops_per_s"] * 1e3},
+                "chain_units": acc["chain_units"],
+                "chain_floor_ms": acc["chain_units"] * cs.SCREEN_CHAIN_LOADS
+                * chase["ns_per_load"] / 1e6,
+                "source": "torch.profiler CUDA activity; CUDA events"})
+            ok &= mism == 0 and mism_big == 0
+    # the crafted batches
+    seqs, lens, _ = sc.tandem_batch()
+    arrs, _, sN, sNI, sC = sc.screen_batch()
+    crafted = [("tandem_at", [sc.to_torch(seqs), sc.to_torch(lens), *p], {},
+                f"pos{p[0]}_mu{p[1]}") for p in sc.TANDEM_PARAMS]
+    crafted += [("cycle_screen", [sc.to_torch(arrs[k]) for k in
+                                  sc.SCREEN_ARGS] + [sN, sNI, sC, T], {},
+                 f"T{T}") for T in sc.SCREEN_ROUNDS]
+    for name, args, kw, label in crafted:
+        par, new, o_par, o_new = _screen_launchers(name, args, kw,
+                                                   parent_lib)
+        mism = _compare(par, new, o_par, o_new)
+        dev = {"parent": [], "this": []}
+        for turn in range(4):
+            order = (("parent", par), ("this", new))
+            for ver, fn in (order if turn % 2 == 0 else order[::-1]):
+                dev[ver].append(cs.device_ms(fn, kernels[name], 5))
+        lines.append({"kernel": name, "crafted_case": label,
+                      "shape": list(args[0].shape), "mismatches": mism,
+                      "device_ms": {v: _spread(t) for v, t in dev.items()}})
+        ok &= mism == 0
+    lines.append({"smem_latency": chase})
+    torch.cuda.synchronize()
+    return lines, ok
 
 
 def _parent_threads(L: int) -> int:
@@ -688,9 +905,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent",
                     help="a directory holding the parent's "
-                         "lancet_tpu_torch/csrc/walks.cu and "
-                         "lancet_tpu_torch/csrc/repeats.cu (all parts but "
-                         "the screens)")
+                         "lancet_tpu_torch/csrc/walks.cu, "
+                         "lancet_tpu_torch/csrc/repeats.cu and "
+                         "lancet_tpu_torch/csrc/screens.cu (with --only "
+                         "screens: the kernels' A/B)")
     ap.add_argument("--only", choices=("walks", "removal", "gates",
                                        "screens"),
                     help="time only the walks, the removal pass, the "
@@ -707,6 +925,13 @@ def main() -> int:
     import chip_smoke as cs
     from lancet_tpu_torch import corpus
 
+    if a.only == "screens" and a.parent:
+        lines, ok = screens_parent_ab(_build_parent_screens(a.parent))
+        for line in lines:
+            print(json.dumps(line), flush=True)
+        print(cs.nvidia_smi(), flush=True)
+        print(json.dumps({"ok": ok}), flush=True)
+        return 0 if ok else 1
     if a.only == "screens":
         workdir = os.path.join(HERE, "build", "smoke_corpus")
         corpus.write_default_corpus(workdir)
