@@ -6,9 +6,9 @@
 Phases, each printing one JSON line:
   1. device: the card's name and count, and nvidia-smi's name and power
      limit;
-  2. build: the native C++ plane (g++) and the four CUDA kernel libraries
+  2. build: the native C++ plane (g++) and the five CUDA kernel libraries
      (nvcc, sm_90a: csrc/gotoh.cu, csrc/repeats.cu, csrc/walks.cu,
-     csrc/screens.cu), built side by side
+     csrc/screens.cu, csrc/compress.cu), built side by side
      from the sources in the checkout; the SASS instruction counts per
      cell of the fused Gotoh kernel's fill loop and per step of its
      traceback loop, for each instantiation, with the DPX opcodes the fill
@@ -71,7 +71,12 @@ Phases, each printing one JSON line:
      the plain version on the card, timed beside it (CUDA events, its own
      device time), its aten ops a call and the plain version's, the
      card's bound on this data and the screen's chain floor
-     (screen_accounting);
+     (screen_accounting); every compress_round call of both cases (and of
+     phase mesh (b)) held bit-equal, dtypes too, to compress_round_plain on
+     the card, at most COMPRESS_MAX_ATEN_OPS aten ops a call, and one
+     kernels line for its largest call at each item axis (NI 1,552 and
+     528) with the plain version's time, the byte bound and the chain
+     floor (compress_accounting: the slowest window's jumping rounds);
   7b. hard: the JAX benchmark's hard corpus (corpus.hard_corpus, 1,995
      windows, 8 threads): the main path on cuda and cpu, equal VCFs and
      summaries, BENCH_r05's 183 records and KMERSIZE histogram, its 201 DP
@@ -81,8 +86,10 @@ Phases, each printing one JSON line:
      (windows replayed past k 63 and at the pipeline's caps, each with its
      site's family), every walk, screen and repeat_gates call held
      bit-equal to its plain version, the aten ops of the _OP_COUNTED
-     functions (at most SCREEN_MAX_ATEN_OPS a screen call), and one
-     kernels line per walk and screen on its largest call there;
+     functions (at most SCREEN_MAX_ATEN_OPS a screen call,
+     COMPRESS_MAX_ATEN_OPS a compress_round call), and one kernels line
+     per walk and screen on its largest call there, and per item axis for
+     compress_round;
   7c. lr: the JAX benchmark's linked-reads corpus (corpus.lr_corpus, 595
      windows, lr_mode): the main path on cuda and cpu, then with
      LANCET_TPU_DEVGRAPH=1 (the runner keeps LR on the native path: no
@@ -123,7 +130,9 @@ Phases, each printing one JSON line:
      tile edges; the removal pass's chained kills, ties, overflows and
      empty windows, one launch each), and tandem_at and cycle_screen on
      the batches of gpu/screencases.py (at its TANDEM_PARAMS and
-     SCREEN_ROUNDS), held bit-equal to the plain versions.
+     SCREEN_ROUNDS), and compress_round on the batches of
+     gpu/compresscases.py (one launch each), held bit-equal to the plain
+     versions.
 Then the kernels' summary line, nvidia-smi's line, and last the device
 line. Every path's launch counts are set to 0 just before it runs and read
 just after. Any failure exits non-zero before the last line. Without a
@@ -491,7 +500,7 @@ def build_all():
     ({name: seconds}, {name: library}, ptxas lines). Raises with the
     compiler's error text."""
     from lancet_tpu_torch import native
-    from lancet_tpu_torch.gpu import gotoh, repeats, screens, walks
+    from lancet_tpu_torch.gpu import compress, gotoh, repeats, screens, walks
 
     secs, libs, errs = {}, {}, {}
 
@@ -506,7 +515,8 @@ def build_all():
     ts = [threading.Thread(target=one, args=a)
           for a in (("native", native.build), ("gotoh_cu", gotoh.build),
                     ("repeats_cu", repeats.build), ("walks_cu", walks.build),
-                    ("screens_cu", screens.build))]
+                    ("screens_cu", screens.build),
+                    ("compress_cu", compress.build))]
     for t in ts:
         t.start()
     for t in ts:
@@ -516,7 +526,8 @@ def build_all():
             print(f"build of {name} failed:\n{e}", file=sys.stderr)
         raise RuntimeError(f"build failed: {sorted(errs)}")
     ptxas = {}
-    for name in ("gotoh_cu", "repeats_cu", "walks_cu", "screens_cu"):
+    for name in ("gotoh_cu", "repeats_cu", "walks_cu", "screens_cu",
+                 "compress_cu"):
         with open(os.path.join(HERE, libs[name]) + ".log") as f:
             ptxas[name] = [ln.strip() for ln in f
                            if "registers" in ln or "spill" in ln]
@@ -814,19 +825,20 @@ def default_windows(workdir: str, region: str) -> list[str]:
 
 
 def launch_counts() -> dict:
-    from lancet_tpu_torch.gpu import gotoh, repeats, screens, walks
+    from lancet_tpu_torch.gpu import compress, gotoh, repeats, screens, walks
 
     return {**gotoh.LAUNCHES, **repeats.LAUNCHES, **walks.LAUNCHES,
-            **screens.LAUNCHES}
+            **screens.LAUNCHES, **compress.LAUNCHES}
 
 
 def reset_counts() -> None:
-    from lancet_tpu_torch.gpu import gotoh, repeats, screens, walks
+    from lancet_tpu_torch.gpu import compress, gotoh, repeats, screens, walks
 
     gotoh.reset_launches()
     repeats.reset_launches()
     walks.reset_launches()
     screens.reset_launches()
+    compress.reset_launches()
 
 
 def vcf_records(vcf: str) -> list[str]:
@@ -1005,6 +1017,26 @@ SCREEN_OPS = {"stage_edge": 6, "round_edge": 5, "item": 8}
 # a round of the slowest window, max(reach rounds, peel rounds) (a source
 # label, then the destination's label or its in-degree).
 SCREEN_CHAIN_LOADS = 2
+# the compression pass of csrc/compress.cu (its wrapper in gpu/compress.py):
+# every card call held against compress_round_plain, the largest call of
+# each item axis (the engine's un-compacted NI 1,552 and compact NI 528)
+# timed
+_COMPRESS = "compress_round"
+_COMPRESS_SOURCE = "lancet_tpu/tpu/stages.py:928"
+# aten ops of one compress_round call on the card: its 17 outputs'
+# allocations (the launch itself goes through ctypes), one to spare
+COMPRESS_MAX_ATEN_OPS = 18
+# Integer operations of the function, by hand, as lower bounds: an item 24
+# (its two states' count tests and links, its label, survivor, flip and
+# pos_u, its eight aggregates), an edge 16 (its state's count, the renorm
+# key and slot, the rewiring's gathers, selects and okey), a mer 16
+# (new_pos, the flips, the kept interval and its trims), a state 4 a round
+# of the jumping (the word, the word it points at, the add-and-min, the
+# compare).
+COMPRESS_OPS = {"item": 24, "edge": 16, "mer": 16, "state_round": 4}
+# its chain floor: the slowest window's jumping rounds x one dependent
+# shared load (the word the last round's word points at)
+COMPRESS_CHAIN_LOADS = 1
 # functions of the device graph engine (gpu/stages.py) whose calls and
 # aten ops (about one kernel launch each) are counted: the torch-op
 # functions of run_attempt and cleanup, and the removal pass (one K2
@@ -1032,13 +1064,33 @@ def _on_card(args) -> bool:
 
 
 def _walk_args(name: str, args: list) -> list:
-    """A walk call's arguments as kept: a removal pass's state reduced to
-    the keys the pass reads."""
-    if name != "seq_removal":
-        return args
-    from lancet_tpu_torch.gpu import walks
+    """A walk call's arguments as kept: a removal pass's or compression
+    pass's state reduced to the keys the pass reads."""
+    from lancet_tpu_torch.gpu import compress, walks
 
-    return [{k: args[0][k] for k in walks.REMOVAL_KEYS}] + list(args[1:])
+    if name == "seq_removal":
+        keys = walks.REMOVAL_KEYS
+    elif name == _COMPRESS:
+        keys = compress.INPUT_KEYS
+    else:
+        return args
+    return [{k: args[0][k] for k in keys}] + list(args[1:])
+
+
+def _walk_out(name: str, out):
+    """A walk call's outputs as kept: a compression pass's rewritten keys
+    and fallback."""
+    if name != _COMPRESS:
+        return out
+    from lancet_tpu_torch.gpu import compress
+
+    return {k: out[0][k] for k in compress.OUTPUT_KEYS}, out[1]
+
+
+def _kept_key(name: str, args) -> str:
+    """The key a walk's largest call is kept under: compress_round's by
+    its item axis."""
+    return f"{name}/NI{args[2]}" if name == _COMPRESS else name
 
 
 def _walk_work(name: str, args) -> int:
@@ -1057,28 +1109,30 @@ def _walk_work(name: str, args) -> int:
         return int((args[1] > 0).sum())
     if name == "cycle_screen":  # alive items
         return int(args[4].sum())
+    if name == _COMPRESS:  # alive items
+        return int(args[0]["alive"].sum())
     return int(args[5].sum())  # path_cover: runnable components
 
 
 _CHECKED = ("path_cover", "seq_removal", "almost_repeat",
-            "cycle_dfs") + _SCREENS  # held every call
+            "cycle_dfs") + _SCREENS + (_COMPRESS,)  # held every call
 
 
 @contextlib.contextmanager
 def instrument_devgraph(kept: dict | None, ops: dict | None,
                         calls: list | None = None):
-    """While active: keep, per walk and screen, a copy of the inputs of its
-    card call with the most work (`kept`); count the calls of the
-    _OP_COUNTED functions and the aten ops they dispatch, nested calls'
-    included (`ops`); append a copy of the inputs and outputs of every card
-    call of the _CHECKED walks and screens, with the k of the attempt that
-    made it, to `calls` (on the caller's stream, from any thread), for
-    check_walk_calls."""
+    """While active: keep, per walk and screen (compress_round: per item
+    axis), a copy of the inputs of its card call with the most work
+    (`kept`); count the calls of the _OP_COUNTED functions and the aten
+    ops they dispatch, nested calls' included (`ops`); append a copy of the
+    inputs and outputs of every card call of the _CHECKED walks, screens
+    and compress_round, with the k of the attempt that made it, to `calls`
+    (on the caller's stream, from any thread), for check_walk_calls."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from lancet_tpu_torch.engine import devicepipe
-    from lancet_tpu_torch.gpu import screens, stages, walks
+    from lancet_tpu_torch.gpu import compress, screens, stages, walks
 
     class Count(TorchDispatchMode):
         n = 0
@@ -1091,6 +1145,7 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
 
     real_w = {n: getattr(walks, n) for n in _WALKS}
     real_sc = {n: getattr(screens, n) for n in _SCREENS}
+    real_c = compress.compress_round
     real_s = {n: getattr(stages, n) for n in _OP_COUNTED}
     real_a = devicepipe._assemble
     local = threading.local()  # the attempt's k; the counted depth
@@ -1109,9 +1164,10 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
             try:
                 if kept is not None and card:
                     work = _walk_work(n, a)
-                    if n not in kept or kept[n][0] < work:
-                        kept[n] = (work, copy(_walk_args(n, list(a))),
-                                   dict(k))
+                    key = _kept_key(n, a)
+                    if key not in kept or kept[key][0] < work:
+                        kept[key] = (work, copy(_walk_args(n, list(a))),
+                                     dict(k))
             finally:
                 Count.paused = paused
             out = real(*a, **k)
@@ -1119,7 +1175,8 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
                 Count.paused = True
                 try:
                     calls.append((n, copy(_walk_args(n, list(a))), dict(k),
-                                  copy(out), getattr(local, "K", None)))
+                                  copy(_walk_out(n, out)),
+                                  getattr(local, "K", None)))
                 finally:
                     Count.paused = paused
             return out
@@ -1145,6 +1202,7 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
         setattr(walks, n, wrap_walk(n, f))
     for n, f in real_sc.items():
         setattr(screens, n, wrap_walk(n, f))
+    compress.compress_round = wrap_walk(_COMPRESS, real_c)
     if ops is not None:
         for n in _OP_COUNTED:
             setattr(stages, n, wrap_op(n))
@@ -1156,6 +1214,7 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
             setattr(walks, n, f)
         for n, f in real_sc.items():
             setattr(screens, n, f)
+        compress.compress_round = real_c
         for n, f in real_s.items():
             setattr(stages, n, f)
         devicepipe._assemble = real_a
@@ -1174,19 +1233,37 @@ def _mismatches(got, want) -> int:
     """Elements that differ between two walk outputs (a tensor, or a dict
     or tuple of them)."""
     if isinstance(want, dict):
-        return sum(int((got[k].cpu() != want[k].cpu()).sum()) for k in want)
+        return sum(_mismatches(got[k], want[k]) for k in want)
     if isinstance(want, tuple):
-        return sum(int((g.cpu() != w.cpu()).sum())
-                   for g, w in zip(got, want))
+        return sum(_mismatches(g, w) for g, w in zip(got, want))
     return int((got.cpu() != want.cpu()).sum())
+
+
+def compress_plain(st, K, NI, N, Dcap=64):
+    """compress_round_plain's rewritten keys and fallback, as the
+    instrument keeps a card call's."""
+    from lancet_tpu_torch.gpu import compress, stages
+
+    out, fb = stages.compress_round_plain(st, K, NI, N, Dcap)
+    return {k: out[k] for k in compress.OUTPUT_KEYS}, fb
+
+
+def compress_mismatches(got, want) -> int:
+    """Elements (and dtypes) that differ between two compress_round
+    outputs ({key: tensor}, fallback)."""
+    bad = _mismatches(got, want)
+    return bad + sum(int(got[0][k].dtype != w.dtype)
+                     for k, w in want[0].items()) + int(
+        got[1].dtype != want[1].dtype)
 
 
 def check_walk_calls(calls: list, case: str) -> dict:
     """Each captured card call of path_cover, seq_removal, almost_repeat,
-    cycle_dfs, tandem_at or cycle_screen against the plain version on its
-    own inputs, bit for bit (cycle_dfs's on a copy on the host: its step
-    loop of small ops runs many times faster there than launched op by op
-    on the card; the screens' on the card); returns {walk: {calls,
+    cycle_dfs, tandem_at, cycle_screen or compress_round against the plain
+    version on its own inputs, bit for bit (cycle_dfs's on a copy on the
+    host: its step loop of small ops runs many times faster there than
+    launched op by op on the card; the screens' and compress_round's on the
+    card, compress_round's dtypes too); returns {walk: {calls,
     mismatches}} and raises on a mismatch. Empties `calls`."""
     import torch
 
@@ -1206,11 +1283,14 @@ def check_walk_calls(calls: list, case: str) -> dict:
             want = stages.tandem_at_plain(*args, **kw)
         elif n == "cycle_screen":
             want = stages.cycle_screen_plain(*args, **kw)
+        elif n == _COMPRESS:
+            want = compress_plain(*args, **kw)
         else:
             want = stages.cycle_dfs_plain(
                 *_tree(args, lambda t: t.cpu() if torch.is_tensor(t) else t),
                 **kw)
-        bad = _mismatches(got, want)
+        bad = (compress_mismatches(got, want) if n == _COMPRESS
+               else _mismatches(got, want))
         res[n]["calls"] += 1
         res[n]["mismatches"] += int(bad > 0)
     if any(r["mismatches"] for r in res.values()):
@@ -1227,6 +1307,17 @@ def check_screen_ops(ops: dict, case: str, names) -> None:
         if not c["calls"] or c["aten_ops"] > SCREEN_MAX_ATEN_OPS * c["calls"]:
             raise AssertionError(f"{case}: {n} took {c} aten ops on the card "
                                  f"(at most {SCREEN_MAX_ATEN_OPS} a call)")
+
+
+def check_compress_ops(ops: dict, case: str) -> None:
+    """compress_round ran on the card and took at most
+    COMPRESS_MAX_ATEN_OPS aten ops a call (counted by instrument_devgraph;
+    the stages function, the wrapper's dispatch included)."""
+    c = ops.get(_COMPRESS, {"calls": 0, "aten_ops": 0})
+    if not c["calls"] or c["aten_ops"] > COMPRESS_MAX_ATEN_OPS * c["calls"]:
+        raise AssertionError(f"{case}: compress_round took {c} aten ops on "
+                             f"the card (at most {COMPRESS_MAX_ATEN_OPS} a "
+                             f"call)")
 
 
 def run_devgraph(workdir: str, region: str, stats: dict, num_threads=8,
@@ -1644,6 +1735,105 @@ def screen_case(name: str, args, kw: dict, rate: dict, chase: dict) -> dict:
         * chase["ns_per_load"] / 1e6, **acc}
 
 
+def compress_rounds(st, NI: int) -> list:
+    """The pointer-jumping rounds the kernel runs in each window of a
+    compress_round call: up to and including the first that changes no
+    word of the window, at most the plain loop's bound (the plain loop's
+    links and words on the card)."""
+    import torch
+
+    from lancet_tpu_torch.gpu import stages
+
+    lnk = stages.links(st["e_src"], st["e_dst"], st["e_dir"], st["e_alive"],
+                       st["e_okey"], st["alive"], st["special"], NI)
+    W, S = lnk["lnk_valid"].shape[0], 2 * NI
+    valid = lnk["lnk_valid"].reshape(W, S)
+    to = (lnk["lnk_to"] * 2 + lnk["lnk_bit"]).reshape(W, S)
+    sid = torch.arange(S, device=valid.device)[None].expand(W, S)
+    p = (torch.where(valid, to, sid) << 13) | valid.to(torch.int64)
+    dcap, mask = min(NI + 8, 8191), 8191
+    rounds = torch.zeros(W, dtype=torch.int64, device=p.device)
+    on = torch.ones(W, dtype=torch.bool, device=p.device)
+    for _ in range(max(2, int(NI + 8).bit_length())):
+        rounds += on
+        q = torch.gather(p, 1, p >> 13)
+        p2 = (q & ~mask) | torch.clamp((p & mask) + (q & mask), max=dcap)
+        on &= (p2 != p).any(dim=1)
+        p = p2
+        if not bool(on.any()):
+            break
+    return rounds.tolist()
+
+
+def compress_accounting(args) -> dict:
+    """What one compress_round call needs on this data: every input
+    element read once and every output written once (the shapes and dtypes
+    of compress.INPUTS and OUTPUTS, and the fallback flags); the integer
+    operations of COMPRESS_OPS over its items, edges and mers and each
+    window's jumping rounds on its states; its chain, the slowest window's
+    rounds."""
+    import torch
+
+    from lancet_tpu_torch.gpu import compress
+
+    st, _, NI = args[:3]
+    W, EE = st["e_src"].shape
+    NM = st["mer_item"].shape[1]
+    n_in = sum(st[k].numel() * st[k].element_size()
+               for k in compress.INPUT_KEYS)
+    per = {"i": NI, "i4": 4 * NI, "e": EE, "m": NM}
+    n_out = W * sum(per[ax] * (1 if dt == torch.bool else 8)
+                    for _, dt, ax in compress.OUTPUTS) + W
+    rounds = compress_rounds(st, NI)
+    o = COMPRESS_OPS
+    nops = (W * (NI * o["item"] + EE * o["edge"] + NM * o["mer"])
+            + o["state_round"] * 2 * NI * sum(rounds))
+    return {"bytes": n_in + n_out, "int_ops": nops, "rounds": rounds,
+            "W": W, "NI": NI, "EE": EE, "NM": NM,
+            "chain_units": max(rounds, default=0)}
+
+
+def compress_case(args, kw: dict, rate: dict, chase: dict) -> dict:
+    """The kernel on one compress_round call captured from the devgraph
+    runs: its outputs bit-equal to the plain version on the card (dtypes
+    too), then timed beside it (CUDA events around the wrapper; the
+    kernel's own device time, torch.profiler), the aten ops a call
+    dispatches, the card's bound (compress_accounting) and the chain floor
+    (COMPRESS_CHAIN_LOADS, the smem_chase latency)."""
+    import torch
+
+    from lancet_tpu_torch.gpu import compress
+
+    def fn():
+        return _walk_out(_COMPRESS, compress.compress_round(*args, **kw))
+
+    got = fn()
+    torch.cuda.synchronize()
+    want = compress_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = compress_mismatches(got, want)
+    if err:
+        raise AssertionError(f"compress_round disagrees with its plain "
+                             f"version on {err} outputs")
+    ms = spread(cuda_times(fn, *KERNEL_REPS))
+    dev_ms = device_ms(fn, "compress_kernel")
+    plain_ms = spread(cuda_times(lambda: compress_plain(*args, **kw),
+                                 WALK_PLAIN_REPS))
+    acc = compress_accounting(args)
+    bound = {"bytes": acc["bytes"] / HBM_BYTES_PER_S * 1e3,
+             "operations": acc["int_ops"] / rate["int_ops_per_s"] * 1e3}
+    return {"name": _COMPRESS, "smem": compress.compress_plan(
+        acc["NI"], acc["EE"], acc["NM"]), "tolerance": 0,
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain_ms, "bound": bound,
+        "aten_ops_per_call": aten_ops(fn),
+        "plain_aten_ops_per_call": aten_ops(
+            lambda: compress_plain(*args, **kw)),
+        "chain_loads": COMPRESS_CHAIN_LOADS,
+        "chain_floor_ms": acc["chain_units"] * COMPRESS_CHAIN_LOADS
+        * chase["ns_per_load"] / 1e6, **acc}
+
+
 def mesh_main_case(workdir: str, region: str, mesh, case: str, vcf: str,
                    summary: str, st_main: dict) -> dict:
     """(a) The main path with its DP groups split over `mesh`: VCF and
@@ -1723,7 +1913,8 @@ def mesh_devgraph_case(workdir: str, n: int, vcf_g: str, summary_g: str,
     if st["mesh_counters"] != sums_g:
         raise AssertionError(f"mesh_counters {st['mesh_counters']} differ "
                              f"from the unsharded sums {sums_g}")
-    for k in ("gotoh_align_smem", "repeat_gates", *_WALKS.values()):
+    for k in ("gotoh_align_smem", "repeat_gates", *_WALKS.values(),
+              _COMPRESS):
         if launches[k] < 1:
             raise AssertionError(f"devgraph over {n} shards launched no {k}")
     return launches
@@ -2038,8 +2229,9 @@ def hard_phase(rate: dict, chase: dict) -> dict:
     largest: dict = {}
     for n, args, kw, _, K in calls:
         work = _walk_work(n, args)
-        if n not in largest or largest[n][0] < work:
-            largest[n] = (work, args, kw, K)
+        key = _kept_key(n, args)
+        if key not in largest or largest[key][0] < work:
+            largest[key] = (work, args, kw, K)
     captured = {n: sum(1 for c in calls if c[0] == n) for n in _CHECKED}
     call_ks = {n: sorted({K for m, *_, K in calls if m == n})
                for n in _CHECKED}
@@ -2071,10 +2263,11 @@ def hard_phase(rate: dict, chase: dict) -> dict:
         raise AssertionError(f"hard: device-graph stats {got_stats} differ "
                              f"from {HARD_DEVGRAPH_STATS}")
     for k in ("gotoh_align_smem", "repeat_gates", *_WALKS.values(),
-              *_SCREENS):
+              *_SCREENS, _COMPRESS):
         if launches_g[k] < 1:
             raise AssertionError(f"hard: the devgraph run launched no {k}")
     check_screen_ops(ops, "hard devgraph", _SCREENS)
+    check_compress_ops(ops, "hard devgraph")
     walks_h = {}
     for name in _WALKS:
         _, args, kw, K = largest[name]
@@ -2086,6 +2279,11 @@ def hard_phase(rate: dict, chase: dict) -> dict:
         walks_h[name] = screen_case(name, args, kw, rate, chase)
         emit({"phase": "kernels", "case": f"hard_{name}", "K": K,
               "launches": launches_g[name], **walks_h[name]})
+    for key in sorted(k for k in largest if k.startswith(_COMPRESS)):
+        _, args, kw, K = largest[key]
+        walks_h[key] = compress_case(args, kw, rate, chase)
+        emit({"phase": "kernels", "case": f"hard_{key}", "K": K,
+              "launches": launches_g[_COMPRESS], **walks_h[key]})
     emit({"phase": "hard", "case": "done",
           "t_phase": time.perf_counter() - t_phase})
     return {"launches_main": launches, "launches_devgraph": launches_g,
@@ -2468,13 +2666,15 @@ def main() -> int:
         raise AssertionError(f"the removal pass took {rops} aten ops on the "
                              f"card (at most {REMOVAL_MAX_ATEN_OPS} a call)")
     walk_launches = {k: launches_g[k] + launches_a[k]
-                     for k in (*_WALKS.values(), *_SCREENS)}
+                     for k in (*_WALKS.values(), *_SCREENS, _COMPRESS)}
     if min(walk_launches.values()) < 1 or kept["cycle_dfs"][0] < 1:
         raise AssertionError(f"a walk or screen kernel did not launch, or "
                              f"no component reached the cycle replay: "
                              f"{walk_launches}")
     check_screen_ops(ops_g, "devgraph case 1", ("cycle_screen",))
     check_screen_ops(ops, "devgraph case 2", _SCREENS)
+    check_compress_ops(ops_g, "devgraph case 1")
+    check_compress_ops(ops, "devgraph case 2")
     chase = smem_latency_ns()
     emit({"phase": "kernels", "case": "smem_latency", **chase})
     wres = {}
@@ -2487,6 +2687,10 @@ def main() -> int:
         _, args, kw = kept[name]
         wres[name] = screen_case(name, args, kw, rate, chase)
         emit({"phase": "kernels", "case": f"devgraph_{name}", **wres[name]})
+    for key in sorted(k for k in kept if k.startswith(_COMPRESS)):
+        _, args, kw = kept[key]
+        wres[key] = compress_case(args, kw, rate, chase)
+        emit({"phase": "kernels", "case": f"devgraph_{key}", **wres[key]})
 
     # 7b. the JAX benchmark's hard corpus: the main path and the device
     # graph engine, whose k ladder climbs past 63; 7c. its linked-reads
@@ -2608,6 +2812,23 @@ def main() -> int:
                                          "mismatches": bad}
         crafted_screens["cycle_screen"] = max(crafted_screens["cycle_screen"],
                                               bad)
+    # compress_round on the batches of gpu/compresscases.py
+    from lancet_tpu_torch.gpu import compress, compresscases
+
+    crafted_compress = 0
+    for name, arrs, K in compresscases.batches():
+        before = compress.LAUNCHES[_COMPRESS]
+        got = compresscases.run(arrs, K, "cuda")
+        launched = compress.LAUNCHES[_COMPRESS] - before
+        want = compresscases.run(arrs, K)
+        bad = compress_mismatches(
+            ({k: got[0][k] for k in compress.OUTPUT_KEYS}, got[1]),
+            ({k: want[0][k] for k in compress.OUTPUT_KEYS}, want[1]))
+        crafted[f"compress_round/{name}"] = {
+            "W": arrs["alive"].shape[0],
+            "shape": list(compresscases.shape_of(arrs)),
+            "launches": launched, "mismatches": bad + int(launched != 1)}
+        crafted_compress = max(crafted_compress, bad)
     emit({"phase": "kernels", "case": "walks_crafted", "tolerance": 0,
           "cases": crafted})
     if any(r["mismatches"] for r in crafted.values()):
@@ -2730,6 +2951,44 @@ def main() -> int:
             "aten_ops_per_call": r["aten_ops_per_call"],
             "plain_aten_ops_per_call": r["plain_aten_ops_per_call"],
             "library_ms": None})
+    # compress_round: the largest call of devgraph cases 1 and 2 at the
+    # engine's first item axis, the others beside it
+    ckeys = sorted(k for k in wres if k.startswith(_COMPRESS))
+    big = wres[f"{_COMPRESS}/NI1552"] if f"{_COMPRESS}/NI1552" in wres \
+        else wres[ckeys[-1]]
+    by = max(big["bound"], key=big["bound"].get)
+
+    def shape_line(r):
+        b = max(r["bound"], key=r["bound"].get)
+        return {"W": r["W"], "NI": r["NI"], "EE": r["EE"], "NM": r["NM"],
+                "ms": r["ms"]["median"], "device_ms": r["device_ms"],
+                "plain_ms": r["plain_ms"]["median"], "bound_ms": r["bound"][b],
+                "bound_by": b, "chain_floor_ms": r["chain_floor_ms"],
+                "rounds_max": r["chain_units"]}
+
+    line.append({
+        "name": _COMPRESS, "route": "cuda",
+        "source": "lancet_tpu_torch/csrc/compress.cu",
+        "replaces": _COMPRESS_SOURCE,
+        "also_replaces": "lancet_tpu/tpu/stages.py:369",
+        "launches": walk_launches[_COMPRESS],
+        "launches_by_path": by_path(_COMPRESS), "on_main_path": False,
+        "max_abs_err": max([wres[k]["max_abs_err"] for k in ckeys]
+                           + [hard["walks"][k]["max_abs_err"]
+                              for k in hard["walks"]
+                              if k.startswith(_COMPRESS)]
+                           + [crafted_compress]),
+        "ms": big["ms"]["median"], "plain_ms": big["plain_ms"]["median"],
+        "bound_ms": big["bound"][by], "bound_by": by,
+        "device_ms": big["device_ms"],
+        "chain_floor_ms": big["chain_floor_ms"],
+        "aten_ops_per_call": big["aten_ops_per_call"],
+        "plain_aten_ops_per_call": big["plain_aten_ops_per_call"],
+        "devgraph_by_shape": {k.split("/")[1]: shape_line(wres[k])
+                              for k in ckeys},
+        "hard_by_shape": {k.split("/")[1]: shape_line(hard["walks"][k])
+                          for k in hard["walks"] if k.startswith(_COMPRESS)},
+        "library_ms": None})
     emit({"kernels": line, "t_smoke": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -17,15 +17,19 @@ N+2c+1 are component c+1's fake source and sink):
 - mers (the build's node axis [N]): mer_item, mer_flip, mer_pos, keep_lo,
   keep_hi (the kept donor interval within the mer's K bases).
 
-Two functions are sequential walks: `_seq_removal_pass` (the map-rank
-order removal sweep, with the slot order, neighbour lists and removal
-around it) and `has_cycle_seq` (the hasCycleRec replay). On a CUDA tensor
-each launches its hand-written kernel (gpu.walks: K2 `seq_removal`, the
-whole pass in one launch; K4 `cycle_dfs`); on the CPU it runs its plain
-version here (`seq_removal_pass_plain`, `cycle_dfs_plain`), the JAX
-lockstep loop step for step. Every other function is torch ops on
-the tensors' device. Loops that JAX runs as device `while_loop`s run as
-host loops that sync on a predicate computed on the device.
+Five functions are hand-written kernels on a CUDA tensor and their plain
+versions here on the CPU: `_seq_removal_pass` (the map-rank order removal
+sweep with the slot order, neighbour lists and removal around it; gpu.walks
+K2 `seq_removal`, the whole pass in one launch), `has_cycle_seq` (the
+hasCycleRec replay; K4 `cycle_dfs`), `tandem_at` and `cycle_screen`
+(gpu.screens) and `compress_round` (gpu.compress: edge renorm, links,
+pointer jumping and the chain merge in one launch). Their plain versions
+(`seq_removal_pass_plain`, `cycle_dfs_plain`, `tandem_at_plain`,
+`cycle_screen_plain`, `compress_round_plain` with its `edge_renorm`,
+`links` and `chain_jump`) are the JAX loops step for step. Every other
+function is torch ops on the tensors' device. `components` is the one
+fixpoint left that JAX runs as a device `while_loop` and this file runs as
+a host loop, syncing on a predicate computed on the device each round.
 
 Scatters: JAX's `.at[].set(..., mode="drop")` becomes a write into one
 padding slot that is sliced off; where two writes could meet in one live
@@ -885,6 +889,16 @@ def has_cycle_seq(e_src, e_dst, e_dir, e_alive, e_okey, alive, special,
 
 
 def compress_round(st, K, NI, N, Dcap=64):
+    """One graph-wide compression pass (see compress_round_plain). The
+    `compress_round` wrapper (gpu.compress): on a CUDA tensor one kernel
+    launch (plus its outputs' allocation, and no host sync), else
+    compress_round_plain. Returns (updated st, fallback [W])."""
+    from . import compress
+
+    return compress.compress_round(st, K, NI, N, Dcap)
+
+
+def compress_round_plain(st, K, NI, N, Dcap=64):
     """One graph-wide compression pass (ref: Graph.cc:2486-2732): merge
     every mutual-buddy chain into its lowest-map-rank member, rewiring
     edges with the orientation algebra; per-mer donor intervals lose K-1

@@ -8,6 +8,7 @@ a parent commit's, on one card.
         | tar -x -C build/parent
     python3 walks_ab.py --parent build/parent [--only walks|removal|gates]
     python3 walks_ab.py --only screens [--parent build/parent]
+    python3 walks_ab.py --only compress
 
 Walks: captures every path_cover, almost_repeat_paths and cycle_dfs call of
 chip_smoke.py's two device-graph cases (the JAX bench's region and the
@@ -46,11 +47,14 @@ limit, and a last line {"ok": true}; exits non-zero on a mismatch or
 without a card. `--only` times one part (the parent directory then needs
 only that part's source: walks.cu for walks and removal).
 
-The screens (`--only screens`), without a parent: device-graph case 1
+The screens (`--only screens`) or the compression pass (`--only
+compress`, stages.compress_round against compress_round_plain), without a
+parent: device-graph case 1
 and the hard corpus's device graph run (corpus.hard_corpus, 1,995
-windows), each with stages.tandem_at and stages.cycle_screen patched to
-their plain versions (run on the card, op by op) and with the kernels of
-csrc/screens.cu, in turns (plain, kernel, kernel, plain): per run
+windows), each with the part's functions (stages.tandem_at and
+stages.cycle_screen; stages.compress_round) patched to their plain
+versions (run on the card, op by op) and with the kernels of
+csrc/screens.cu or csrc/compress.cu, in turns (plain, kernel, kernel, plain): per run
 t_dg_a_dispatch, t_dg_assemble, t_devgraph, t_total and windows/s, with
 each version's spread; every VCF equal; then per version one instrumented
 run (the calls and aten ops of the counted functions,
@@ -829,20 +833,30 @@ def removal_e2e(parent_lib, workdir: str) -> tuple[dict, bool]:
 
 SCREEN_KEYS = ("t_total", "t_devgraph", "t_dg_assemble", "t_dg_a_dispatch",
                "t_dg_a_exec", "n_windows")
+# the gpu/stages.py functions each part's A/B patches to its plain version
+PLAIN_AB = {"screens": ("tandem_at", "cycle_screen"),
+            "compress": ("compress_round",)}
 
 
-def screens_ab(case: str, workdir: str, region: str) -> tuple[dict, bool]:
-    """Device-graph runs of `region` after one warm-up run: with the
-    screens' plain versions and with their kernels, in turns (plain,
-    kernel, kernel, plain); then one instrumented and one profiled run
-    each. Returns (JSON line, every
-    VCF equal)."""
+def plain_ab(part: str, case: str, workdir: str,
+             region: str) -> tuple[dict, bool]:
+    """Device-graph runs of `region` after one warm-up run: with the part's
+    functions (PLAIN_AB) patched to their plain versions, run on the card
+    op by op, and with their kernels, in turns (plain, kernel, kernel,
+    plain); then one instrumented and one profiled run each. Returns (JSON
+    line, every VCF equal)."""
     import chip_smoke as cs
     from lancet_tpu_torch.gpu import stages
 
-    real = (stages.tandem_at, stages.cycle_screen)
-    versions = {"plain": (stages.tandem_at_plain, stages.cycle_screen_plain),
+    names = PLAIN_AB[part]
+    real = tuple(getattr(stages, n) for n in names)
+    versions = {"plain": tuple(getattr(stages, f"{n}_plain") for n in names),
                 "kernel": real}
+
+    def use(fns):
+        for n, f in zip(names, fns):
+            setattr(stages, n, f)
+
     runs = {v: [] for v in versions}
     ops = {}
     busy = {}
@@ -850,7 +864,7 @@ def screens_ab(case: str, workdir: str, region: str) -> tuple[dict, bool]:
     try:
         vcfs.add(cs.run_devgraph(workdir, region, {})[0])  # warm-up
         for ver in ("plain", "kernel", "kernel", "plain"):
-            stages.tandem_at, stages.cycle_screen = versions[ver]
+            use(versions[ver])
             st: dict = {}
             vcf, _ = cs.run_devgraph(workdir, region, st)
             vcfs.add(vcf)
@@ -858,7 +872,7 @@ def screens_ab(case: str, workdir: str, region: str) -> tuple[dict, bool]:
                              | {"windows_per_s": st["n_windows"]
                                 / st["t_total"]})
         for ver, fns in versions.items():
-            stages.tandem_at, stages.cycle_screen = fns
+            use(fns)
             ops[ver] = {}
             with cs.instrument_devgraph(None, ops[ver]):
                 vcf, _ = cs.run_devgraph(workdir, region, {})
@@ -869,16 +883,15 @@ def screens_ab(case: str, workdir: str, region: str) -> tuple[dict, bool]:
                 workdir, region,
                 sum(r["t_total"] for r in runs[ver]) / len(runs[ver]))
     finally:
-        stages.tandem_at, stages.cycle_screen = real
+        use(real)
     spread = {v: {k: cs.spread([r[k] for r in rs])
                   for k in (*SCREEN_KEYS[:-1], "windows_per_s")}
               for v, rs in runs.items()}
-    return {"screens": case, "region": region, "order": ["plain", "kernel",
-                                                         "kernel", "plain"],
+    return {part: case, "region": region, "order": ["plain", "kernel",
+                                                    "kernel", "plain"],
             "runs": runs, "spread": spread,
-            "counted_functions": {v: {n: o[n] for n in ("tandem_at",
-                                                        "cycle_screen")
-                                      if n in o} for v, o in ops.items()},
+            "counted_functions": {v: {n: o[n] for n in names if n in o}
+                                  for v, o in ops.items()},
             "device_busy": busy, "vcf_equal": len(vcfs) == 1,
             "source": "perf_counter stats of runner.run; TorchDispatchMode; "
                       "torch.profiler CUDA activity"}, len(vcfs) == 1
@@ -910,12 +923,13 @@ def main() -> int:
                          "lancet_tpu_torch/csrc/screens.cu (with --only "
                          "screens: the kernels' A/B)")
     ap.add_argument("--only", choices=("walks", "removal", "gates",
-                                       "screens"),
+                                       "screens", "compress"),
                     help="time only the walks, the removal pass, the "
-                         "repeat gates or the screens")
+                         "repeat gates, the screens or the compression "
+                         "pass")
     a = ap.parse_args()
-    if a.only != "screens" and not a.parent:
-        ap.error("--parent is needed unless --only screens")
+    if a.only not in PLAIN_AB and not a.parent:
+        ap.error("--parent is needed unless --only screens or compress")
     import torch
 
     if not torch.cuda.is_available():
@@ -932,7 +946,7 @@ def main() -> int:
         print(cs.nvidia_smi(), flush=True)
         print(json.dumps({"ok": ok}), flush=True)
         return 0 if ok else 1
-    if a.only == "screens":
+    if a.only in PLAIN_AB:
         workdir = os.path.join(HERE, "build", "smoke_corpus")
         corpus.write_default_corpus(workdir)
         hdir = os.path.join(HERE, "build", "smoke_hard")
@@ -943,7 +957,7 @@ def main() -> int:
         for case, wd, region in (("devgraph_case_1", workdir,
                                   cs.DEVGRAPH_REGION),
                                  ("hard", hdir, hregion)):
-            line, eq = screens_ab(case, wd, region)
+            line, eq = plain_ab(a.only, case, wd, region)
             print(json.dumps(line), flush=True)
             ok &= eq
         print(cs.nvidia_smi(), flush=True)
