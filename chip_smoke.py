@@ -6,9 +6,10 @@
 Phases, each printing one JSON line:
   1. device: the card's name and count, and nvidia-smi's name and power
      limit;
-  2. build: the native C++ plane (g++) and the five CUDA kernel libraries
+  2. build: the native C++ plane (g++) and the six CUDA kernel libraries
      (nvcc, sm_90a: csrc/gotoh.cu, csrc/repeats.cu, csrc/walks.cu,
-     csrc/screens.cu, csrc/compress.cu), built side by side
+     csrc/screens.cu, csrc/compress.cu, csrc/graphstate.cu), built side by
+     side
      from the sources in the checkout; the SASS instruction counts per
      cell of the fused Gotoh kernel's fill loop and per step of its
      traceback loop, for each instantiation, with the DPX opcodes the fill
@@ -77,6 +78,13 @@ Phases, each printing one JSON line:
      kernels line for its largest call at each item axis (NI 1,552 and
      528) with the plain version's time, the byte bound and the chain
      floor (compress_accounting: the slowest window's jumping rounds);
+     every components, compact_state, low_cov_pass and item_mincovs call
+     of both cases (and of phase mesh (b)) held bit-equal, dtypes too, to
+     its plain version on the card and run again under
+     torch.cuda.set_sync_debug_mode("error") (one launch, no host sync), at
+     most GRAPHSTATE_MAX_ATEN_OPS aten ops a call, and one kernels line for
+     each one's largest call with the plain version's time and the bound
+     on this data (graphstate_accounting);
   7b. hard: the JAX benchmark's hard corpus (corpus.hard_corpus, 1,995
      windows, 8 threads): the main path on cuda and cpu, equal VCFs and
      summaries, BENCH_r05's 183 records and KMERSIZE histogram, its 201 DP
@@ -87,9 +95,10 @@ Phases, each printing one JSON line:
      site's family), every walk, screen and repeat_gates call held
      bit-equal to its plain version, the aten ops of the _OP_COUNTED
      functions (at most SCREEN_MAX_ATEN_OPS a screen call,
-     COMPRESS_MAX_ATEN_OPS a compress_round call), and one kernels line
-     per walk and screen on its largest call there, and per item axis for
-     compress_round;
+     COMPRESS_MAX_ATEN_OPS a compress_round call, GRAPHSTATE_MAX_ATEN_OPS
+     a graphstate call, each graphstate call also free of host syncs), and
+     one kernels line per walk, screen and graphstate function on its
+     largest call there, and per item axis for compress_round;
   7c. lr: the JAX benchmark's linked-reads corpus (corpus.lr_corpus, 595
      windows, lr_mode): the main path on cuda and cpu, then with
      LANCET_TPU_DEVGRAPH=1 (the runner keeps LR on the native path: no
@@ -130,9 +139,12 @@ Phases, each printing one JSON line:
      tile edges; the removal pass's chained kills, ties, overflows and
      empty windows, one launch each), and tandem_at and cycle_screen on
      the batches of gpu/screencases.py (at its TANDEM_PARAMS and
-     SCREEN_ROUNDS), and compress_round on the batches of
-     gpu/compresscases.py (one launch each), held bit-equal to the plain
-     versions.
+     SCREEN_ROUNDS), compress_round on the batches of
+     gpu/compresscases.py, and components, compact_state, item_mincovs and
+     low_cov_pass on the batches of gpu/statecases.py (under
+     set_sync_debug_mode("error"); compact_state's hold-point flag on
+     dead_edge_batch's first lane alone), one launch each, held bit-equal
+     to the plain versions.
 Then the kernels' summary line, nvidia-smi's line, and last the device
 line. Every path's launch counts are set to 0 just before it runs and read
 just after. Any failure exits non-zero before the last line. Without a
@@ -500,7 +512,8 @@ def build_all():
     ({name: seconds}, {name: library}, ptxas lines). Raises with the
     compiler's error text."""
     from lancet_tpu_torch import native
-    from lancet_tpu_torch.gpu import compress, gotoh, repeats, screens, walks
+    from lancet_tpu_torch.gpu import (compress, gotoh, graphstate, repeats,
+                                      screens, walks)
 
     secs, libs, errs = {}, {}, {}
 
@@ -516,7 +529,8 @@ def build_all():
           for a in (("native", native.build), ("gotoh_cu", gotoh.build),
                     ("repeats_cu", repeats.build), ("walks_cu", walks.build),
                     ("screens_cu", screens.build),
-                    ("compress_cu", compress.build))]
+                    ("compress_cu", compress.build),
+                    ("graphstate_cu", graphstate.build))]
     for t in ts:
         t.start()
     for t in ts:
@@ -527,7 +541,7 @@ def build_all():
         raise RuntimeError(f"build failed: {sorted(errs)}")
     ptxas = {}
     for name in ("gotoh_cu", "repeats_cu", "walks_cu", "screens_cu",
-                 "compress_cu"):
+                 "compress_cu", "graphstate_cu"):
         with open(os.path.join(HERE, libs[name]) + ".log") as f:
             ptxas[name] = [ln.strip() for ln in f
                            if "registers" in ln or "spill" in ln]
@@ -825,20 +839,23 @@ def default_windows(workdir: str, region: str) -> list[str]:
 
 
 def launch_counts() -> dict:
-    from lancet_tpu_torch.gpu import compress, gotoh, repeats, screens, walks
+    from lancet_tpu_torch.gpu import (compress, gotoh, graphstate, repeats,
+                                      screens, walks)
 
     return {**gotoh.LAUNCHES, **repeats.LAUNCHES, **walks.LAUNCHES,
-            **screens.LAUNCHES, **compress.LAUNCHES}
+            **screens.LAUNCHES, **compress.LAUNCHES, **graphstate.LAUNCHES}
 
 
 def reset_counts() -> None:
-    from lancet_tpu_torch.gpu import compress, gotoh, repeats, screens, walks
+    from lancet_tpu_torch.gpu import (compress, gotoh, graphstate, repeats,
+                                      screens, walks)
 
     gotoh.reset_launches()
     repeats.reset_launches()
     walks.reset_launches()
     screens.reset_launches()
     compress.reset_launches()
+    graphstate.reset_launches()
 
 
 def vcf_records(vcf: str) -> list[str]:
@@ -1037,15 +1054,45 @@ COMPRESS_OPS = {"item": 24, "edge": 16, "mer": 16, "state_round": 4}
 # its chain floor: the slowest window's jumping rounds x one dependent
 # shared load (the word the last round's word points at)
 COMPRESS_CHAIN_LOADS = 1
-# functions of the device graph engine (gpu/stages.py) whose calls and
-# aten ops (about one kernel launch each) are counted: the torch-op
-# functions of run_attempt and cleanup, and the removal pass (one K2
-# launch and its outputs' allocation). A count includes the calls it
-# makes to the others: compress_round's holds its links and chain_jump,
-# low_cov_pass's its item_mincovs.
+# functions of the device graph engine (gpu/stages.py, and gpu/dbg.py's
+# build_k) whose calls and aten ops (about one kernel launch each) are
+# counted: the torch-op functions of the build, run_attempt and cleanup,
+# and the kernels' wrappers (a launch and its outputs' allocation). A count
+# includes the calls it makes to the others: compress_round's plain
+# version holds its links and chain_jump, low_cov_pass's its item_mincovs.
 _OP_COUNTED = ("tandem_at", "cycle_screen", "compress_round",
                "_seq_removal_pass", "components", "chain_jump",
-               "low_cov_pass", "compact_state", "item_mincovs", "links")
+               "low_cov_pass", "compact_state", "item_mincovs", "links",
+               "build_k")
+# the component labels, compaction and low-coverage pass of
+# csrc/graphstate.cu (their wrappers in gpu/graphstate.py): every card call
+# held against its plain version, dtypes too, one launch and no host sync
+# a call, the largest call of each timed
+_GRAPHSTATE = ("components", "compact_state", "low_cov_pass",
+               "item_mincovs")
+_GRAPHSTATE_SOURCES = {"components": "lancet_tpu/tpu/stages.py:73",
+                       "compact_state": "lancet_tpu/tpu/stages.py:406",
+                       "low_cov_pass": "lancet_tpu/tpu/stages.py:528",
+                       "item_mincovs": "lancet_tpu/tpu/stages.py:382"}
+_GRAPHSTATE_KERNELS = {"components": "components_kernel",
+                       "compact_state": "compact_kernel",
+                       "low_cov_pass": "lowcov_kernel",
+                       "item_mincovs": "lowcov_kernel"}
+# aten ops of one call on the card: its outputs' allocations (components
+# 3, compact_state 18 with comp, item_mincovs 2) and low_cov_pass's
+# threshold product beside its 3; the launch goes through ctypes
+GRAPHSTATE_MAX_ATEN_OPS = {"components": 3, "compact_state": 18,
+                           "low_cov_pass": 4, "item_mincovs": 2}
+# Integer operations of each function, by hand, as lower bounds:
+# components 4 an alive edge (two label loads, the min, two mins) and 6 an
+# item (its label, the numbering and output), each once, the least any
+# schedule does (the kernel's rounds repeat them); compact_state 4 an item
+# (its flag and scan), 4 an edge, 3 a mer; a kept totq position 2 (the
+# load and the min), 12 a donating mer, 10 an item and 4 an edge
+# (low_cov_pass's test and removal).
+GRAPHSTATE_OPS = {"comp_edge": 4, "comp_item": 6, "compact_item": 4,
+                  "compact_edge": 4, "compact_mer": 3, "low_pos": 2,
+                  "low_mer": 12, "low_item": 10, "low_edge": 4}
 
 
 def _tree(x, fn):
@@ -1064,27 +1111,36 @@ def _on_card(args) -> bool:
 
 
 def _walk_args(name: str, args: list) -> list:
-    """A walk call's arguments as kept: a removal pass's or compression
-    pass's state reduced to the keys the pass reads."""
-    from lancet_tpu_torch.gpu import compress, walks
+    """A walk call's arguments as kept: a removal pass's, compression
+    pass's or graphstate function's state reduced to the keys it reads."""
+    from lancet_tpu_torch.gpu import compress, graphstate, walks
 
     if name == "seq_removal":
         keys = walks.REMOVAL_KEYS
     elif name == _COMPRESS:
         keys = compress.INPUT_KEYS
+    elif name in graphstate.READS:
+        keys = graphstate.READS[name]
     else:
         return args
-    return [{k: args[0][k] for k in keys}] + list(args[1:])
+    return [{k: args[0][k] for k in keys if k in args[0]}] + list(args[1:])
 
 
 def _walk_out(name: str, out):
     """A walk call's outputs as kept: a compression pass's rewritten keys
-    and fallback."""
-    if name != _COMPRESS:
-        return out
-    from lancet_tpu_torch.gpu import compress
+    and fallback; compact_state's rewritten keys, over and hold-point flag
+    (all False from a plain version, which asserts); low_cov_pass's alive,
+    e_alive and low.any."""
+    from lancet_tpu_torch.gpu import compress, graphstate
 
-    return {k: out[0][k] for k in compress.OUTPUT_KEYS}, out[1]
+    if name == _COMPRESS:
+        return {k: out[0][k] for k in compress.OUTPUT_KEYS}, out[1]
+    if name == "compact_state":
+        return ({k: out[0][k] for k, _, _ in graphstate.COMPACT_OUTPUTS
+                 if k in out[0]}, out[1], out[2])
+    if name == "low_cov_pass":
+        return out[0]["alive"], out[0]["e_alive"], out[1]
+    return out
 
 
 def _kept_key(name: str, args) -> str:
@@ -1109,13 +1165,18 @@ def _walk_work(name: str, args) -> int:
         return int((args[1] > 0).sum())
     if name == "cycle_screen":  # alive items
         return int(args[4].sum())
-    if name == _COMPRESS:  # alive items
+    if name in (_COMPRESS, "compact_state"):  # alive items
         return int(args[0]["alive"].sum())
+    if name == "components":
+        return int(args[0].sum())
+    if name in ("low_cov_pass", "item_mincovs"):  # donating mers x K
+        st = args[0]
+        return int((st["keep_hi"] > st["keep_lo"]).sum()) * int(args[1])
     return int(args[5].sum())  # path_cover: runnable components
 
 
 _CHECKED = ("path_cover", "seq_removal", "almost_repeat",
-            "cycle_dfs") + _SCREENS + (_COMPRESS,)  # held every call
+            "cycle_dfs") + _SCREENS + (_COMPRESS,) + _GRAPHSTATE  # every call
 
 
 @contextlib.contextmanager
@@ -1132,7 +1193,8 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from lancet_tpu_torch.engine import devicepipe
-    from lancet_tpu_torch.gpu import compress, screens, stages, walks
+    from lancet_tpu_torch.gpu import (compress, dbg, graphstate, screens,
+                                      stages, walks)
 
     class Count(TorchDispatchMode):
         n = 0
@@ -1146,7 +1208,9 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
     real_w = {n: getattr(walks, n) for n in _WALKS}
     real_sc = {n: getattr(screens, n) for n in _SCREENS}
     real_c = compress.compress_round
-    real_s = {n: getattr(stages, n) for n in _OP_COUNTED}
+    real_g = {n: getattr(graphstate, n) for n in _GRAPHSTATE}
+    mods = {n: dbg if n == "build_k" else stages for n in _OP_COUNTED}
+    real_s = {n: getattr(mods[n], n) for n in _OP_COUNTED}
     real_a = devicepipe._assemble
     local = threading.local()  # the attempt's k; the counted depth
 
@@ -1203,9 +1267,11 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
     for n, f in real_sc.items():
         setattr(screens, n, wrap_walk(n, f))
     compress.compress_round = wrap_walk(_COMPRESS, real_c)
+    for n, f in real_g.items():
+        setattr(graphstate, n, wrap_walk(n, f))
     if ops is not None:
         for n in _OP_COUNTED:
-            setattr(stages, n, wrap_op(n))
+            setattr(mods[n], n, wrap_op(n))
     devicepipe._assemble = assemble
     try:
         yield
@@ -1215,8 +1281,10 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
         for n, f in real_sc.items():
             setattr(screens, n, f)
         compress.compress_round = real_c
+        for n, f in real_g.items():
+            setattr(graphstate, n, f)
         for n, f in real_s.items():
-            setattr(stages, n, f)
+            setattr(mods[n], n, f)
         devicepipe._assemble = real_a
 
 
@@ -1248,13 +1316,47 @@ def compress_plain(st, K, NI, N, Dcap=64):
     return {k: out[k] for k in compress.OUTPUT_KEYS}, fb
 
 
-def compress_mismatches(got, want) -> int:
-    """Elements (and dtypes) that differ between two compress_round
-    outputs ({key: tensor}, fallback)."""
-    bad = _mismatches(got, want)
-    return bad + sum(int(got[0][k].dtype != w.dtype)
-                     for k, w in want[0].items()) + int(
-        got[1].dtype != want[1].dtype)
+def dtype_mismatches(got, want) -> int:
+    """Elements, dtypes and keys that differ between two outputs (a
+    tensor, or a dict or tuple of them): compress_round's ({key: tensor},
+    fallback), a graphstate function's."""
+    if isinstance(want, dict):
+        return sum(dtype_mismatches(got[k], want[k]) for k in want) + len(
+            set(got) ^ set(want))
+    if isinstance(want, tuple):
+        return sum(dtype_mismatches(g, w) for g, w in zip(got, want))
+    return _mismatches(got, want) + int(got.dtype != want.dtype)
+
+
+def graphstate_plain(name: str, args, kw):
+    """The plain version of a graphstate function on a kept call's
+    inputs, its outputs as _walk_out keeps the kernel's."""
+    from lancet_tpu_torch.gpu import stages
+
+    return _walk_out(name, getattr(stages, f"{name}_plain")(*args, **kw))
+
+
+def graphstate_sync_free(name: str, args, kw) -> bool:
+    """The kernel's wrapper again on a kept call's inputs under
+    torch.cuda.set_sync_debug_mode("error") (a host sync raises): True
+    where it made no sync and one launch."""
+    import torch
+
+    from lancet_tpu_torch.gpu import graphstate
+
+    torch.cuda.synchronize()
+    before = graphstate.LAUNCHES[name]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        getattr(graphstate, name)(*args, **kw)
+        ok = True
+    except RuntimeError as e:
+        print(f"{name}: a host sync on the card path: {e}", file=sys.stderr)
+        ok = False
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return ok and graphstate.LAUNCHES[name] == before + 1
 
 
 def check_walk_calls(calls: list, case: str) -> dict:
@@ -1285,15 +1387,20 @@ def check_walk_calls(calls: list, case: str) -> dict:
             want = stages.cycle_screen_plain(*args, **kw)
         elif n == _COMPRESS:
             want = compress_plain(*args, **kw)
+        elif n in _GRAPHSTATE:
+            want = graphstate_plain(n, args, kw)
+            res[n]["sync_free"] = (res[n].get("sync_free", 0)
+                                   + graphstate_sync_free(n, args, kw))
         else:
             want = stages.cycle_dfs_plain(
                 *_tree(args, lambda t: t.cpu() if torch.is_tensor(t) else t),
                 **kw)
-        bad = (compress_mismatches(got, want) if n == _COMPRESS
+        bad = (dtype_mismatches(got, want) if n in (_COMPRESS, *_GRAPHSTATE)
                else _mismatches(got, want))
         res[n]["calls"] += 1
         res[n]["mismatches"] += int(bad > 0)
-    if any(r["mismatches"] for r in res.values()):
+    if any(r["mismatches"] or r.get("sync_free", r["calls"]) != r["calls"]
+           for r in res.values()):
         raise AssertionError(f"{case}: a walk kernel disagrees with its "
                              f"plain version: {res}")
     return res
@@ -1318,6 +1425,18 @@ def check_compress_ops(ops: dict, case: str) -> None:
         raise AssertionError(f"{case}: compress_round took {c} aten ops on "
                              f"the card (at most {COMPRESS_MAX_ATEN_OPS} a "
                              f"call)")
+
+
+def check_graphstate_ops(ops: dict, case: str) -> None:
+    """Each graphstate function ran on the card and took at most its
+    GRAPHSTATE_MAX_ATEN_OPS aten ops a call (counted by
+    instrument_devgraph)."""
+    for n in _GRAPHSTATE:
+        c = ops.get(n, {"calls": 0, "aten_ops": 0})
+        cap = GRAPHSTATE_MAX_ATEN_OPS[n]
+        if not c["calls"] or c["aten_ops"] > cap * c["calls"]:
+            raise AssertionError(f"{case}: {n} took {c} aten ops on the "
+                                 f"card (at most {cap} a call)")
 
 
 def run_devgraph(workdir: str, region: str, stats: dict, num_threads=8,
@@ -1811,7 +1930,7 @@ def compress_case(args, kw: dict, rate: dict, chase: dict) -> dict:
     torch.cuda.synchronize()
     want = compress_plain(*args, **kw)
     torch.cuda.synchronize()
-    err = compress_mismatches(got, want)
+    err = dtype_mismatches(got, want)
     if err:
         raise AssertionError(f"compress_round disagrees with its plain "
                              f"version on {err} outputs")
@@ -1832,6 +1951,131 @@ def compress_case(args, kw: dict, rate: dict, chase: dict) -> dict:
         "chain_loads": COMPRESS_CHAIN_LOADS,
         "chain_floor_ms": acc["chain_units"] * COMPRESS_CHAIN_LOADS
         * chase["ns_per_load"] / 1e6, **acc}
+
+
+def _kept_positions(st, K: int):
+    """(kept totq positions, donating mers) of a low-coverage call: each
+    mer of width > 0 reads its kept window within [0, K)."""
+    import torch
+
+    lo, hi, f = st["keep_lo"], st["keep_hi"], st["mer_flip"]
+    on = hi > lo
+    clo = torch.where(f, K - hi, lo).clamp(0, K)
+    chi = torch.where(f, K - lo, hi).clamp(0, K)
+    return int(torch.where(on, chi - clo, 0).sum()), int(on.sum())
+
+
+def _col_bytes(spec, axes, st, skip=()) -> int:
+    """The bytes of one element of each column of `spec` on `axes` that
+    the state holds, those in `skip` left out (i4: four int64)."""
+    import torch
+
+    return sum((1 if dt == torch.bool else 8) * (4 if ax == "i4" else 1)
+               for k, dt, ax in spec
+               if ax in axes and k in st and k not in skip)
+
+
+def graphstate_accounting(name: str, args) -> dict:
+    """What one graphstate call needs on this data: each input element
+    the function needs read once, each output written once. The flags are
+    read over every item, edge and mer; the data columns only where the
+    function uses them: components the ranks of alive items and the ends
+    of alive edges; compact_state the columns of the items it gathers
+    (min(n_reg, NCR) regular ones and the 2 Cmax anchors) and of the
+    edges it packs (min(alive, EC)), and one of keep_lo / keep_hi a mer;
+    low_cov_pass and item_mincovs mer_totq's kept positions, the
+    donating mers' columns, low_cov_pass the csum and merlen of alive
+    regular items and the ends of alive edges. The integer operations of
+    GRAPHSTATE_OPS on the same counts."""
+    from lancet_tpu_torch.gpu import graphstate
+
+    o = GRAPHSTATE_OPS
+    if name == "components":
+        alive, e_src, _, e_alive = args[:4]
+        W, NI = alive.shape
+        EE = e_src.shape[1]
+        na, ne = int(alive.sum()), int(e_alive.sum())
+        nbytes = W * (NI + EE + 8 * NI + 9) + 8 * na + 16 * ne
+        nops = ne * o["comp_edge"] + W * NI * o["comp_item"]
+        return {"bytes": nbytes, "int_ops": nops, "alive_items": na,
+                "alive_edges": ne, "W": W, "NI": NI, "EE": EE}
+    st = args[0]
+    spec = graphstate.COMPACT_INPUTS
+    if name == "compact_state":
+        N, NI, Cmax, NCR, ECR = args[1:6]
+        W, EE = st["e_src"].shape
+        NM = st["mer_item"].shape[1]
+        NC, EC = NCR + 2 * Cmax, ECR + 4 * Cmax
+        n_reg = (st["alive"] & ~st["special"]).sum(dim=1)
+        n_e = st["e_alive"].sum(dim=1)
+        items = int(n_reg.clamp(max=NCR).sum()) + W * 2 * Cmax
+        edges = int(n_e.clamp(max=EC).sum())
+        n_in = (W * (2 * NI + EE + 16 * NM)
+                + items * _col_bytes(spec, ("i", "i4"), st,
+                                     ("alive", "special"))
+                + edges * _col_bytes(spec, ("e",), st, ("e_alive",)))
+        n_out = W * (NC * _col_bytes(graphstate.COMPACT_OUTPUTS,
+                                     ("i", "i4"), st)
+                     + EC * _col_bytes(graphstate.COMPACT_OUTPUTS, ("e",),
+                                       st) + 16 * NM + 2)
+        nops = W * (NI * o["compact_item"] + EE * o["compact_edge"]
+                    + NM * o["compact_mer"])
+        return {"bytes": n_in + n_out, "int_ops": nops,
+                "gathered_items": items, "packed_edges": edges, "W": W,
+                "NI": NI, "EE": EE, "NM": NM}
+    K, NI = args[1], args[3]
+    W, NM = st["mer_item"].shape
+    pos, mers = _kept_positions(st, K)
+    nops = pos * o["low_pos"] + mers * o["low_mer"]
+    acc = {"kept_positions": pos, "donating_mers": mers, "W": W, "NI": NI,
+           "NM": NM, "K": K}
+    if name == "item_mincovs":  # mer_tot, mer_item, mer_flip a donor
+        nbytes = 8 * pos + 16 * W * NM + 17 * mers + 16 * W * NI
+        return {"bytes": nbytes, "int_ops": nops, **acc}
+    EE = st["e_src"].shape[1]
+    reg = int((st["alive"] & ~st["special"]).sum())
+    ne = int(st["e_alive"].sum())
+    nbytes = (8 * pos + 16 * W * NM + 9 * mers + 40 * reg + 16 * ne
+              + W * (2 * NI + EE + 4) + W * (NI + EE + 1))
+    nops += W * (NI * o["low_item"] + EE * o["low_edge"])
+    return {"bytes": nbytes, "int_ops": nops, "regular_items": reg,
+            "alive_edges": ne, "EE": EE, **acc}
+
+
+def graphstate_case(name: str, args, kw: dict, rate: dict) -> dict:
+    """One graphstate kernel on a call captured from the devgraph runs:
+    its outputs bit-equal to the plain version on the card (dtypes too),
+    then timed beside it (CUDA events around the wrapper; the kernel's own
+    device time, torch.profiler), the aten ops a call dispatches and the
+    card's bound (graphstate_accounting)."""
+    import torch
+
+    from lancet_tpu_torch.gpu import graphstate
+
+    def fn():
+        return _walk_out(name, getattr(graphstate, name)(*args, **kw))
+
+    def plain():
+        return graphstate_plain(name, args, kw)
+
+    got = fn()
+    torch.cuda.synchronize()
+    want = plain()
+    torch.cuda.synchronize()
+    err = dtype_mismatches(got, want)
+    if err:
+        raise AssertionError(f"{name} disagrees with its plain version on "
+                             f"{err} outputs")
+    ms = spread(cuda_times(fn, *KERNEL_REPS))
+    dev_ms = device_ms(fn, _GRAPHSTATE_KERNELS[name])
+    plain_ms = spread(cuda_times(plain, WALK_PLAIN_REPS))
+    acc = graphstate_accounting(name, args)
+    bound = {"bytes": acc["bytes"] / HBM_BYTES_PER_S * 1e3,
+             "operations": acc["int_ops"] / rate["int_ops_per_s"] * 1e3}
+    return {"name": name, "tolerance": 0, "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound": bound,
+            "aten_ops_per_call": aten_ops(fn),
+            "plain_aten_ops_per_call": aten_ops(plain), **acc}
 
 
 def mesh_main_case(workdir: str, region: str, mesh, case: str, vcf: str,
@@ -1914,7 +2158,7 @@ def mesh_devgraph_case(workdir: str, n: int, vcf_g: str, summary_g: str,
         raise AssertionError(f"mesh_counters {st['mesh_counters']} differ "
                              f"from the unsharded sums {sums_g}")
     for k in ("gotoh_align_smem", "repeat_gates", *_WALKS.values(),
-              _COMPRESS):
+              _COMPRESS, *_GRAPHSTATE):
         if launches[k] < 1:
             raise AssertionError(f"devgraph over {n} shards launched no {k}")
     return launches
@@ -2263,11 +2507,12 @@ def hard_phase(rate: dict, chase: dict) -> dict:
         raise AssertionError(f"hard: device-graph stats {got_stats} differ "
                              f"from {HARD_DEVGRAPH_STATS}")
     for k in ("gotoh_align_smem", "repeat_gates", *_WALKS.values(),
-              *_SCREENS, _COMPRESS):
+              *_SCREENS, _COMPRESS, *_GRAPHSTATE):
         if launches_g[k] < 1:
             raise AssertionError(f"hard: the devgraph run launched no {k}")
     check_screen_ops(ops, "hard devgraph", _SCREENS)
     check_compress_ops(ops, "hard devgraph")
+    check_graphstate_ops(ops, "hard devgraph")
     walks_h = {}
     for name in _WALKS:
         _, args, kw, K = largest[name]
@@ -2284,6 +2529,11 @@ def hard_phase(rate: dict, chase: dict) -> dict:
         walks_h[key] = compress_case(args, kw, rate, chase)
         emit({"phase": "kernels", "case": f"hard_{key}", "K": K,
               "launches": launches_g[_COMPRESS], **walks_h[key]})
+    for name in _GRAPHSTATE:
+        _, args, kw, K = largest[name]
+        walks_h[name] = {**graphstate_case(name, args, kw, rate), "K": K}
+        emit({"phase": "kernels", "case": f"hard_{name}", "K": K,
+              "launches": launches_g[name], **walks_h[name]})
     emit({"phase": "hard", "case": "done",
           "t_phase": time.perf_counter() - t_phase})
     return {"launches_main": launches, "launches_devgraph": launches_g,
@@ -2666,7 +2916,8 @@ def main() -> int:
         raise AssertionError(f"the removal pass took {rops} aten ops on the "
                              f"card (at most {REMOVAL_MAX_ATEN_OPS} a call)")
     walk_launches = {k: launches_g[k] + launches_a[k]
-                     for k in (*_WALKS.values(), *_SCREENS, _COMPRESS)}
+                     for k in (*_WALKS.values(), *_SCREENS, _COMPRESS,
+                               *_GRAPHSTATE)}
     if min(walk_launches.values()) < 1 or kept["cycle_dfs"][0] < 1:
         raise AssertionError(f"a walk or screen kernel did not launch, or "
                              f"no component reached the cycle replay: "
@@ -2675,6 +2926,8 @@ def main() -> int:
     check_screen_ops(ops, "devgraph case 2", _SCREENS)
     check_compress_ops(ops_g, "devgraph case 1")
     check_compress_ops(ops, "devgraph case 2")
+    check_graphstate_ops(ops_g, "devgraph case 1")
+    check_graphstate_ops(ops, "devgraph case 2")
     chase = smem_latency_ns()
     emit({"phase": "kernels", "case": "smem_latency", **chase})
     wres = {}
@@ -2691,6 +2944,11 @@ def main() -> int:
         _, args, kw = kept[key]
         wres[key] = compress_case(args, kw, rate, chase)
         emit({"phase": "kernels", "case": f"devgraph_{key}", **wres[key]})
+    for name in _GRAPHSTATE:
+        _, args, kw = kept[name]
+        wres[name] = graphstate_case(name, args, kw, rate)
+        emit({"phase": "kernels", "case": f"devgraph_{name}",
+              "launches": walk_launches[name], **wres[name]})
 
     # 7b. the JAX benchmark's hard corpus: the main path and the device
     # graph engine, whose k ladder climbs past 63; 7c. its linked-reads
@@ -2821,7 +3079,7 @@ def main() -> int:
         got = compresscases.run(arrs, K, "cuda")
         launched = compress.LAUNCHES[_COMPRESS] - before
         want = compresscases.run(arrs, K)
-        bad = compress_mismatches(
+        bad = dtype_mismatches(
             ({k: got[0][k] for k in compress.OUTPUT_KEYS}, got[1]),
             ({k: want[0][k] for k in compress.OUTPUT_KEYS}, want[1]))
         crafted[f"compress_round/{name}"] = {
@@ -2829,6 +3087,34 @@ def main() -> int:
             "shape": list(compresscases.shape_of(arrs)),
             "launches": launched, "mismatches": bad + int(launched != 1)}
         crafted_compress = max(crafted_compress, bad)
+    # the graphstate kernels on the batches of gpu/statecases.py: one
+    # launch a call, no host sync, the hold-point flag on its lane alone
+    from lancet_tpu_torch.gpu import graphstate, statecases
+
+    @contextlib.contextmanager
+    def no_sync():
+        torch.cuda.set_sync_debug_mode("error")  # a host sync raises
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    crafted_gs = dict.fromkeys(_GRAPHSTATE, 0)
+    for name, func, arrs, params in statecases.batches():
+        before = graphstate.LAUNCHES[func]
+        got = statecases.run(func, arrs, params, "cuda", guard=no_sync)
+        launched = graphstate.LAUNCHES[func] - before
+        want = statecases.run(func, arrs, params, plain=True)
+        bad = dtype_mismatches(got, want)
+        crafted[f"{func}/{name}"] = {
+            "W": arrs["alive"].shape[0], "launches": launched,
+            "mismatches": bad + int(launched != 1)}
+        crafted_gs[func] = max(crafted_gs[func], bad)
+    held = statecases.run("compact_state", statecases.dead_edge_batch(),
+                          {"caps": statecases.SMALL_CAPS}, "cuda")
+    crafted["compact_state/dead_edge"] = {
+        "W": 2, "dead_edge": held["dead_edge"].tolist(),
+        "mismatches": int(held["dead_edge"].tolist() != [True, False])}
     emit({"phase": "kernels", "case": "walks_crafted", "tolerance": 0,
           "cases": crafted})
     if any(r["mismatches"] for r in crafted.values()):
@@ -2989,6 +3275,28 @@ def main() -> int:
         "hard_by_shape": {k.split("/")[1]: shape_line(hard["walks"][k])
                           for k in hard["walks"] if k.startswith(_COMPRESS)},
         "library_ms": None})
+    for name in _GRAPHSTATE:
+        r, h = wres[name], hard["walks"][name]
+        by = max(r["bound"], key=r["bound"].get)
+        hby = max(h["bound"], key=h["bound"].get)
+        line.append({
+            "name": name, "route": "cuda",
+            "source": "lancet_tpu_torch/csrc/graphstate.cu",
+            "replaces": _GRAPHSTATE_SOURCES[name],
+            "launches": walk_launches[name],
+            "launches_by_path": by_path(name), "on_main_path": False,
+            "max_abs_err": max(r["max_abs_err"], h["max_abs_err"],
+                               crafted_gs[name]),
+            "ms": r["ms"]["median"], "plain_ms": r["plain_ms"]["median"],
+            "bound_ms": r["bound"][by], "bound_by": by,
+            "device_ms": r["device_ms"],
+            "aten_ops_per_call": r["aten_ops_per_call"],
+            "plain_aten_ops_per_call": r["plain_aten_ops_per_call"],
+            "hard_largest": {"K": h.get("K"), "ms": h["ms"]["median"],
+                             "device_ms": h["device_ms"],
+                             "plain_ms": h["plain_ms"]["median"],
+                             "bound_ms": h["bound"][hby], "bound_by": hby},
+            "library_ms": None})
     emit({"kernels": line, "t_smoke": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

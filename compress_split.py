@@ -147,7 +147,7 @@ def kernel_split(args, kw, clock_hz: float, lib) -> dict:
     outs, fb = compress._launch(st, K, NI, N, Dcap, lib=lib)
     torch.cuda.synchronize()
     got = ({k: o for k, o in zip(compress.OUTPUT_KEYS, outs)}, fb)
-    bad = cs.compress_mismatches(got, cs.compress_plain(*args, **kw))
+    bad = cs.dtype_mismatches(got, cs.compress_plain(*args, **kw))
     cyc = (stamps[:, 1:] - stamps[:, :-1]).cpu().tolist()
     tot = (stamps[:, -1] - stamps[:, 0]).cpu().tolist()
     per = {}

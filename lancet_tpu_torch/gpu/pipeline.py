@@ -196,7 +196,8 @@ def run_attempt(b, ranks, K, N, E, Cmax, cfg_s, NCR=NCR_DEFAULT,
     # compressed copy (compression keeps walk cycles and dual-orientation
     # reach); that copy IS cleanup's compress #1, computed once
     st_c1, fb_c1 = stages.compress_round(dict(st), K, NI, N)
-    st_cp, over_cp = stages.compact_state(st_c1, N, NI, Cmax, NCR, ECR)
+    st_cp, over_cp, dead_cp = stages.compact_state(st_c1, N, NI, Cmax, NCR,
+                                                   ECR)
     NIc = NCR + 2 * Cmax
     scr1 = stages.cycle_screen(
         st_cp["e_src"], st_cp["e_dst"], st_cp["e_dir"], st_cp["e_alive"],
@@ -220,6 +221,7 @@ def run_attempt(b, ranks, K, N, E, Cmax, cfg_s, NCR=NCR_DEFAULT,
                 | over_cp | same_anchor)
     res = dict(cyc1=cyc1, cyc2=cyc2, ends=ends, numcomp=numcomp,
                fallback=fallback)
+    res["dead_edge"] = dead_cp  # compact_state's hold-point
     return st, res
 
 
@@ -515,10 +517,17 @@ def materialize_jobs(st, b, paths, res, K, N, NI, Cmax, raw, max_mismatch,
     inmer = lu - dpos
     gap = dm_ok & ((inmer < st["keep_lo"][wrow3, dms])
                    | (inmer >= st["keep_hi"][wrow3, dms]))
+    # and compact_state's (stages.compact_state: no alive edge of a lane
+    # within the caps touches a dead item; a result without the flag, as
+    # the JAX engine's, folds it into fallback); one sync for all
     used = ~(fallback | res["fallback"])
-    assert not bool((used & bad_pos).any()), "a donor pos below -8"
-    assert not bool((used & gap.any(dim=2).any(dim=1)).any()), \
-        "a path base fell between donor intervals"
+    dead = res.get("dead_edge", torch.zeros_like(used))
+    bad = torch.stack([(used & bad_pos).any(),
+                       (used & gap.any(dim=2).any(dim=1)).any(),
+                       dead.any()]).tolist()
+    assert not bad[0], "a donor pos below -8"
+    assert not bad[1], "a path base fell between donor intervals"
+    assert not bad[2], "an alive edge touches a dead item"
     ch = st["mer_base"][wrow3, dms, dcis]
     comp_flip = (dfl & (dm >= 0)) ^ (ori_p == 1)
     pathseq = torch.where(dm_ok, torch.where(comp_flip, ch ^ 3, ch), 4)

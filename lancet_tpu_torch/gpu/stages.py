@@ -17,19 +17,23 @@ N+2c+1 are component c+1's fake source and sink):
 - mers (the build's node axis [N]): mer_item, mer_flip, mer_pos, keep_lo,
   keep_hi (the kept donor interval within the mer's K bases).
 
-Five functions are hand-written kernels on a CUDA tensor and their plain
+Nine functions are hand-written kernels on a CUDA tensor and their plain
 versions here on the CPU: `_seq_removal_pass` (the map-rank order removal
 sweep with the slot order, neighbour lists and removal around it; gpu.walks
 K2 `seq_removal`, the whole pass in one launch), `has_cycle_seq` (the
 hasCycleRec replay; K4 `cycle_dfs`), `tandem_at` and `cycle_screen`
-(gpu.screens) and `compress_round` (gpu.compress: edge renorm, links,
-pointer jumping and the chain merge in one launch). Their plain versions
+(gpu.screens), `compress_round` (gpu.compress: edge renorm, links,
+pointer jumping and the chain merge in one launch), and `components`,
+`compact_state`, `item_mincovs` and `low_cov_pass` (gpu.graphstate: the
+label fixpoint and numbering, the compaction, the per-item minima and the
+low-coverage removal, one launch each). Their plain versions
 (`seq_removal_pass_plain`, `cycle_dfs_plain`, `tandem_at_plain`,
 `cycle_screen_plain`, `compress_round_plain` with its `edge_renorm`,
-`links` and `chain_jump`) are the JAX loops step for step. Every other
-function is torch ops on the tensors' device. `components` is the one
-fixpoint left that JAX runs as a device `while_loop` and this file runs as
-a host loop, syncing on a predicate computed on the device each round.
+`links` and `chain_jump`, `components_plain`, `compact_state_plain`,
+`item_mincovs_plain`, `low_cov_pass_plain`) are the JAX functions step for
+step; `components_plain` runs the JAX `while_loop` as a host loop, syncing
+on a predicate computed on the device each round. Every other function is
+torch ops on the tensors' device.
 
 Scatters: JAX's `.at[].set(..., mode="drop")` becomes a write into one
 padding slot that is sliced off; where two writes could meet in one live
@@ -122,6 +126,16 @@ def touch(counts, key, n, idx, m):
 # ---------------------------------------------------------------------------
 
 def components(alive, e_src, e_dst, e_alive, rank, Cmax):
+    """Component labels (see components_plain). The `components` wrapper
+    (gpu.graphstate): on a CUDA tensor one kernel launch (plus its outputs'
+    allocation, and no host sync), else components_plain. Returns (comp
+    [W, NI] 0=none, numcomp [W], over_c [W])."""
+    from . import graphstate
+
+    return graphstate.components(alive, e_src, e_dst, e_alive, rank, Cmax)
+
+
+def components_plain(alive, e_src, e_dst, e_alive, rank, Cmax):
     """Labels connected components over alive items and numbers them 1..
     by ascending min map-rank. Returns (comp [W, NI] 0=none, numcomp [W],
     over_c [W])."""
@@ -362,6 +376,16 @@ def chain_jump(lnk, NI, rounds=None):
 # ---------------------------------------------------------------------------
 
 def item_mincovs(st, K, N, NI):
+    """Per-item (mincov, mincov_qv) (see item_mincovs_plain). The
+    `item_mincovs` wrapper (gpu.graphstate): on a CUDA tensor one kernel
+    launch (plus its outputs' allocation, and no host sync), else
+    item_mincovs_plain."""
+    from . import graphstate
+
+    return graphstate.item_mincovs(st, K, N, NI)
+
+
+def item_mincovs_plain(st, K, N, NI):
     """Per-item (mincov, mincov_qv) over the donor structure: a fully
     trimmed mer no longer donates bases (Node.cc:600-615)."""
     totq = st["mer_totq"]  # [W, N, K]
@@ -384,11 +408,26 @@ def item_mincovs(st, K, N, NI):
 
 
 def compact_state(st, N, NI, Cmax, NCR, ECR):
+    """The compact item/edge space (see compact_state_plain). The
+    `compact_state` wrapper (gpu.graphstate): on a CUDA tensor one kernel
+    launch (plus its outputs' allocation, and no host sync), else
+    compact_state_plain. Returns (compact_st, over [W], dead_edge [W]):
+    dead_edge flags the hold-point (an alive edge touches a dead item on a
+    lane within the caps) for the caller to assert at a sync it makes; the
+    plain version asserts it itself and returns it all False."""
+    from . import graphstate
+
+    return graphstate.compact_state(st, N, NI, Cmax, NCR, ECR)
+
+
+def compact_state_plain(st, N, NI, Cmax, NCR, ECR):
     """Gather the post-compress survivors into a compact item/edge space:
     regular items packed in id order into slots [0, NCR), the fake
     anchors at the fixed slots NCR+2c / NCR+2c+1, edges packed into
     ECR+4*Cmax rows; mers of dead items get an empty donor interval.
-    Returns (compact_st, over [W]); `over` lanes replay natively."""
+    Returns (compact_st, over [W], dead_edge [W]); `over` lanes replay
+    natively. The hold-point (no alive edge of a lane within the caps
+    touches a dead item) is asserted here, so dead_edge is all False."""
     W = st["alive"].shape[0]
     dev = st["alive"].device
     NC = NCR + 2 * Cmax
@@ -463,7 +502,7 @@ def compact_state(st, N, NI, Cmax, NCR, ECR):
     out["mer_item"] = torch.where(dead_mer, NCR, nm)  # anchor slot: inert
     out["keep_lo"] = st["keep_lo"]
     out["keep_hi"] = torch.where(dead_mer, st["keep_lo"], st["keep_hi"])
-    return out, over
+    return out, over, torch.zeros_like(over)
 
 
 def remove_items(st, removed):
@@ -478,10 +517,23 @@ def remove_items(st, removed):
 
 
 def low_cov_pass(st, K, N, NI, low_cov_threshold, min_cov_ratio, avgcov):
+    """removeLowCov for every component (see low_cov_pass_plain). The
+    `low_cov_pass` wrapper (gpu.graphstate): on a CUDA tensor one kernel
+    launch (plus the threshold's product and its outputs' allocation, and
+    no host sync), else low_cov_pass_plain. Returns (updated st: alive and
+    e_alive new, every other key passed through; low.any [W])."""
+    from . import graphstate
+
+    return graphstate.low_cov_pass(st, K, N, NI, low_cov_threshold,
+                                   min_cov_ratio, avgcov)
+
+
+def low_cov_pass_plain(st, K, N, NI, low_cov_threshold, min_cov_ratio,
+                       avgcov):
     """removeLowCov(true, c) for every component at once
     (Graph.cc:2790-2827), with the exact rational csum/merlen for the
     coverage==1 tests."""
-    _, mincov_qv = item_mincovs(st, K, N, NI)
+    _, mincov_qv = item_mincovs_plain(st, K, N, NI)
     csum, merlen = st["csum"], st["merlen"]
     tot_t = csum[..., 0] + csum[..., 1]
     tot_n = csum[..., 2] + csum[..., 3]

@@ -9,6 +9,7 @@ a parent commit's, on one card.
     python3 walks_ab.py --parent build/parent [--only walks|removal|gates]
     python3 walks_ab.py --only screens [--parent build/parent]
     python3 walks_ab.py --only compress
+    python3 walks_ab.py --only graphstate
 
 Walks: captures every path_cover, almost_repeat_paths and cycle_dfs call of
 chip_smoke.py's two device-graph cases (the JAX bench's region and the
@@ -47,14 +48,17 @@ limit, and a last line {"ok": true}; exits non-zero on a mismatch or
 without a card. `--only` times one part (the parent directory then needs
 only that part's source: walks.cu for walks and removal).
 
-The screens (`--only screens`) or the compression pass (`--only
-compress`, stages.compress_round against compress_round_plain), without a
-parent: device-graph case 1
+The screens (`--only screens`), the compression pass (`--only
+compress`, stages.compress_round against compress_round_plain) or the
+graphstate functions (`--only graphstate`: stages.components,
+compact_state, low_cov_pass and item_mincovs against their plain
+versions), without a parent: device-graph case 1
 and the hard corpus's device graph run (corpus.hard_corpus, 1,995
 windows), each with the part's functions (stages.tandem_at and
-stages.cycle_screen; stages.compress_round) patched to their plain
-versions (run on the card, op by op) and with the kernels of
-csrc/screens.cu or csrc/compress.cu, in turns (plain, kernel, kernel, plain): per run
+stages.cycle_screen; stages.compress_round; the four graphstate functions)
+patched to their plain versions (run on the card, op by op) and with the
+kernels of csrc/screens.cu, csrc/compress.cu or csrc/graphstate.cu, in
+turns (plain, kernel, kernel, plain): per run
 t_dg_a_dispatch, t_dg_assemble, t_devgraph, t_total and windows/s, with
 each version's spread; every VCF equal; then per version one instrumented
 run (the calls and aten ops of the counted functions,
@@ -835,7 +839,9 @@ SCREEN_KEYS = ("t_total", "t_devgraph", "t_dg_assemble", "t_dg_a_dispatch",
                "t_dg_a_exec", "n_windows")
 # the gpu/stages.py functions each part's A/B patches to its plain version
 PLAIN_AB = {"screens": ("tandem_at", "cycle_screen"),
-            "compress": ("compress_round",)}
+            "compress": ("compress_round",),
+            "graphstate": ("components", "compact_state", "low_cov_pass",
+                           "item_mincovs")}
 
 
 def plain_ab(part: str, case: str, workdir: str,
@@ -850,7 +856,8 @@ def plain_ab(part: str, case: str, workdir: str,
 
     names = PLAIN_AB[part]
     real = tuple(getattr(stages, n) for n in names)
-    versions = {"plain": tuple(getattr(stages, f"{n}_plain") for n in names),
+    versions = {"plain": tuple(getattr(stages, f"{n}_plain")
+                               for n in names),
                 "kernel": real}
 
     def use(fns):
@@ -923,13 +930,14 @@ def main() -> int:
                          "lancet_tpu_torch/csrc/screens.cu (with --only "
                          "screens: the kernels' A/B)")
     ap.add_argument("--only", choices=("walks", "removal", "gates",
-                                       "screens", "compress"),
+                                       "screens", "compress", "graphstate"),
                     help="time only the walks, the removal pass, the "
-                         "repeat gates, the screens or the compression "
-                         "pass")
+                         "repeat gates, the screens, the compression "
+                         "pass or the graphstate functions")
     a = ap.parse_args()
     if a.only not in PLAIN_AB and not a.parent:
-        ap.error("--parent is needed unless --only screens or compress")
+        ap.error("--parent is needed unless --only screens, compress or "
+                 "graphstate")
     import torch
 
     if not torch.cuda.is_available():
