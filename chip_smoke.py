@@ -6,10 +6,10 @@
 Phases, each printing one JSON line:
   1. device: the card's name and count, and nvidia-smi's name and power
      limit;
-  2. build: the native C++ plane (g++) and the six CUDA kernel libraries
+  2. build: the native C++ plane (g++) and the seven CUDA kernel libraries
      (nvcc, sm_90a: csrc/gotoh.cu, csrc/repeats.cu, csrc/walks.cu,
-     csrc/screens.cu, csrc/compress.cu, csrc/graphstate.cu), built side by
-     side
+     csrc/screens.cu, csrc/compress.cu, csrc/graphstate.cu,
+     csrc/cleanup.cu), built side by side
      from the sources in the checkout; the SASS instruction counts per
      cell of the fused Gotoh kernel's fill loop and per step of its
      traceback loop, for each instantiation, with the DPX opcodes the fill
@@ -84,7 +84,17 @@ Phases, each printing one JSON line:
      torch.cuda.set_sync_debug_mode("error") (one launch, no host sync), at
      most GRAPHSTATE_MAX_ATEN_OPS aten ops a call, and one kernels line for
      each one's largest call with the plain version's time and the bound
-     on this data (graphstate_accounting);
+     on this data (graphstate_accounting); every cleanup call of both
+     cases (and of phase mesh (b)) held bit-equal, dtypes too, to
+     cleanup_plain on its inputs on the card (the composition with host
+     bools, whose stages launch their own kernels: each of those calls,
+     the removal pass's K2 among them, held against its plain version in
+     turn, the largest kept for its kernels line) and run again under
+     set_sync_debug_mode("error") with its eight launches; every
+     tip_fixpoint and short_link_strings call held against its plain
+     version, and one kernels line for the largest tips-mode, links-mode
+     and strings call with the plain version's time and the bound on this
+     data (cleanup_accounting), at most CLEANUP_MAX_ATEN_OPS a call;
   7b. hard: the JAX benchmark's hard corpus (corpus.hard_corpus, 1,995
      windows, 8 threads): the main path on cuda and cpu, equal VCFs and
      summaries, BENCH_r05's 183 records and KMERSIZE histogram, its 201 DP
@@ -96,8 +106,9 @@ Phases, each printing one JSON line:
      bit-equal to its plain version, the aten ops of the _OP_COUNTED
      functions (at most SCREEN_MAX_ATEN_OPS a screen call,
      COMPRESS_MAX_ATEN_OPS a compress_round call, GRAPHSTATE_MAX_ATEN_OPS
-     a graphstate call, each graphstate call also free of host syncs), and
-     one kernels line per walk, screen and graphstate function on its
+     a graphstate call, each graphstate call also free of host syncs; each
+     cleanup call against cleanup_plain as in phase 7), and one kernels
+     line per walk, screen, graphstate function and cleanup loop on its
      largest call there, and per item axis for compress_round;
   7c. lr: the JAX benchmark's linked-reads corpus (corpus.lr_corpus, 595
      windows, lr_mode): the main path on cuda and cpu, then with
@@ -144,7 +155,9 @@ Phases, each printing one JSON line:
      low_cov_pass on the batches of gpu/statecases.py (under
      set_sync_debug_mode("error"); compact_state's hold-point flag on
      dead_edge_batch's first lane alone), one launch each, held bit-equal
-     to the plain versions.
+     to the plain versions; and the cleanup on the batches of
+     gpu/cleanupcases.py, free of host syncs with its eight launches,
+     bit-equal (dtypes too) to cleanup_plain.
 Then the kernels' summary line, nvidia-smi's line, and last the device
 line. Every path's launch counts are set to 0 just before it runs and read
 just after. Any failure exits non-zero before the last line. Without a
@@ -512,8 +525,8 @@ def build_all():
     ({name: seconds}, {name: library}, ptxas lines). Raises with the
     compiler's error text."""
     from lancet_tpu_torch import native
-    from lancet_tpu_torch.gpu import (compress, gotoh, graphstate, repeats,
-                                      screens, walks)
+    from lancet_tpu_torch.gpu import (cleanup, compress, gotoh, graphstate,
+                                      repeats, screens, walks)
 
     secs, libs, errs = {}, {}, {}
 
@@ -530,7 +543,8 @@ def build_all():
                     ("repeats_cu", repeats.build), ("walks_cu", walks.build),
                     ("screens_cu", screens.build),
                     ("compress_cu", compress.build),
-                    ("graphstate_cu", graphstate.build))]
+                    ("graphstate_cu", graphstate.build),
+                    ("cleanup_cu", cleanup.build))]
     for t in ts:
         t.start()
     for t in ts:
@@ -541,7 +555,7 @@ def build_all():
         raise RuntimeError(f"build failed: {sorted(errs)}")
     ptxas = {}
     for name in ("gotoh_cu", "repeats_cu", "walks_cu", "screens_cu",
-                 "compress_cu", "graphstate_cu"):
+                 "compress_cu", "graphstate_cu", "cleanup_cu"):
         with open(os.path.join(HERE, libs[name]) + ".log") as f:
             ptxas[name] = [ln.strip() for ln in f
                            if "registers" in ln or "spill" in ln]
@@ -839,16 +853,17 @@ def default_windows(workdir: str, region: str) -> list[str]:
 
 
 def launch_counts() -> dict:
-    from lancet_tpu_torch.gpu import (compress, gotoh, graphstate, repeats,
-                                      screens, walks)
+    from lancet_tpu_torch.gpu import (cleanup, compress, gotoh, graphstate,
+                                      repeats, screens, walks)
 
     return {**gotoh.LAUNCHES, **repeats.LAUNCHES, **walks.LAUNCHES,
-            **screens.LAUNCHES, **compress.LAUNCHES, **graphstate.LAUNCHES}
+            **screens.LAUNCHES, **compress.LAUNCHES, **graphstate.LAUNCHES,
+            **cleanup.LAUNCHES}
 
 
 def reset_counts() -> None:
-    from lancet_tpu_torch.gpu import (compress, gotoh, graphstate, repeats,
-                                      screens, walks)
+    from lancet_tpu_torch.gpu import (cleanup, compress, gotoh, graphstate,
+                                      repeats, screens, walks)
 
     gotoh.reset_launches()
     repeats.reset_launches()
@@ -856,6 +871,7 @@ def reset_counts() -> None:
     screens.reset_launches()
     compress.reset_launches()
     graphstate.reset_launches()
+    cleanup.reset_launches()
 
 
 def vcf_records(vcf: str) -> list[str]:
@@ -1054,16 +1070,53 @@ COMPRESS_OPS = {"item": 24, "edge": 16, "mer": 16, "state_round": 4}
 # its chain floor: the slowest window's jumping rounds x one dependent
 # shared load (the word the last round's word points at)
 COMPRESS_CHAIN_LOADS = 1
-# functions of the device graph engine (gpu/stages.py, and gpu/dbg.py's
-# build_k) whose calls and aten ops (about one kernel launch each) are
-# counted: the torch-op functions of the build, run_attempt and cleanup,
-# and the kernels' wrappers (a launch and its outputs' allocation). A count
-# includes the calls it makes to the others: compress_round's plain
-# version holds its links and chain_jump, low_cov_pass's its item_mincovs.
+# functions of the device graph engine (gpu/stages.py, gpu/dbg.py's build_k
+# and gpu/pipeline.py's cleanup and STR guard) whose calls and aten ops
+# (about one kernel launch each) are counted: the torch-op functions of the
+# build, run_attempt and cleanup, and the kernels' wrappers (a launch and
+# its outputs' allocation). A count includes the calls it makes to the
+# others: compress_round's plain version holds its links and chain_jump,
+# low_cov_pass's its item_mincovs, cleanup every stage of its own.
 _OP_COUNTED = ("tandem_at", "cycle_screen", "compress_round",
                "_seq_removal_pass", "components", "chain_jump",
                "low_cov_pass", "compact_state", "item_mincovs", "links",
-               "build_k")
+               "build_k", "cleanup", "_short_link_str_guard")
+_PIPELINE_COUNTED = ("cleanup", "_short_link_str_guard")
+# the cleanup's two loops of csrc/cleanup.cu (their wrappers in
+# gpu/cleanup.py): every card call held against its plain version, dtypes
+# too; every card call of the cleanup (gpu/pipeline.py::cleanup: its eight
+# launches) held against cleanup_plain on its inputs, and run again under
+# torch.cuda.set_sync_debug_mode("error"); the largest call of each timed
+_CLEANUP = ("tip_fixpoint", "short_link_strings")
+_CLEANUP_SOURCES = {"tip_fixpoint": "lancet_tpu/tpu/pipeline.py:167",
+                    "short_link_strings": "lancet_tpu/tpu/pipeline.py:726"}
+_CLEANUP_ALSO = {"tip_fixpoint": "lancet_tpu/tpu/pipeline.py:182, :227",
+                 "short_link_strings": "lancet_tpu/tpu/pipeline.py:195-215"}
+_CLEANUP_KERNELS = {"tip_fixpoint": "tip_fixpoint_kernel",
+                    "short_link_strings": "short_link_strings_kernel"}
+# aten ops of one call on the card: its outputs' allocations (tip_fixpoint
+# 16 state keys, the fallback and its flag rows; short_link_strings 4)
+CLEANUP_MAX_ATEN_OPS = {"tip_fixpoint": 18, "short_link_strings": 4}
+# hand-kernel launches of one cleanup call on the card: low_cov_pass,
+# compress_round, tip_fixpoint twice, item_mincovs, short_link_strings and
+# tandem_at
+CLEANUP_LAUNCHES = {"low_cov_pass": 1, "compress_round": 1,
+                    "tip_fixpoint": 2, "item_mincovs": 1,
+                    "short_link_strings": 1, "tandem_at": 1}
+# Integer operations of short_link_strings, by hand, as lower bounds: an
+# item 6 (its flags, merlen, degree and the candidate and pre tests), an
+# alive edge 2 (its source's degree), a kept base of a candidate's mer 4
+# (its position, clamp, key and atomic max), a cell 4 (its key, the base's
+# load, the complement, the store). tip_fixpoint: each compression round's
+# COMPRESS_OPS and each removal pass's 4 an item and 4 an edge (its staging).
+STRINGS_OPS = {"item": 6, "edge": 2, "position": 4, "cell": 4}
+REMOVAL_PASS_OPS = {"item": 4, "edge": 4}
+# the kernels the device graph path launches, cases 1 and 2 together (the
+# removal pass's K2 runs there inside tip_fixpoint, as its body)
+_DEVGRAPH_KERNELS = ("path_cover", "almost_repeat_paths", "cycle_dfs",
+                     "tandem_at", "cycle_screen", "compress_round",
+                     "components", "compact_state", "low_cov_pass",
+                     "item_mincovs", "tip_fixpoint", "short_link_strings")
 # the component labels, compaction and low-coverage pass of
 # csrc/graphstate.cu (their wrappers in gpu/graphstate.py): every card call
 # held against its plain version, dtypes too, one launch and no host sync
@@ -1112,8 +1165,9 @@ def _on_card(args) -> bool:
 
 def _walk_args(name: str, args: list) -> list:
     """A walk call's arguments as kept: a removal pass's, compression
-    pass's or graphstate function's state reduced to the keys it reads."""
-    from lancet_tpu_torch.gpu import compress, graphstate, walks
+    pass's, graphstate function's or cleanup loop's state reduced to the
+    keys it reads (the cleanup's whole)."""
+    from lancet_tpu_torch.gpu import cleanup, compress, graphstate, walks
 
     if name == "seq_removal":
         keys = walks.REMOVAL_KEYS
@@ -1121,6 +1175,10 @@ def _walk_args(name: str, args: list) -> list:
         keys = compress.INPUT_KEYS
     elif name in graphstate.READS:
         keys = graphstate.READS[name]
+    elif name == "tip_fixpoint":
+        keys = cleanup.READS
+    elif name == "short_link_strings":
+        keys = cleanup.STRINGS_READS
     else:
         return args
     return [{k: args[0][k] for k in keys if k in args[0]}] + list(args[1:])
@@ -1130,10 +1188,11 @@ def _walk_out(name: str, out):
     """A walk call's outputs as kept: a compression pass's rewritten keys
     and fallback; compact_state's rewritten keys, over and hold-point flag
     (all False from a plain version, which asserts); low_cov_pass's alive,
-    e_alive and low.any."""
+    e_alive and low.any; tip_fixpoint's and the cleanup's rewritten state
+    keys (those of compress_round) and fallback."""
     from lancet_tpu_torch.gpu import compress, graphstate
 
-    if name == _COMPRESS:
+    if name in (_COMPRESS, "tip_fixpoint", "cleanup"):
         return {k: out[0][k] for k in compress.OUTPUT_KEYS}, out[1]
     if name == "compact_state":
         return ({k: out[0][k] for k, _, _ in graphstate.COMPACT_OUTPUTS
@@ -1145,8 +1204,10 @@ def _walk_out(name: str, out):
 
 def _kept_key(name: str, args) -> str:
     """The key a walk's largest call is kept under: compress_round's by
-    its item axis."""
-    return f"{name}/NI{args[2]}" if name == _COMPRESS else name
+    its item axis, tip_fixpoint's by its mode."""
+    if name == _COMPRESS:
+        return f"{name}/NI{args[2]}"
+    return f"{name}/{args[1][0]}" if name == "tip_fixpoint" else name
 
 
 def _walk_work(name: str, args) -> int:
@@ -1165,8 +1226,12 @@ def _walk_work(name: str, args) -> int:
         return int((args[1] > 0).sum())
     if name == "cycle_screen":  # alive items
         return int(args[4].sum())
-    if name in (_COMPRESS, "compact_state"):  # alive items
-        return int(args[0]["alive"].sum())
+    if name in (_COMPRESS, "compact_state", "tip_fixpoint", "cleanup"):
+        return int(args[0]["alive"].sum())  # alive items
+    if name == "short_link_strings":  # short-link candidates
+        st = args[0]
+        return int((st["alive"] & ~st["special"] & (st["merlen"] > 0)
+                    & (st["merlen"] < args[5])).sum())
     if name == "components":
         return int(args[0].sum())
     if name in ("low_cov_pass", "item_mincovs"):  # donating mers x K
@@ -1176,7 +1241,8 @@ def _walk_work(name: str, args) -> int:
 
 
 _CHECKED = ("path_cover", "seq_removal", "almost_repeat",
-            "cycle_dfs") + _SCREENS + (_COMPRESS,) + _GRAPHSTATE  # every call
+            "cycle_dfs") + _SCREENS + (_COMPRESS,) + _GRAPHSTATE \
+    + _CLEANUP + ("cleanup",)  # every call
 
 
 @contextlib.contextmanager
@@ -1193,8 +1259,8 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from lancet_tpu_torch.engine import devicepipe
-    from lancet_tpu_torch.gpu import (compress, dbg, graphstate, screens,
-                                      stages, walks)
+    from lancet_tpu_torch.gpu import (cleanup, compress, dbg, graphstate,
+                                      pipeline, screens, stages, walks)
 
     class Count(TorchDispatchMode):
         n = 0
@@ -1209,7 +1275,10 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
     real_sc = {n: getattr(screens, n) for n in _SCREENS}
     real_c = compress.compress_round
     real_g = {n: getattr(graphstate, n) for n in _GRAPHSTATE}
-    mods = {n: dbg if n == "build_k" else stages for n in _OP_COUNTED}
+    real_l = {n: getattr(cleanup, n) for n in _CLEANUP}
+    mods = {n: dbg if n == "build_k" else
+            pipeline if n in _PIPELINE_COUNTED else stages
+            for n in _OP_COUNTED}
     real_s = {n: getattr(mods[n], n) for n in _OP_COUNTED}
     real_a = devicepipe._assemble
     local = threading.local()  # the attempt's k; the counted depth
@@ -1232,14 +1301,18 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
                     if key not in kept or kept[key][0] < work:
                         kept[key] = (work, copy(_walk_args(n, list(a))),
                                      dict(k))
+                held = None
+                if calls is not None and n in _CHECKED and card:
+                    # the inputs before the call: an in-place call (the
+                    # cleanup's links tip_fixpoint) rewrites them
+                    held = (copy(_walk_args(n, list(a))), copy(dict(k)))
             finally:
                 Count.paused = paused
             out = real(*a, **k)
-            if calls is not None and n in _CHECKED and card:
+            if held is not None:
                 Count.paused = True
                 try:
-                    calls.append((n, copy(_walk_args(n, list(a))), dict(k),
-                                  copy(_walk_out(n, out)),
+                    calls.append((n, *held, copy(_walk_out(n, out)),
                                   getattr(local, "K", None)))
                 finally:
                     Count.paused = paused
@@ -1269,9 +1342,13 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
     compress.compress_round = wrap_walk(_COMPRESS, real_c)
     for n, f in real_g.items():
         setattr(graphstate, n, wrap_walk(n, f))
+    for n, f in real_l.items():
+        setattr(cleanup, n, wrap_walk(n, f))
     if ops is not None:
         for n in _OP_COUNTED:
             setattr(mods[n], n, wrap_op(n))
+    # the cleanup's calls kept around its counted wrapper
+    pipeline.cleanup = wrap_walk("cleanup", pipeline.cleanup)
     devicepipe._assemble = assemble
     try:
         yield
@@ -1283,6 +1360,8 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
         compress.compress_round = real_c
         for n, f in real_g.items():
             setattr(graphstate, n, f)
+        for n, f in real_l.items():
+            setattr(cleanup, n, f)
         for n, f in real_s.items():
             setattr(mods[n], n, f)
         devicepipe._assemble = real_a
@@ -1359,14 +1438,56 @@ def graphstate_sync_free(name: str, args, kw) -> bool:
     return ok and graphstate.LAUNCHES[name] == before + 1
 
 
-def check_walk_calls(calls: list, case: str) -> dict:
+def cleanup_sync_free(args, kw) -> bool:
+    """The cleanup again on a kept call's inputs under
+    torch.cuda.set_sync_debug_mode("error") (a host sync raises): True
+    where it made no sync and launched each kernel of CLEANUP_LAUNCHES its
+    count of times."""
+    import torch
+
+    from lancet_tpu_torch.gpu import pipeline
+
+    torch.cuda.synchronize()
+    before = launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipeline.cleanup(*args, **kw)
+        ok = True
+    except RuntimeError as e:
+        print(f"cleanup: a host sync on the card path: {e}", file=sys.stderr)
+        ok = False
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return ok and all(after[k] - before[k] == n
+                      for k, n in CLEANUP_LAUNCHES.items())
+
+
+def _keep_largest(largest: dict, n: str, args, kw, K) -> None:
+    work = _walk_work(n, args)
+    key = _kept_key(n, args)
+    if key not in largest or largest[key][0] < work:
+        largest[key] = (work, args, kw, K)
+
+
+def check_walk_calls(calls: list, case: str, largest: dict | None = None,
+                     plain_ops: dict | None = None) -> dict:
     """Each captured card call of path_cover, seq_removal, almost_repeat,
-    cycle_dfs, tandem_at, cycle_screen or compress_round against the plain
-    version on its own inputs, bit for bit (cycle_dfs's on a copy on the
-    host: its step loop of small ops runs many times faster there than
-    launched op by op on the card; the screens' and compress_round's on the
-    card, compress_round's dtypes too); returns {walk: {calls,
-    mismatches}} and raises on a mismatch. Empties `calls`."""
+    cycle_dfs, tandem_at, cycle_screen, compress_round, the graphstate
+    functions, tip_fixpoint, short_link_strings or the cleanup against the
+    plain version on its own inputs, bit for bit (cycle_dfs's on a copy on
+    the host: its step loop of small ops runs many times faster there than
+    launched op by op on the card; the others' on the card, the dtypes of
+    compress_round, the graphstate functions, the cleanup loops and the
+    cleanup too); returns {walk: {calls, mismatches}} and raises on a
+    mismatch. Empties `calls`. A cleanup call's plain version is
+    cleanup_plain on the card, the composition with host bools whose
+    stages launch their own kernels (the removal pass's K2 among them):
+    each of those calls is held against its plain version in turn, its
+    largest call of each walk kept in `largest` ((work, args, kw, K)) and
+    its stages' aten ops counted into `plain_ops`; the cleanup is also run
+    again free of host syncs (cleanup_sync_free)."""
     import torch
 
     from lancet_tpu_torch.gpu import pipeline, stages
@@ -1374,7 +1495,7 @@ def check_walk_calls(calls: list, case: str) -> dict:
     torch.cuda.synchronize()
     res = {n: {"calls": 0, "mismatches": 0} for n in _CHECKED}
     while calls:
-        n, args, kw, got, _ = calls.pop(0)
+        n, args, kw, got, K = calls.pop(0)
         if n == "path_cover":
             want = pipeline.path_cover_plain(*args, **kw)
         elif n == "seq_removal":
@@ -1391,11 +1512,33 @@ def check_walk_calls(calls: list, case: str) -> dict:
             want = graphstate_plain(n, args, kw)
             res[n]["sync_free"] = (res[n].get("sync_free", 0)
                                    + graphstate_sync_free(n, args, kw))
+        elif n == "tip_fixpoint":
+            want = _walk_out(n, pipeline.tip_fixpoint_plain(
+                *args, **_plain_kw(kw)))
+        elif n == "short_link_strings":
+            want = pipeline.short_link_stage_plain(*args, **kw)
+        elif n == "cleanup":
+            inner: list = []
+            with instrument_devgraph(None, plain_ops, inner):
+                want = _walk_out(n, pipeline.cleanup_plain(*args, **kw))
+            inner = [c[:4] + (K,) for c in inner]
+            if largest is not None:
+                for c in inner:
+                    _keep_largest(largest, c[0], c[1], c[2], K)
+            for m, r in check_walk_calls(inner, case).items():
+                for f in ("calls", "mismatches", "sync_free"):
+                    if f in r:
+                        res[m][f] = res[m].get(f, 0) + r[f]
+                res[m]["plain_cleanup_calls"] = (
+                    res[m].get("plain_cleanup_calls", 0) + r["calls"])
+            res[n]["sync_free"] = (res[n].get("sync_free", 0)
+                                   + cleanup_sync_free(args, kw))
         else:
             want = stages.cycle_dfs_plain(
                 *_tree(args, lambda t: t.cpu() if torch.is_tensor(t) else t),
                 **kw)
-        bad = (dtype_mismatches(got, want) if n in (_COMPRESS, *_GRAPHSTATE)
+        bad = (dtype_mismatches(got, want)
+               if n in (_COMPRESS, *_GRAPHSTATE, *_CLEANUP, "cleanup")
                else _mismatches(got, want))
         res[n]["calls"] += 1
         res[n]["mismatches"] += int(bad > 0)
@@ -2078,6 +2221,175 @@ def graphstate_case(name: str, args, kw: dict, rate: dict) -> dict:
             "plain_aten_ops_per_call": aten_ops(plain), **acc}
 
 
+def _nbytes(*ts) -> int:
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in ts
+               if torch.is_tensor(t))
+
+
+@contextlib.contextmanager
+def _counting(mod, names, counts: dict):
+    """While active: count the calls of mod's functions `names`."""
+    real = {n: getattr(mod, n) for n in names}
+
+    def wrap(n, f):
+        def g(*a, **k):
+            counts[n] = counts.get(n, 0) + 1
+            return f(*a, **k)
+        return g
+
+    for n, f in real.items():
+        setattr(mod, n, wrap(n, f))
+    try:
+        yield
+    finally:
+        for n, f in real.items():
+            setattr(mod, n, f)
+
+
+def _plain_kw(kw: dict) -> dict:
+    """A tip_fixpoint call's keywords for its plain version, which returns
+    new tensors whether or not the call was in place."""
+    return {k: v for k, v in kw.items() if k != "inplace"}
+
+
+def cleanup_accounting(name: str, args, kw: dict, rounds: dict) -> dict:
+    """What one call of a cleanup loop needs on this data: each input
+    element read once, each output written once, and the integer
+    operations of its passes. tip_fixpoint: the state's 16 keys it
+    rewrites, special, rank and the fallback in; the 16 keys and the
+    fallback out; the links mode's mincov, thr, guard and gate in (an
+    in-place links call whose gate is closed: the gate and the fallback
+    in, the fallback out); `rounds` the removal passes and compressions the plain version ran on
+    this data (REMOVAL_PASS_OPS, COMPRESS_OPS a window). short_link_strings:
+    what its tests reach, each read once: alive of every item, special of
+    the alive ones, merlen of those not special, mincov of the candidates
+    of initial degree >= 2, thr; e_alive of every edge, e_src of the alive
+    ones; mer_item of every mer, keep_lo and keep_hi of the mers whose
+    item holds a slot, mer_pos of those with a kept base, mer_flip and
+    mer_base once a written cell (the write that wins it); its four
+    outputs (STRINGS_OPS)."""
+    import torch
+
+    from lancet_tpu_torch.gpu import cleanup, pipeline
+
+    st = args[0]
+    W, NI = st["alive"].shape
+    EE = st["e_src"].shape[1]
+    NM = st["mer_item"].shape[1]
+    if name == "tip_fixpoint":
+        state = [st[k] for k in cleanup.STATE_KEYS]
+        links = [t for t in args[1][2:6]] if args[1][0] == "links" else []
+        if links and kw.get("inplace") and not bool(links[3].any()):
+            # in place with the gate closed: the gate and the fallback in,
+            # the fallback out
+            n_in, n_out = _nbytes(links[3], args[8]), W
+        else:
+            n_in = _nbytes(*state, st["special"], st["rank"], args[8],
+                           *links)
+            n_out = _nbytes(*state) + W
+        o = COMPRESS_OPS
+        nops = W * (rounds.get("compress_round_plain", 0)
+                    * (NI * o["item"] + EE * o["edge"] + NM * o["mer"])
+                    + rounds.get("seq_removal_pass_plain", 0)
+                    * (NI * REMOVAL_PASS_OPS["item"]
+                       + EE * REMOVAL_PASS_OPS["edge"]))
+        return {"bytes": n_in + n_out, "int_ops": nops, "W": W, "NI": NI,
+                "EE": EE, "NM": NM, "mode": args[1][0],
+                "compress_rounds": rounds.get("compress_round_plain", 0),
+                "removal_passes": rounds.get("seq_removal_pass_plain", 0)}
+    mincov, thr, K, _, max_link = args[1:6]
+    alive, ea = st["alive"], st["e_alive"]
+    cand, _ = pipeline._short_link_pre(st, mincov, thr, NI, max_link)
+    deg0 = torch.zeros((W, NI + 1), dtype=torch.int64,
+                       device=ea.device).scatter_add_(
+        1, torch.where(ea, st["e_src"], NI), ea.to(torch.int64))[:, :NI]
+    slot = torch.cumsum(cand.to(torch.int64), dim=1) - 1
+    probed = cand & (slot < cleanup.SL_ITEMS)
+    mi = st["mer_item"].clamp(0, NI - 1)
+    on = torch.gather(probed, 1, mi)
+    j = torch.arange(K, device=ea.device)
+    kept = (on[..., None] & (j >= st["keep_lo"][..., None])
+            & (j < st["keep_hi"][..., None]))
+    pos = int(kept.sum())
+    at = (st["mer_pos"][..., None] + j).clamp(0, cleanup.SL_CAP - 1)
+    row = (torch.arange(W, device=ea.device)[:, None] * cleanup.SL_ITEMS
+           + torch.gather(slot, 1, mi))
+    written = int(torch.unique((row[..., None] * cleanup.SL_CAP
+                                + at)[kept]).numel())
+    cells = W * cleanup.SL_ITEMS * cleanup.SL_CAP
+    n_in = (W * NI + int(alive.sum()) + 8 * int((alive & ~st["special"])
+                                                .sum())
+            + 8 * int((cand & (deg0 >= 2)).sum()) + 8 * W
+            + W * EE + 8 * int(ea.sum())
+            + 8 * W * NM + 16 * int(on.sum()) + 8 * int(kept.any(-1).sum())
+            + 9 * written)
+    n_out = 8 * cells + 16 * W * cleanup.SL_ITEMS + W
+    o = STRINGS_OPS
+    nops = (W * NI * o["item"] + int(ea.sum()) * o["edge"]
+            + pos * o["position"] + cells * o["cell"])
+    return {"bytes": n_in + n_out, "int_ops": nops, "W": W, "NI": NI,
+            "EE": EE, "NM": NM, "K": K, "candidates": int(cand.sum()),
+            "probed": int(probed.sum()), "kept_bases": pos,
+            "written_cells": written}
+
+
+def cleanup_case(key: str, args, kw: dict, rate: dict) -> dict:
+    """One cleanup loop's kernel on a call captured from the devgraph runs
+    (`key`: tip_fixpoint/tips, tip_fixpoint/links or short_link_strings):
+    its outputs bit-equal to the plain version on the card (dtypes too),
+    then timed beside it (CUDA events around the wrapper; the kernel's own
+    device time, torch.profiler), the aten ops a call dispatches (at most
+    CLEANUP_MAX_ATEN_OPS) and the card's bound (cleanup_accounting). An
+    in-place call (the links tip_fixpoint) runs on a copy of its inputs:
+    the check's call on the copy as captured, the timed repeats on what the
+    calls before them wrote (with the gate closed, the same work; with it
+    open, the links pass again on its own output)."""
+    import torch
+
+    from lancet_tpu_torch.gpu import cleanup, pipeline, stages
+
+    name = key.split("/")[0]
+    work = (_tree(args, lambda t: t.clone() if torch.is_tensor(t) else t)
+            if kw.get("inplace") else args)
+
+    def fn():
+        return _walk_out(name, getattr(cleanup, name)(*work, **kw))
+
+    def plain():
+        if name == "tip_fixpoint":
+            return _walk_out(name, pipeline.tip_fixpoint_plain(
+                *args, **_plain_kw(kw)))
+        return pipeline.short_link_stage_plain(*args, **kw)
+
+    got = fn()
+    torch.cuda.synchronize()
+    rounds: dict = {}
+    with _counting(stages, ("compress_round_plain",
+                            "seq_removal_pass_plain"), rounds):
+        want = plain()
+    torch.cuda.synchronize()
+    err = dtype_mismatches(got, want)
+    if err:
+        raise AssertionError(f"{key} disagrees with its plain version on "
+                             f"{err} outputs")
+    ops = aten_ops(fn)
+    if ops > CLEANUP_MAX_ATEN_OPS[name]:
+        raise AssertionError(f"{key} took {ops} aten ops on the card (at "
+                             f"most {CLEANUP_MAX_ATEN_OPS[name]})")
+    ms = spread(cuda_times(fn, *KERNEL_REPS))
+    dev_ms = device_ms(fn, _CLEANUP_KERNELS[name])
+    plain_ms = spread(cuda_times(plain, WALK_PLAIN_REPS))
+    acc = cleanup_accounting(name, args, kw, rounds)
+    bound = {"bytes": acc["bytes"] / HBM_BYTES_PER_S * 1e3,
+             "operations": acc["int_ops"] / rate["int_ops_per_s"] * 1e3}
+    return {"name": key, "tolerance": 0, "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound": bound,
+            "aten_ops_per_call": ops, "plain_aten_ops_per_call":
+            aten_ops(plain), **acc}
+
+
 def mesh_main_case(workdir: str, region: str, mesh, case: str, vcf: str,
                    summary: str, st_main: dict) -> dict:
     """(a) The main path with its DP groups split over `mesh`: VCF and
@@ -2157,8 +2469,9 @@ def mesh_devgraph_case(workdir: str, n: int, vcf_g: str, summary_g: str,
     if st["mesh_counters"] != sums_g:
         raise AssertionError(f"mesh_counters {st['mesh_counters']} differ "
                              f"from the unsharded sums {sums_g}")
-    for k in ("gotoh_align_smem", "repeat_gates", *_WALKS.values(),
-              _COMPRESS, *_GRAPHSTATE):
+    for k in ("gotoh_align_smem", "repeat_gates", "path_cover",
+              "almost_repeat_paths", "cycle_dfs", "cycle_screen",
+              "tandem_at", _COMPRESS, *_GRAPHSTATE, *_CLEANUP):
         if launches[k] < 1:
             raise AssertionError(f"devgraph over {n} shards launched no {k}")
     return launches
@@ -2480,7 +2793,12 @@ def hard_phase(rate: dict, chase: dict) -> dict:
     call_ks = {n: sorted({K for m, *_, K in calls if m == n})
                for n in _CHECKED}
     t0 = time.perf_counter()
-    checked = check_walk_calls(calls, "hard devgraph")
+    plain_ops: dict = {}
+    inner: dict = {}  # the plain cleanups' stage calls
+    checked = check_walk_calls(calls, "hard devgraph", inner, plain_ops)
+    for key, val in inner.items():
+        if key not in largest or largest[key][0] < val[0]:
+            largest[key] = val
     gdev = check_gate_calls(gcalls, "hard devgraph", rate)
     t_checks = time.perf_counter() - t0
     emit({"phase": "gates", "case": "hard_devgraph_calls",
@@ -2493,6 +2811,7 @@ def hard_phase(rate: dict, chase: dict) -> dict:
           "gate_calls_captured": len(gcalls),
           "gate_calls_checked": gdev["calls"],
           "t_checks": t_checks, "torch_op_functions": ops,
+          "plain_cleanup_op_functions": plain_ops,
           "replayed_families": families, "replayed_ks": replay_ks,
           "instrumented_t_total": st_g2["t_total"], "device_busy": busy,
           "max_kmersize": max(kmersizes(vcf_g)),
@@ -2506,8 +2825,7 @@ def hard_phase(rate: dict, chase: dict) -> dict:
     if got_stats != HARD_DEVGRAPH_STATS:
         raise AssertionError(f"hard: device-graph stats {got_stats} differ "
                              f"from {HARD_DEVGRAPH_STATS}")
-    for k in ("gotoh_align_smem", "repeat_gates", *_WALKS.values(),
-              *_SCREENS, _COMPRESS, *_GRAPHSTATE):
+    for k in ("gotoh_align_smem", "repeat_gates", *_DEVGRAPH_KERNELS):
         if launches_g[k] < 1:
             raise AssertionError(f"hard: the devgraph run launched no {k}")
     check_screen_ops(ops, "hard devgraph", _SCREENS)
@@ -2534,6 +2852,12 @@ def hard_phase(rate: dict, chase: dict) -> dict:
         walks_h[name] = {**graphstate_case(name, args, kw, rate), "K": K}
         emit({"phase": "kernels", "case": f"hard_{name}", "K": K,
               "launches": launches_g[name], **walks_h[name]})
+    for key in ("tip_fixpoint/tips", "tip_fixpoint/links",
+                "short_link_strings"):
+        _, args, kw, K = largest[key]
+        walks_h[key] = {**cleanup_case(key, args, kw, rate), "K": K}
+        emit({"phase": "kernels", "case": f"hard_{key}", "K": K,
+              "launches": launches_g[key.split("/")[0]], **walks_h[key]})
     emit({"phase": "hard", "case": "done",
           "t_phase": time.perf_counter() - t_phase})
     return {"launches_main": launches, "launches_devgraph": launches_g,
@@ -2849,7 +3173,10 @@ def main() -> int:
     with instrument_devgraph(kept, ops_g, calls), sum_attempts(sums_g), \
             capture_gates(gcalls):
         vcf_g2, _ = run_devgraph(workdir, DEVGRAPH_REGION, st_g2)
-    checked_g = check_walk_calls(calls, "devgraph case 1")
+    largest_g: dict = {}  # the plain cleanups' stage calls
+    plain_ops_g: dict = {}
+    checked_g = check_walk_calls(calls, "devgraph case 1", largest_g,
+                                 plain_ops_g)
     busy = profile_devgraph(workdir, DEVGRAPH_REGION, st_g["t_total"])
     got_stats = {k: st_g[k] for k in DEVGRAPH_STATS}
     dkeys = ("t_total", "t_pipeline", "t_host", "t_unpack", "t_devgraph",
@@ -2893,7 +3220,15 @@ def main() -> int:
         vcf_a, summary_a = run_devgraph(advdir, adv_region, st_a,
                                         num_threads=2)
     launches_a = launch_counts()
-    checked_a = check_walk_calls(calls, "devgraph case 2")
+    plain_ops_a: dict = {}
+    checked_a = check_walk_calls(calls, "devgraph case 2", largest_g,
+                                 plain_ops_a)
+    # each stage's largest call of the plain cleanups, beside the run's
+    # own (the removal pass's K2 runs on the card path inside tip_fixpoint
+    # only: its calls are the plain cleanups')
+    for key, (work, args, kw, _) in largest_g.items():
+        if key not in kept or kept[key][0] < work:
+            kept[key] = (work, args, kw)
     gdev = check_gate_calls(gcalls, "devgraph cases 1 and 2", rate)
     emit({"phase": "gates", "case": "devgraph_calls", **gdev})
     gres["max_abs_err"] = max(gres["max_abs_err"], gdev["max_abs_err"])
@@ -2910,15 +3245,17 @@ def main() -> int:
     if vcf_a != vcf_an or summary_a != summary_an:
         raise AssertionError("the device graph engine's adversarial VCF "
                              "differs from the native main path's")
-    rops = ops.get("_seq_removal_pass", {"calls": 0, "aten_ops": 0})
+    # the removal pass's aten ops on the card, in case 2's plain cleanups
+    rops = plain_ops_a.get("_seq_removal_pass", {"calls": 0, "aten_ops": 0})
     if not rops["calls"] or rops["aten_ops"] > (REMOVAL_MAX_ATEN_OPS
                                                 * rops["calls"]):
         raise AssertionError(f"the removal pass took {rops} aten ops on the "
                              f"card (at most {REMOVAL_MAX_ATEN_OPS} a call)")
     walk_launches = {k: launches_g[k] + launches_a[k]
                      for k in (*_WALKS.values(), *_SCREENS, _COMPRESS,
-                               *_GRAPHSTATE)}
-    if min(walk_launches.values()) < 1 or kept["cycle_dfs"][0] < 1:
+                               *_GRAPHSTATE, *_CLEANUP)}
+    if (min(walk_launches[k] for k in _DEVGRAPH_KERNELS) < 1
+            or kept["cycle_dfs"][0] < 1):
         raise AssertionError(f"a walk or screen kernel did not launch, or "
                              f"no component reached the cycle replay: "
                              f"{walk_launches}")
@@ -2949,6 +3286,19 @@ def main() -> int:
         wres[name] = graphstate_case(name, args, kw, rate)
         emit({"phase": "kernels", "case": f"devgraph_{name}",
               "launches": walk_launches[name], **wres[name]})
+    for key in ("tip_fixpoint/tips", "tip_fixpoint/links",
+                "short_link_strings"):
+        _, args, kw = kept[key]
+        wres[key] = cleanup_case(key, args, kw, rate)
+        emit({"phase": "kernels", "case": f"devgraph_{key}",
+              "launches": walk_launches[key.split("/")[0]], **wres[key]})
+    emit({"phase": "devgraph", "case": "cleanup",
+          "calls": {"case_1": checked_g["cleanup"],
+                    "case_2": checked_a["cleanup"]},
+          "aten_ops_card": {"case_1": ops_g.get("cleanup"),
+                            "case_2": ops.get("cleanup")},
+          "aten_ops_plain": {"case_1": plain_ops_g, "case_2": plain_ops_a},
+          "launches_per_call": CLEANUP_LAUNCHES})
 
     # 7b. the JAX benchmark's hard corpus: the main path and the device
     # graph engine, whose k ladder climbs past 63; 7c. its linked-reads
@@ -3115,6 +3465,23 @@ def main() -> int:
     crafted["compact_state/dead_edge"] = {
         "W": 2, "dead_edge": held["dead_edge"].tolist(),
         "mismatches": int(held["dead_edge"].tolist() != [True, False])}
+    # the cleanup on the batches of gpu/cleanupcases.py: its eight launches
+    # free of host syncs, against cleanup_plain on the card, dtypes too
+    from lancet_tpu_torch.gpu import cleanupcases, pipeline
+
+    crafted_cleanup = 0
+    for name, arrs, K in cleanupcases.batches():
+        args = cleanupcases.inputs(arrs, K, "cuda")
+        kw = dict(U=cleanupcases.U, D2=cleanupcases.D2,
+                  TIP_ROUNDS=cleanupcases.TIP_ROUNDS)
+        ok = cleanup_sync_free(args, kw)
+        got = _walk_out("cleanup", pipeline.cleanup(*args, **kw))
+        want = _walk_out("cleanup", pipeline.cleanup_plain(*args, **kw))
+        bad = dtype_mismatches(got, want)
+        crafted[f"cleanup/{name}"] = {
+            "W": arrs["alive"].shape[0], "sync_free": ok,
+            "fallback": got[1].tolist(), "mismatches": bad + int(not ok)}
+        crafted_cleanup = max(crafted_cleanup, bad)
     emit({"phase": "kernels", "case": "walks_crafted", "tolerance": 0,
           "cases": crafted})
     if any(r["mismatches"] for r in crafted.values()):
@@ -3203,7 +3570,15 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": "lancet_tpu_torch/csrc/walks.cu",
             "replaces": _WALK_SOURCES[kname],
-            # the devgraph path is these kernels' path
+            # the devgraph path is these kernels' path (the removal pass's
+            # K2 runs there as tip_fixpoint's body: its own launches are
+            # the plain cleanups' of the checks)
+            **({"also_source": "lancet_tpu_torch/csrc/removal_body.cuh",
+                "body_runs_in": "tip_fixpoint",
+                "plain_cleanup_calls_checked":
+                    checked_g[name].get("plain_cleanup_calls", 0)
+                    + checked_a[name].get("plain_cleanup_calls", 0)}
+               if kname == "seq_removal" else {}),
             "launches": walk_launches[kname],
             "launches_by_path": by_path(kname), "on_main_path": False,
             "max_abs_err": max(r["max_abs_err"],
@@ -3274,6 +3649,8 @@ def main() -> int:
                               for k in ckeys},
         "hard_by_shape": {k.split("/")[1]: shape_line(hard["walks"][k])
                           for k in hard["walks"] if k.startswith(_COMPRESS)},
+        "also_source": "lancet_tpu_torch/csrc/compress_body.cuh",
+        "body_runs_in": "tip_fixpoint",
         "library_ms": None})
     for name in _GRAPHSTATE:
         r, h = wres[name], hard["walks"][name]
@@ -3296,6 +3673,40 @@ def main() -> int:
                              "device_ms": h["device_ms"],
                              "plain_ms": h["plain_ms"]["median"],
                              "bound_ms": h["bound"][hby], "bound_by": hby},
+            "library_ms": None})
+    for name in _CLEANUP:
+        keys = sorted(k for k in wres if k.split("/")[0] == name)
+        hkeys = sorted(k for k in hard["walks"] if k.split("/")[0] == name)
+        big = wres[f"{name}/tips" if name == "tip_fixpoint" else name]
+        by = max(big["bound"], key=big["bound"].get)
+
+        def mode_line(r):
+            b = max(r["bound"], key=r["bound"].get)
+            return {"W": r["W"], "NI": r["NI"], "ms": r["ms"]["median"],
+                    "device_ms": r["device_ms"],
+                    "plain_ms": r["plain_ms"]["median"],
+                    "bound_ms": r["bound"][b], "bound_by": b,
+                    **{k: r[k] for k in ("compress_rounds", "removal_passes",
+                                         "candidates", "kept_bases", "K")
+                       if k in r}}
+
+        line.append({
+            "name": name, "route": "cuda",
+            "source": "lancet_tpu_torch/csrc/cleanup.cu",
+            "replaces": _CLEANUP_SOURCES[name],
+            "also_replaces": _CLEANUP_ALSO[name],
+            "launches": walk_launches[name],
+            "launches_by_path": by_path(name), "on_main_path": False,
+            "max_abs_err": max([wres[k]["max_abs_err"] for k in keys]
+                               + [hard["walks"][k]["max_abs_err"]
+                                  for k in hkeys] + [crafted_cleanup]),
+            "ms": big["ms"]["median"], "plain_ms": big["plain_ms"]["median"],
+            "bound_ms": big["bound"][by], "bound_by": by,
+            "device_ms": big["device_ms"],
+            "aten_ops_per_call": big["aten_ops_per_call"],
+            "plain_aten_ops_per_call": big["plain_aten_ops_per_call"],
+            "devgraph_by_call": {k: mode_line(wres[k]) for k in keys},
+            "hard_by_call": {k: mode_line(hard["walks"][k]) for k in hkeys},
             "library_ms": None})
     emit({"kernels": line, "t_smoke": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -14,7 +14,11 @@ Two functions are sequential walks: `path_cover` (the eka/BFS cover) and
 tensor each launches its hand-written kernel (gpu.walks: K1 `path_cover`,
 K3 `almost_repeat_paths`); on the CPU it runs its plain version here
 (`path_cover_plain`, `almost_repeat_plain`), the JAX lockstep loop step
-for step. `lax.cond` becomes a host `if` on a device predicate.
+for step. The cleanup's loops (the removeTips fixpoint and the short-link
+stage under its gate) run on the card as gpu.cleanup's kernels, with no
+host read; their plain versions here (`tip_fixpoint_plain`,
+`short_link_stage_plain`, and `cleanup_plain` for the whole cleanup) turn
+`lax.cond` into a host `if` on a device predicate.
 """
 
 from __future__ import annotations
@@ -105,7 +109,43 @@ def cleanup(st, K, N, NI, cfg_s, avgcov, U=256, D2=24, TIP_ROUNDS=6,
     """lowcov(true) -> compress -> tips fixpoint -> short links -> compress
     (ref: Microassembler.cc:184-198). Returns (st, fallback). `st` is
     already compressed once (run_attempt's compress #1, shared with the
-    cycle screen); `pre_fb` is that compress's fallback."""
+    cycle screen); `pre_fb` is that compress's fallback.
+
+    On a CUDA tensor eight launches and no host read: low_cov_pass,
+    compress_round, tip_fixpoint (the tips fixpoint and its verify pass),
+    item_mincovs, short_link_strings (the short-link candidates, their gate
+    and the STR guard's strings), tandem_at, the guard's scatter (torch
+    ops) and tip_fixpoint (the links stage under the gate, in place on the
+    tips fixpoint's fresh outputs); gpu.cleanup holds the two loops'
+    kernels. On the CPU each stage and loop runs its plain version.
+    cleanup_plain is the same cleanup with host bools."""
+    from . import cleanup as loops
+
+    st, _ = stages.low_cov_pass(st, K, N, NI, cfg_s["low_cov_threshold"],
+                                cfg_s["min_cov_ratio"], avgcov)
+    st, fb = stages.compress_round(st, K, NI, N)
+    fallback = fb if pre_fb is None else fb | pre_fb
+    st, fallback = loops.tip_fixpoint(st, ("tips", cfg_s["max_tip_len"]), K,
+                                      N, NI, U, D2, TIP_ROUNDS, fallback)
+    mincov, _ = stages.item_mincovs(st, K, N, NI)
+    thr = torch.floor(torch.sqrt(avgcov)).to(torch.int64)
+    max_link = cfg_s["max_link_len"]
+    strings = loops.short_link_strings(st, mincov, thr, K, NI, max_link)
+    guard = _short_link_str_guard(
+        st, None, K, N, NI, cfg_s["max_unit_len"],
+        cfg_s["min_report_units"], cfg_s["min_report_len"],
+        cfg_s["dist_from_str"], strings=strings)
+    return loops.tip_fixpoint(
+        st, ("links", max_link, mincov, thr, guard, strings["pre_any"]), K,
+        N, NI, U, D2, TIP_ROUNDS, fallback, inplace=True)
+
+
+def cleanup_plain(st, K, N, NI, cfg_s, avgcov, U=256, D2=24, TIP_ROUNDS=6,
+                  pre_fb=None):
+    """cleanup as the JAX composition with host bools: the tips rounds and
+    the short-link stage's gate read the card (a bool a round, one for the
+    gate), and the stages dispatch as ever (kernels on a CUDA tensor, plain
+    versions on the CPU)."""
     W = st["alive"].shape[0]
     dev = st["alive"].device
     fallback = torch.zeros((W,), dtype=torch.bool, device=dev)
@@ -117,49 +157,97 @@ def cleanup(st, K, N, NI, cfg_s, avgcov, U=256, D2=24, TIP_ROUNDS=6,
     st, fb = stages.compress_round(st, K, NI, N)
     fallback |= fb
 
-    # removeTips fixpoint (Graph.cc:2885-2926): a removal-free round ends
-    # it (the graph is then compressed already); a hit compresses
-    max_tip = cfg_s["max_tip_len"]
-    r, last_hit = 0, True
-    while r < TIP_ROUNDS and (r == 0 or last_hit):
-        st, removed_any, over = stages._seq_removal_pass(
-            st, ("tips", st["merlen"], max_tip), U, D2)
-        fallback |= over
-        last_hit = bool(removed_any.any())
-        if last_hit:
-            st, fb = stages.compress_round(st, K, NI, N)
-            fallback |= fb
-        r += 1
-    # non-convergence check: one more pass must remove nothing (a last
-    # round that removed nothing was that check already)
-    if last_hit:
-        _, removed_any, over = stages._seq_removal_pass(
-            st, ("tips", st["merlen"], max_tip), U, D2)
-        fallback |= removed_any | over
+    # removeTips fixpoint (Graph.cc:2885-2926)
+    st, fallback = _tips_rounds(st, cfg_s["max_tip_len"], K, N, NI, U, D2,
+                                TIP_ROUNDS, fallback, stages._seq_removal_pass,
+                                stages.compress_round)
 
     # removeShortLinks (Graph.cc:2833-2880)
     mincov, _ = stages.item_mincovs(st, K, N, NI)
     thr = torch.floor(torch.sqrt(avgcov)).to(torch.int64)
     max_link = cfg_s["max_link_len"]
+    cand, pre = _short_link_pre(st, mincov, thr, NI, max_link)
+    # a kill needs initial degree >= 2 (the sweep only decrements) with
+    # mincov <= thr: with no such item the whole stage is a no-op
+    if bool(pre.any()):
+        guard = _short_link_str_guard(
+            st, cand, K, N, NI, cfg_s["max_unit_len"],
+            cfg_s["min_report_units"], cfg_s["min_report_len"],
+            cfg_s["dist_from_str"])
+        st, fallback = _links_round(
+            st, (max_link, mincov, thr, guard), K, N, NI, U, D2, fallback,
+            stages._seq_removal_pass, stages.compress_round)
+    return st, fallback
+
+
+def _tips_rounds(st, max_tip, K, N, NI, U, D2, rounds, fallback, removal,
+                 compress):
+    """The removeTips fixpoint with `removal` (a removal pass's function)
+    and `compress` (compress_round's): a removal-free round ends it (the
+    graph is then compressed already); a hit compresses; after a last round
+    that hit, one more pass must remove nothing (its state not kept).
+    Returns (st, fallback)."""
+    r, last_hit = 0, True
+    while r < rounds and (r == 0 or last_hit):
+        st, removed_any, over = removal(st, ("tips", st["merlen"], max_tip),
+                                        U, D2)
+        fallback = fallback | over
+        last_hit = bool(removed_any.any())
+        if last_hit:
+            st, fb = compress(st, K, NI, N)
+            fallback = fallback | fb
+        r += 1
+    # non-convergence check (a last round that removed nothing was that
+    # check already)
+    if last_hit:
+        _, removed_any, over = removal(st, ("tips", st["merlen"], max_tip),
+                                       U, D2)
+        fallback = fallback | removed_any | over
+    return st, fallback
+
+
+def _links_round(st, links, K, N, NI, U, D2, fallback, removal, compress):
+    """The removeShortLinks pass and its compress; links = (max_link,
+    mincov, thr, guard). Returns (st, fallback)."""
+    max_link, mincov, thr, guard = links
+    st, _, over = removal(
+        st, ("links", st["merlen"], max_link, mincov, thr, guard), U, D2)
+    st, fb = compress(st, K, NI, N)
+    return st, fallback | over | fb
+
+
+def _short_link_pre(st, mincov, thr, NI, max_link):
+    """The short-link candidates (alive, not special, 0 < merlen <
+    max_link) and pre: a candidate of initial degree >= 2 with mincov <=
+    thr, the only items the links pass can kill. Returns (cand, pre), [W,
+    NI] bool."""
+    W = st["alive"].shape[0]
     merlen = st["merlen"]
     cand = (st["alive"] & ~st["special"] & (merlen < max_link)
             & (merlen > 0))
     deg0 = stages.scatter_add(
         NI + 1, torch.where(st["e_alive"], st["e_src"], NI),
         st["e_alive"].to(torch.int64), W)[:, :NI]
-    # a kill needs initial degree >= 2 (the sweep only decrements) with
-    # mincov <= thr: with no such item the whole stage is a no-op
-    pre = cand & (deg0 >= 2) & (mincov <= thr[:, None])
-    if bool(pre.any()):
-        guard = _short_link_str_guard(
-            st, cand, K, N, NI, cfg_s["max_unit_len"],
-            cfg_s["min_report_units"], cfg_s["min_report_len"],
-            cfg_s["dist_from_str"])
-        st, _, over = stages._seq_removal_pass(
-            st, ("links", merlen, max_link, mincov, thr, guard), U, D2)
-        st, fb = stages.compress_round(st, K, NI, N)
-        fallback |= over | fb
-    return st, fallback
+    return cand, cand & (deg0 >= 2) & (mincov <= thr[:, None])
+
+
+def tip_fixpoint_plain(st, cond, K, N, NI, U, D2, rounds, fallback, Dcap=64):
+    """The plain version of the tip_fixpoint kernel (gpu.cleanup): cond
+    ("tips", max_tip) runs the tips fixpoint and its verify pass, cond
+    ("links", max_link, mincov, thr, guard, gate) the links pass and its
+    compress where gate [W] has a set lane; both with the removal pass's
+    and compress_round's plain versions, reading the card for each round's
+    hit and for the gate. Returns (st, fallback | the passes' flags)."""
+    def compress(s, K_, NI_, N_):
+        return stages.compress_round_plain(s, K_, NI_, N_, Dcap)
+
+    if cond[0] == "tips":
+        return _tips_rounds(st, cond[1], K, N, NI, U, D2, rounds, fallback,
+                            stages.seq_removal_pass_plain, compress)
+    if not bool(cond[5].any()):
+        return dict(st), fallback.clone()
+    return _links_round(st, cond[1:5], K, N, NI, U, D2, fallback,
+                        stages.seq_removal_pass_plain, compress)
 
 
 def run_attempt(b, ranks, K, N, E, Cmax, cfg_s, NCR=NCR_DEFAULT,
@@ -603,11 +691,13 @@ def almost_repeat_plain(seq, lens, K, max_mismatch):
     return hit.reshape(W, J)
 
 
-def _short_link_str_guard(st, cand, K, N, NI, max_unit_len,
-                          min_report_units, min_report_len, dist_from_str):
-    """Per-item STR-guard flags: find_tandems(str, ..., K-1) reported a
-    tandem near position K-1 (Graph.cc:2863-2870). Up to _SL_ITEMS
-    candidates per window are probed, each at most _SL_CAP bases."""
+def short_link_strings_plain(st, cand, K, NI):
+    """The STR guard's candidate strings: the first _SL_ITEMS candidates
+    (`cand` [W, NI]) by item index, each unitig's bases from its mers' kept
+    positions (a flipped mer's complemented), at most _SL_CAP of them.
+    Returns dict seqs [W, _SL_ITEMS, _SL_CAP] (99 where no base lands),
+    lens [W, _SL_ITEMS] (merlen + K - 1, 0 on an empty slot) and slot_item
+    [W, _SL_ITEMS] (the candidate's item, -1 on an empty slot), int64."""
     W = cand.shape[0]
     dev = cand.device
     S, C = _SL_ITEMS, _SL_CAP
@@ -647,9 +737,39 @@ def _short_link_str_guard(st, cand, K, N, NI, max_unit_len,
     item_len = st["merlen"] + K - 1
     lens = torch.where(slot_ok, _take(item_len, torch.clamp(order, 0, NI - 1)),
                        0)
+    return dict(seqs=seqs, lens=lens,
+                slot_item=torch.where(slot_ok, order, -1))
+
+
+def short_link_stage_plain(st, mincov, thr, K, NI, max_link):
+    """The plain version of the short_link_strings kernel (gpu.cleanup):
+    the candidates and pre (_short_link_pre), then their strings
+    (short_link_strings_plain). Returns the strings' dict with pre_any [W]
+    (a candidate the links pass may kill)."""
+    cand, pre = _short_link_pre(st, mincov, thr, NI, max_link)
+    out = short_link_strings_plain(st, cand, K, NI)
+    out["pre_any"] = pre.any(dim=1)
+    return out
+
+
+def _short_link_str_guard(st, cand, K, N, NI, max_unit_len,
+                          min_report_units, min_report_len, dist_from_str,
+                          strings=None):
+    """Per-item STR-guard flags: find_tandems(str, ..., K-1) reported a
+    tandem near position K-1 (Graph.cc:2863-2870). Up to _SL_ITEMS
+    candidates per window are probed, each at most _SL_CAP bases: the
+    strings of `strings` (a short_link_strings result), else
+    short_link_strings_plain's of `cand`; then the tandem_at probe and the
+    scatter of its verdicts to the items."""
+    if strings is None:
+        strings = short_link_strings_plain(st, cand, K, NI)
+    seqs, lens, slot_item = (strings["seqs"], strings["lens"],
+                             strings["slot_item"])
+    W, S, C = seqs.shape
     ans = stages.tandem_at(seqs.reshape(W * S, C), lens.reshape(W * S), K - 1,
                            max_unit_len, min_report_units, min_report_len,
                            dist_from_str).reshape(W, S)
+    ok = slot_item >= 0
     return stages.scatter_max(
-        NI, 0, torch.where(slot_ok, order, NI - 1),
-        (slot_ok & ans).to(torch.int64), W) > 0
+        NI, 0, torch.where(ok, slot_item, NI - 1),
+        (ok & ans).to(torch.int64), W) > 0

@@ -261,7 +261,9 @@ def test_tips_rounds_and_verify_sweep_equal_jax(engines):
 
     rec = engines["rec"]
     sweeps = []
-    real = tst._seq_removal_pass
+    # the removal passes of the port's cleanup on the CPU: the plain
+    # version under tip_fixpoint's
+    real = tst.seq_removal_pass_plain
 
     def counted(*a, **k):
         sweeps[-1] += 1
@@ -269,7 +271,7 @@ def test_tips_rounds_and_verify_sweep_equal_jax(engines):
 
     NCR = tpl.NCR_DEFAULT
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tst, "_seq_removal_pass", counted)
+        mp.setattr(tst, "seq_removal_pass_plain", counted)
         for i, c in enumerate(rec["chunks"]):
             cst, _ = rec["compact"][i]
             avgcov = _avgcov(engines, i)

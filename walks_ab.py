@@ -3,13 +3,13 @@
 a parent commit's, on one card.
 
     mkdir -p build/parent
-    git archive <parent commit> lancet_tpu_torch/csrc/walks.cu \\
-        lancet_tpu_torch/csrc/repeats.cu lancet_tpu_torch/csrc/screens.cu \\
-        | tar -x -C build/parent
+    git archive <parent commit> lancet_tpu_torch/csrc | tar -x -C build/parent
     python3 walks_ab.py --parent build/parent [--only walks|removal|gates]
     python3 walks_ab.py --only screens [--parent build/parent]
     python3 walks_ab.py --only compress
     python3 walks_ab.py --only graphstate
+    python3 walks_ab.py --only cleanup
+    python3 walks_ab.py --only bodies --parent build/parent
 
 Walks: captures every path_cover, almost_repeat_paths and cycle_dfs call of
 chip_smoke.py's two device-graph cases (the JAX bench's region and the
@@ -75,6 +75,27 @@ this, this, parent) by their own device time (torch.profiler): summed
 over each run's calls and, in TURNS turns of PER_TURN launches, on the
 call with the most work (with CUDA events, the bound and the chain floor
 of chip_smoke.screen_accounting).
+
+The cleanup (`--only cleanup`, without a parent): first, for device-graph
+case 1 and the hard corpus's device graph run, every card call of
+gpu/pipeline.py::cleanup of one run, run again as cleanup_plain (the
+composition with host bools: a bool read a tips round and for the
+short-link gate, the strings a K-step loop of torch ops) and as the card's
+eight launches (pipeline.cleanup), bit-equal on every call: per version the
+aten ops, hand-kernel launches and host syncs of the calls
+(set_sync_debug_mode("warn")), their device events and device time
+(torch.profiler) and the host's time to finish them, in turns (plain,
+kernel, kernel, plain), and the host syncs of the first SYNC_ATTEMPTS
+attempt tails (devicepipe._assemble) with each version (cleanup_calls_ab);
+then the end-to-end turns of the other parts with pipeline.cleanup patched
+to cleanup_plain.
+
+The moved bodies (`--only bodies`, the parent's csrc/walks.cu and
+csrc/compress.cu, from `git archive <parent> lancet_tpu_torch/csrc`):
+every seq_removal and compress_round call of device-graph case 1 run with
+cleanup_plain, launched as the parent's kernels and this tree's (whose
+bodies are csrc/removal_body.cuh and csrc/compress_body.cuh), bit-equal
+and timed in turns by their own device time (bodies_ab).
 
 The repeat gates: the parent's csrc/repeats.cu (repeat_gates(5 pointers,
 5 ints, stream), one block a window of plan_threads' threads: its first
@@ -837,11 +858,17 @@ def removal_e2e(parent_lib, workdir: str) -> tuple[dict, bool]:
 
 SCREEN_KEYS = ("t_total", "t_devgraph", "t_dg_assemble", "t_dg_a_dispatch",
                "t_dg_a_exec", "n_windows")
-# the gpu/stages.py functions each part's A/B patches to its plain version
+# the functions each part's A/B patches to its plain version (of
+# gpu/stages.py; the cleanup's of gpu/pipeline.py)
 PLAIN_AB = {"screens": ("tandem_at", "cycle_screen"),
             "compress": ("compress_round",),
             "graphstate": ("components", "compact_state", "low_cov_pass",
-                           "item_mincovs")}
+                           "item_mincovs"),
+            "cleanup": ("cleanup",)}
+PLAIN_AB_MODULE = {"cleanup": "pipeline"}
+# attempts of each case whose whole tail (devicepipe._assemble) is run
+# again to count its host syncs
+SYNC_ATTEMPTS = 2
 
 
 def plain_ab(part: str, case: str, workdir: str,
@@ -851,18 +878,21 @@ def plain_ab(part: str, case: str, workdir: str,
     op by op, and with their kernels, in turns (plain, kernel, kernel,
     plain); then one instrumented and one profiled run each. Returns (JSON
     line, every VCF equal)."""
-    import chip_smoke as cs
-    from lancet_tpu_torch.gpu import stages
+    import importlib
 
+    import chip_smoke as cs
+
+    mod = importlib.import_module(
+        f"lancet_tpu_torch.gpu.{PLAIN_AB_MODULE.get(part, 'stages')}")
     names = PLAIN_AB[part]
-    real = tuple(getattr(stages, n) for n in names)
-    versions = {"plain": tuple(getattr(stages, f"{n}_plain")
+    real = tuple(getattr(mod, n) for n in names)
+    versions = {"plain": tuple(getattr(mod, f"{n}_plain")
                                for n in names),
                 "kernel": real}
 
     def use(fns):
         for n, f in zip(names, fns):
-            setattr(stages, n, f)
+            setattr(mod, n, f)
 
     runs = {v: [] for v in versions}
     ops = {}
@@ -904,6 +934,259 @@ def plain_ab(part: str, case: str, workdir: str,
                       "torch.profiler CUDA activity"}, len(vcfs) == 1
 
 
+@contextlib.contextmanager
+def capture_cleanups(calls: list, attempts: list):
+    """While active: a copy of the inputs of every card call of
+    gpu/pipeline.py::cleanup (`calls`: (args, kwargs)) and of the first
+    SYNC_ATTEMPTS attempt tails (devicepipe._assemble, `attempts`)."""
+    import torch
+
+    import chip_smoke as cs
+    from lancet_tpu_torch.engine import devicepipe
+    from lancet_tpu_torch.gpu import pipeline
+
+    real_c, real_a = pipeline.cleanup, devicepipe._assemble
+
+    def copy(x):
+        return cs._tree(x, lambda t: t.clone() if torch.is_tensor(t) else t)
+
+    def cleanup(*a, **k):
+        if a[0]["alive"].is_cuda:
+            calls.append((copy(a), copy(k)))
+        return real_c(*a, **k)
+
+    def assemble(*a, **k):
+        if len(attempts) < SYNC_ATTEMPTS:
+            attempts.append((copy(a), copy(k)))
+        return real_a(*a, **k)
+
+    pipeline.cleanup, devicepipe._assemble = cleanup, assemble
+    try:
+        yield
+    finally:
+        pipeline.cleanup, devicepipe._assemble = real_c, real_a
+
+
+def _syncs(fn) -> int:
+    """The host syncs one call of fn makes: the warnings of
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in got)
+
+
+def cleanup_calls_ab(case: str, workdir: str, region: str) -> tuple:
+    """Every card call of the cleanup in one devgraph run of `region`, as
+    cleanup_plain (host bools; its stages' kernels) and as the cleanup's
+    eight launches, bit-equal on each call; per version, summed over the
+    calls and per call: aten ops (TorchDispatchMode), hand-kernel launches
+    (the wrappers' counts), host syncs (set_sync_debug_mode("warn")),
+    device events and their device time (torch.profiler, in turns:
+    plain, kernel, kernel, plain) and the host's time to run a call to its
+    end (perf_counter around a call and a synchronize, in the same
+    turns); then the host syncs of SYNC_ATTEMPTS whole attempt tails
+    (devicepipe._assemble) with each version. Returns (JSON line, ok)."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from lancet_tpu_torch.engine import devicepipe
+    from lancet_tpu_torch.gpu import pipeline
+
+    calls: list = []
+    attempts: list = []
+    with capture_cleanups(calls, attempts):
+        cs.run_devgraph(workdir, region, {})
+    torch.cuda.synchronize()
+    versions = {"plain": pipeline.cleanup_plain,
+                "kernel": pipeline.cleanup}
+
+    def run_all(fn):
+        return [fn(*a, **k) for a, k in calls]
+
+    outs = {v: run_all(f) for v, f in versions.items()}
+    torch.cuda.synchronize()
+    mism = sum(cs.dtype_mismatches(cs._walk_out("cleanup", g),
+                                   cs._walk_out("cleanup", w)) > 0
+               for g, w in zip(outs["kernel"], outs["plain"]))
+    per = {}
+    for ver, fn in versions.items():
+        before = cs.launch_counts()
+        run_all(fn)
+        torch.cuda.synchronize()
+        after = cs.launch_counts()
+        per[ver] = {
+            "aten_ops": sum(cs.aten_ops(lambda a=a, k=k: fn(*a, **k))
+                            for a, k in calls),
+            "launches": {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]},
+            "host_syncs": sum(_syncs(lambda a=a, k=k: fn(*a, **k))
+                              for a, k in calls),
+            "device_ms": [], "device_events": [], "host_ms": []}
+    for ver in ("plain", "kernel", "kernel", "plain"):
+        fn = versions[ver]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_all(fn)
+            torch.cuda.synchronize()
+        ev = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+        per[ver]["device_ms"].append(sum(ev) / 1e6)
+        per[ver]["device_events"].append(len(ev))
+        t0 = time.perf_counter()
+        for a, k in calls:
+            fn(*a, **k)
+            torch.cuda.synchronize()
+        per[ver]["host_ms"].append((time.perf_counter() - t0) * 1e3)
+    n = max(len(calls), 1)
+    for p in per.values():
+        p["aten_ops_per_call"] = p["aten_ops"] / n
+        p["launches_per_call"] = {k: v / n for k, v in p["launches"].items()}
+        p["host_syncs_per_call"] = p["host_syncs"] / n
+    # whole attempt tails: the cleanup's syncs beside the rest's
+    real = pipeline.cleanup
+    syncs = {}
+    try:
+        for ver, fn in (("plain", pipeline.cleanup_plain),
+                        ("kernel", real)):
+            pipeline.cleanup = fn
+            syncs[ver] = [_syncs(lambda a=a, k=k: devicepipe._assemble(
+                *a, **k)) for a, k in attempts]
+    finally:
+        pipeline.cleanup = real
+    ok = mism == 0 and bool(calls)
+    return {"cleanup_calls": case, "region": region, "calls": len(calls),
+            "calls_mismatched": mism, "order": ["plain", "kernel", "kernel",
+                                                "plain"],
+            "versions": per, "host_syncs_per_attempt": syncs,
+            "source": "TorchDispatchMode; the wrappers' launch counts; "
+                      "torch.cuda.set_sync_debug_mode('warn'); "
+                      "torch.profiler CUDA activity; perf_counter"}, ok
+
+
+def _build_parent_bodies(parent: str) -> dict:
+    """The parent's csrc/walks.cu and csrc/compress.cu, built beside this
+    tree's and bound with this tree's seq_removal and compress_round entry
+    points (whose signatures the split into csrc/removal_body.cuh and
+    csrc/compress_body.cuh left as they were)."""
+    from lancet_tpu_torch._build import build_shared
+    from lancet_tpu_torch.gpu import compress
+    from lancet_tpu_torch.gpu.gotoh import NVCC_FLAGS, _nvcc
+
+    csrc = os.path.join(os.path.abspath(parent), "lancet_tpu_torch", "csrc")
+    libs = {}
+    for stem in ("walks", "compress"):
+        src = os.path.join(csrc, f"{stem}.cu")
+        libs[stem] = build_shared(src, f"lib{stem}_parent",
+                                  [_nvcc()] + NVCC_FLAGS + [src])
+    walks = ctypes.CDLL(libs["walks"])
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    walks.seq_removal.restype = ci
+    walks.seq_removal.argtypes = ([vp] * 14 + [ci] * 6
+                                  + [ctypes.c_longlong, ctypes.c_size_t, vp])
+    return {"seq_removal": walks, "compress_round": compress.bind(
+        libs["compress"])}
+
+
+def bodies_ab(parent: str, workdir: str) -> tuple[list, bool]:
+    """The two kernels whose bodies moved into headers, against the
+    parent's: every seq_removal and compress_round call of device-graph
+    case 1 with the cleanup's plain composition (cleanup_plain, whose
+    removal passes and compressions launch these kernels), each launched
+    as the parent's build and this tree's, the outputs bit-equal, and
+    timed by their own device time (torch.profiler) in turns (parent,
+    this, this, parent): summed over the calls (3 launches each) and on
+    the largest call in TURNS turns of PER_TURN launches."""
+    import torch
+
+    import chip_smoke as cs
+    from lancet_tpu_torch.gpu import compress, pipeline, walks
+
+    libs = _build_parent_bodies(parent)
+    calls: list = []
+    real = pipeline.cleanup
+    pipeline.cleanup = pipeline.cleanup_plain
+    try:
+        with cs.instrument_devgraph(None, None, calls):
+            cs.run_devgraph(workdir, cs.DEVGRAPH_REGION, {})
+    finally:
+        pipeline.cleanup = real
+    torch.cuda.synchronize()
+
+    def launchers(name, args, kw):
+        if name == "seq_removal":
+            def run(lib):
+                def f():
+                    saved = walks._lib
+                    walks._lib = lib
+                    try:
+                        return walks.seq_removal(*args, **kw)
+                    finally:
+                        walks._lib = saved
+                return f
+            return run(libs[name]), run(walks._load())
+
+        def run(lib):
+            def f():
+                outs, fb = compress._launch(*args, **kw, lib=lib)
+                return (*outs, fb)
+            return f
+        return run(libs[name]), run(compress._load())
+
+    lines, ok = [], True
+    for name, kernel in (("seq_removal", "seq_removal_kernel"),
+                         ("compress_round", "compress_kernel")):
+        mine = [(a, k) for n, a, k, _, _ in calls if n == name]
+        if name == "compress_round":  # the wrapper's inputs as _launch's
+            mine = [(a[:4], {"Dcap": a[4] if len(a) > 4 else
+                             k.get("Dcap", 64)}) for a, k in mine]
+        mism, total = 0, {"parent": [], "this": []}
+        largest, work = None, -1
+        for args, kw in mine:
+            par, new = launchers(name, args, kw)
+            a, b = par(), new()
+            torch.cuda.synchronize()
+            mism += cs._mismatches(b, a) > 0
+            for ver, fn in (("parent", par), ("this", new)):
+                total[ver].append(cs.device_ms(fn, kernel, 3))
+            w = int(args[0]["alive"].sum())
+            if w > work:
+                largest, work = (args, kw), w
+        dev = {"parent": [], "this": []}
+        if largest is not None:
+            par, new = launchers(name, *largest)
+            for turn in range(TURNS):
+                order = (("parent", par), ("this", new))
+                for ver, fn in (order if turn % 2 == 0 else order[::-1]):
+                    dev[ver].append(cs.device_ms(fn, kernel, PER_TURN))
+        lines.append({
+            "body_ab": name, "calls": len(mine), "calls_mismatched": mism,
+            "largest_alive_items": work,
+            "device_ms_largest": {v: _spread(t) for v, t in dev.items()},
+            "device_ms_all_calls": {
+                v: {"sum": sum(t for t in ts if t is not None),
+                    "missed": sum(t is None for t in ts)}
+                for v, ts in total.items()},
+            "source": "torch.profiler CUDA activity"})
+        ok &= mism == 0 and bool(mine)
+    return lines, ok
+
+
 def _compare(par, new, o_par, o_new) -> int:
     import torch
 
@@ -930,14 +1213,15 @@ def main() -> int:
                          "lancet_tpu_torch/csrc/screens.cu (with --only "
                          "screens: the kernels' A/B)")
     ap.add_argument("--only", choices=("walks", "removal", "gates",
-                                       "screens", "compress", "graphstate"),
+                                       "screens", "compress", "graphstate",
+                                       "cleanup", "bodies"),
                     help="time only the walks, the removal pass, the "
                          "repeat gates, the screens, the compression "
-                         "pass or the graphstate functions")
+                         "pass, the graphstate functions or the cleanup")
     a = ap.parse_args()
     if a.only not in PLAIN_AB and not a.parent:
-        ap.error("--parent is needed unless --only screens, compress or "
-                 "graphstate")
+        ap.error("--parent is needed unless --only screens, compress, "
+                 "graphstate or cleanup")
     import torch
 
     if not torch.cuda.is_available():
@@ -947,6 +1231,15 @@ def main() -> int:
     import chip_smoke as cs
     from lancet_tpu_torch import corpus
 
+    if a.only == "bodies":
+        workdir = os.path.join(HERE, "build", "smoke_corpus")
+        corpus.write_default_corpus(workdir)
+        lines, ok = bodies_ab(a.parent, workdir)
+        for line in lines:
+            print(json.dumps(line), flush=True)
+        print(cs.nvidia_smi(), flush=True)
+        print(json.dumps({"ok": ok}), flush=True)
+        return 0 if ok else 1
     if a.only == "screens" and a.parent:
         lines, ok = screens_parent_ab(_build_parent_screens(a.parent))
         for line in lines:
@@ -965,6 +1258,10 @@ def main() -> int:
         for case, wd, region in (("devgraph_case_1", workdir,
                                   cs.DEVGRAPH_REGION),
                                  ("hard", hdir, hregion)):
+            if a.only == "cleanup":
+                line, eq = cleanup_calls_ab(case, wd, region)
+                print(json.dumps(line), flush=True)
+                ok &= eq
             line, eq = plain_ab(a.only, case, wd, region)
             print(json.dumps(line), flush=True)
             ok &= eq
