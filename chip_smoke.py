@@ -6,10 +6,10 @@
 Phases, each printing one JSON line:
   1. device: the card's name and count, and nvidia-smi's name and power
      limit;
-  2. build: the native C++ plane (g++) and the seven CUDA kernel libraries
+  2. build: the native C++ plane (g++) and the eight CUDA kernel libraries
      (nvcc, sm_90a: csrc/gotoh.cu, csrc/repeats.cu, csrc/walks.cu,
      csrc/screens.cu, csrc/compress.cu, csrc/graphstate.cu,
-     csrc/cleanup.cu), built side by side
+     csrc/cleanup.cu, csrc/dbg.cu), built side by side
      from the sources in the checkout; the SASS instruction counts per
      cell of the fused Gotoh kernel's fill loop and per step of its
      traceback loop, for each instantiation, with the DPX opcodes the fill
@@ -25,10 +25,12 @@ Phases, each printing one JSON line:
      GATE_FORCED (blocks, threads, tile) launches;
   4. main path: the default corpus (520 kb, 5,195 windows) through
      runner.run(device="cuda") with 8 threads, the Gotoh kernel's launch
-     counts (one shared-memory-mode launch per DP group), then the same
-     run with device="cpu"; the two VCFs must be byte-equal. Every DP
-     group the cuda run dispatched is kept. Then the main path at
-     --window-size 9,000 (long_window), on cuda and cpu with equal VCFs,
+     counts (one shared-memory-mode launch per DP group), then the runs
+     with device="cuda" and device="cpu" over CPU_COMPARE_REGION (401 of
+     its windows); those two VCFs must be byte-equal. Every DP group the
+     first cuda run dispatched is kept. Then the main path at
+     --window-size 9,000 (long_window), on cuda, and on cuda and cpu over
+     a part of the region (LONG_CPU_REGIONS) with equal VCFs,
      on a region of the default corpus (whose reads are tiled in 2 kb
      segments, so no DP pair there reaches 2 kb) and on
      corpus.long_window_corpus (reads tiled over 10 kb), whose DP pairs
@@ -95,9 +97,21 @@ Phases, each printing one JSON line:
      version, and one kernels line for the largest tips-mode, links-mode
      and strings call with the plain version's time and the bound on this
      data (cleanup_accounting), at most CLEANUP_MAX_ATEN_OPS a call;
+     every build_k call of both cases (and of phase mesh (b)) held
+     bit-equal, dtypes too, to build_k_plain on its inputs on the card and
+     run again under set_sync_debug_mode("error") with its thirteen
+     launches of csrc/dbg.cu (dbgk.BUILD_LAUNCHES), at most
+     BUILD_MAX_ATEN_OPS aten ops a call, and one kernels line for each of
+     mer_instances, window_sort, node_tables and edge_tables on the
+     largest call, each on its own inputs (the plain stages before it),
+     with the plain version's time, the bound on this data
+     (build_accounting) and, for window_sort, one stable torch.sort of a
+     key word at the same shape; case 1's timed run also splits t_dg_pack
+     into pack_chunk, the H2D copy and build_k's dispatch (pack_split);
   7b. hard: the JAX benchmark's hard corpus (corpus.hard_corpus, 1,995
-     windows, 8 threads): the main path on cuda and cpu, equal VCFs and
-     summaries, BENCH_r05's 183 records and KMERSIZE histogram, its 201 DP
+     windows, 8 threads): the main path on cuda (and on cuda and cpu over
+     HARD_CPU_REGION, ~600 of its windows, with equal VCFs and summaries),
+     BENCH_r05's 183 records and KMERSIZE histogram, its 201 DP
      pairs through gotoh_align; the device graph engine on the same
      region, timed, then instrumented, then profiled: its VCF and summary
      equal to the main path's, its stats equal to HARD_DEVGRAPH_STATS
@@ -107,9 +121,11 @@ Phases, each printing one JSON line:
      functions (at most SCREEN_MAX_ATEN_OPS a screen call,
      COMPRESS_MAX_ATEN_OPS a compress_round call, GRAPHSTATE_MAX_ATEN_OPS
      a graphstate call, each graphstate call also free of host syncs; each
-     cleanup call against cleanup_plain as in phase 7), and one kernels
-     line per walk, screen, graphstate function and cleanup loop on its
-     largest call there, and per item axis for compress_round;
+     cleanup call against cleanup_plain as in phase 7, each build_k call
+     against build_k_plain), t_dg_pack split as in phase 7, and one
+     kernels line per walk, screen, graphstate function, cleanup loop and
+     build kernel on its largest call there, and per item axis for
+     compress_round;
   7c. lr: the JAX benchmark's linked-reads corpus (corpus.lr_corpus, 595
      windows, lr_mode): the main path on cuda and cpu, then with
      LANCET_TPU_DEVGRAPH=1 (the runner keeps LR on the native path: no
@@ -155,9 +171,12 @@ Phases, each printing one JSON line:
      low_cov_pass on the batches of gpu/statecases.py (under
      set_sync_debug_mode("error"); compact_state's hold-point flag on
      dead_edge_batch's first lane alone), one launch each, held bit-equal
-     to the plain versions; and the cleanup on the batches of
+     to the plain versions; the cleanup on the batches of
      gpu/cleanupcases.py, free of host syncs with its eight launches,
-     bit-equal (dtypes too) to cleanup_plain.
+     bit-equal (dtypes too) to cleanup_plain; and build_k on the crafted
+     windows of gpu/buildcases.py at every bucket's shape (the hub at
+     HUB_D), free of host syncs with its thirteen launches, bit-equal
+     (dtypes too) to build_k_plain.
 Then the kernels' summary line, nvidia-smi's line, and last the device
 line. Every path's launch counts are set to 0 just before it runs and read
 just after. Any failure exits non-zero before the last line. Without a
@@ -290,11 +309,23 @@ REMOVAL_MAX_ATEN_OPS = 5
 CHASE_STEPS = (1 << 20, 1 << 22)  # the shared-memory latency probe
 LONG_WINDOW = 9000  # --window-size of phase long_window (> 8,192)
 LONG_DEFAULT_REGION = "chr1:20000-29000"  # 7 windows at LONG_WINDOW
+# The device='cpu' comparisons of the main path, of long_window and of the
+# hard corpus's main path run on a part of the region (the cuda run again
+# over the same part beside it), which keeps chip_smoke.py inside its time
+# limit: 401 of the default corpus's 5,195 windows, 2 of long_window's 7
+# default-corpus windows and 1 of the long corpus's 4 (whose DP pairs
+# still pass 8,192 bases), ~600 of the hard corpus's 1,995
+CPU_COMPARE_REGION = "chr1:300-40300"
+HARD_CPU_REGION = "chr1:300-60300"
+LONG_CPU_REGIONS = {"default_region": "chr1:20250-28750",
+                    "long_corpus": "chr1:500-8800"}
 WALK_PLAIN_REPS = 2  # the plain walks loop on the host: seconds a call
 KERNEL_REPS = (5, 10)  # batches x launches per batch, per case
-# one call each, the check's call the first: the plain versions take ~1 s
-# a call, long_ref's ~10-30 s
-PLAIN_REPS = 3
+# the plain versions of gotoh_align and repeat_gates run once, the
+# check's call, which is also their time (~3-9 s a call, long_ref's
+# 30-60 s); more calls only sharpened a yardstick, and cost ~75 s of the
+# script's limit on a slow host
+PLAIN_REPS = 1
 LONG_PLAIN_REPS = 1
 LARGE_GROUP = (132, 1000, 1100, 3)  # pairs, min and max length, seed
 # the repeats_ties pairs of tests/test_torch_align.py: homopolymer runs of
@@ -307,7 +338,14 @@ TIE_PAIRS = [("A" * 10, "A" * 7), ("CCCCCGGGG", "CCCGGGGGGG"),
              ("A" * 20, "C" * 20), ("A" * 25, "C" * 30)]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; every line but the last (the device line) carries
+    the script's wall seconds so far (t_wall_s), for its time budget."""
+    if "ok" not in obj:
+        obj = {**obj, "t_wall_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -525,8 +563,8 @@ def build_all():
     ({name: seconds}, {name: library}, ptxas lines). Raises with the
     compiler's error text."""
     from lancet_tpu_torch import native
-    from lancet_tpu_torch.gpu import (cleanup, compress, gotoh, graphstate,
-                                      repeats, screens, walks)
+    from lancet_tpu_torch.gpu import (cleanup, compress, dbgk, gotoh,
+                                      graphstate, repeats, screens, walks)
 
     secs, libs, errs = {}, {}, {}
 
@@ -544,7 +582,7 @@ def build_all():
                     ("screens_cu", screens.build),
                     ("compress_cu", compress.build),
                     ("graphstate_cu", graphstate.build),
-                    ("cleanup_cu", cleanup.build))]
+                    ("cleanup_cu", cleanup.build), ("dbg_cu", dbgk.build))]
     for t in ts:
         t.start()
     for t in ts:
@@ -555,7 +593,7 @@ def build_all():
         raise RuntimeError(f"build failed: {sorted(errs)}")
     ptxas = {}
     for name in ("gotoh_cu", "repeats_cu", "walks_cu", "screens_cu",
-                 "compress_cu", "graphstate_cu", "cleanup_cu"):
+                 "compress_cu", "graphstate_cu", "cleanup_cu", "dbg_cu"):
         with open(os.path.join(HERE, libs[name]) + ".log") as f:
             ptxas[name] = [ln.strip() for ln in f
                            if "registers" in ln or "spill" in ln]
@@ -853,17 +891,17 @@ def default_windows(workdir: str, region: str) -> list[str]:
 
 
 def launch_counts() -> dict:
-    from lancet_tpu_torch.gpu import (cleanup, compress, gotoh, graphstate,
-                                      repeats, screens, walks)
+    from lancet_tpu_torch.gpu import (cleanup, compress, dbgk, gotoh,
+                                      graphstate, repeats, screens, walks)
 
     return {**gotoh.LAUNCHES, **repeats.LAUNCHES, **walks.LAUNCHES,
             **screens.LAUNCHES, **compress.LAUNCHES, **graphstate.LAUNCHES,
-            **cleanup.LAUNCHES}
+            **cleanup.LAUNCHES, **dbgk.LAUNCHES}
 
 
 def reset_counts() -> None:
-    from lancet_tpu_torch.gpu import (cleanup, compress, gotoh, graphstate,
-                                      repeats, screens, walks)
+    from lancet_tpu_torch.gpu import (cleanup, compress, dbgk, gotoh,
+                                      graphstate, repeats, screens, walks)
 
     gotoh.reset_launches()
     repeats.reset_launches()
@@ -872,6 +910,7 @@ def reset_counts() -> None:
     compress.reset_launches()
     graphstate.reset_launches()
     cleanup.reset_launches()
+    dbgk.reset_launches()
 
 
 def vcf_records(vcf: str) -> list[str]:
@@ -974,16 +1013,21 @@ def run_main_path(device: str, workdir: str, region: str, stats: dict,
 
 def long_window_case(case: str, workdir: str, region: str) -> dict:
     """The main path at --window-size LONG_WINDOW on cuda (its launch
-    counts set to 0 just before and read just after) and on cpu: equal
-    VCFs and summaries; returns the line it emits."""
+    counts set to 0 just before and read just after), then on cuda and cpu
+    over the part LONG_CPU_REGIONS[case] of the region: equal VCFs and
+    summaries; returns the line it emits."""
     st: dict = {}
+    st_cc: dict = {}
     st_cpu: dict = {}
     groups: list = []
     reset_counts()
     vcf, summary = run_main_path("cuda", workdir, region, st, groups,
                                  window_size=LONG_WINDOW)
     launches = launch_counts()
-    vcf_cpu, summary_cpu = run_main_path("cpu", workdir, region, st_cpu,
+    cpu_region = LONG_CPU_REGIONS[case]
+    vcf_cc, summary_cc = run_main_path("cuda", workdir, cpu_region, st_cc,
+                                       window_size=LONG_WINDOW)
+    vcf_cpu, summary_cpu = run_main_path("cpu", workdir, cpu_region, st_cpu,
                                          window_size=LONG_WINDOW)
     line = {"phase": "long_window", "case": case, "region": region,
             "window_size": LONG_WINDOW, "n_windows": st["n_windows"],
@@ -993,12 +1037,15 @@ def long_window_case(case: str, workdir: str, region: str) -> dict:
             "largest_M": max((len(b) for g in groups for _, b in g),
                              default=0),
             "launches": launches, "t_total": st["t_total"],
-            "t_total_cpu": st_cpu["t_total"],
+            "cpu_region": cpu_region, "cpu_region_windows": st_cc[
+                "n_windows"], "t_total_cpu": st_cpu["t_total"],
+            "t_total_cuda_cpu_region": st_cc["t_total"],
             "vcf_records": len(vcf_records(vcf)),
-            "vcf_equal_cpu": vcf == vcf_cpu,
-            "summary_equal_cpu": summary == summary_cpu}
+            "cpu_region_vcf_records": len(vcf_records(vcf_cc)),
+            "vcf_equal_cpu": vcf_cc == vcf_cpu,
+            "summary_equal_cpu": summary_cc == summary_cpu}
     emit(line)
-    if vcf != vcf_cpu or summary != summary_cpu:
+    if vcf_cc != vcf_cpu or summary_cc != summary_cpu:
         raise AssertionError(f"long_window {case}: device='cuda' and "
                              "device='cpu' runs differ")
     if line["vcf_records"] == 0 or st["n_dp"] == 0:
@@ -1080,8 +1127,11 @@ COMPRESS_CHAIN_LOADS = 1
 _OP_COUNTED = ("tandem_at", "cycle_screen", "compress_round",
                "_seq_removal_pass", "components", "chain_jump",
                "low_cov_pass", "compact_state", "item_mincovs", "links",
-               "build_k", "cleanup", "_short_link_str_guard")
-_PIPELINE_COUNTED = ("cleanup", "_short_link_str_guard")
+               "build_k", "cleanup", "_short_link_str_guard",
+               "_extend_items", "_extend_edges", "ref_ends", "wire_anchors",
+               "okey_adjacency", "_donor_tables", "materialize_jobs")
+_PIPELINE_COUNTED = ("cleanup", "_short_link_str_guard", "_extend_items",
+                     "_extend_edges", "_donor_tables", "materialize_jobs")
 # the cleanup's two loops of csrc/cleanup.cu (their wrappers in
 # gpu/cleanup.py): every card call held against its plain version, dtypes
 # too; every card call of the cleanup (gpu/pipeline.py::cleanup: its eight
@@ -1116,7 +1166,9 @@ REMOVAL_PASS_OPS = {"item": 4, "edge": 4}
 _DEVGRAPH_KERNELS = ("path_cover", "almost_repeat_paths", "cycle_dfs",
                      "tandem_at", "cycle_screen", "compress_round",
                      "components", "compact_state", "low_cov_pass",
-                     "item_mincovs", "tip_fixpoint", "short_link_strings")
+                     "item_mincovs", "tip_fixpoint", "short_link_strings",
+                     "mer_instances", "window_sort", "node_tables",
+                     "edge_tables")
 # the component labels, compaction and low-coverage pass of
 # csrc/graphstate.cu (their wrappers in gpu/graphstate.py): every card call
 # held against its plain version, dtypes too, one launch and no host sync
@@ -1146,6 +1198,34 @@ GRAPHSTATE_MAX_ATEN_OPS = {"components": 3, "compact_state": 18,
 GRAPHSTATE_OPS = {"comp_edge": 4, "comp_item": 6, "compact_item": 4,
                   "compact_edge": 4, "compact_mer": 3, "low_pos": 2,
                   "low_mer": 12, "low_item": 10, "low_edge": 4}
+# the build of csrc/dbg.cu (its wrappers in gpu/dbgk.py): every card
+# build_k call of the devgraph, hard and mesh (b) runs held bit-equal,
+# dtypes too, to build_k_plain on its inputs on the card and run again
+# under torch.cuda.set_sync_debug_mode("error") with its thirteen launches
+# (dbgk.BUILD_LAUNCHES); the four kernels timed on the largest call
+_BUILD = ("mer_instances", "window_sort", "node_tables", "edge_tables")
+_BUILD_SOURCE = "lancet_tpu/tpu/dbg.py:120"
+_BUILD_ALSO = {"mer_instances": "lancet_tpu/tpu/dbg.py:54, :152-235",
+               "window_sort": "lancet_tpu/tpu/dbg.py:264, :367, :461, :501, "
+                              ":518, :575",
+               "node_tables": "lancet_tpu/tpu/dbg.py:239-327",
+               "edge_tables": "lancet_tpu/tpu/dbg.py:329-478"}
+_BUILD_KERNELS = {n: f"{n}_kernel" for n in _BUILD}
+# aten ops of one build_k call on the card: its stages' allocations (the
+# instance table's 4, the instance sort's permutation and scratch, the
+# node tables' 16 and workspace, the mers' unbind, the edge tables' 12 and
+# workspace); the thirteen launches go through ctypes; one op to spare
+BUILD_MAX_ATEN_OPS = 38
+# Integer operations of each kernel's function, by hand, as lower bounds:
+# mer_instances 3 a base of an instance's mer (the load, the forward and
+# reverse shift-or) and 2 a quality (the compare, the bit); window_sort 2
+# a comparison (the words' compare and the select) of the n log2 n any
+# comparison sort needs; node_tables 4 an instance (its group's boundary
+# test, its first time, its class count and node) and 2 a quality bit;
+# edge_tables 12 a pair (its ends, the canonical key) and 8 a row (the
+# time order, the adjacency slot).
+BUILD_OPS = {"base": 3, "qual": 2, "compare": 2, "instance": 4,
+             "qbit": 2, "pair": 12, "row": 8}
 
 
 def _tree(x, fn):
@@ -1234,6 +1314,10 @@ def _walk_work(name: str, args) -> int:
                     & (st["merlen"] < args[5])).sum())
     if name == "components":
         return int(args[0].sum())
+    if name == "build_k":  # instances: W (R M + 3 Mraw)
+        K, bases, raw = args[0], args[1], args[8]
+        W, R, L = bases.shape
+        return W * (R * (L - K + 1) + 3 * (raw.shape[1] - K + 1))
     if name in ("low_cov_pass", "item_mincovs"):  # donating mers x K
         st = args[0]
         return int((st["keep_hi"] > st["keep_lo"]).sum()) * int(args[1])
@@ -1242,7 +1326,7 @@ def _walk_work(name: str, args) -> int:
 
 _CHECKED = ("path_cover", "seq_removal", "almost_repeat",
             "cycle_dfs") + _SCREENS + (_COMPRESS,) + _GRAPHSTATE \
-    + _CLEANUP + ("cleanup",)  # every call
+    + _CLEANUP + ("cleanup", "build_k")  # every call
 
 
 @contextlib.contextmanager
@@ -1276,6 +1360,7 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
     real_c = compress.compress_round
     real_g = {n: getattr(graphstate, n) for n in _GRAPHSTATE}
     real_l = {n: getattr(cleanup, n) for n in _CLEANUP}
+    real_b = dbg.build_k
     mods = {n: dbg if n == "build_k" else
             pipeline if n in _PIPELINE_COUNTED else stages
             for n in _OP_COUNTED}
@@ -1289,6 +1374,34 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
 
     def copy(x):
         return _tree(x, lambda t: t.clone() if torch.is_tensor(t) else t)
+
+    def build(*a, **k):
+        # a build_k call on the card: its inputs (and, for check_walk_calls,
+        # its outputs) copied, the largest kept
+        card = torch.is_tensor(a[1]) and a[1].is_cuda
+        held = None
+        paused, Count.paused = Count.paused, True
+        try:
+            if kept is not None and card:
+                work = _walk_work("build_k", a)
+                if "build_k" not in kept or kept["build_k"][0] < work:
+                    kept["build_k"] = (work, copy(list(a)), dict(k))
+            if calls is not None and card:
+                held = (copy(list(a)), dict(k))
+        finally:
+            Count.paused = paused
+        out = real_b(*a, **k)
+        if held is not None:
+            Count.paused = True
+            try:
+                calls.append(("build_k", *held, copy(out), a[0]))
+            finally:
+                Count.paused = paused
+        return out
+
+    if kept is not None or calls is not None:
+        dbg.build_k = build
+        real_s["build_k"] = build  # counted around the copies it pauses
 
     def wrap_walk(n, real):
         def f(*a, **k):
@@ -1364,6 +1477,7 @@ def instrument_devgraph(kept: dict | None, ops: dict | None,
             setattr(cleanup, n, f)
         for n, f in real_s.items():
             setattr(mods[n], n, f)
+        dbg.build_k = real_b
         devicepipe._assemble = real_a
 
 
@@ -1438,6 +1552,31 @@ def graphstate_sync_free(name: str, args, kw) -> bool:
     return ok and graphstate.LAUNCHES[name] == before + 1
 
 
+def build_sync_free(args, kw) -> bool:
+    """build_k again on a kept call's inputs under
+    torch.cuda.set_sync_debug_mode("error") (a host sync raises): True
+    where it made no sync and launched each kernel its count of
+    dbgk.BUILD_LAUNCHES."""
+    import torch
+
+    from lancet_tpu_torch.gpu import dbg, dbgk
+
+    torch.cuda.synchronize()
+    before = dict(dbgk.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dbg.build_k(*args, **kw)
+        ok = True
+    except RuntimeError as e:
+        print(f"build_k: a host sync on the card path: {e}", file=sys.stderr)
+        ok = False
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return ok and {k: dbgk.LAUNCHES[k] - before[k]
+                   for k in before} == dbgk.BUILD_LAUNCHES
+
+
 def cleanup_sync_free(args, kw) -> bool:
     """The cleanup again on a kept call's inputs under
     torch.cuda.set_sync_debug_mode("error") (a host sync raises): True
@@ -1490,7 +1629,7 @@ def check_walk_calls(calls: list, case: str, largest: dict | None = None,
     again free of host syncs (cleanup_sync_free)."""
     import torch
 
-    from lancet_tpu_torch.gpu import pipeline, stages
+    from lancet_tpu_torch.gpu import dbg, pipeline, stages
 
     torch.cuda.synchronize()
     res = {n: {"calls": 0, "mismatches": 0} for n in _CHECKED}
@@ -1517,6 +1656,10 @@ def check_walk_calls(calls: list, case: str, largest: dict | None = None,
                 *args, **_plain_kw(kw)))
         elif n == "short_link_strings":
             want = pipeline.short_link_stage_plain(*args, **kw)
+        elif n == "build_k":
+            want = dbg.build_k_plain(*args, **kw)
+            res[n]["sync_free"] = (res[n].get("sync_free", 0)
+                                   + build_sync_free(args, kw))
         elif n == "cleanup":
             inner: list = []
             with instrument_devgraph(None, plain_ops, inner):
@@ -1538,7 +1681,8 @@ def check_walk_calls(calls: list, case: str, largest: dict | None = None,
                 *_tree(args, lambda t: t.cpu() if torch.is_tensor(t) else t),
                 **kw)
         bad = (dtype_mismatches(got, want)
-               if n in (_COMPRESS, *_GRAPHSTATE, *_CLEANUP, "cleanup")
+               if n in (_COMPRESS, *_GRAPHSTATE, *_CLEANUP, "cleanup",
+                        "build_k")
                else _mismatches(got, want))
         res[n]["calls"] += 1
         res[n]["mismatches"] += int(bad > 0)
@@ -1580,6 +1724,67 @@ def check_graphstate_ops(ops: dict, case: str) -> None:
         if not c["calls"] or c["aten_ops"] > cap * c["calls"]:
             raise AssertionError(f"{case}: {n} took {c} aten ops on the "
                                  f"card (at most {cap} a call)")
+
+
+def check_build_ops(ops: dict, case: str) -> None:
+    """build_k ran on the card and took at most BUILD_MAX_ATEN_OPS aten ops
+    a call (counted by instrument_devgraph)."""
+    c = ops.get("build_k", {"calls": 0, "aten_ops": 0})
+    if not c["calls"] or c["aten_ops"] > BUILD_MAX_ATEN_OPS * c["calls"]:
+        raise AssertionError(f"{case}: build_k took {c} aten ops on the "
+                             f"card (at most {BUILD_MAX_ATEN_OPS} a call)")
+
+
+@contextlib.contextmanager
+def pack_split(split: dict):
+    """While active: add to `split` the host seconds and calls of the
+    three parts of t_dg_pack (engine/devicepipe.py::_dispatch_chunk):
+    pack_chunk, the H2D copy of its arrays (parallel/mesh.py::_rows
+    within the dispatch) and build_k's dispatch."""
+    from lancet_tpu_torch.engine import devicepipe
+    from lancet_tpu_torch.gpu import dbg, pack
+    from lancet_tpu_torch.parallel import mesh
+
+    real = {"pack_chunk": (pack, pack.pack_chunk),
+            "h2d": (mesh, mesh._rows), "build_k": (dbg, dbg.build_k)}
+    real_d = devicepipe._dispatch_chunk
+    inside = threading.local()
+    names = {"pack_chunk": "pack_chunk", "h2d": "_rows",
+             "build_k": "build_k"}
+
+    def timed(key, f):
+        def g(*a, **k):
+            if key == "h2d" and not getattr(inside, "on", False):
+                return f(*a, **k)
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                dt = time.perf_counter() - t0
+                with _SPLIT_LOCK:
+                    split[f"t_{key}"] = split.get(f"t_{key}", 0.0) + dt
+                    split[f"n_{key}"] = split.get(f"n_{key}", 0) + 1
+        return g
+
+    def dispatch(*a, **k):
+        inside.on = True
+        try:
+            return real_d(*a, **k)
+        finally:
+            inside.on = False
+
+    for key, (mod, f) in real.items():
+        setattr(mod, names[key], timed(key, f))
+    devicepipe._dispatch_chunk = dispatch
+    try:
+        yield
+    finally:
+        for key, (mod, f) in real.items():
+            setattr(mod, names[key], f)
+        devicepipe._dispatch_chunk = real_d
+
+
+_SPLIT_LOCK = threading.Lock()
 
 
 def run_devgraph(workdir: str, region: str, stats: dict, num_threads=8,
@@ -2221,6 +2426,153 @@ def graphstate_case(name: str, args, kw: dict, rate: dict) -> dict:
             "plain_aten_ops_per_call": aten_ops(plain), **acc}
 
 
+def device_ms_by_kernel(fn, kernels, n: int = 10) -> dict:
+    """{kernel: device ms per call of fn} summed over the launches whose
+    name holds the kernel's, and "all": every kernel of the call, from
+    torch.profiler's CUDA activity over n calls (None where none was
+    recorded)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile that missed the kernels is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ev = [(e.name(), e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+        out = {k: sum(d for m, d in ev if k in m) / n / 1e6
+               for k in kernels}
+        out["all"] = sum(d for _, d in ev) / n / 1e6
+        if all(out[k] for k in kernels):
+            return out
+    return {k: out[k] or None for k in out}
+
+
+def build_stage_inputs(args, kw):
+    """The plain stages on a build_k call's inputs on the card: the
+    instance table, its sort permutation and the node tables, the inputs
+    of each kernel."""
+    from lancet_tpu_torch.gpu import dbg
+
+    K, t = args[0], args[1:]
+    inst = dbg.mer_instances_plain(K, *t[:11], t[12], Lraw=kw["Lraw"],
+                                   min_qual_call=kw["min_qual_call"])
+    perm = dbg.window_sort_plain(inst["keys"])
+    nodes = dbg.node_tables_plain(
+        K, inst, perm, t[8], t[11], N=kw["N"],
+        low_cov_threshold=kw["low_cov_threshold"],
+        min_cov_ratio=kw["min_cov_ratio"])
+    return inst, perm, nodes
+
+
+def build_accounting(name: str, args, kw, inst) -> dict:
+    """What one call of a build kernel's function needs: each input read
+    once, each output written once (bytes), and the integer operations of
+    BUILD_OPS on this call's counts."""
+    import math
+
+    from lancet_tpu_torch.gpu import dbg, dbgk
+
+    K = args[0]
+    W, R, L = args[1].shape
+    p = dbgk.build_plan(K, W, R, L, kw["Lraw"], kw["N"], kw["E"], kw["D"])
+    NW, I, IP, N, E = p.NW, p.I, p.IP, p.N, p.E
+    o = BUILD_OPS
+    reads = int(dbg.pay_bit(inst["pay"][:, :IP], dbg.P_READ).sum())
+    if name == "mer_instances":
+        nbytes = (2 * W * R * L + 11 * W * R + W * p.Lraw + 13 * W
+                  + 8 * W * I * (NW + 2) + 8 * W * IP * (NW + 1))
+        nops = W * I * K * o["base"] + W * IP * (K + 1) * o["qual"]
+    elif name == "window_sort":
+        nbytes = 8 * W * I * (NW + 1)
+        nops = W * I * math.ceil(math.log2(I)) * o["compare"]
+    elif name == "node_tables":
+        nbytes = (8 * W * I * (NW + 4) + 8 * W + 8 * NW * W * N
+                  + 48 * W * N + 24 * W * N * K + 6 * W * N + 21 * W)
+        nops = W * I * o["instance"] + reads * K * o["qbit"]
+    else:
+        nbytes = (16 * W * I + 8 * W * IP * (NW + 1) + 41 * W * N + 18 * W
+                  + 25 * W * E + 8 * W * N * p.D + 8 * W * N
+                  + 9 * W * p.Mraw + 32 * W * p.Lraw + 10 * W)
+        nops = W * p.PU * o["pair"] + 2 * W * E * o["row"]
+    return {"bytes": nbytes, "int_ops": nops, "K": K, "W": W, "R": R,
+            "L": L, "N": N, "E": E, "I": I, "read_instances": reads}
+
+
+def build_case(args, kw: dict, rate: dict) -> dict:
+    """The four build kernels on a build_k call captured from the devgraph
+    runs, each on its own inputs (the plain stages' outputs before it):
+    bit-equal to its plain version on the card (dtypes too), then timed
+    beside it (CUDA events around the wrapper; its kernel's own device
+    time and its call's, torch.profiler), its bound on this data
+    (build_accounting), and for window_sort (the instance sort) one
+    stable torch.sort of the last key word at the same shape."""
+    import torch
+
+    from lancet_tpu_torch.gpu import dbg, dbgk
+
+    K, t = args[0], args[1:]
+    W, R, L = t[0].shape
+    Lraw, N, E, D = kw["Lraw"], kw["N"], kw["E"], kw["D"]
+    inst, perm, nodes = build_stage_inputs(args, kw)
+    sc = {k: kw[k] for k in ("low_cov_threshold", "min_cov_ratio")}
+    ik = dict(Lraw=Lraw, min_qual_call=kw["min_qual_call"])
+    ek = dict(R=R, L=L, N=N, E=E, D=D, Lraw=Lraw)
+    calls = {
+        "mer_instances": (
+            lambda: dbgk.mer_instances(K, *t[:11], t[12], **ik),
+            lambda: dbg.mer_instances_plain(K, *t[:11], t[12], **ik)),
+        "window_sort": (lambda: dbgk.window_sort(inst["keys"]),
+                        lambda: dbg.window_sort_plain(inst["keys"])),
+        "node_tables": (
+            lambda: dbgk.node_tables(K, inst, perm, t[8], t[11], N=N, R=R,
+                                     L=L, Lraw=Lraw, **sc),
+            lambda: dbg.node_tables_plain(K, inst, perm, t[8], t[11], N=N,
+                                          **sc)),
+        "edge_tables": (
+            lambda: dbgk.edge_tables(K, inst, nodes, t[12], **ek),
+            lambda: dbg.edge_tables_plain(K, inst, nodes, t[12], **ek))}
+    out = {}
+    for name, (fn, plain) in calls.items():
+        before = dict(dbgk.LAUNCHES)
+        got = fn()
+        launched = {k: dbgk.LAUNCHES[k] - before[k] for k in before
+                    if dbgk.LAUNCHES[k] != before[k]}
+        torch.cuda.synchronize()
+        want = plain()
+        torch.cuda.synchronize()
+        err = dtype_mismatches(got, want)
+        if err:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on {err} outputs")
+        del got, want
+        ms = spread(cuda_times(fn, *KERNEL_REPS))
+        dev = device_ms_by_kernel(fn, [_BUILD_KERNELS[name]])
+        plain_ms = spread(cuda_times(plain, WALK_PLAIN_REPS))
+        acc = build_accounting(name, args, kw, inst)
+        bound = {"bytes": acc["bytes"] / HBM_BYTES_PER_S * 1e3,
+                 "operations": acc["int_ops"] / rate["int_ops_per_s"] * 1e3}
+        lib = None
+        if name == "window_sort":
+            last = inst["keys"][-1]
+            lib = spread(cuda_times(
+                lambda: torch.sort(last, dim=1, stable=True), *KERNEL_REPS))
+        out[name] = {"name": name, "tolerance": 0, "max_abs_err": err,
+                     "ms": ms, "device_ms": dev[_BUILD_KERNELS[name]],
+                     "call_device_ms": dev["all"], "plain_ms": plain_ms,
+                     "bound": bound, "library_ms": lib,
+                     "launches_per_call": launched,
+                     "aten_ops_per_call": aten_ops(fn),
+                     "plain_aten_ops_per_call": aten_ops(plain), **acc}
+    return out
+
+
 def _nbytes(*ts) -> int:
     import torch
 
@@ -2471,9 +2823,12 @@ def mesh_devgraph_case(workdir: str, n: int, vcf_g: str, summary_g: str,
                              f"from the unsharded sums {sums_g}")
     for k in ("gotoh_align_smem", "repeat_gates", "path_cover",
               "almost_repeat_paths", "cycle_dfs", "cycle_screen",
-              "tandem_at", _COMPRESS, *_GRAPHSTATE, *_CLEANUP):
+              "tandem_at", _COMPRESS, *_GRAPHSTATE, *_CLEANUP, *_BUILD):
         if launches[k] < 1:
             raise AssertionError(f"devgraph over {n} shards launched no {k}")
+    b = checked["build_k"]
+    if not b["calls"] or b.get("sync_free") != b["calls"]:
+        raise AssertionError(f"devgraph over {n} shards: build_k calls {b}")
     return launches
 
 
@@ -2729,8 +3084,11 @@ def hard_phase(rate: dict, chase: dict) -> dict:
     reset_counts()
     vcf, summary = run_main_path("cuda", hdir, region, st, groups)
     launches = launch_counts()
+    st_cc: dict = {}
+    vcf_cc, summary_cc = run_main_path("cuda", hdir, HARD_CPU_REGION, st_cc)
     st_cpu: dict = {}
-    vcf_cpu, summary_cpu = run_main_path("cpu", hdir, region, st_cpu)
+    vcf_cpu, summary_cpu = run_main_path("cpu", hdir, HARD_CPU_REGION,
+                                         st_cpu)
     hist = kmersizes(vcf)
     n_gotoh = sum(launches[f"gotoh_align_{m}"]
                   for m in ("smem", "global", "strips"))
@@ -2740,12 +3098,15 @@ def hard_phase(rate: dict, chase: dict) -> dict:
           **{k: st[k] for k in ("t_total", "t_host", "t_dp", "t_dp_wait",
                                 "n_windows", "n_jobs", "n_dp", "n_groups",
                                 "n_fallback")},
-          "t_total_cpu": st_cpu["t_total"], "launches": launches,
+          "cpu_region": HARD_CPU_REGION,
+          "cpu_region_windows": st_cpu["n_windows"],
+          "t_total_cpu": st_cpu["t_total"],
+          "t_total_cuda_cpu_region": st_cc["t_total"], "launches": launches,
           "dp_groups": [len(g) for g in groups],
           "vcf_records": len(vcf_records(vcf)), "kmersize_histogram": hist,
-          "max_kmersize": max(hist), "vcf_equal_cpu": vcf == vcf_cpu,
-          "summary_equal_cpu": summary == summary_cpu})
-    if vcf != vcf_cpu or summary != summary_cpu:
+          "max_kmersize": max(hist), "vcf_equal_cpu": vcf_cc == vcf_cpu,
+          "summary_equal_cpu": summary_cc == summary_cpu})
+    if vcf_cc != vcf_cpu or summary_cc != summary_cpu:
         raise AssertionError("hard: device='cuda' and device='cpu' runs "
                              "differ")
     if len(vcf_records(vcf)) != HARD_RECORDS or hist != HARD_KMERSIZE:
@@ -2758,8 +3119,10 @@ def hard_phase(rate: dict, chase: dict) -> dict:
 
     # (b) the device graph engine: timed, instrumented, profiled
     st_g: dict = {}
+    split: dict = {}  # t_dg_pack's three parts
     reset_counts()
-    vcf_g, summary_g = run_devgraph(hdir, region, st_g)
+    with pack_split(split):
+        vcf_g, summary_g = run_devgraph(hdir, region, st_g)
     launches_g = launch_counts()
     st_g2: dict = {}
     ops: dict = {}
@@ -2806,6 +3169,7 @@ def hard_phase(rate: dict, chase: dict) -> dict:
     emit({"phase": "hard", "case": "devgraph", "region": region,
           "num_threads": 8, "windows_per_s": st_g["n_windows"]
           / st_g["t_total"], **{k: st_g[k] for k in dkeys}, **got_stats,
+          "t_dg_pack_split": split,
           "launches": launches_g, "walk_calls_checked": checked,
           "walk_calls_captured": captured, "walk_call_ks": call_ks,
           "gate_calls_captured": len(gcalls),
@@ -2831,6 +3195,10 @@ def hard_phase(rate: dict, chase: dict) -> dict:
     check_screen_ops(ops, "hard devgraph", _SCREENS)
     check_compress_ops(ops, "hard devgraph")
     check_graphstate_ops(ops, "hard devgraph")
+    check_build_ops(ops, "hard devgraph")
+    b = checked["build_k"]
+    if not b["calls"] or b.get("sync_free") != b["calls"]:
+        raise AssertionError(f"hard: build_k calls {b}")
     walks_h = {}
     for name in _WALKS:
         _, args, kw, K = largest[name]
@@ -2858,6 +3226,12 @@ def hard_phase(rate: dict, chase: dict) -> dict:
         walks_h[key] = {**cleanup_case(key, args, kw, rate), "K": K}
         emit({"phase": "kernels", "case": f"hard_{key}", "K": K,
               "launches": launches_g[key.split("/")[0]], **walks_h[key]})
+    _, bargs, bkw, K = largest["build_k"]
+    bres = build_case(bargs, bkw, rate)
+    for name in _BUILD:
+        walks_h[name] = bres[name]
+        emit({"phase": "kernels", "case": f"hard_{name}", "K": K,
+              "launches": launches_g[name], **bres[name]})
     emit({"phase": "hard", "case": "done",
           "t_phase": time.perf_counter() - t_phase})
     return {"launches_main": launches, "launches_devgraph": launches_g,
@@ -3050,8 +3424,12 @@ def main() -> int:
     reset_counts()
     vcf, summary = run_main_path("cuda", workdir, region, st, groups)
     launches = launch_counts()
+    st_cc: dict = {}
+    vcf_cc, summary_cc = run_main_path("cuda", workdir, CPU_COMPARE_REGION,
+                                       st_cc)
     st_cpu: dict = {}
-    vcf_cpu, summary_cpu = run_main_path("cpu", workdir, region, st_cpu)
+    vcf_cpu, summary_cpu = run_main_path("cpu", workdir, CPU_COMPARE_REGION,
+                                         st_cpu)
     n_rec = len(vcf_records(vcf))
     keys = ("t_total", "t_pipeline", "t_host", "t_dp", "t_dp_prep",
             "t_dp_send", "t_dp_wait", "t_finish", "t_render", "n_windows",
@@ -3066,13 +3444,17 @@ def main() -> int:
           "native_stages": {k: st[k] for k in sorted(st)
                             if k.startswith("t_c_")},
           "vcf_records": n_rec,
-          "cpu_dp": {"windows_per_s": st_cpu["n_windows"]
+          "cpu_dp": {"region": CPU_COMPARE_REGION,
+                     "n_windows": st_cpu["n_windows"],
+                     "windows_per_s": st_cpu["n_windows"]
                      / st_cpu["t_total"],
+                     "cuda_t_total": st_cc["t_total"],
+                     "vcf_records": len(vcf_records(vcf_cc)),
                      **{k: st_cpu[k] for k in ("t_total", "t_dp",
                                                "t_dp_wait")}},
-          "vcf_equal_cpu": vcf == vcf_cpu,
-          "summary_equal_cpu": summary == summary_cpu})
-    if vcf != vcf_cpu or summary != summary_cpu:
+          "vcf_equal_cpu": vcf_cc == vcf_cpu,
+          "summary_equal_cpu": summary_cc == summary_cpu})
+    if vcf_cc != vcf_cpu or summary_cc != summary_cpu:
         raise AssertionError("device='cuda' and device='cpu' runs differ")
     if n_rec == 0 or st["n_dp"] == 0:
         raise AssertionError(f"main path produced {n_rec} records from "
@@ -3161,8 +3543,10 @@ def main() -> int:
     st_n: dict = {}
     vcf_n, summary_n = run_main_path("cuda", workdir, DEVGRAPH_REGION, st_n)
     st_g: dict = {}
+    split_g: dict = {}  # t_dg_pack's three parts
     reset_counts()
-    vcf_g, summary_g = run_devgraph(workdir, DEVGRAPH_REGION, st_g)
+    with pack_split(split_g):
+        vcf_g, summary_g = run_devgraph(workdir, DEVGRAPH_REGION, st_g)
     launches_g = launch_counts()
     kept: dict = {}
     st_g2: dict = {}
@@ -3188,6 +3572,7 @@ def main() -> int:
           "region": DEVGRAPH_REGION, "num_threads": 8,
           "windows_per_s": st_g["n_windows"] / st_g["t_total"],
           **{k: st_g[k] for k in dkeys}, **got_stats,
+          "t_dg_pack_split": split_g,
           "launches": launches_g, "walk_calls_checked": checked_g,
           "torch_op_functions": ops_g,
           "second_run_t_total": st_g2["t_total"], "device_busy": busy,
@@ -3253,7 +3638,7 @@ def main() -> int:
                              f"card (at most {REMOVAL_MAX_ATEN_OPS} a call)")
     walk_launches = {k: launches_g[k] + launches_a[k]
                      for k in (*_WALKS.values(), *_SCREENS, _COMPRESS,
-                               *_GRAPHSTATE, *_CLEANUP)}
+                               *_GRAPHSTATE, *_CLEANUP, *_BUILD)}
     if (min(walk_launches[k] for k in _DEVGRAPH_KERNELS) < 1
             or kept["cycle_dfs"][0] < 1):
         raise AssertionError(f"a walk or screen kernel did not launch, or "
@@ -3265,6 +3650,12 @@ def main() -> int:
     check_compress_ops(ops, "devgraph case 2")
     check_graphstate_ops(ops_g, "devgraph case 1")
     check_graphstate_ops(ops, "devgraph case 2")
+    check_build_ops(ops_g, "devgraph case 1")
+    check_build_ops(ops, "devgraph case 2")
+    for c, checked in (("case_1", checked_g), ("case_2", checked_a)):
+        b = checked["build_k"]
+        if not b["calls"] or b.get("sync_free") != b["calls"]:
+            raise AssertionError(f"devgraph {c}: build_k calls {b}")
     chase = smem_latency_ns()
     emit({"phase": "kernels", "case": "smem_latency", **chase})
     wres = {}
@@ -3292,6 +3683,22 @@ def main() -> int:
         wres[key] = cleanup_case(key, args, kw, rate)
         emit({"phase": "kernels", "case": f"devgraph_{key}",
               "launches": walk_launches[key.split("/")[0]], **wres[key]})
+    from lancet_tpu_torch.gpu import dbgk
+
+    _, bargs, bkw = kept["build_k"]
+    bres = build_case(bargs, bkw, rate)
+    for name in _BUILD:
+        emit({"phase": "kernels", "case": f"devgraph_{name}",
+              "launches": walk_launches[name], **bres[name]})
+    emit({"phase": "devgraph", "case": "build",
+          "calls": {"case_1": checked_g["build_k"],
+                    "case_2": checked_a["build_k"]},
+          "aten_ops_card": {"case_1": ops_g.get("build_k"),
+                            "case_2": ops.get("build_k")},
+          "max_aten_ops": BUILD_MAX_ATEN_OPS,
+          "launches_per_call": dbgk.BUILD_LAUNCHES,
+          "largest": {k: bres["window_sort"][k]
+                      for k in ("K", "W", "R", "L", "N", "E", "I")}})
     emit({"phase": "devgraph", "case": "cleanup",
           "calls": {"case_1": checked_g["cleanup"],
                     "case_2": checked_a["cleanup"]},
@@ -3482,6 +3889,31 @@ def main() -> int:
             "W": arrs["alive"].shape[0], "sync_free": ok,
             "fallback": got[1].tolist(), "mismatches": bad + int(not ok)}
         crafted_cleanup = max(crafted_cleanup, bad)
+    # the build on the crafted windows of gpu/buildcases.py at every
+    # bucket's shape (the hub at HUB_D): thirteen launches free of host
+    # syncs, against build_k_plain on the card, dtypes too
+    from lancet_tpu_torch.gpu import buildcases, dbgk
+
+    crafted_build = 0
+    for bi, (R, L, N, E) in enumerate(buildcases.BUCKETS):
+        for K in (buildcases.KS if bi == 0 else (11, 63)):
+            for tag, arrs, D in (
+                    ("lanes", buildcases.batch(K, R, L, N, E),
+                     buildcases.D_ENGINE),
+                    ("hub", buildcases.hub_batch(K, R, L), buildcases.HUB_D)):
+                before = dict(dbgk.LAUNCHES)
+                got = buildcases.run(arrs, K, N, E, D, "cuda", guard=no_sync)
+                launched = {k: dbgk.LAUNCHES[k] - before[k] for k in before}
+                want = buildcases.run(arrs, K, N, E, D, "cuda", plain=True)
+                bad = dtype_mismatches(got, want)
+                crafted[f"build_k/b{bi}_k{K}_{tag}"] = {
+                    "W": int(arrs["rlen"].shape[0]), "R": R, "L": L, "N": N,
+                    "E": E, "D": D,
+                    "fallback": got["fallback"].tolist(),
+                    "mismatches": bad + int(launched
+                                            != dbgk.BUILD_LAUNCHES)}
+                crafted_build = max(crafted_build, bad)
+                del got, want
     emit({"phase": "kernels", "case": "walks_crafted", "tolerance": 0,
           "cases": crafted})
     if any(r["mismatches"] for r in crafted.values()):
@@ -3708,6 +4140,37 @@ def main() -> int:
             "devgraph_by_call": {k: mode_line(wres[k]) for k in keys},
             "hard_by_call": {k: mode_line(hard["walks"][k]) for k in hkeys},
             "library_ms": None})
+    for name in _BUILD:
+        r, h = bres[name], hard["walks"][name]
+        by = max(r["bound"], key=r["bound"].get)
+        hby = max(h["bound"], key=h["bound"].get)
+
+        def med(x):
+            return x["median"] if x else None
+
+        line.append({
+            "name": name, "route": "cuda",
+            "source": "lancet_tpu_torch/csrc/dbg.cu",
+            "replaces": _BUILD_SOURCE, "also_replaces": _BUILD_ALSO[name],
+            "launches": walk_launches[name],
+            "launches_by_path": by_path(name), "on_main_path": False,
+            "max_abs_err": max(r["max_abs_err"], h["max_abs_err"],
+                               crafted_build),
+            "ms": r["ms"]["median"], "plain_ms": r["plain_ms"]["median"],
+            "bound_ms": r["bound"][by], "bound_by": by,
+            "device_ms": r["device_ms"],
+            "call_device_ms": r["call_device_ms"],
+            "aten_ops_per_call": r["aten_ops_per_call"],
+            "plain_aten_ops_per_call": r["plain_aten_ops_per_call"],
+            "largest": {k: r[k] for k in ("K", "W", "R", "L", "N", "E",
+                                          "I")},
+            "hard_largest": {"K": h["K"], "W": h["W"], "R": h["R"],
+                             "ms": h["ms"]["median"],
+                             "device_ms": h["device_ms"],
+                             "plain_ms": h["plain_ms"]["median"],
+                             "bound_ms": h["bound"][hby], "bound_by": hby,
+                             "library_ms": med(h["library_ms"])},
+            "library_ms": med(r["library_ms"])})
     emit({"kernels": line, "t_smoke": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

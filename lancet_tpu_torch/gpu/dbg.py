@@ -19,6 +19,12 @@ words instead). k = 63 takes 3 words. `pack.words_to_128` gives the
 
 Integer tensors are int64 throughout; the arithmetic is the JAX package's
 int32 arithmetic, which never overflows at the engine's shapes.
+
+The build is four stages, each the plain version of a kernel of
+csrc/dbg.cu (gpu/dbgk.py): mer_instances_plain (the instance table),
+window_sort_plain (every stable sort of the build), node_tables_plain and
+edge_tables_plain; build_k_plain composes them. build_k runs build_k_plain
+on the CPU and the kernels on a card.
 """
 
 from __future__ import annotations
@@ -119,16 +125,41 @@ def seg_min(vals, seg, nseg, init):
     return out.scatter_reduce_(0, idx, vals, "amin", include_self=True)
 
 
-def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
-            raw, rawlen, seq_off, seq_len, totalreadbp, window_ok,
-            *, N, E, D, Lraw, min_qual_call,
-            low_cov_threshold, min_cov_ratio):
-    """One k attempt's graph build for a window batch (tensors on one
-    device, as pack.WindowBatch lays them out).
+# ---------------------------------------------------------------------------
+# the build's four stages, each the plain version of a kernel of
+# csrc/dbg.cu (gpu/dbgk.py): mer_instances, window_sort, node_tables,
+# edge_tables
+# ---------------------------------------------------------------------------
 
-    Returns a dict of node/edge tables in creation order plus refcov and
-    the per-window fallback flags, keyed as the JAX build_k's; "mers_w" is
-    the tuple of int64 words of this module's packing."""
+# mer_instances' payload, one int64 an instance: bits 0-31 the time of a
+# read or ref-read instance as int32 (BIG for every other instance), then
+# one bit a flag, and bits 48-55 the mate order of a paired read instance
+P_VALID, P_READ, P_IDX, P_STRAND, P_TFLAG, P_ISF, P_PAIR = range(32, 39)
+P_TMR, P_NML, P_REF = 40, 41, 42  # the instance's sample
+P_ORDER = 48
+
+
+def pay_bit(pay, b):
+    return ((pay >> b) & 1).to(torch.bool)
+
+
+def pay_time(pay):
+    """The int32 time of bits 0-31, sign-extended."""
+    t = pay & 0xFFFFFFFF
+    return t - ((t >> 31) << 32)
+
+
+def mer_instances_plain(K, bases, quals, rlen, rsample, rstrand, rfrag,
+                        rorder, raw, rawlen, seq_off, seq_len, window_ok,
+                        *, Lraw, min_qual_call):
+    """The instance table of a window batch: the read mers [R*M], the
+    ref pseudo-read's, the projection's and the index's [Mraw each], in
+    that order along I = R*M + 3*Mraw. Returns {"keys": [NW, W, I] int64
+    sort words (SENT where invalid), "pay": [W, I] int64 payload (the
+    P_* bits), "qok": [W, I] int64 per-base quality bits of a read
+    instance's canonical mer (0 elsewhere), "fkeys": [NW+1, W, R*M] int64
+    mate-overlap sort words (SENT where unpaired) and fragment
+    (I32_MAX)}."""
     dev = bases.device
     W, R, L = bases.shape
     M = L - K + 1
@@ -206,9 +237,6 @@ def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
     idx_valid = idx_valid & torch.gather(p_ok, 1, ip)
 
     # ---- combined instance table: read, ref-read, proj, index parts ------
-    I = R * M + 3 * Mraw
-    wid = ar(W)[:, None].expand(W, I)
-
     def cat(a_read, a_ref, a_proj, a_idx):
         return torch.cat([a_read.reshape(W, R * M), a_ref, a_proj, a_idx],
                          dim=1)
@@ -232,22 +260,76 @@ def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
     prev_pair_ok = torch.cat([zeros(W, R, 1, dtype=torch.bool),
                               pair_ok[:, :, :-1]], dim=2)
     a_tflag = cat(pair_ok | prev_pair_ok, zero_b, zero_b, zero_b)
+    a_isF = cat(isF, p_isF, p_isF, zero_b)
+    # the u side of an adjacent pair: read mer m and m+1, ref mer r, r+1
+    a_pair = cat(inst_valid & ~is_last, ref_valid & ~ref_last, zero_b,
+                 zero_b) & okW
 
-    key_w = [torch.where(a_valid, a_w[i], SENT) for i in range(NW)]
-    perm = lexsort(key_w)
+    # ---- mate-overlap keys -------------------------------------------------
+    IP = R * M
+    frag = rfrag.to(i64)[:, :, None].expand(W, R, M).reshape(W, IP)
+    order_r = rorder.to(i64)[:, :, None].expand(W, R, M).reshape(W, IP)
+    paired = (order_r > 0) & flat_valid
+    fkey_w = [torch.where(paired, mw[i].reshape(W, IP), SENT)
+              for i in range(NW)]
+    fkey_fr = torch.where(paired, frag, I32_MAX)
+    fo = torch.where(paired, order_r, 0)
+
+    tm = torch.where(a_isread, a_time, BIG) & 0xFFFFFFFF
+    flags = ((a_valid, P_VALID), (a_isread, P_READ), (a_isidx, P_IDX),
+             (a_strand, P_STRAND), (a_tflag, P_TFLAG), (a_isF, P_ISF),
+             (a_pair, P_PAIR), (a_samp == S_TMR, P_TMR),
+             (a_samp == S_NML, P_NML), (a_samp == S_REF, P_REF))
+    pay = tm
+    for f, b in flags:
+        pay = pay | (f.to(i64) << b)
+    pay = pay | (torch.cat([fo, zeros(W, 3 * Mraw)], dim=1) << P_ORDER)
+    keys = torch.stack([torch.where(a_valid, a_w[i], SENT)
+                        for i in range(NW)])
+    return {"keys": keys, "pay": pay, "qok": a_qok,
+            "fkeys": torch.stack(fkey_w + [fkey_fr])}
+
+
+def window_sort_plain(keys):
+    """The stable sort permutation [W, n] int64 of keys [NK, W, n] along
+    the window axis, key 0 the most significant (lexsort)."""
+    return lexsort(list(keys))
+
+
+def node_tables_plain(K, inst, perm, rawlen, totalreadbp, *, N,
+                      low_cov_threshold, min_cov_ratio):
+    """The node tables in creation order from the instance table and its
+    sort permutation `perm` [W, I]: the groups of equal mers (at most N a
+    window), their per-class counts and quality counts, flags, the
+    creation order (a window_sort of each group's first read time), and
+    the fused markRefNodes + removeLowCov prune. Also "nid" [W, I], each
+    instance's node in creation order (-1 invalid or past N), and
+    "over_n" [W]."""
+    keys, pay, qok = inst["keys"], inst["pay"], inst["qok"]
+    dev = perm.device
+    NW = keys.shape[0]
+    W, I = perm.shape
+    i64 = torch.int64
+
+    def ar(n):
+        return torch.arange(n, dtype=i64, device=dev)
+
+    rawlen = rawlen.to(i64)
+    wid = ar(W)[:, None].expand(W, I)
 
     def gather(a):
         return torch.gather(a, 1, perm)
 
-    s_w = [gather(k) for k in key_w]
-    s_valid = gather(a_valid)
-    s_isread = gather(a_isread)
-    s_isidx = gather(a_isidx)
-    s_samp = gather(a_samp)
-    s_strand = gather(a_strand)
-    s_tflag = gather(a_tflag)
-    s_time = gather(a_time)
-    s_qok = gather(a_qok)
+    s_w = [gather(keys[i]) for i in range(NW)]
+    s_pay = gather(pay)
+    s_valid = pay_bit(s_pay, P_VALID)
+    s_isread = pay_bit(s_pay, P_READ)
+    s_isidx = pay_bit(s_pay, P_IDX)
+    s_strand = pay_bit(s_pay, P_STRAND)
+    s_tflag = pay_bit(s_pay, P_TFLAG)
+    s_tmr = pay_bit(s_pay, P_TMR)
+    s_time = pay_time(s_pay)  # BIG where not a read instance
+    s_qok = gather(qok)
 
     # group boundaries per window
     newg = torch.ones((W, I), dtype=torch.bool, device=dev)
@@ -262,8 +344,8 @@ def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
     seg = torch.where(s_valid, torch.clamp(gid_in_w, max=N), N)
     seg_full = (wid * NS + seg).reshape(-1)
 
-    is_cov = s_isread & (s_samp != S_REF)
-    cls = torch.where(s_samp == S_TMR, 0, 2) + s_strand.to(i64)
+    is_cov = s_isread & ~pay_bit(s_pay, P_REF)
+    cls = torch.where(s_tmr, 0, 2) + s_strand.to(i64)
     seg4 = torch.where(is_cov & (gid_in_w < N) & s_valid,
                        gid_in_w * 4 + cls, 4 * N)
     seg4_full = (wid * (4 * N + 1) + seg4).reshape(-1)
@@ -277,14 +359,14 @@ def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
     mq4 = mq4.reshape(W, 4 * N + 1, K)[:, :4 * N].reshape(W, N, 4, K)
 
     any4 = seg_sum(torch.stack(
-        [s_isread, s_isidx, s_isread & (s_samp == S_NML), s_tflag],
+        [s_isread, s_isidx, s_isread & pay_bit(s_pay, P_NML), s_tflag],
         dim=-1).to(torch.int32).reshape(W * I, 4), seg_full,
         W * NS).reshape(W, NS, 4)[:, :N] > 0
     has_node, in_index, is_normal, is_tumor = (
         any4[..., 0], any4[..., 1], any4[..., 2], any4[..., 3])
 
-    first_time = seg_min(torch.where(s_isread, s_time, BIG).reshape(-1),
-                         seg_full, W * NS, I32_MAX).reshape(W, NS)[:, :N]
+    first_time = seg_min(s_time.reshape(-1), seg_full, W * NS,
+                         I32_MAX).reshape(W, NS)[:, :N]
     gw_min = seg_min(torch.stack(s_w, dim=-1).reshape(W * I, NW), seg_full,
                      W * NS, SENT).reshape(W, NS, NW)[:, :N]
     # groups without instances read as all-T mers, as the JAX build's
@@ -295,7 +377,7 @@ def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
 
     # ---- creation order --------------------------------------------------
     node_key = torch.where(has_node, first_time, BIG)
-    order = torch.argsort(node_key, dim=1, stable=True)  # crea -> group
+    order = window_sort_plain(node_key[None])  # crea -> group
     crea_of_group = torch.zeros((W, N), dtype=i64, device=dev).scatter_(
         1, order, ar(N)[None, :].expand(W, N))
     n_nodes = has_node.sum(dim=1)
@@ -308,9 +390,6 @@ def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
     mers_w = tuple(g_w[..., i] for i in range(NW))
     counts = to_crea(cnt4)  # [W, N, 4]: tmr fwd, tmr rev, nml fwd, nml rev
     mq = to_crea(mq4).permute(0, 1, 3, 2)  # [W, N, K, 4]
-    n_in_index = to_crea(in_index)
-    n_is_normal = to_crea(is_normal)
-    n_is_tumor = to_crea(is_tumor)
     n_exists = to_crea(has_node)
 
     # ---- prune (fused markRefNodes + removeLowCov(False, 0)) ------------
@@ -324,40 +403,80 @@ def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
            | (mincov_qv.to(torch.float32)
               <= min_cov_ratio * avgcov[:, None])
            | ((tot_t == 1) & (tot_n == 1)))
-    alive = n_exists & ~low
 
-    # ---- edges -----------------------------------------------------------
+    # each instance's node: the creation slot of its group
     crea_inst = torch.gather(crea_of_group, 1,
                              torch.clamp(gid_in_w, 0, N - 1))
     crea_inst = torch.where(s_valid & (gid_in_w < N), crea_inst, -1)
-    nid_orig = torch.full((W, I), -1, dtype=i64, device=dev).scatter_(
+    nid = torch.full((W, I), -1, dtype=i64, device=dev).scatter_(
         1, perm, crea_inst)
+    return {
+        "mers_w": mers_w, "counts": counts, "mq": mq, "totq": totq,
+        "mincov_qv": mincov_qv, "exists": n_exists,
+        "alive": n_exists & ~low, "low": low,
+        "in_index": to_crea(in_index), "is_tumor": to_crea(is_tumor),
+        "is_normal": to_crea(is_normal), "n_nodes": n_nodes,
+        "avgcov": avgcov, "rawlen_dev": rawlen, "nid": nid,
+        "over_n": over_n}
 
-    nid_read = nid_orig[:, :R * M].reshape(W, R, M)
-    nid_ref = nid_orig[:, R * M:R * M + Mraw]
-    nid_proj = nid_orig[:, R * M + Mraw:R * M + 2 * Mraw]
 
-    pair_mask = inst_valid & ~is_last  # u side of pair m; v = m+1
-    u = nid_read.reshape(W, R * M)
+def edge_tables_plain(K, inst, nodes, window_ok, *, R, L, N, E, D, Lraw):
+    """The edge tables from the instance table and the node tables: the
+    canonical pairs of adjacent read and ref-read mers deduplicated with
+    their two first-occurrence times (a window_sort of the pair keys), the
+    directed rows in time order truncated to E (a window_sort of the
+    times), the per-node out-edge adjacency (a window_sort of the
+    sources), the reference coverage projection, the mate-overlap
+    candidates (a window_sort of the mate keys) and the fallback flags."""
+    pay, nid, fkeys = inst["pay"], nodes["nid"], inst["fkeys"]
+    counts, n_in_index = nodes["counts"], nodes["in_index"]
+    rawlen = nodes["rawlen_dev"]
+    dev = pay.device
+    W = pay.shape[0]
+    M = L - K + 1
+    Mraw = Lraw - K + 1
+    NW = fkeys.shape[0] - 1
+    i64 = torch.int64
+
+    def zeros(*shape, dtype=i64):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def full(shape, v, dtype=i64):
+        return torch.full(shape, v, dtype=dtype, device=dev)
+
+    def ar(n):
+        return torch.arange(n, dtype=i64, device=dev)
+
+    RM = R * M
+    isF = pay_bit(pay, P_ISF)
+    nid_read = nid[:, :RM].reshape(W, R, M)
+    nid_ref = nid[:, RM:RM + Mraw]
+    nid_proj = nid[:, RM + Mraw:RM + 2 * Mraw]
+    p_isF = isF[:, RM:RM + Mraw]
+
+    # the pair u -> v at time 2p, v -> u at 2p + 1: p the u instance's
+    # stream position (its time plus one past a read's first mer)
+    moff = ar(M)[None, None, :].expand(W, R, M).reshape(W, RM)
+    roff = ar(Mraw)[None, :]
+    t_u = pay_time(pay[:, :RM + Mraw]) + (
+        torch.cat([moff, roff.expand(W, Mraw)], dim=1) > 0).to(i64)
+
+    u = nid_read.reshape(W, RM)
     v = torch.cat([nid_read[:, :, 1:], full((W, R, 1), -1)],
-                  dim=2).reshape(W, R * M)
-    uF = isF.reshape(W, R * M)
-    vF = torch.cat([isF[:, :, 1:], zeros(W, R, 1, dtype=torch.bool)],
-                   dim=2).reshape(W, R * M)
-    tpair = (2 * g).reshape(W, R * M)  # u->v at 2p, v->u at 2p+1
-    pm = pair_mask.reshape(W, R * M)
-
-    ref_pm = ref_valid & ~ref_last
+                  dim=2).reshape(W, RM)
+    uF = isF[:, :RM]
+    isF_read = uF.reshape(W, R, M)
+    vF = torch.cat([isF_read[:, :, 1:], zeros(W, R, 1, dtype=torch.bool)],
+                   dim=2).reshape(W, RM)
     rv = torch.cat([nid_ref[:, 1:], full((W, 1), -1)], dim=1)
     rvF = torch.cat([p_isF[:, 1:], zeros(W, 1, dtype=torch.bool)], dim=1)
 
-    PU = R * M + Mraw
+    PU = RM + Mraw
     pu_src = torch.cat([u, nid_ref], dim=1)
     pu_dst = torch.cat([v, rv], dim=1)
     pu_uF = torch.cat([uF, p_isF], dim=1)
     pu_vF = torch.cat([vF, rvF], dim=1)
-    pu_t = torch.cat([tpair, 2 * ref_g], dim=1)
-    pu_m = torch.cat([pm, ref_pm], dim=1) & okW
+    pu_m = pay_bit(pay[:, :PU], P_PAIR)
     fdir = (1 - pu_uF.to(i64)) * 2 + (1 - pu_vF.to(i64))
     rdir = fliplink(fdir)
 
@@ -370,9 +489,10 @@ def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
     ck_r = torch.where(use_tw, rdir, fdir)
     NODECAP = N + 64
     ckey = torch.where(pu_m, (ck_s * NODECAP + ck_d) * 4 + ck_r, I32_MAX)
-    tA = torch.where(pu_m & ~use_tw, pu_t, BIG)
-    tB = torch.where(pu_m & use_tw, pu_t, BIG)
-    ck, cperm = torch.sort(ckey, dim=1, stable=True)
+    tA = torch.where(pu_m & ~use_tw, t_u, BIG)
+    tB = torch.where(pu_m & use_tw, t_u, BIG)
+    cperm = window_sort_plain(ckey[None])
+    ck = torch.gather(ckey, 1, cperm)
     sA = torch.gather(tA, 1, cperm)
     sB = torch.gather(tB, 1, cperm)
     enew = torch.ones((W, PU), dtype=torch.bool, device=dev)
@@ -410,7 +530,7 @@ def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
 
     # order the directed rows by first-occurrence time, truncate to E
     et_key = torch.where(de_exists, de_time, BIG)
-    eorder = torch.argsort(et_key, dim=1, stable=True)[:, :E]
+    eorder = window_sort_plain(et_key[None])[:, :E]
     ex_o = torch.gather(de_exists, 1, eorder)
 
     def e_to_time_order(a, fill):
@@ -423,7 +543,8 @@ def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
 
     # ---- per-node out-edge adjacency (time-ordered slots) ----------------
     ak_key = torch.where(edge_exists, edge_src, I32_MAX)
-    ak1, aperm = torch.sort(ak_key, dim=1, stable=True)
+    aperm = window_sort_plain(ak_key[None])
+    ak1 = torch.gather(ak_key, 1, aperm)
     aidx = ar(E)[None, :].expand(W, E)
     anew = torch.ones((W, E), dtype=torch.bool, device=dev)
     anew[:, 1:] = ak1[:, 1:] != ak1[:, :-1]
@@ -431,13 +552,19 @@ def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
     a_exists = torch.gather(edge_exists, 1, aperm)
     over_d = torch.where(a_exists, slot + 1, 0).max(dim=1).values > D
     wid_a = ar(W)[:, None].expand(W, E)
-    srcs = torch.where(a_exists & (slot < D), ak1, N)  # N = dropped
+    NS = N + 1
+    # a source past N (the twin of a pair whose two mers are past N, in
+    # an over_n window) is dropped from adj, and counts in deg where its
+    # segment id wid * NS + src falls, as the JAX build's scatter and
+    # segment_sum with their out-of-range ids dropped
+    srcs = torch.where(a_exists & (slot < D) & (ak1 < N), ak1, N)
     adj = torch.full((W, N + 1, D), -1, dtype=i64, device=dev)
     adj[wid_a, srcs, torch.clamp(slot, max=D - 1)] = aperm
     adj = adj[:, :N]
-    deg = seg_sum(a_exists.to(i64).reshape(-1),
-                  (wid_a * NS + torch.where(a_exists, ak1, N)).reshape(-1),
-                  W * NS).reshape(W, NS)[:, :N]
+    dseg = wid_a * NS + torch.where(a_exists, ak1, N)
+    dseg = torch.where(dseg < W * NS, dseg, W * NS)
+    deg = seg_sum(a_exists.to(i64).reshape(-1), dseg.reshape(-1),
+                  W * NS + 1)[:W * NS].reshape(W, NS)[:, :N]
 
     # ---- reference coverage projection (Ref.cc:173-250) -----------------
     safe = torch.clamp(nid_proj, 0, N - 1)
@@ -459,38 +586,70 @@ def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
     # ---- mate-overlap candidates -----------------------------------------
     # a run of (mer, fragment) holding both mate orders of one fragment
     # makes the window a hasOverlappingMate candidate (Graph.cc:232-317)
-    IP = R * M
-    frag = rfrag.to(i64)[:, :, None].expand(W, R, M).reshape(W, IP)
-    order_r = rorder.to(i64)[:, :, None].expand(W, R, M).reshape(W, IP)
-    paired = (order_r > 0) & flat_valid
-    fkey_w = [torch.where(paired, mw[i].reshape(W, IP), SENT)
-              for i in range(NW)]
-    fkey_fr = torch.where(paired, frag, I32_MAX)
-    fo = torch.where(paired, order_r, 0)
-    fperm = lexsort(fkey_w + [fkey_fr])
-    ff = torch.gather(fkey_fr, 1, fperm)
+    fperm = window_sort_plain(fkeys)
+    fo = (pay[:, :RM] >> P_ORDER) & 0xFF
+    ff = torch.gather(fkeys[NW], 1, fperm)
     ford = torch.gather(fo, 1, fperm)
-    same = (words_eq_adjacent([torch.gather(k, 1, fperm) for k in fkey_w])
+    same = (words_eq_adjacent([torch.gather(fkeys[i], 1, fperm)
+                               for i in range(NW)])
             & (ff[:, 1:] == ff[:, :-1]) & (ff[:, 1:] != I32_MAX))
     cand = (same & (ford[:, 1:] != ford[:, :-1]) & (ford[:, 1:] > 0)
             & (ford[:, :-1] > 0))
     mate_cand = cand.any(dim=1) & window_ok
 
-    fallback = (over_n | over_e | over_d | mate_cand) & window_ok
+    fallback = (nodes["over_n"] | over_e | over_d | mate_cand) & window_ok
+    return {"n_edges": n_edges, "edge_src": edge_src, "edge_dst": edge_dst,
+            "edge_dir": edge_dir, "edge_exists": edge_exists, "adj": adj,
+            "deg": deg, "nid_proj": nid_proj, "proj_isF": p_isF,
+            "refcov": refcov, "mate_cand": mate_cand, "fallback": fallback}
 
-    return {
-        "mers_w": mers_w,
-        "counts": counts, "mq": mq, "totq": totq,
-        "mincov_qv": mincov_qv,
-        "exists": n_exists, "alive": alive, "low": low,
-        "in_index": n_in_index, "is_tumor": n_is_tumor,
-        "is_normal": n_is_normal,
-        "n_nodes": n_nodes, "n_edges": n_edges,
-        "edge_src": edge_src, "edge_dst": edge_dst, "edge_dir": edge_dir,
-        "edge_exists": edge_exists,
-        "adj": adj, "deg": deg,
-        "nid_proj": nid_proj, "proj_isF": p_isF, "refcov": refcov,
-        "avgcov": avgcov, "rawlen_dev": rawlen,
-        "mate_cand": mate_cand,
-        "fallback": fallback,
-    }
+
+# the keys of a build's output, in the JAX build_k's order
+BUILD_KEYS = ("mers_w", "counts", "mq", "totq", "mincov_qv", "exists",
+              "alive", "low", "in_index", "is_tumor", "is_normal", "n_nodes",
+              "n_edges", "edge_src", "edge_dst", "edge_dir", "edge_exists",
+              "adj", "deg", "nid_proj", "proj_isF", "refcov", "avgcov",
+              "rawlen_dev", "mate_cand", "fallback")
+
+
+def build_k_plain(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
+                  raw, rawlen, seq_off, seq_len, totalreadbp, window_ok,
+                  *, N, E, D, Lraw, min_qual_call,
+                  low_cov_threshold, min_cov_ratio):
+    """One k attempt's graph build for a window batch (tensors on one
+    device, as pack.WindowBatch lays them out), in PyTorch ops: the four
+    stages' plain versions, mer_instances_plain, window_sort_plain,
+    node_tables_plain and edge_tables_plain.
+
+    Returns a dict of node/edge tables in creation order plus refcov and
+    the per-window fallback flags, keyed as the JAX build_k's (BUILD_KEYS);
+    "mers_w" is the tuple of int64 words of this module's packing."""
+    _, R, L = bases.shape
+    inst = mer_instances_plain(K, bases, quals, rlen, rsample, rstrand,
+                               rfrag, rorder, raw, rawlen, seq_off, seq_len,
+                               window_ok, Lraw=Lraw,
+                               min_qual_call=min_qual_call)
+    perm = window_sort_plain(inst["keys"])
+    nodes = node_tables_plain(K, inst, perm, rawlen, totalreadbp, N=N,
+                              low_cov_threshold=low_cov_threshold,
+                              min_cov_ratio=min_cov_ratio)
+    edges = edge_tables_plain(K, inst, nodes, window_ok, R=R, L=L, N=N, E=E,
+                              D=D, Lraw=Lraw)
+    out = {**nodes, **edges}
+    return {k: out[k] for k in BUILD_KEYS}
+
+
+def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
+            raw, rawlen, seq_off, seq_len, totalreadbp, window_ok,
+            *, N, E, D, Lraw, min_qual_call,
+            low_cov_threshold, min_cov_ratio):
+    """One k attempt's graph build (build_k_plain's arguments and
+    outputs): the plain stages on the CPU, the kernels of csrc/dbg.cu on a
+    card (gpu.dbgk.build_k)."""
+    from .dbgk import build_k as build
+
+    return build(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
+                 raw, rawlen, seq_off, seq_len, totalreadbp, window_ok,
+                 N=N, E=E, D=D, Lraw=Lraw, min_qual_call=min_qual_call,
+                 low_cov_threshold=low_cov_threshold,
+                 min_cov_ratio=min_cov_ratio)

@@ -1,0 +1,605 @@
+"""The device graph engine's build of one k attempt: the hand-written CUDA
+kernels of `csrc/dbg.cu` and the dispatch to their plain versions.
+
+The JAX package compiles `tpu/dbg.py::build_k` (:120) into one device
+program a k and shape bucket; PyTorch would launch the ~1,000 ops of its
+plain version (gpu/dbg.py::build_k_plain) one by one from the host. Here a
+build is thirteen launches of four kernels, the same for every k, with no
+host sync:
+
+- `mer_instances`: the instance table (sort keys, payload, quality bits,
+  mate keys), one block a window, a thread an instance;
+- `window_sort`: the stable sort along the window axis of up to four int64
+  key words (a bitonic network on (keys, index), one block a window,
+  through device memory past a tile of shared memory); six a build;
+- `node_tables`: two launches around the creation order's window_sort;
+- `edge_tables`: four launches, each after a window_sort.
+
+Each wrapper takes tensors on one device and raises, before any work, when
+they span two. On the CPU it runs the plain version (gpu.dbg's
+mer_instances_plain, window_sort_plain, node_tables_plain,
+edge_tables_plain, build_k_plain); on a CUDA device it launches the kernels
+on that device and raises, before the launch, for shapes the kernels do
+not take (build_plan, sort_plan), and after it if the library cannot be
+built or a launch is refused. There is no fallback from the card to the
+plain version. Each launch adds one to `LAUNCHES[name]`.
+
+`build_k` on the card composes the four stages' card paths as build_k_plain
+composes their plain versions; each allocates its outputs and one int64
+workspace for its intermediate tables (the sorts' scratch, the group and
+pair tables): 37 aten ops a build, none of which syncs the host.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import NamedTuple
+
+import torch
+
+from .._build import build_shared
+from . import count_launch, input_device
+from .gotoh import NVCC_FLAGS, SMEM_LIMIT, _nvcc, _r16, _stream
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "dbg.cu")
+LAUNCHES = {"mer_instances": 0, "window_sort": 0, "node_tables": 0,
+            "edge_tables": 0}
+# launches of one build, whatever k and the shapes are
+BUILD_LAUNCHES = {"mer_instances": 1, "window_sort": 6, "node_tables": 2,
+                  "edge_tables": 4}
+MAX_K = 63  # three words of 31 bases; quality bits 0..K-1 of one int64
+MAX_SORT_KEYS = 4  # the mate sort's NW + 1 at k 63
+SORT_SMEM = SMEM_LIMIT - 1024  # a sort block's records (csrc kSmemLimit)
+MAX_SORT_N = 1 << 30  # int32 record indices
+I32_MAX = 2**31 - 1
+BIG = 1 << 30
+
+# the kernels' inputs, in the order of csrc/dbg.cu's dbg_instances
+INST_INPUTS = (("bases", torch.uint8), ("quals", torch.uint8),
+               ("rlen", torch.int32), ("rsample", torch.int8),
+               ("rstrand", torch.int8), ("rfrag", torch.int32),
+               ("rorder", torch.int8), ("raw", torch.uint8),
+               ("rawlen", torch.int32), ("seq_off", torch.int32),
+               ("seq_len", torch.int32), ("window_ok", torch.bool))
+# node_tables' pointers (dbg_nodes) and edge_tables' (dbg_edges)
+NODE_PTRS = ("keys", "pay", "qok", "perm", "order", "rawlen", "totalreadbp",
+             "node_key", "gstart", "over_n", "mers", "counts", "mq", "totq",
+             "mincov_qv", "exists", "alive", "low", "in_index", "is_tumor",
+             "is_normal", "n_nodes", "avgcov", "rawlen_dev", "nid")
+EDGE_PTRS = ("pay", "nid", "counts", "in_index", "over_n", "rawlen_dev",
+             "window_ok", "fkeys", "fperm", "ckey", "tab", "cperm", "de_src",
+             "de_dst", "de_dx", "et_key", "eorder", "over_e", "ak_key",
+             "aperm", "n_edges", "edge_src", "edge_dst", "edge_dir",
+             "edge_exists", "adj", "deg", "nid_proj", "proj_isF", "refcov",
+             "mate_cand", "fallback")
+# node_tables' outputs beside the workspace: (key, dtype, shape), the
+# shapes over W, N, K, NW, I
+NODE_OUTPUTS = (("counts", torch.int64, "WN4"), ("mq", torch.int32, "WNK4"),
+                ("totq", torch.int64, "WNK"), ("mincov_qv", torch.int64, "WN"),
+                ("exists", torch.bool, "WN"), ("alive", torch.bool, "WN"),
+                ("low", torch.bool, "WN"), ("in_index", torch.bool, "WN"),
+                ("is_tumor", torch.bool, "WN"),
+                ("is_normal", torch.bool, "WN"),
+                ("n_nodes", torch.int64, "W"), ("avgcov", torch.float32, "W"),
+                ("rawlen_dev", torch.int64, "W"))
+EDGE_OUTPUTS = (("n_edges", torch.int64, "W"),
+                ("edge_src", torch.int64, "WE"),
+                ("edge_dst", torch.int64, "WE"),
+                ("edge_dir", torch.int64, "WE"),
+                ("edge_exists", torch.bool, "WE"),
+                ("adj", torch.int64, "WND"), ("deg", torch.int64, "WN"),
+                ("nid_proj", torch.int64, "WMraw"),
+                ("proj_isF", torch.bool, "WMraw"),
+                ("refcov", torch.int64, "WLraw4"),
+                ("mate_cand", torch.bool, "W"), ("fallback", torch.bool, "W"))
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+class SortPlan(NamedTuple):
+    """One window_sort launch: NK key words of n elements a window, padded
+    to P (a power of two), sorted in tiles of T records in shared memory
+    (smem bytes); scratch is the int64 elements of device memory the
+    merges past a tile take for W windows (0 when one tile holds P)."""
+    NK: int
+    n: int
+    P: int
+    T: int
+    smem: int
+    scratch: int
+
+
+def sort_smem(NK: int, T: int) -> int:
+    """A window_sort block's dynamic shared memory: T records of NK int64
+    key words and an int32 index (csrc sort_smem_bytes)."""
+    return _r16(8 * NK * T) + _r16(4 * T)
+
+
+def sort_plan(NK: int, n: int, W: int) -> SortPlan:
+    """The launch of a sort of n elements a window by NK key words. Raises
+    for NK outside [1, MAX_SORT_KEYS], n < 1 or past MAX_SORT_N, W < 1."""
+    if not 1 <= NK <= MAX_SORT_KEYS or not 1 <= n <= MAX_SORT_N or W < 1:
+        raise ValueError(f"window_sort takes 1 to {MAX_SORT_KEYS} key words "
+                         f"and 1 to {MAX_SORT_N} elements in W >= 1 windows, "
+                         f"got NK={NK}, n={n}, W={W}")
+    P = 1 << max(1, (n - 1).bit_length())
+    T = 2
+    while 2 * T <= P and sort_smem(NK, 2 * T) <= SORT_SMEM:
+        T *= 2
+    scratch = 0 if P == T else NK * W * P + (W * P + 1) // 2
+    return SortPlan(NK, n, P, T, sort_smem(NK, T), scratch)
+
+
+def node_smem(N: int) -> int:
+    """node_tables' phase 0 block: the group starts [N + 1] and first
+    times [N], int32 (csrc node_layout)."""
+    return _r16(4 * (N + 1)) + _r16(4 * N)
+
+
+def edge_smem(phase: int, N: int, E: int) -> int:
+    """edge_tables' block: phase 1 the canonical groups' starts [E + 1] and
+    two time minima [E]; phase 3 each source's first slot and count
+    [N + 64]; int32 (csrc edge_layout)."""
+    if phase == 1:
+        return _r16(4 * (E + 1)) + 2 * _r16(4 * E)
+    return 2 * _r16(4 * (N + 64)) if phase == 3 else 0
+
+
+class BuildPlan(NamedTuple):
+    """The shapes of one build and its launches: M read mers a read, Mraw
+    ref mers, I = R*M + 3*Mraw instances, IP = R*M mate instances, PU =
+    R*M + Mraw pairs a window; the six sorts {name: SortPlan}."""
+    K: int
+    W: int
+    R: int
+    L: int
+    Lraw: int
+    N: int
+    E: int
+    D: int
+    NW: int
+    M: int
+    Mraw: int
+    I: int
+    IP: int
+    PU: int
+    sorts: dict
+
+
+def build_plan(K: int, W: int, R: int, L: int, Lraw: int, N: int, E: int,
+               D: int) -> BuildPlan:
+    """The launches of a build at these shapes. Raises ValueError, before
+    any launch, for what the engine never passes: K outside [1, 63], W, R,
+    N, E or D below 1, L or Lraw below K, instances whose times reach BIG,
+    pair keys past int32 (N past ~23,000), or tables past a block's shared
+    memory (N past ~29,000, E past ~19,000)."""
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"build_k takes K 1 to {MAX_K}, got K={K}")
+    if min(W, R, N, E, D) < 1 or L < K or Lraw < K:
+        raise ValueError(f"build_k takes W, R, N, E, D >= 1 and L, Lraw >= "
+                         f"K, got W={W}, R={R}, N={N}, E={E}, D={D}, L={L}, "
+                         f"Lraw={Lraw}, K={K}")
+    NW = (K + 30) // 31
+    M, Mraw = L - K + 1, Lraw - K + 1
+    IP = R * M
+    I, PU = IP + 3 * Mraw, IP + Mraw
+    if 2 * I + 2 >= BIG:
+        raise ValueError(f"build_k: {I} instances a window reach the time "
+                         "sentinel")
+    NODECAP = N + 64
+    if ((NODECAP - 1) * NODECAP + NODECAP - 1) * 4 + 3 >= I32_MAX:
+        raise ValueError(f"build_k: N={N} takes pair keys past int32")
+    if node_smem(N) > SMEM_LIMIT or max(edge_smem(1, N, E),
+                                        edge_smem(3, N, E)) > SMEM_LIMIT:
+        raise ValueError(f"build_k: N={N} or E={E} does not fit a block's "
+                         "shared memory")
+    sorts = {"inst": sort_plan(NW, I, W), "node": sort_plan(1, N, W),
+             "pair": sort_plan(1, PU, W), "time": sort_plan(1, 2 * E, W),
+             "adj": sort_plan(1, E, W), "mate": sort_plan(NW + 1, IP, W)}
+    return BuildPlan(K, W, R, L, Lraw, N, E, D, NW, M, Mraw, I, IP, PU,
+                     sorts)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build() -> str:
+    """Compile csrc/dbg.cu for sm_90a (if not built yet); returns the .so
+    path. Raises _build.BuildError with nvcc's error text."""
+    return build_shared(_SRC, "libdbg", [_nvcc()] + NVCC_FLAGS + [_SRC])
+
+
+def bind(path: str) -> ctypes.CDLL:
+    """Loads a build of csrc/dbg.cu and declares its entry points."""
+    lib = ctypes.CDLL(path)
+    vp, ci, ll, sz = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_size_t)
+    lib.dbg_instances.restype = ci
+    lib.dbg_instances.argtypes = [vp, vp] + [ci] * 6 + [vp]
+    lib.dbg_sort.restype = ci
+    lib.dbg_sort.argtypes = [vp, ll, ll] + [ci] * 5 + [vp, vp, vp, sz, vp]
+    lib.dbg_nodes.restype = ci
+    lib.dbg_nodes.argtypes = [ci, vp] + [ci] * 4 + [ll, ctypes.c_float, sz,
+                                                   vp]
+    lib.dbg_edges.restype = ci
+    lib.dbg_edges.argtypes = [ci, vp] + [ci] * 7 + [sz, vp]
+    lib.dbg_sort_smem.restype = sz
+    lib.dbg_sort_smem.argtypes = [ci, ci]
+    lib.dbg_nodes_smem.restype = sz
+    lib.dbg_nodes_smem.argtypes = [ci]
+    lib.dbg_edges_smem.restype = sz
+    lib.dbg_edges_smem.argtypes = [ci, ci, ci]
+    return lib
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            _lib = bind(build())
+        return _lib
+
+
+class _Card(NamedTuple):
+    """A launch target: the library, the stream handle (a ctypes void
+    pointer) and the device of the tensors."""
+    lib: ctypes.CDLL
+    stream: object
+    dev: torch.device
+
+
+def _card(dev: torch.device) -> _Card:
+    with torch.cuda.device(dev):
+        return _Card(_load(), _stream(dev), dev)
+
+
+def _ptrs(ps) -> ctypes.Array:
+    return (ctypes.c_void_p * len(ps))(*ps)
+
+
+def _ok(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    count_launch(LAUNCHES, name)
+
+
+def _check_smem(name: str, got: int, want: int) -> None:
+    if got != want:
+        raise RuntimeError(f"{name}: the shared-memory plan disagrees with "
+                           "csrc/dbg.cu's layout")
+
+
+# ---------------------------------------------------------------------------
+# launches on pointers (the card's tensors, or a build's workspace)
+# ---------------------------------------------------------------------------
+
+def _launch_instances(c: _Card, p: BuildPlan, ins, outs,
+                      min_qual_call) -> None:
+    """mer_instances on INST_INPUTS' tensors `ins` into the pointers outs
+    (keys, pay, qok, fkeys)."""
+    _ok("mer_instances", c.lib.dbg_instances(
+        _ptrs([t.data_ptr() for t in ins]), _ptrs(outs), p.W, p.R, p.L,
+        p.Lraw, p.K, int(min_qual_call), c.stream))
+
+
+def _launch_sort(c: _Card, sp: SortPlan, W: int, keys: int, ps: int,
+                 wst: int, perm: int, scratch: int | None) -> None:
+    """window_sort of keys (key c of window w, element i at keys + 8 (c ps
+    + w wst + i)) into perm [W, n] int64; scratch: sp.scratch int64
+    elements (None when 0)."""
+    _check_smem("window_sort", c.lib.dbg_sort_smem(sp.NK, sp.T), sp.smem)
+    sidx = None if scratch is None else scratch + 8 * sp.NK * W * sp.P
+    _ok("window_sort", c.lib.dbg_sort(
+        keys, ps, wst, sp.NK, W, sp.n, sp.P, sp.T, perm, scratch, sidx,
+        sp.smem, c.stream))
+
+
+def _launch_nodes(c: _Card, p: BuildPlan, ptrs: dict, phase: int,
+                  low_cov_threshold, min_cov_ratio) -> None:
+    smem = node_smem(p.N) if phase == 0 else 0
+    if phase == 0:
+        _check_smem("node_tables", c.lib.dbg_nodes_smem(p.N), smem)
+    _ok("node_tables", c.lib.dbg_nodes(
+        phase, _ptrs([ptrs.get(k) for k in NODE_PTRS]), p.W, p.I, p.N, p.K,
+        int(low_cov_threshold), float(min_cov_ratio), smem, c.stream))
+
+
+def _launch_edges(c: _Card, p: BuildPlan, ptrs: dict, phase: int) -> None:
+    smem = edge_smem(phase, p.N, p.E)
+    _check_smem("edge_tables", c.lib.dbg_edges_smem(phase, p.N, p.E), smem)
+    _ok("edge_tables", c.lib.dbg_edges(
+        phase, _ptrs([ptrs.get(k) for k in EDGE_PTRS]), p.W, p.R, p.L,
+        p.Lraw, p.K, p.N, p.E, p.D, smem, c.stream))
+
+
+def _empty(shapes: dict, spec, dev) -> dict:
+    return {k: torch.empty(shapes[ax], dtype=dt, device=dev)
+            for k, dt, ax in spec}
+
+
+def _shapes(p: BuildPlan) -> dict:
+    W, N = p.W, p.N
+    return {"W": (W,), "WN": (W, N), "WN4": (W, N, 4), "WNK": (W, N, p.K),
+            "WNK4": (W, N, p.K, 4), "WE": (W, p.E), "WND": (W, N, p.D),
+            "WMraw": (W, p.Mraw), "WLraw4": (W, p.Lraw, 4)}
+
+
+def _inputs(name: str, tensors) -> list:
+    """INST_INPUTS' tensors in their kernel dtypes (no copy where they
+    have them already)."""
+    out = []
+    for (k, dt), t in zip(INST_INPUTS, tensors):
+        if t.dim() == 0:
+            raise ValueError(f"{name}: {k} must have the window axis")
+        out.append(t.to(dt).contiguous())
+    return out
+
+
+def _plan_of(name: str, K, ins, N, E, D, Lraw) -> BuildPlan:
+    bases, raw = ins[0], ins[7]
+    if bases.dim() != 3 or raw.dim() != 2 or raw.shape[1] != Lraw:
+        raise ValueError(f"{name}: bases [W, R, L] and raw [W, Lraw={Lraw}] "
+                         f"expected, got {tuple(bases.shape)} and "
+                         f"{tuple(raw.shape)}")
+    W, R, L = bases.shape
+    return build_plan(K, W, R, L, Lraw, N, E, D)
+
+
+# ---------------------------------------------------------------------------
+# the build
+# ---------------------------------------------------------------------------
+
+def _build_card(c: _Card, p: BuildPlan, ins, min_qual_call,
+                low_cov_threshold, min_cov_ratio) -> dict:
+    """The thirteen launches of a build on `c` (ins: INST_INPUTS' tensors
+    and totalreadbp last): the four stages' card paths composed as
+    build_k_plain composes their plain versions. Returns its dict."""
+    from .dbg import BUILD_KEYS
+
+    inst = _instances_card(c, p, ins[:12], min_qual_call)
+    perm = _sort_card(c, inst["keys"], p.sorts["inst"])
+    nodes = _nodes_card(c, p, inst, perm, ins[8], ins[12],
+                        low_cov_threshold, min_cov_ratio)
+    out = {**nodes, **_edges_card(c, p, inst, nodes, ins[11])}
+    return {k: out[k] for k in BUILD_KEYS}
+
+
+def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder, raw,
+            rawlen, seq_off, seq_len, totalreadbp, window_ok, *, N, E, D,
+            Lraw, min_qual_call, low_cov_threshold, min_cov_ratio):
+    """One k attempt's graph build (gpu.dbg.build_k_plain's arguments and
+    outputs): the plain version on the CPU, thirteen launches of the four
+    kernels on a card (BUILD_LAUNCHES), with no host sync."""
+    args = (bases, quals, rlen, rsample, rstrand, rfrag, rorder, raw,
+            rawlen, seq_off, seq_len, window_ok)
+    dev = input_device("build_k", *args, totalreadbp)
+    if dev.type == "cpu":
+        from .dbg import build_k_plain
+
+        return build_k_plain(K, bases, quals, rlen, rsample, rstrand, rfrag,
+                             rorder, raw, rawlen, seq_off, seq_len,
+                             totalreadbp, window_ok, N=N, E=E, D=D,
+                             Lraw=Lraw, min_qual_call=min_qual_call,
+                             low_cov_threshold=low_cov_threshold,
+                             min_cov_ratio=min_cov_ratio)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    p = _plan_of("build_k", K, args, N, E, D, Lraw)
+    ins = _inputs("build_k", args) + [totalreadbp.to(torch.int32)
+                                      .contiguous()]
+    return _build_card(_card(dev), p, ins, min_qual_call, low_cov_threshold,
+                       min_cov_ratio)
+
+
+# ---------------------------------------------------------------------------
+# the four stages, each on its own (the kernels held against their plain
+# versions)
+# ---------------------------------------------------------------------------
+
+def _instances_card(c: _Card, p: BuildPlan, ins, min_qual_call) -> dict:
+    W = p.W
+    out = {"keys": torch.empty((p.NW, W, p.I), dtype=torch.int64,
+                               device=c.dev),
+           "pay": torch.empty((W, p.I), dtype=torch.int64, device=c.dev),
+           "qok": torch.empty((W, p.I), dtype=torch.int64, device=c.dev),
+           "fkeys": torch.empty((p.NW + 1, W, p.IP), dtype=torch.int64,
+                                device=c.dev)}
+    _launch_instances(c, p, ins, [out[k].data_ptr() for k in
+                                  ("keys", "pay", "qok", "fkeys")],
+                      min_qual_call)
+    return out
+
+
+def mer_instances(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
+                  raw, rawlen, seq_off, seq_len, window_ok, *, Lraw,
+                  min_qual_call):
+    """The instance table (gpu.dbg.mer_instances_plain). On the card one
+    launch, a block a window."""
+    args = (bases, quals, rlen, rsample, rstrand, rfrag, rorder, raw,
+            rawlen, seq_off, seq_len, window_ok)
+    dev = input_device("mer_instances", *args)
+    if dev.type == "cpu":
+        from .dbg import mer_instances_plain
+
+        return mer_instances_plain(K, *args, Lraw=Lraw,
+                                   min_qual_call=min_qual_call)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    p = _plan_of("mer_instances", K, args, 1, 1, 1, Lraw)
+    return _instances_card(_card(dev), p, _inputs("mer_instances", args),
+                           min_qual_call)
+
+
+def _sort_card(c: _Card, keys, sp: SortPlan | None = None) -> torch.Tensor:
+    NK, W, n = keys.shape
+    sp = sp or sort_plan(NK, n, W)
+    keys = keys.contiguous()
+    perm = torch.empty((W, n), dtype=torch.int64, device=c.dev)
+    scratch = (torch.empty(sp.scratch, dtype=torch.int64, device=c.dev)
+               if sp.scratch else None)
+    _launch_sort(c, sp, W, keys.data_ptr(), W * n, n, perm.data_ptr(),
+                 None if scratch is None else scratch.data_ptr())
+    return perm
+
+
+def window_sort(keys):
+    """The stable sort permutation [W, n] int64 of keys [NK, W, n] int64
+    along the window axis, key 0 the most significant
+    (gpu.dbg.window_sort_plain). On the card one launch, a block a window
+    (sort_plan)."""
+    dev = input_device("window_sort", keys)
+    if dev.type == "cpu":
+        from .dbg import window_sort_plain
+
+        return window_sort_plain(keys)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if keys.dim() != 3 or keys.dtype != torch.int64:
+        raise ValueError(f"window_sort takes keys [NK, W, n] int64, got "
+                         f"{tuple(keys.shape)} {keys.dtype}")
+    return _sort_card(_card(dev), keys)
+
+
+def _inst_plan(name, K, inst, N, E, D, R, L, Lraw) -> BuildPlan:
+    W, I = inst["pay"].shape
+    p = build_plan(K, W, R, L, Lraw, N, E, D)
+    shapes = {"keys": (p.NW, W, p.I), "pay": (W, p.I), "qok": (W, p.I),
+              "fkeys": (p.NW + 1, W, p.IP)}
+    for k, s in shapes.items():
+        t = inst[k]
+        if tuple(t.shape) != s or t.dtype != torch.int64:
+            raise ValueError(f"{name}: {k} {tuple(t.shape)} {t.dtype}, the "
+                             f"kernel takes {s} int64")
+    return p
+
+
+def _nodes_card(c: _Card, p: BuildPlan, inst, perm, rawlen, totalreadbp,
+                low_cov_threshold, min_cov_ratio) -> dict:
+    W, N = p.W, p.N
+    node = p.sorts["node"]
+    ws = torch.empty(2 * W * N + (W * (N + 1) + 1) // 2 + 1 + node.scratch,
+                     dtype=torch.int64, device=c.dev)
+    base = ws.data_ptr()
+    mers = torch.empty((p.NW, W, N), dtype=torch.int64, device=c.dev)
+    out = _empty(_shapes(p), NODE_OUTPUTS, c.dev)
+    out["nid"] = torch.empty((W, p.I), dtype=torch.int64, device=c.dev)
+    out["over_n"] = torch.empty((W,), dtype=torch.bool, device=c.dev)
+    inst = {k: inst[k].contiguous() for k in ("keys", "pay", "qok")}
+    rawlen = rawlen.to(torch.int32).contiguous()
+    totalreadbp = totalreadbp.to(torch.int32).contiguous()
+    perm = perm.contiguous()
+    ptrs = {k: t.data_ptr() for k, t in out.items()}
+    ptrs.update({k: t.data_ptr() for k, t in inst.items()})
+    ptrs.update(perm=perm.data_ptr(), rawlen=rawlen.data_ptr(),
+                totalreadbp=totalreadbp.data_ptr(), mers=mers.data_ptr(),
+                node_key=base, order=base + 8 * W * N,
+                gstart=base + 16 * W * N)
+    scratch = base + 8 * (ws.numel() - node.scratch) if node.scratch \
+        else None
+    _launch_nodes(c, p, ptrs, 0, low_cov_threshold, min_cov_ratio)
+    _launch_sort(c, node, W, ptrs["node_key"], W * N, N, ptrs["order"],
+                 scratch)
+    _launch_nodes(c, p, ptrs, 1, low_cov_threshold, min_cov_ratio)
+    out["mers_w"] = mers.unbind(0)
+    return out
+
+
+def node_tables(K, inst, perm, rawlen, totalreadbp, *, N, R, L, Lraw,
+                low_cov_threshold, min_cov_ratio):
+    """The node tables in creation order and each instance's node
+    (gpu.dbg.node_tables_plain; R, L and Lraw give the instance table's
+    shape). On the card two launches around a window_sort."""
+    dev = input_device("node_tables", inst["keys"], inst["pay"],
+                       inst["qok"], perm, rawlen, totalreadbp)
+    if dev.type == "cpu":
+        from .dbg import node_tables_plain
+
+        return node_tables_plain(K, inst, perm, rawlen, totalreadbp, N=N,
+                                 low_cov_threshold=low_cov_threshold,
+                                 min_cov_ratio=min_cov_ratio)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    p = _inst_plan("node_tables", K, inst, N, 1, 1, R, L, Lraw)
+    if tuple(perm.shape) != (p.W, p.I) or perm.dtype != torch.int64:
+        raise ValueError(f"node_tables: perm {tuple(perm.shape)} "
+                         f"{perm.dtype}, the kernel takes {(p.W, p.I)} int64")
+    return _nodes_card(_card(dev), p, inst, perm, rawlen, totalreadbp,
+                       low_cov_threshold, min_cov_ratio)
+
+
+def _edges_card(c: _Card, p: BuildPlan, inst, nodes, window_ok) -> dict:
+    W, E, PU, IP = p.W, p.E, p.PU, p.IP
+    sp = {k: v for k, v in p.sorts.items() if k in ("pair", "time", "adj",
+                                                     "mate")}
+    sizes = (("ckey", W * PU), ("tab", W * PU), ("cperm", W * PU),
+             ("de_src", 2 * W * E), ("de_dst", 2 * W * E),
+             ("de_dx", 2 * W * E), ("et_key", 2 * W * E),
+             ("eorder", 2 * W * E), ("ak_key", W * E), ("aperm", W * E),
+             ("over_e", (W + 7) // 8), ("fperm", W * IP),
+             ("scratch", max(s.scratch for s in sp.values())))
+    ws = torch.empty(sum(n for _, n in sizes), dtype=torch.int64,
+                     device=c.dev)
+    ptrs, off = {}, ws.data_ptr()
+    for k, n in sizes:
+        ptrs[k] = off
+        off += 8 * n
+    out = _empty(_shapes(p), EDGE_OUTPUTS, c.dev)
+    ptrs.update({k: t.data_ptr() for k, t in out.items()})
+    held = {"pay": inst["pay"].contiguous(),
+            "fkeys": inst["fkeys"].contiguous(),
+            "window_ok": window_ok.contiguous()}
+    held.update({k: nodes[k].contiguous() for k in
+                 ("nid", "counts", "in_index", "over_n", "rawlen_dev")})
+    ptrs.update({k: t.data_ptr() for k, t in held.items()})
+    scratch = ptrs["scratch"] if sizes[-1][1] else None
+    _launch_edges(c, p, ptrs, 0)
+    _launch_sort(c, sp["pair"], W, ptrs["ckey"], W * PU, PU, ptrs["cperm"],
+                 scratch)
+    _launch_edges(c, p, ptrs, 1)
+    _launch_sort(c, sp["time"], W, ptrs["et_key"], 2 * W * E, 2 * E,
+                 ptrs["eorder"], scratch)
+    _launch_edges(c, p, ptrs, 2)
+    _launch_sort(c, sp["adj"], W, ptrs["ak_key"], W * E, E, ptrs["aperm"],
+                 scratch)
+    _launch_sort(c, sp["mate"], W, ptrs["fkeys"], W * IP, IP, ptrs["fperm"],
+                 scratch)
+    _launch_edges(c, p, ptrs, 3)
+    return out
+
+
+EDGE_NODE_KEYS = ("nid", "counts", "in_index", "over_n", "rawlen_dev")
+
+
+def edge_tables(K, inst, nodes, window_ok, *, R, L, N, E, D, Lraw):
+    """The edge tables, the reference projection, the mate candidates and
+    the fallback flags (gpu.dbg.edge_tables_plain). On the card four
+    launches, with a window_sort before each of the last three (two before
+    the last)."""
+    dev = input_device("edge_tables", inst["pay"], inst["fkeys"], window_ok,
+                       *[nodes[k] for k in EDGE_NODE_KEYS])
+    if dev.type == "cpu":
+        from .dbg import edge_tables_plain
+
+        return edge_tables_plain(K, inst, nodes, window_ok, R=R, L=L, N=N,
+                                 E=E, D=D, Lraw=Lraw)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    p = _inst_plan("edge_tables", K, inst, N, E, D, R, L, Lraw)
+    want = {"nid": ((p.W, p.I), torch.int64),
+            "counts": ((p.W, N, 4), torch.int64),
+            "in_index": ((p.W, N), torch.bool),
+            "over_n": ((p.W,), torch.bool),
+            "rawlen_dev": ((p.W,), torch.int64)}
+    for k, (s, dt) in want.items():
+        if tuple(nodes[k].shape) != s or nodes[k].dtype != dt:
+            raise ValueError(f"edge_tables: {k} {tuple(nodes[k].shape)} "
+                             f"{nodes[k].dtype}, the kernel takes {s} {dt}")
+    if tuple(window_ok.shape) != (p.W,) or window_ok.dtype != torch.bool:
+        raise ValueError("edge_tables takes window_ok [W] bool")
+    return _edges_card(_card(dev), p, inst, nodes, window_ok)

@@ -9,6 +9,7 @@ a parent commit's, on one card.
     python3 walks_ab.py --only compress
     python3 walks_ab.py --only graphstate
     python3 walks_ab.py --only cleanup
+    python3 walks_ab.py --only build
     python3 walks_ab.py --only bodies --parent build/parent
 
 Walks: captures every path_cover, almost_repeat_paths and cycle_dfs call of
@@ -89,6 +90,14 @@ kernel, kernel, plain), and the host syncs of the first SYNC_ATTEMPTS
 attempt tails (devicepipe._assemble) with each version (cleanup_calls_ab);
 then the end-to-end turns of the other parts with pipeline.cleanup patched
 to cleanup_plain.
+
+The build (`--only build`, without a parent): device-graph case 1 and
+the hard corpus's device graph run with gpu/dbg.py::build_k patched to
+build_k_plain (its ~1,000 torch ops launched from the host) and with the
+thirteen launches of csrc/dbg.cu, in turns (plain, kernel, kernel,
+plain), as plain_ab runs the other parts, with t_dg_pack and its three
+parts (chip_smoke.pack_split: pack_chunk, the H2D copy, build_k's
+dispatch) beside each run's keys.
 
 The moved bodies (`--only bodies`, the parent's csrc/walks.cu and
 csrc/compress.cu, from `git archive <parent> lancet_tpu_torch/csrc`):
@@ -864,8 +873,10 @@ PLAIN_AB = {"screens": ("tandem_at", "cycle_screen"),
             "compress": ("compress_round",),
             "graphstate": ("components", "compact_state", "low_cov_pass",
                            "item_mincovs"),
-            "cleanup": ("cleanup",)}
-PLAIN_AB_MODULE = {"cleanup": "pipeline"}
+            "cleanup": ("cleanup",), "build": ("build_k",)}
+PLAIN_AB_MODULE = {"cleanup": "pipeline", "build": "dbg"}
+# the build's runs also report t_dg_pack and its parts
+BUILD_KEYS = ("t_dg_pack", "t_dg_build", "t_dg_a_dispatch")
 # attempts of each case whose whole tail (devicepipe._assemble) is run
 # again to count its host syncs
 SYNC_ATTEMPTS = 2
@@ -898,16 +909,22 @@ def plain_ab(part: str, case: str, workdir: str,
     ops = {}
     busy = {}
     vcfs = set()
+    keys = SCREEN_KEYS + (BUILD_KEYS if part == "build" else ())
     try:
         vcfs.add(cs.run_devgraph(workdir, region, {})[0])  # warm-up
         for ver in ("plain", "kernel", "kernel", "plain"):
             use(versions[ver])
             st: dict = {}
-            vcf, _ = cs.run_devgraph(workdir, region, st)
+            split: dict = {}
+            with (cs.pack_split(split) if part == "build"
+                  else contextlib.nullcontext()):
+                vcf, _ = cs.run_devgraph(workdir, region, st)
             vcfs.add(vcf)
-            runs[ver].append({k: st[k] for k in SCREEN_KEYS}
+            runs[ver].append({k: st[k] for k in keys}
                              | {"windows_per_s": st["n_windows"]
-                                / st["t_total"]})
+                                / st["t_total"]}
+                             | ({"t_dg_pack_split": split} if split
+                                else {}))
         for ver, fns in versions.items():
             use(fns)
             ops[ver] = {}
@@ -922,8 +939,13 @@ def plain_ab(part: str, case: str, workdir: str,
     finally:
         use(real)
     spread = {v: {k: cs.spread([r[k] for r in rs])
-                  for k in (*SCREEN_KEYS[:-1], "windows_per_s")}
+                  for k in (*SCREEN_KEYS[:-1], "windows_per_s",
+                            *keys[len(SCREEN_KEYS):])}
               for v, rs in runs.items()}
+    if part == "build":
+        for v, rs in runs.items():
+            spread[v]["t_build_k"] = cs.spread(
+                [r["t_dg_pack_split"]["t_build_k"] for r in rs])
     return {part: case, "region": region, "order": ["plain", "kernel",
                                                     "kernel", "plain"],
             "runs": runs, "spread": spread,
@@ -1214,14 +1236,15 @@ def main() -> int:
                          "screens: the kernels' A/B)")
     ap.add_argument("--only", choices=("walks", "removal", "gates",
                                        "screens", "compress", "graphstate",
-                                       "cleanup", "bodies"),
+                                       "cleanup", "build", "bodies"),
                     help="time only the walks, the removal pass, the "
                          "repeat gates, the screens, the compression "
-                         "pass, the graphstate functions or the cleanup")
+                         "pass, the graphstate functions, the cleanup or "
+                         "the build")
     a = ap.parse_args()
     if a.only not in PLAIN_AB and not a.parent:
         ap.error("--parent is needed unless --only screens, compress, "
-                 "graphstate or cleanup")
+                 "graphstate, cleanup or build")
     import torch
 
     if not torch.cuda.is_available():
