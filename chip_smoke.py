@@ -99,14 +99,18 @@ Phases, each printing one JSON line:
      data (cleanup_accounting), at most CLEANUP_MAX_ATEN_OPS a call;
      every build_k call of both cases (and of phase mesh (b)) held
      bit-equal, dtypes too, to build_k_plain on its inputs on the card and
-     run again under set_sync_debug_mode("error") with its thirteen
-     launches of csrc/dbg.cu (dbgk.BUILD_LAUNCHES), at most
+     run again under set_sync_debug_mode("error") with the launches of
+     csrc/dbg.cu its plan fixes (dbgk.build_plan's launches), at most
      BUILD_MAX_ATEN_OPS aten ops a call, and one kernels line for each of
      mer_instances, window_sort, node_tables and edge_tables on the
      largest call, each on its own inputs (the plain stages before it),
      with the plain version's time, the bound on this data
      (build_accounting) and, for window_sort, one stable torch.sort of a
-     key word at the same shape; case 1's timed run also splits t_dg_pack
+     key word at the same shape; on that call also each of the build's
+     six sorts alone (build_sorts_case: its device time beside its bound,
+     one stable torch.sort of its keys where it has one key word, the
+     plain lexsort chain where more) and the whole build's device time;
+     case 1's timed run also splits t_dg_pack
      into pack_chunk, the H2D copy and build_k's dispatch (pack_split);
   7b. hard: the JAX benchmark's hard corpus (corpus.hard_corpus, 1,995
      windows, 8 threads): the main path on cuda (and on cuda and cpu over
@@ -175,7 +179,7 @@ Phases, each printing one JSON line:
      gpu/cleanupcases.py, free of host syncs with its eight launches,
      bit-equal (dtypes too) to cleanup_plain; and build_k on the crafted
      windows of gpu/buildcases.py at every bucket's shape (the hub at
-     HUB_D), free of host syncs with its thirteen launches, bit-equal
+     HUB_D), free of host syncs with its plan's launches, bit-equal
      (dtypes too) to build_k_plain.
 Then the kernels' summary line, nvidia-smi's line, and last the device
 line. Every path's launch counts are set to 0 just before it runs and read
@@ -1201,8 +1205,9 @@ GRAPHSTATE_OPS = {"comp_edge": 4, "comp_item": 6, "compact_item": 4,
 # the build of csrc/dbg.cu (its wrappers in gpu/dbgk.py): every card
 # build_k call of the devgraph, hard and mesh (b) runs held bit-equal,
 # dtypes too, to build_k_plain on its inputs on the card and run again
-# under torch.cuda.set_sync_debug_mode("error") with its thirteen launches
-# (dbgk.BUILD_LAUNCHES); the four kernels timed on the largest call
+# under torch.cuda.set_sync_debug_mode("error") with the launches its plan
+# fixes (dbgk.build_plan(...).launches); the four kernels timed on the
+# largest call, each by the device time of all of its kernels
 _BUILD = ("mer_instances", "window_sort", "node_tables", "edge_tables")
 _BUILD_SOURCE = "lancet_tpu/tpu/dbg.py:120"
 _BUILD_ALSO = {"mer_instances": "lancet_tpu/tpu/dbg.py:54, :152-235",
@@ -1210,21 +1215,27 @@ _BUILD_ALSO = {"mer_instances": "lancet_tpu/tpu/dbg.py:54, :152-235",
                               ":518, :575",
                "node_tables": "lancet_tpu/tpu/dbg.py:239-327",
                "edge_tables": "lancet_tpu/tpu/dbg.py:329-478"}
-_BUILD_KERNELS = {n: f"{n}_kernel" for n in _BUILD}
+_BUILD_KERNELS = {
+    "mer_instances": ("mer_instances_count", "mer_instances_write"),
+    "window_sort": ("window_sort_keys", "window_sort_count",
+                    "window_sort_scatter", "window_sort_tile"),
+    "node_tables": ("node_tables_kernel",),
+    "edge_tables": ("edge_tables_kernel",)}
 # aten ops of one build_k call on the card: its stages' allocations (the
-# instance table's 4, the instance sort's permutation and scratch, the
-# node tables' 16 and workspace, the mers' unbind, the edge tables' 12 and
-# workspace); the thirteen launches go through ctypes; one op to spare
+# instance table's 4, the instance sort's permutation and workspace (its
+# records and the instance tiles' counts), the node tables' 16 and
+# workspace, the mers' unbind, the edge tables' 12 and workspace): 37;
+# the launches go through ctypes; one op to spare
 BUILD_MAX_ATEN_OPS = 38
 # Integer operations of each kernel's function, by hand, as lower bounds:
 # mer_instances 3 a base of an instance's mer (the load, the forward and
 # reverse shift-or) and 2 a quality (the compare, the bit); window_sort 2
-# a comparison (the words' compare and the select) of the n log2 n any
-# comparison sort needs; node_tables 4 an instance (its group's boundary
+# a record a pass of 8 bits of its declared key (the digit and its rank);
+# node_tables 4 an instance (its group's boundary
 # test, its first time, its class count and node) and 2 a quality bit;
 # edge_tables 12 a pair (its ends, the canonical key) and 8 a row (the
 # time order, the adjacency slot).
-BUILD_OPS = {"base": 3, "qual": 2, "compare": 2, "instance": 4,
+BUILD_OPS = {"base": 3, "qual": 2, "digit": 2, "instance": 4,
              "qbit": 2, "pair": 12, "row": 8}
 
 
@@ -1555,8 +1566,8 @@ def graphstate_sync_free(name: str, args, kw) -> bool:
 def build_sync_free(args, kw) -> bool:
     """build_k again on a kept call's inputs under
     torch.cuda.set_sync_debug_mode("error") (a host sync raises): True
-    where it made no sync and launched each kernel its count of
-    dbgk.BUILD_LAUNCHES."""
+    where it made no sync and launched each kernel as often as its plan
+    (build_launches) says."""
     import torch
 
     from lancet_tpu_torch.gpu import dbg, dbgk
@@ -1574,7 +1585,17 @@ def build_sync_free(args, kw) -> bool:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     return ok and {k: dbgk.LAUNCHES[k] - before[k]
-                   for k in before} == dbgk.BUILD_LAUNCHES
+                   for k in before} == build_launches(args, kw)
+
+
+def build_launches(args, kw) -> dict:
+    """The launches of each build kernel that a build_k call's plan fixes
+    (dbgk.build_plan: its shapes and k)."""
+    from lancet_tpu_torch.gpu import dbgk
+
+    W, R, L = args[1].shape
+    return dbgk.build_plan(args[0], W, R, L, kw["Lraw"], kw["N"], kw["E"],
+                           kw["D"]).launches
 
 
 def cleanup_sync_free(args, kw) -> bool:
@@ -2426,19 +2447,27 @@ def graphstate_case(name: str, args, kw: dict, rate: dict) -> dict:
             "plain_aten_ops_per_call": aten_ops(plain), **acc}
 
 
-def device_ms_by_kernel(fn, kernels, n: int = 10) -> dict:
+def device_ms_by_kernel(fn, kernels, n: int = 10,
+                        launches: dict | None = None) -> dict:
     """{kernel: device ms per call of fn} summed over the launches whose
-    name holds the kernel's, and "all": every kernel of the call, from
-    torch.profiler's CUDA activity over n calls (None where none was
-    recorded)."""
+    name holds the kernel's (a tuple of names: any of them, keyed by the
+    tuple), and "all": every kernel of the call, from torch.profiler's
+    CUDA activity over n calls (None where none was recorded). With
+    `launches` ({kernel: launches a call}) a profile counts only where it
+    holds every launch of each kernel (n of them a launch a call: a
+    profile can drop kernel records, and a sum over some of them reads
+    low); a kernel never seen whole reads None, and so does "all"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def hits(k, m):
+        return any(x in m for x in ((k,) if isinstance(k, str) else k))
+
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a profile that missed the kernels is taken again
-        with profile(activities=[ProfilerActivity.CPU,
+    for _ in range(5 if launches else 3):  # a profile that missed kernels
+        with profile(activities=[ProfilerActivity.CPU,  # is taken again
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -2446,12 +2475,47 @@ def device_ms_by_kernel(fn, kernels, n: int = 10) -> dict:
         ev = [(e.name(), e.duration_ns())
               for e in prof.profiler.kineto_results.events()
               if e.device_type() == DeviceType.CUDA]
-        out = {k: sum(d for m, d in ev if k in m) / n / 1e6
+        out = {k: sum(d for m, d in ev if hits(k, m)) / n / 1e6
                for k in kernels}
         out["all"] = sum(d for _, d in ev) / n / 1e6
-        if all(out[k] for k in kernels):
-            return out
+        if launches is None:
+            if all(out[k] for k in kernels):
+                return out
+            continue
+        whole = {k: sum(hits(k, m) for m, _ in ev) == n * launches.get(k, 0)
+                 for k in kernels}
+        if all(whole.values()):
+            return {k: v or None for k, v in out.items()}
+    if launches is not None:
+        return {**{k: out[k] if whole[k] and out[k] else None
+                   for k in kernels}, "all": None}
     return {k: out[k] or None for k in out}
+
+
+def queued_ms(fn, n: int = 20) -> float:
+    """Device ms per call of fn: CUDA events around n calls that the host
+    queued behind a spin kernel (torch.cuda._sleep), so that the card runs
+    them back to back; the gaps between a call's kernels are in it, the
+    host's dispatch is not. No profiler."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t  # the host's seconds to issue a call
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    # spin 3x as long as the host takes to queue the n calls (2e9 cycles
+    # at most: ~1 s at 1,980 MHz)
+    torch.cuda._sleep(int(2e9 * min(3 * n * host + 1e-3, 1.0)))
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def build_stage_inputs(args, kw):
@@ -2475,8 +2539,6 @@ def build_accounting(name: str, args, kw, inst) -> dict:
     """What one call of a build kernel's function needs: each input read
     once, each output written once (bytes), and the integer operations of
     BUILD_OPS on this call's counts."""
-    import math
-
     from lancet_tpu_torch.gpu import dbg, dbgk
 
     K = args[0]
@@ -2489,9 +2551,9 @@ def build_accounting(name: str, args, kw, inst) -> dict:
         nbytes = (2 * W * R * L + 11 * W * R + W * p.Lraw + 13 * W
                   + 8 * W * I * (NW + 2) + 8 * W * IP * (NW + 1))
         nops = W * I * K * o["base"] + W * IP * (K + 1) * o["qual"]
-    elif name == "window_sort":
+    elif name == "window_sort":  # the instance sort
         nbytes = 8 * W * I * (NW + 1)
-        nops = W * I * math.ceil(math.log2(I)) * o["compare"]
+        nops = W * I * p.sorts["inst"].P * o["digit"]
     elif name == "node_tables":
         nbytes = (8 * W * I * (NW + 4) + 8 * W + 8 * NW * W * N
                   + 48 * W * N + 24 * W * N * K + 6 * W * N + 21 * W)
@@ -2505,14 +2567,87 @@ def build_accounting(name: str, args, kw, inst) -> dict:
             "L": L, "N": N, "E": E, "I": I, "read_instances": reads}
 
 
+def build_sorts_case(args, kw: dict, rate: dict) -> dict:
+    """The six sorts of a build_k call captured from the devgraph runs,
+    each on its keys from one card build (dbgk.build_sort_keys) with the
+    build's plan (its declared key ranges): bit-equal to
+    window_sort_plain on the card, then its device time (all of its
+    kernels, torch.profiler, each launch's record required; also split by
+    kernel: the records and pass 0's counts, the counts, the scatters, or
+    a one-tile sort's one kernel; and queued_ms, no profiler) and CUDA
+    events around the wrapper, beside the plain lexsort chain's
+    and, where the sort has one key word, one
+    stable torch.sort of that word along the window axis (device time and
+    CUDA events: the library yardstick), and its bound: the keys read once
+    and the permutation written once, or 2 operations a record a pass."""
+    import torch
+
+    from lancet_tpu_torch.gpu import dbg, dbgk
+
+    out = {}
+    for name, (keys, sp) in dbgk.build_sort_keys(*args, **kw).items():
+        NK, W, n = keys.shape
+        before = dbgk.LAUNCHES["window_sort"]
+        got = dbgk.window_sort(keys, plan=sp)
+        launched = dbgk.LAUNCHES["window_sort"] - before
+        torch.cuda.synchronize()
+        err = dtype_mismatches(got, dbg.window_sort_plain(keys))
+        if err or launched != sp.launches:
+            raise AssertionError(f"window_sort ({name} sort): {err} outputs "
+                                 f"differ, {launched} launches of "
+                                 f"{sp.launches}")
+        del got
+
+        def fn(keys=keys, sp=sp):
+            return dbgk.window_sort(keys, plan=sp)
+
+        def plain(keys=keys):
+            return dbg.window_sort_plain(keys)
+
+        def lib(word=keys[0]):
+            return torch.sort(word, dim=1, stable=True)
+
+        ks = _BUILD_KERNELS["window_sort"]  # keys, count, scatter, tile
+        multi = sp.T > 1
+        dev = device_ms_by_kernel(
+            fn, [ks, *ks], launches={ks: sp.launches, ks[0]: multi,
+                                     ks[1]: (sp.P - 1) * multi,
+                                     ks[2]: sp.P * multi, ks[3]: not multi})
+        nbytes = 8 * (NK + 1) * W * n
+        nops = 2 * W * n * sp.P
+        bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "operations": nops / rate["int_ops_per_s"] * 1e3}
+        by = max(bound, key=bound.get)
+        out[name] = {
+            "NK": NK, "W": W, "n": n, "key_bits": sp.B, "passes": sp.P,
+            "tiles": sp.T, "launches": sp.launches, "max_abs_err": err,
+            "device_ms": dev[ks],
+            "device_ms_by_kernel": {k: dev[k] for k in ks},
+            "queued_ms": queued_ms(fn),
+            "ms": spread(cuda_times(fn, *KERNEL_REPS)),
+            "plain_device_ms": device_ms_by_kernel(plain, [])["all"],
+            "plain_queued_ms": queued_ms(plain),
+            "plain_ms": spread(cuda_times(plain, *KERNEL_REPS)),
+            "library_device_ms": (device_ms_by_kernel(lib, [])["all"]
+                                  if NK == 1 else None),
+            "library_queued_ms": queued_ms(lib) if NK == 1 else None,
+            "library_ms": (spread(cuda_times(lib, *KERNEL_REPS))
+                           if NK == 1 else None),
+            "bound_ms": bound[by], "bound_by": by, "bytes": nbytes,
+            "int_ops": nops}
+    return out
+
+
 def build_case(args, kw: dict, rate: dict) -> dict:
     """The four build kernels on a build_k call captured from the devgraph
     runs, each on its own inputs (the plain stages' outputs before it):
     bit-equal to its plain version on the card (dtypes too), then timed
-    beside it (CUDA events around the wrapper; its kernel's own device
+    beside it (CUDA events around the wrapper; its kernels' own device
     time and its call's, torch.profiler), its bound on this data
-    (build_accounting), and for window_sort (the instance sort) one
-    stable torch.sort of the last key word at the same shape."""
+    (build_accounting), and for window_sort (the instance sort, with the
+    build's plan) one stable torch.sort of the last key word at the same
+    shape; under window_sort also each of the six sorts
+    (build_sorts_case) and the whole build_k call's device time."""
     import torch
 
     from lancet_tpu_torch.gpu import dbg, dbgk
@@ -2520,6 +2655,7 @@ def build_case(args, kw: dict, rate: dict) -> dict:
     K, t = args[0], args[1:]
     W, R, L = t[0].shape
     Lraw, N, E, D = kw["Lraw"], kw["N"], kw["E"], kw["D"]
+    plan = dbgk.build_plan(K, W, R, L, Lraw, N, E, D)
     inst, perm, nodes = build_stage_inputs(args, kw)
     sc = {k: kw[k] for k in ("low_cov_threshold", "min_cov_ratio")}
     ik = dict(Lraw=Lraw, min_qual_call=kw["min_qual_call"])
@@ -2528,8 +2664,9 @@ def build_case(args, kw: dict, rate: dict) -> dict:
         "mer_instances": (
             lambda: dbgk.mer_instances(K, *t[:11], t[12], **ik),
             lambda: dbg.mer_instances_plain(K, *t[:11], t[12], **ik)),
-        "window_sort": (lambda: dbgk.window_sort(inst["keys"]),
-                        lambda: dbg.window_sort_plain(inst["keys"])),
+        "window_sort": (
+            lambda: dbgk.window_sort(inst["keys"], plan=plan.sorts["inst"]),
+            lambda: dbg.window_sort_plain(inst["keys"])),
         "node_tables": (
             lambda: dbgk.node_tables(K, inst, perm, t[8], t[11], N=N, R=R,
                                      L=L, Lraw=Lraw, **sc),
@@ -2553,7 +2690,8 @@ def build_case(args, kw: dict, rate: dict) -> dict:
                                  f"on {err} outputs")
         del got, want
         ms = spread(cuda_times(fn, *KERNEL_REPS))
-        dev = device_ms_by_kernel(fn, [_BUILD_KERNELS[name]])
+        ks = _BUILD_KERNELS[name]
+        dev = device_ms_by_kernel(fn, [ks], launches={ks: launched[name]})
         plain_ms = spread(cuda_times(plain, WALK_PLAIN_REPS))
         acc = build_accounting(name, args, kw, inst)
         bound = {"bytes": acc["bytes"] / HBM_BYTES_PER_S * 1e3,
@@ -2564,12 +2702,20 @@ def build_case(args, kw: dict, rate: dict) -> dict:
             lib = spread(cuda_times(
                 lambda: torch.sort(last, dim=1, stable=True), *KERNEL_REPS))
         out[name] = {"name": name, "tolerance": 0, "max_abs_err": err,
-                     "ms": ms, "device_ms": dev[_BUILD_KERNELS[name]],
+                     "ms": ms, "device_ms": dev[ks],
+                     "queued_ms": queued_ms(fn),
                      "call_device_ms": dev["all"], "plain_ms": plain_ms,
                      "bound": bound, "library_ms": lib,
                      "launches_per_call": launched,
                      "aten_ops_per_call": aten_ops(fn),
                      "plain_aten_ops_per_call": aten_ops(plain), **acc}
+    out["window_sort"]["sorts"] = build_sorts_case(args, kw, rate)
+    stages = {_BUILD_KERNELS[k]: n for k, n in plan.launches.items()}
+    out["window_sort"]["build_device_ms"] = device_ms_by_kernel(
+        lambda: dbg.build_k(*args, **kw), list(stages),
+        launches=stages)["all"]
+    out["window_sort"]["build_queued_ms"] = queued_ms(
+        lambda: dbg.build_k(*args, **kw))
     return out
 
 
@@ -3683,8 +3829,6 @@ def main() -> int:
         wres[key] = cleanup_case(key, args, kw, rate)
         emit({"phase": "kernels", "case": f"devgraph_{key}",
               "launches": walk_launches[key.split("/")[0]], **wres[key]})
-    from lancet_tpu_torch.gpu import dbgk
-
     _, bargs, bkw = kept["build_k"]
     bres = build_case(bargs, bkw, rate)
     for name in _BUILD:
@@ -3696,7 +3840,7 @@ def main() -> int:
           "aten_ops_card": {"case_1": ops_g.get("build_k"),
                             "case_2": ops.get("build_k")},
           "max_aten_ops": BUILD_MAX_ATEN_OPS,
-          "launches_per_call": dbgk.BUILD_LAUNCHES,
+          "launches_per_call": build_launches(bargs, bkw),
           "largest": {k: bres["window_sort"][k]
                       for k in ("K", "W", "R", "L", "N", "E", "I")}})
     emit({"phase": "devgraph", "case": "cleanup",
@@ -3890,7 +4034,7 @@ def main() -> int:
             "fallback": got[1].tolist(), "mismatches": bad + int(not ok)}
         crafted_cleanup = max(crafted_cleanup, bad)
     # the build on the crafted windows of gpu/buildcases.py at every
-    # bucket's shape (the hub at HUB_D): thirteen launches free of host
+    # bucket's shape (the hub at HUB_D): the plan's launches free of host
     # syncs, against build_k_plain on the card, dtypes too
     from lancet_tpu_torch.gpu import buildcases, dbgk
 
@@ -3910,8 +4054,10 @@ def main() -> int:
                     "W": int(arrs["rlen"].shape[0]), "R": R, "L": L, "N": N,
                     "E": E, "D": D,
                     "fallback": got["fallback"].tolist(),
-                    "mismatches": bad + int(launched
-                                            != dbgk.BUILD_LAUNCHES)}
+                    "mismatches": bad + int(
+                        launched != dbgk.build_plan(
+                            K, int(arrs["rlen"].shape[0]), R, L,
+                            buildcases.LRAW, N, E, D).launches)}
                 crafted_build = max(crafted_build, bad)
                 del got, want
     emit({"phase": "kernels", "case": "walks_crafted", "tolerance": 0,
@@ -4170,6 +4316,10 @@ def main() -> int:
                              "plain_ms": h["plain_ms"]["median"],
                              "bound_ms": h["bound"][hby], "bound_by": hby,
                              "library_ms": med(h["library_ms"])},
+            **({"sorts": r["sorts"], "hard_sorts": h["sorts"],
+                "build_device_ms": r["build_device_ms"],
+                "hard_build_device_ms": h["build_device_ms"]}
+               if name == "window_sort" else {}),
             "library_ms": med(r["library_ms"])})
     emit({"kernels": line, "t_smoke": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -1,7 +1,8 @@
 // The device graph engine's build of one k attempt (gpu/dbg.py::build_k)
-// for Hopper (sm_90a): four kernels, thirteen launches a build whatever k
-// is. Plain C interface, loaded with ctypes by gpu/dbgk.py; each entry
-// point returns cudaGetLastError() after its launch.
+// for Hopper (sm_90a): four stages, each one or a few kernels, a build's
+// launches fixed by its shapes and k (gpu/dbgk.py::build_plan). Plain C
+// interface, loaded with ctypes by gpu/dbgk.py; each entry point returns
+// cudaGetLastError() after each of its launches.
 //
 // The JAX package compiles the build into one XLA program a k and shape
 // bucket (lancet_tpu/tpu/dbg.py::build_k :120, jitted at :116; no Pallas);
@@ -22,35 +23,49 @@
 //                     canonical groups and directed rows; the time order;
 //                     the adjacency, the reference projection, the mate
 //                     candidates and the fallback flags)
-// The launch sequence (gpu/dbgk.py::build_k): mer_instances, window_sort
-// (instances), node_tables 0, window_sort (node keys), node_tables 1,
-// edge_tables 0, window_sort (pair keys), edge_tables 1, window_sort
-// (times), edge_tables 2, window_sort (sources), window_sort (mate keys),
-// edge_tables 3.
+// The launch sequence (gpu/dbgk.py::build_k): mer_instances (2),
+// window_sort (instances), node_tables 0, window_sort (node keys),
+// node_tables 1, edge_tables 0, window_sort (pair keys), edge_tables 1,
+// window_sort (times), edge_tables 2, window_sort (sources), window_sort
+// (mate keys), edge_tables 3.
 //
 // What bounds them on this card: a build moves ~15 MB at k 13 in bucket 0
 // (W 32: mq and totq, [W, N, K, 4] int32 and [W, N, K] int64, are most of
-// it) and its instance tables are a few MB more, ~5 us of memory; the
-// work is the sorts' compare-exchanges and the per-instance K-base loops.
-// This first version is simple and right, one block of 1,024 threads a
-// window for every kernel (32 of 132 SMs at W 32):
-// - mer_instances: a thread an instance, its K bases read from device
-//   memory (neighbouring threads neighbouring offsets), the read
-//   instances' stream positions from a block scan in instance order;
-// - window_sort: a bitonic network on (key words, index), so that it is
-//   the stable sort whatever the keys (the index breaks every tie). A
-//   window's records take 12-36 bytes each and bucket 3's instances
-//   ~1.4 MB at one key word: more than a block's shared memory and, at
-//   the mate sort's four words (~4.3 MB), more than a cluster's 16 x 227
-//   KB. So the network runs through device memory: tiles of up to 16,384
-//   records sorted and merged in shared memory, the strides past a tile
-//   as passes over the window's records in device memory (L2-resident at
-//   these sizes). One block a window, one launch a sort;
-// - node_tables and edge_tables: block scans for the group boundaries,
-//   shared-memory atomic minima for the groups' first times, a warp a
-//   node for its counts (lanes over the group's instances, then each
-//   lane's quality bits over the instances broadcast by shuffles), shared
-//   counters for the adjacency's first slot and degree.
+// it) and its instance tables and sorts a few tens of MB at the largest
+// bucket, tens of microseconds of memory; the work is the sorts' passes
+// and the instances' mer words. So the two stages that hold most records
+// fill the card with many blocks a window:
+// - mer_instances: (window, tile of 2,048 read instances) blocks and
+//   (window, tile of 512 reference offsets) blocks, 256 threads. A block
+//   stages the reads its tile touches as bit strings in shared memory (a
+//   warp loads 32 bases and qualities with one coalesced load each and
+//   builds the 2-bit codes and the bad-base and bad-quality masks by
+//   ballots); an instance's mer words, quality bits and pair gates are
+//   then a few extractions from those strings, not K loads. The stream
+//   position of a valid read instance needs the count of valid ones before
+//   it in the window: a first launch counts each tile's, the second adds
+//   the earlier tiles' counts to a block scan (no atomics, no look-back);
+// - window_sort: an LSD radix sort of (key, index) records by 8-bit
+//   digits, stable by construction and at any n. The plan declares each
+//   key word's range (gpu/dbgk.py::build_plan: a mer word's 2 bits a base,
+//   the times below 2I + 2, the pair keys, the sources below N + 64) and
+//   its sentinel, which maps to the top of that range; the record's key is
+//   the mapped words side by side in 32-bit lanes, and the sort takes a
+//   pass for each 8 of their bits (3 at k 11 for the instances, not a
+//   compare of all 64 bits of each word). A window of one tile (4,096
+//   records) sorts in one block in shared memory, one launch; past a
+//   tile, (window, tile) blocks of 512 threads: launch 1 maps the keys
+//   into records and counts each tile's digits of pass 0; each pass then
+//   a scatter (the digit's offset in the window from every tile's counts,
+//   the tile's records ranked by digit in shared memory from warp ballots,
+//   written in sorted runs) and, before every pass but the first, a count
+//   of each tile's digits as the last pass left them;
+// - node_tables and edge_tables: one block of 1,024 threads a window;
+//   block scans for the group boundaries, shared-memory atomic minima for
+//   the groups' first times, a warp a node for its counts (lanes over the
+//   group's instances, then each lane's quality bits over the instances
+//   broadcast by shuffles), shared counters for the adjacency's first slot
+//   and degree.
 // Data outside what gpu/dbgk.py::build_plan takes gives wrong answers,
 // never a fault: every index into shared memory is bounded.
 
@@ -107,9 +122,10 @@ __device__ __forceinline__ long long fliplink(long long d) {
 }
 
 // Exclusive prefix sum of v over the block; *total gets the block's sum.
-// ws: kWarps ints of shared memory. Every thread of the block calls it.
+// ws: 32 ints of shared memory. Every thread of the block calls it.
 __device__ int block_scan(int v, int* ws, int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarp = blockDim.x >> 5;
   int x = v;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
@@ -119,7 +135,7 @@ __device__ int block_scan(int v, int* ws, int* total) {
   if (lane == 31) ws[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int s = ws[lane];
+    int s = lane < nwarp ? ws[lane] : 0;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const int y = __shfl_up_sync(kFull, s, d);
@@ -129,7 +145,7 @@ __device__ int block_scan(int v, int* ws, int* total) {
   }
   __syncthreads();
   const int before = (warp ? ws[warp - 1] : 0) + x - v;
-  *total = ws[kWarps - 1];
+  *total = ws[nwarp - 1];
   __syncthreads();  // ws is reused by the next call
   return before;
 }
@@ -144,37 +160,138 @@ __device__ __forceinline__ long long warp_min(long long x) {
 }
 
 // ---------------------------------------------------------------------------
-// mer words (gpu/dbg.py's packing: int64 words of 31 bases, most
-// significant word first, the last word full, first base most significant)
+// sequences as bit strings in shared memory
 // ---------------------------------------------------------------------------
 
 struct Words {
   long long w[3];
 };
 
-// The forward and reverse-complement words of the K bases at b, and
-// whether every base is below 4.
-__device__ __forceinline__ void mer_words(const uint8_t* b, int K, int NW,
-                                          Words& f, Words& r, bool& ok) {
-  bool bad = false;
+// Bits [off, off + len) of the little-endian bit string s, len 0..64; s
+// holds two words past the last one a caller reads.
+__device__ __forceinline__ unsigned long long ext(const unsigned* s, int off,
+                                                  int len) {
+  const int i = off >> 5, sh = off & 31;
+  unsigned long long v = (static_cast<unsigned long long>(s[i]) |
+                          (static_cast<unsigned long long>(s[i + 1]) << 32)) >>
+                         sh;
+  if (sh) v |= static_cast<unsigned long long>(s[i + 2]) << (64 - sh);
+  return len >= 64 ? v : v & ((1ULL << len) - 1);
+}
+
+// The nb 2-bit groups of v (group 0 least significant) in reverse order.
+__device__ __forceinline__ unsigned long long rev2(unsigned long long v,
+                                                   int nb) {
+  unsigned long long x = __brevll(v);
+  x = ((x >> 1) & 0x5555555555555555ULL) | ((x & 0x5555555555555555ULL) << 1);
+  return x >> (64 - 2 * nb);
+}
+
+// bit b of x to bit 2b (x: 16 bits)
+__device__ __forceinline__ unsigned spread16(unsigned x) {
+  x &= 0xffffu;
+  x = (x | (x << 8)) & 0x00ff00ffu;
+  x = (x | (x << 4)) & 0x0f0f0f0fu;
+  x = (x | (x << 2)) & 0x33333333u;
+  return (x | (x << 1)) & 0x55555555u;
+}
+
+// A staged sequence of len bases, in 32-bit words: code, each base's low
+// two bits (base x at bits 2x, 2x + 1); bad, base x >= 4 at bit x; qbad,
+// quality x below the minimum at bit x. nc = ceil(len / 32) chunks; each
+// string ends in two zero words, which ext reads past its last bit.
+struct SeqLayout {
+  int nc, code, bad, qbad, words;
+};
+
+__host__ __device__ inline SeqLayout seq_layout(int len) {
+  SeqLayout o{};
+  o.nc = (len + 31) / 32;
+  o.code = 0;
+  o.bad = 2 * o.nc + 2;
+  o.qbad = o.bad + o.nc + 2;
+  o.words = o.qbad + o.nc + 2;
+  return o;
+}
+
+constexpr int kStageBatch = 8;  // chunks a warp loads before its ballots
+
+// Stages rows row0 .. row0 + nseq - 1 of b (and of q, where not null) of
+// len bases each into s, `stride` (>= lay.words) words a row: a warp a
+// chunk of 32 positions, one coalesced load a base and a quality (a warp's
+// kStageBatch chunks' loads in flight together), each word built by the
+// warp's ballots. Every thread of the block calls it; it ends in a
+// barrier.
+__device__ void stage_seqs(const uint8_t* b, const uint8_t* q, long long row0,
+                           int nseq, int len, int minq, const SeqLayout& lay,
+                           int stride, unsigned* s) {
+  const int lane = threadIdx.x & 31, nwarp = blockDim.x >> 5;
+  const int njobs = nseq * lay.nc;
+  for (int j0 = (threadIdx.x >> 5) * kStageBatch; j0 < njobs;
+       j0 += nwarp * kStageBatch) {
+    int bv[kStageBatch];
+    bool qb[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int job = j0 + u;
+      const int j = job / lay.nc, x = 32 * (job - j * lay.nc) + lane;
+      const bool in = job < njobs && x < len;
+      const long long at = (row0 + j) * len + x;
+      bv[u] = in ? b[at] : 0;
+      qb[u] = in && q != nullptr && static_cast<int>(q[at]) < minq;
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int job = j0 + u;
+      const unsigned lo = __ballot_sync(kFull, bv[u] & 1);
+      const unsigned hi = __ballot_sync(kFull, (bv[u] >> 1) & 1);
+      const unsigned bad = __ballot_sync(kFull, bv[u] >= 4);
+      const unsigned qbad = __ballot_sync(kFull, qb[u]);
+      if (lane == 0 && job < njobs) {
+        const int j = job / lay.nc, c = job - j * lay.nc;
+        unsigned* r = s + j * stride;
+        r[lay.code + 2 * c] = spread16(lo) | (spread16(hi) << 1);
+        r[lay.code + 2 * c + 1] =
+            spread16(lo >> 16) | (spread16(hi >> 16) << 1);
+        r[lay.bad + c] = bad;
+        r[lay.qbad + c] = qbad;
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < 2 * nseq; i += blockDim.x) {
+    unsigned* r = s + (i >> 1) * stride;
+    r[lay.code + 2 * lay.nc + (i & 1)] = 0;
+    r[lay.bad + lay.nc + (i & 1)] = 0;
+    r[lay.qbad + lay.nc + (i & 1)] = 0;
+  }
+  __syncthreads();
+}
+
+// The forward and reverse-complement words of the K bases at m of a staged
+// sequence r (gpu/dbg.py's packing: int64 words of 31 bases, most
+// significant word first, the last word full, first base most
+// significant), and whether every base is below 4: NW extractions each,
+// not K loads.
+__device__ __forceinline__ void mer_words(const unsigned* r,
+                                          const SeqLayout& lay, int m, int K,
+                                          int NW, Words& f, Words& rc,
+                                          bool& ok) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     long long fv = 0, rv = 0;
     if (i < NW) {
       const int lo = max(K - 31 * (NW - i), 0), hi = K - 31 * (NW - 1 - i);
-      for (int j = lo; j < hi; ++j) {
-        const int c = b[j];
-        bad |= c >= 4;
-        fv = (fv << 2) | (c & 3);
-      }
+      fv = static_cast<long long>(
+          rev2(ext(r + lay.code, 2 * (m + lo), 2 * (hi - lo)), hi - lo));
       // the reverse complement holds comp(b_j) at distance j from its end
-      const int rlo = 31 * (NW - 1 - i), rhi = min(31 * (NW - i), K);
-      for (int j = rhi - 1; j >= rlo; --j) rv = (rv << 2) | ((b[j] & 3) ^ 3);
+      const int rlo = 31 * (NW - 1 - i), nb = min(31 * (NW - i), K) - rlo;
+      rv = static_cast<long long>(ext(r + lay.code, 2 * (m + rlo), 2 * nb) ^
+                                  ((1ULL << (2 * nb)) - 1));
     }
     f.w[i] = fv;
-    r.w[i] = rv;
+    rc.w[i] = rv;
   }
-  ok = !bad;
+  ok = ext(r + lay.bad, m, K) == 0;
 }
 
 __device__ __forceinline__ bool lex_less(const Words& a, const Words& b,
@@ -194,8 +311,10 @@ __device__ __forceinline__ Words pick(bool f, const Words& a,
 }
 
 // ---------------------------------------------------------------------------
-// mer_instances
+// mer_instances: a block a tile of read instances or of reference offsets
 // ---------------------------------------------------------------------------
+
+constexpr int kInstThreads = 256;
 
 struct InstArgs {
   const uint8_t* bases;  // [W, R, L]
@@ -214,126 +333,231 @@ struct InstArgs {
   long long* pay;    // [W, I]
   long long* qok;    // [W, I]
   long long* fkeys;  // [NW + 1, W, IP]
+  int* cnt;          // [W, TR]: the valid read instances of each read tile
   int W, R, L, Lraw, K, NW, M, Mraw, I, IP, minq;
+  int TQ, TR, RQ, TF;  // instances a read tile and read tiles a window;
+                       // offsets a reference tile and reference tiles
 };
 
-__global__ void __launch_bounds__(kThreads)
-    mer_instances_kernel(const InstArgs a) {
-  __shared__ int ws[kWarps];
-  const int w = blockIdx.x;
+// read tile t: its instances [q0, q1) in (read, offset) order, which lie
+// in the nr reads from r0
+__device__ __forceinline__ void read_tile(const InstArgs& a, int t, int& q0,
+                                          int& q1, int& r0, int& nr) {
+  q0 = t * a.TQ;
+  q1 = min(q0 + a.TQ, a.R * a.M);
+  r0 = q0 / a.M;
+  nr = (q1 - 1) / a.M - r0 + 1;
+}
+
+// A read tile's shared memory: the stream positions of its instances (TQ
+// ints), then its reads, each its staged strings and kReadFields ints
+// (rlen, rsample, rstrand, rorder, rfrag).
+constexpr int kReadFields = 5;
+
+__host__ __device__ inline int read_stride(int L) {
+  return seq_layout(L).words + kReadFields;
+}
+
+// Stages read tile t's reads of window w: their strings and fields.
+__device__ void stage_reads(const InstArgs& a, int w, int r0, int nr,
+                            unsigned* s) {
+  const SeqLayout lay = seq_layout(a.L);
+  const int stride = read_stride(a.L);
+  const long long row0 = static_cast<long long>(w) * a.R + r0;
+  for (int i = threadIdx.x; i < nr; i += blockDim.x) {
+    int* f = reinterpret_cast<int*>(s + i * stride + lay.words);
+    f[0] = a.rlen[row0 + i];
+    f[1] = a.rsample[row0 + i];
+    f[2] = a.rstrand[row0 + i];
+    f[3] = a.rorder[row0 + i];
+    f[4] = a.rfrag[row0 + i];
+  }
+  stage_seqs(a.bases, a.quals, row0, nr, a.L, a.minq, lay, stride, s);
+}
+
+// whether read instance q (offset m of staged read r) is valid: a read of
+// more than one mer, m below its mers, every base below 4
+__device__ __forceinline__ bool read_valid(const InstArgs& a,
+                                           const unsigned* r, int m) {
+  const SeqLayout lay = seq_layout(a.L);
+  const int rl = reinterpret_cast<const int*>(r + lay.words)[0];
+  return rl - a.K > 0 && m < rl - a.K + 1 &&
+         ext(r + lay.bad, m, a.K) == 0;
+}
+
+constexpr int kInstItems = 8;  // a thread's consecutive instances in a scan
+
+// The valid instances of read tile [q0, q1) (its reads staged at s from
+// r0): each thread counts kInstItems consecutive ones, then one block
+// scan; where gpos is not null, each valid instance's count of valid ones
+// before it in the tile. Returns the tile's count. Every thread calls it.
+__device__ int scan_valid(const InstArgs& a, const unsigned* s, int q0,
+                          int q1, int r0, int* gpos, int* ws) {
+  const int M = a.M, stride = read_stride(a.L);
+  int c = 0;
+  for (int base = q0; base < q1; base += kInstItems * blockDim.x) {
+    const int b0 = base + kInstItems * threadIdx.x;
+    unsigned v = 0;
+#pragma unroll
+    for (int i = 0; i < kInstItems; ++i) {
+      const int q = b0 + i;
+      if (q < q1) {
+        const int rr = q / M;
+        v |= static_cast<unsigned>(
+                 read_valid(a, s + (rr - r0) * stride, q - rr * M))
+             << i;
+      }
+    }
+    int total;
+    int before = block_scan(__popc(v), ws, &total) + c;
+    if (gpos != nullptr) {
+#pragma unroll
+      for (int i = 0; i < kInstItems; ++i) {
+        if (b0 + i < q1) gpos[b0 + i - q0] = before;
+        before += (v >> i) & 1;
+      }
+    }
+    c += total;
+  }
+  return c;
+}
+
+// the valid read instances of window w in read tiles [0, t); every thread
+// calls it
+__device__ int tiles_before(const InstArgs& a, int w, int t, int* ws) {
+  int c = 0;
+  for (int u = threadIdx.x; u < t; u += blockDim.x) c += a.cnt[w * a.TR + u];
+  int total;
+  block_scan(c, ws, &total);
+  return total;
+}
+
+// launch 1: each read tile's count of valid instances
+__global__ void __launch_bounds__(kInstThreads)
+    mer_instances_count(const InstArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int ws[32];
+  unsigned* s = reinterpret_cast<unsigned*>(smem) + a.TQ;
+  const int w = blockIdx.x / a.TR, t = blockIdx.x - w * a.TR;
+  int q0, q1, r0, nr;
+  read_tile(a, t, q0, q1, r0, nr);
+  stage_reads(a, w, r0, nr, s);
+  const int n = scan_valid(a, s, q0, q1, r0, nullptr, ws);
+  if (threadIdx.x == 0) a.cnt[w * a.TR + t] = n;
+}
+
+// a read tile: the instance table's read part, the stream position g of a
+// valid instance the count of valid ones before it in (read, offset) order
+// (the earlier tiles' counts, then the tile's scan)
+__device__ void inst_reads(const InstArgs& a, int w, int t, unsigned* sm,
+                           int* ws) {
+  const int K = a.K, NW = a.NW, M = a.M, L = a.L;
   const bool okW = a.window_ok[w] != 0;
-  const int K = a.K, NW = a.NW, M = a.M, L = a.L, R = a.R, Mraw = a.Mraw;
-  const int RM = R * M;
   const long long plane = static_cast<long long>(a.W) * a.I;
   const long long fplane = static_cast<long long>(a.W) * a.IP;
   long long* keys = a.keys + static_cast<long long>(w) * a.I;
   long long* pay = a.pay + static_cast<long long>(w) * a.I;
   long long* qok = a.qok + static_cast<long long>(w) * a.I;
   long long* fkeys = a.fkeys + static_cast<long long>(w) * a.IP;
-
-  // the read instances, in (read, offset) order: the stream position g
-  // of a valid one is the count of valid ones before it
-  int carry = 0;
-  for (int base = 0; base < RM; base += kThreads) {
-    const int q = base + threadIdx.x;
-    bool inst_valid = false, is_last = false, isF = false, tflag = false;
-    int m = 0, samp = 0, order = 0;
-    long long qk = 0;
-    Words mw{};
-    const int rr = q < RM ? q / M : 0;
-    if (q < RM) {
-      m = q - rr * M;
-      const long long row = static_cast<long long>(w) * R + rr;
-      const int rl = a.rlen[row];
-      const int n_mers = max(rl - K + 1, 0);
-      const bool use_read = rl - K > 0;  // a single-mer read is skipped
-      const uint8_t* b = a.bases + row * L;
-      const uint8_t* qu = a.quals + row * L;
-      Words f, r;
-      bool bok;
-      mer_words(b + m, K, NW, f, r, bok);
-      isF = lex_less(f, r, NW);
-      mw = pick(isF, f, r);
-      // quality bits of mer m; the pair gates of m (quals m..m+K) and of
-      // m-1 (quals m-1..m+K-1); the bases of mer m-1
-      long long qf = 0, qr = 0;
-      bool qbad = false, qbad_prev = false, bad_prev = false;
-      for (int j = -1; j <= K; ++j) {
-        const int pos = m + j;
-        if (pos < 0 || pos >= L) continue;
-        const bool qb = static_cast<int>(qu[pos]) < a.minq;
-        if (j >= 0) qbad |= qb;
-        if (j <= K - 1) qbad_prev |= qb;
-        if (j <= K - 2) bad_prev |= b[pos] >= 4;
-        if (j >= 0 && j < K && !qb) {
-          qf |= 1LL << j;
-          qr |= 1LL << (K - 1 - j);
-        }
-      }
-      qk = isF ? qf : qr;
-      inst_valid = use_read && m < n_mers && bok;
-      is_last = m == n_mers - 1;
-      samp = a.rsample[row];
-      const bool tmr = samp == 0;
-      const bool pair_ok = m < L - K && !qbad && tmr && !is_last &&
-                           inst_valid;
-      const bool prev_ok = m >= 1 && !qbad_prev && tmr &&
-                           m - 1 != n_mers - 1 && use_read &&
-                           m - 1 < n_mers && !bad_prev;
-      tflag = pair_ok || prev_ok;
-      order = a.rorder[row];
-    }
-    int total;
-    const int before = block_scan(inst_valid ? 1 : 0, ws, &total);
-    if (q < RM) {
-      const long long row = static_cast<long long>(w) * R + rr;
-      const bool isread = inst_valid && okW;
-      const long long g = carry + before;  // where inst_valid
-      const long long t = 2 * g - (m > 0 ? 1 : 0);
-      const bool paired = order > 0 && inst_valid;
-      long long pv = (isread ? t : kBig) & 0xffffffffLL;
-      pv |= static_cast<long long>(isread) << kValid;
-      pv |= static_cast<long long>(isread) << kRead;
-      pv |= static_cast<long long>(a.rstrand[row] != 0) << kStrand;
-      pv |= static_cast<long long>(tflag) << kTflag;
-      pv |= static_cast<long long>(isF) << kIsF;
-      pv |= static_cast<long long>(inst_valid && !is_last && okW) << kPair;
-      pv |= static_cast<long long>(samp == 0) << kTmr;
-      pv |= static_cast<long long>(samp == 1) << kNml;
-      pv |= static_cast<long long>(samp == 2) << kRef;
-      if (paired) pv |= static_cast<long long>(order) << kOrder;
-      pay[q] = pv;
-      qok[q] = qk;
+  int* gpos = reinterpret_cast<int*>(sm);
+  unsigned* s = sm + a.TQ;
+  int q0, q1, r0, nr;
+  read_tile(a, t, q0, q1, r0, nr);
+  stage_reads(a, w, r0, nr, s);
+  const int carry = tiles_before(a, w, t, ws);
+  scan_valid(a, s, q0, q1, r0, gpos, ws);
+  __syncthreads();
+  const SeqLayout lay = seq_layout(L);
+  const int stride = read_stride(L);
+  const unsigned long long kmask = (1ULL << K) - 1;  // K <= 63
+  for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x) {
+    const int rr = q / M, m = q - rr * M;
+    const unsigned* r = s + (rr - r0) * stride;
+    const int* f = reinterpret_cast<const int*>(r + lay.words);
+    const int rl = f[0], samp = f[1], order = f[3];
+    const int n_mers = max(rl - K + 1, 0);
+    const bool use_read = rl - K > 0;  // a single-mer read is skipped
+    Words fw, rc;
+    bool bok;
+    mer_words(r, lay, m, K, NW, fw, rc, bok);
+    const bool isF = lex_less(fw, rc, NW);
+    const Words mw = pick(isF, fw, rc);
+    // the quality bits of mer m; the pair gates of m (quals m..m+K) and of
+    // m-1 (quals m-1..m+K-1); the bases of mer m-1
+    const unsigned* rq = r + lay.qbad;
+    const unsigned* rb = r + lay.bad;
+    const unsigned long long qf = ~ext(rq, m, K) & kmask;
+    const unsigned long long qr = __brevll(qf) >> (64 - K);
+    const bool qbad = ext(rq, m, K + 1) != 0;
+    const bool qbad_prev = (m >= 1 ? ext(rq, m - 1, K + 1)
+                                   : ext(rq, 0, K)) != 0;
+    const bool bad_prev = (m >= 1 ? ext(rb, m - 1, K)
+                                  : ext(rb, 0, K - 1)) != 0;
+    const bool inst_valid = use_read && m < n_mers && bok;
+    const bool is_last = m == n_mers - 1;
+    const bool tmr = samp == 0;
+    const bool pair_ok = m < L - K && !qbad && tmr && !is_last && inst_valid;
+    const bool prev_ok = m >= 1 && !qbad_prev && tmr &&
+                         m - 1 != n_mers - 1 && use_read && m - 1 < n_mers &&
+                         !bad_prev;
+    const bool tflag = pair_ok || prev_ok;
+    const bool isread = inst_valid && okW;
+    const long long g = carry + gpos[q - q0];  // where inst_valid
+    const long long tm = 2 * g - (m > 0 ? 1 : 0);
+    const bool paired = order > 0 && inst_valid;
+    long long pv = (isread ? tm : kBig) & 0xffffffffLL;
+    pv |= static_cast<long long>(isread) << kValid;
+    pv |= static_cast<long long>(isread) << kRead;
+    pv |= static_cast<long long>(f[2] != 0) << kStrand;
+    pv |= static_cast<long long>(tflag) << kTflag;
+    pv |= static_cast<long long>(isF) << kIsF;
+    pv |= static_cast<long long>(inst_valid && !is_last && okW) << kPair;
+    pv |= static_cast<long long>(samp == 0) << kTmr;
+    pv |= static_cast<long long>(samp == 1) << kNml;
+    pv |= static_cast<long long>(samp == 2) << kRef;
+    if (paired) pv |= static_cast<long long>(order) << kOrder;
+    pay[q] = pv;
+    qok[q] = static_cast<long long>(isF ? qf : qr);
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        if (i < NW) {
-          keys[i * plane + q] = isread ? mw.w[i] : kSent;
-          fkeys[i * fplane + q] = paired ? mw.w[i] : kSent;
-        }
+    for (int i = 0; i < 3; ++i) {
+      if (i < NW) {
+        keys[i * plane + q] = isread ? mw.w[i] : kSent;
+        fkeys[i * fplane + q] = paired ? mw.w[i] : kSent;
       }
-      fkeys[NW * fplane + q] =
-          paired ? static_cast<long long>(a.rfrag[row]) : kI32Max;
     }
-    carry += total;
+    fkeys[NW * fplane + q] = paired ? static_cast<long long>(f[4]) : kI32Max;
   }
+}
 
-  // the ref pseudo-read, the projection and the index, Mraw each
-  const uint8_t* rb = a.raw + static_cast<long long>(w) * a.Lraw;
+// a reference tile: offsets [ro0, ro1) of the ref pseudo-read, the
+// projection and the index, their times after the window's valid read
+// instances (all read tiles' counts)
+__device__ void inst_refs(const InstArgs& a, int w, int t, unsigned* s,
+                          int* ws) {
+  const int K = a.K, NW = a.NW, Mraw = a.Mraw, RM = a.R * a.M;
+  const bool okW = a.window_ok[w] != 0;
+  const long long plane = static_cast<long long>(a.W) * a.I;
+  long long* keys = a.keys + static_cast<long long>(w) * a.I;
+  long long* pay = a.pay + static_cast<long long>(w) * a.I;
+  long long* qok = a.qok + static_cast<long long>(w) * a.I;
+  const SeqLayout lay = seq_layout(a.Lraw);
+  stage_seqs(a.raw, nullptr, w, 1, a.Lraw, 0, lay, lay.words, s);
+  const long long carry = tiles_before(a, w, a.TR, ws);
   const int rawlen = a.rawlen[w];
   const long long seq_off = a.seq_off[w];
   const int seq_len = a.seq_len[w];
   const int ref_nmers = max(rawlen - K + 1, 0);
   const bool ref_use = rawlen - K > 0;
-  for (int ro = threadIdx.x; ro < Mraw; ro += kThreads) {
+  const int ro1 = min((t + 1) * a.RQ, Mraw);
+  for (int ro = t * a.RQ + threadIdx.x; ro < ro1; ro += blockDim.x) {
     Words f, r;
     bool pok;
-    mer_words(rb + ro, K, NW, f, r, pok);
+    mer_words(s, lay, ro, K, NW, f, r, pok);
     const bool pisF = lex_less(f, r, NW);
     const Words pw = pick(pisF, f, r);
     const bool ref_valid = ro < ref_nmers && pok && ref_use;
     const bool rv = ref_valid && okW;
-    const long long tr = 2 * (static_cast<long long>(carry) + ro) -
-                         (ro > 0 ? 1 : 0);
+    const long long tr = 2 * (carry + ro) - (ro > 0 ? 1 : 0);
     long long pv = (rv ? tr : kBig) & 0xffffffffLL;
     pv |= static_cast<long long>(rv) << kValid;
     pv |= static_cast<long long>(rv) << kRead;
@@ -353,7 +577,7 @@ __global__ void __launch_bounds__(kThreads)
                                     : (ipos > Mraw - 1 ? Mraw - 1 : ipos));
     Words fi, ri;
     bool iok;
-    mer_words(rb + ip, K, NW, fi, ri, iok);
+    mer_words(s, lay, ip, K, NW, fi, ri, iok);
     const Words iw = pick(lex_less(fi, ri, NW), fi, ri);
     const bool iv = ro < seq_len - K && ipos < Mraw && iok && okW;
     pay[qi] = kBig | (static_cast<long long>(iv) << kValid) |
@@ -370,156 +594,368 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------------------
-// window_sort: a bitonic network on (NK key words, index) records
-// ---------------------------------------------------------------------------
-
-struct SortArgs {
-  const long long* keys;  // key c, window w, element i: c*ps + w*wst + i
-  long long ps, wst;
-  long long* perm;   // [W, n]
-  long long* skeys;  // [NK, W, P] (P > T only)
-  int* sidx;         // [W, P]
-  int W, n, P, T;
-};
-
-template <int NK>
-struct Rec {
-  long long k[NK];
-  int i;
-};
-
-// a > b in (keys, index) order
-template <int NK>
-__device__ __forceinline__ bool greater(const Rec<NK>& a, const Rec<NK>& b) {
-#pragma unroll
-  for (int c = 0; c < NK; ++c)
-    if (a.k[c] != b.k[c]) return a.k[c] > b.k[c];
-  return a.i > b.i;
-}
-
-template <int NK>
-__device__ __forceinline__ Rec<NK> sload(const long long* sk, const int* si,
-                                         int T, int l) {
-  Rec<NK> r;
-#pragma unroll
-  for (int c = 0; c < NK; ++c) r.k[c] = sk[c * T + l];
-  r.i = si[l];
-  return r;
-}
-
-template <int NK>
-__device__ __forceinline__ void sstore(long long* sk, int* si, int T, int l,
-                                       const Rec<NK>& r) {
-#pragma unroll
-  for (int c = 0; c < NK; ++c) sk[c * T + l] = r.k[c];
-  si[l] = r.i;
-}
-
-// The bitonic stages j = jtop, jtop/2, .., 1 of merge size k on the tile
-// in shared memory whose first record is element t0 of the window.
-template <int NK>
-__device__ void tile_stages(long long* sk, int* si, int T, long long t0,
-                            long long k, int jtop) {
-  for (int j = jtop; j >= 1; j >>= 1) {
-    for (int h = threadIdx.x; h < T / 2; h += kThreads) {
-      const int l = ((h & ~(j - 1)) << 1) | (h & (j - 1));  // j: 2^m
-      const bool asc = ((t0 + l) & k) == 0;
-      const Rec<NK> x = sload<NK>(sk, si, T, l);
-      const Rec<NK> y = sload<NK>(sk, si, T, l + j);
-      if (asc ? greater(x, y) : greater(y, x)) {
-        sstore<NK>(sk, si, T, l, y);
-        sstore<NK>(sk, si, T, l + j, x);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int NK>
-__global__ void __launch_bounds__(kThreads)
-    window_sort_kernel(const SortArgs a) {
+// launch 2: TR read tiles and TF reference tiles a window
+__global__ void __launch_bounds__(kInstThreads)
+    mer_instances_write(const InstArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int T = a.T, P = a.P, n = a.n;
-  long long* sk = reinterpret_cast<long long*>(smem);
-  int* si = reinterpret_cast<int*>(smem + round16(sizeof(long long) * NK * T));
-  const int w = blockIdx.x;
-  const long long* keys = a.keys + static_cast<long long>(w) * a.wst;
-  long long* perm = a.perm + static_cast<long long>(w) * n;
-  const long long gps = static_cast<long long>(a.W) * P;  // scratch plane
-  long long* gk = a.skeys + static_cast<long long>(w) * P;
-  int* gi = a.sidx + static_cast<long long>(w) * P;
-  const bool one = P == T;  // the window fits one tile
+  __shared__ int ws[32];
+  unsigned* s = reinterpret_cast<unsigned*>(smem);
+  const int per = a.TR + a.TF;
+  const int w = blockIdx.x / per, t = blockIdx.x - w * per;
+  if (t < a.TR)
+    inst_reads(a, w, t, s, ws);
+  else
+    inst_refs(a, w, t - a.TR, s, ws);
+}
 
-  // a tile out of shared memory: to the permutation, or to the scratch
-  auto put_tile = [&](long long t0, bool last) {
-    for (int l = threadIdx.x; l < T; l += kThreads) {
-      if (last) {
-        if (t0 + l < n) perm[t0 + l] = si[l];
-      } else {
+// ---------------------------------------------------------------------------
+// window_sort: an LSD radix sort of (key, index) records, 8-bit digits
+// ---------------------------------------------------------------------------
+
+constexpr int kSortItems = 8;  // records a thread
+constexpr int kSortMaxKeys = 4;
+constexpr int kDigits = 256;
+
+// The key words of a sort: word c of window w, element i at keys[c * ps + w
+// * wst + i]. Word c holds lo[c] + [0, 2^bits[c]) or, where has_sent[c],
+// the value sent[c] (above that range); it maps to v - lo[c] and sent[c]
+// to 2^bits[c], which keeps its order in bits[c] + has_sent[c] bits. The
+// record's key is the words' mapped values side by side, word 0 most
+// significant, in NL 32-bit lanes (lane 0 least significant); pass p sorts
+// by its bits [8p, 8p + 8). A word without a declared range is lo =
+// INT64_MIN, bits = 64: its sign bit flipped.
+struct SortArgs {
+  const long long* keys;
+  long long ps, wst;
+  long long lo[kSortMaxKeys], sent[kSortMaxKeys];
+  int bits[kSortMaxKeys], has_sent[kSortMaxKeys];
+  int NK, W, n, tile, T, passes;  // T tiles of `tile` records a window
+  long long* perm;  // [W, n]
+  unsigned* cnt;    // [W, T, 256]: a pass's digit counts by tile
+};
+
+// the record's key lanes (the composite of its mapped words)
+template <int NL>
+__device__ __forceinline__ void map_key(const SortArgs& a, int w, int i,
+                                        unsigned (&ln)[NL]) {
+  unsigned long long limb[4] = {0, 0, 0, 0};
+  int o = 0;
 #pragma unroll
-        for (int c = 0; c < NK; ++c) gk[c * gps + t0 + l] = sk[c * T + l];
-        gi[t0 + l] = si[l];
+  for (int c = kSortMaxKeys - 1; c >= 0; --c) {
+    if (c >= a.NK) continue;
+    const long long v =
+        a.keys[c * a.ps + static_cast<long long>(w) * a.wst + i];
+    const unsigned long long u =
+        a.has_sent[c] && v == a.sent[c]
+            ? 1ULL << a.bits[c]
+            : static_cast<unsigned long long>(v) -
+                  static_cast<unsigned long long>(a.lo[c]);
+    const int at = o >> 6, sh = o & 63;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j == at) limb[j] |= u << sh;
+      if (j == at + 1 && sh) limb[j] |= u >> (64 - sh);
+    }
+    o += a.bits[c] + a.has_sent[c];
+  }
+#pragma unroll
+  for (int j = 0; j < NL; ++j)
+    ln[j] = static_cast<unsigned>(limb[j >> 1] >> (32 * (j & 1)));
+}
+
+template <int NL>
+__device__ __forceinline__ unsigned digit_of(const unsigned (&ln)[NL],
+                                             int p) {
+  unsigned x = 0;
+#pragma unroll
+  for (int j = 0; j < NL; ++j)
+    if (j == (p >> 2)) x = ln[j];
+  return (x >> (8 * (p & 3))) & 255u;
+}
+
+// the active lanes of the warp whose digit d equals this lane's
+__device__ __forceinline__ unsigned peers8(unsigned d, unsigned active) {
+  unsigned p = active;
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const unsigned m = __ballot_sync(kFull, (d >> b) & 1u);
+    p &= ((d >> b) & 1u) ? m : ~m;
+  }
+  return p;
+}
+
+// v[0..255] to its exclusive prefix sums, by warp 0; every thread calls it
+__device__ void scan256(int* v) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int loc[8], s = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      loc[j] = v[8 * lane + j];
+      s += loc[j];
+    }
+    int x = s;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, d);
+      if (lane >= d) x += y;
+    }
+    int run = x - s;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      v[8 * lane + j] = run;
+      run += loc[j];
+    }
+  }
+  __syncthreads();
+}
+
+// A scatter or tile block's shared memory, in 4-byte words: each warp's
+// digit counts, the window's digit offsets, the tile's digit starts, the
+// tile's records in sorted order (NL lanes, then the index, each `tile`
+// words).
+struct SortSmem {
+  int whist, goff, tst, buf, total;
+};
+
+__host__ __device__ inline SortSmem sort_smem_layout(int NL, int tile) {
+  SortSmem o{};
+  o.whist = 0;
+  o.goff = tile / (32 * kSortItems) * kDigits;
+  o.tst = o.goff + kDigits;
+  o.buf = o.tst + kDigits;
+  o.total = o.buf + tile * (NL + 1);
+  return o;
+}
+
+// A tile's records are a warp's 32 kSortItems consecutive ones each, item
+// k of a lane its warp's record 32 k + lane. Ranks them by digit p,
+// stably: pos[k] gets the record's place in the tile's sorted order and
+// tst each digit's first place. whist: kDigits ints a warp.
+template <int NL>
+__device__ void rank_tile(const unsigned (&ln)[kSortItems][NL], int nv,
+                          int p, int* whist, int* tst,
+                          int (&pos)[kSortItems]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarp = blockDim.x >> 5;
+  int* wh = whist + warp * kDigits;
+  for (int d = lane; d < kDigits; d += 32) wh[d] = 0;
+  __syncwarp();
+  unsigned dg[kSortItems];
+#pragma unroll
+  for (int k = 0; k < kSortItems; ++k) {
+    const bool on = warp * 32 * kSortItems + 32 * k + lane < nv;
+    const unsigned d = on ? digit_of<NL>(ln[k], p) : 0;
+    dg[k] = d;
+    const unsigned pe = peers8(d, __ballot_sync(kFull, on));
+    const int before = __popc(pe & ((1u << lane) - 1));
+    const int pre = on ? wh[d] : 0;
+    __syncwarp();
+    if (on && before == 0) wh[d] = pre + __popc(pe);
+    __syncwarp();
+    pos[k] = pre + before;
+  }
+  __syncthreads();
+  // each digit's count over the warps before each warp, and in the tile
+  for (int d = threadIdx.x; d < kDigits; d += blockDim.x) {
+    int s = 0;
+    for (int v = 0; v < nwarp; ++v) {
+      const int x = whist[v * kDigits + d];
+      whist[v * kDigits + d] = s;
+      s += x;
+    }
+    tst[d] = s;
+  }
+  __syncthreads();
+  scan256(tst);
+#pragma unroll
+  for (int k = 0; k < kSortItems; ++k) pos[k] += tst[dg[k]] + wh[dg[k]];
+}
+
+// the tile's records into buf at their sorted places
+template <int NL>
+__device__ __forceinline__ void put_sorted(
+    unsigned* buf, int tile, int nv, const unsigned (&ln)[kSortItems][NL],
+    const unsigned (&ix)[kSortItems], const int (&pos)[kSortItems]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kSortItems; ++k) {
+    if (warp * 32 * kSortItems + 32 * k + lane < nv) {
+#pragma unroll
+      for (int j = 0; j < NL; ++j) buf[j * tile + pos[k]] = ln[k][j];
+      buf[NL * tile + pos[k]] = ix[k];
+    }
+  }
+}
+
+// Launch 1 of a sort past one tile: the records of tile t of window w
+// (their key lanes and index) into rec, and its digit counts of pass 0.
+template <int NL>
+__global__ void __launch_bounds__(512)
+    window_sort_keys(const SortArgs a, unsigned* rec) {
+  __shared__ int hist[kDigits];
+  const int w = blockIdx.x / a.T, t = blockIdx.x - w * a.T, n = a.n;
+  for (int d = threadIdx.x; d < kDigits; d += blockDim.x) hist[d] = 0;
+  __syncthreads();
+  unsigned* r = rec + static_cast<long long>(w) * (NL + 1) * n;
+  unsigned ln[kSortItems][NL];
+#pragma unroll
+  for (int k = 0; k < kSortItems; ++k) {  // every load in flight first
+    const int i = t * a.tile + k * blockDim.x + threadIdx.x;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) ln[k][j] = 0;
+    if (i < n) map_key<NL>(a, w, i, ln[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < kSortItems; ++k) {
+    const int i = t * a.tile + k * blockDim.x + threadIdx.x;
+    if (i < n) {
+#pragma unroll
+      for (int j = 0; j < NL; ++j)
+        r[static_cast<long long>(j) * n + i] = ln[k][j];
+      r[static_cast<long long>(NL) * n + i] = static_cast<unsigned>(i);
+    }
+    if (i < n) atomicAdd(&hist[digit_of<NL>(ln[k], 0)], 1);
+  }
+  __syncthreads();
+  unsigned* c = a.cnt + (static_cast<long long>(w) * a.T + t) * kDigits;
+  for (int d = threadIdx.x; d < kDigits; d += blockDim.x) c[d] = hist[d];
+}
+
+// Pass p > 0 of a sort past one tile, first launch: the digit counts of
+// each tile of the records as pass p - 1 left them.
+template <int NL>
+__global__ void __launch_bounds__(512)
+    window_sort_count(const SortArgs a, const unsigned* rec, int p) {
+  __shared__ int hist[kDigits];
+  const int w = blockIdx.x / a.T, t = blockIdx.x - w * a.T, n = a.n;
+  for (int d = threadIdx.x; d < kDigits; d += blockDim.x) hist[d] = 0;
+  __syncthreads();
+  const unsigned* lane =
+      rec + (static_cast<long long>(w) * (NL + 1) + (p >> 2)) * n;
+  unsigned x[kSortItems];
+#pragma unroll
+  for (int k = 0; k < kSortItems; ++k) {  // every load in flight first
+    const int i = t * a.tile + k * blockDim.x + threadIdx.x;
+    x[k] = i < n ? lane[i] : 0u;
+  }
+#pragma unroll
+  for (int k = 0; k < kSortItems; ++k) {
+    const int i = t * a.tile + k * blockDim.x + threadIdx.x;
+    if (i < n) atomicAdd(&hist[(x[k] >> (8 * (p & 3))) & 255u], 1);
+  }
+  __syncthreads();
+  unsigned* c = a.cnt + (static_cast<long long>(w) * a.T + t) * kDigits;
+  for (int d = threadIdx.x; d < kDigits; d += blockDim.x) c[d] = hist[d];
+}
+
+// Pass p of a sort past one tile: tile t's records ranked by digit p in
+// shared memory, then written in sorted runs to their places in the
+// window (the digit's offset in the window, from every tile's counts, plus
+// the tile's count before them), into `out` or, the last pass, their
+// indices into perm.
+template <int NL>
+__global__ void __launch_bounds__(512)
+    window_sort_scatter(const SortArgs a, const unsigned* in, unsigned* out,
+                        int p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SortSmem L = sort_smem_layout(NL, a.tile);
+  int* sm = reinterpret_cast<int*>(smem);
+  int* whist = sm + L.whist;
+  int* goff = sm + L.goff;
+  int* tst = sm + L.tst;
+  unsigned* buf = reinterpret_cast<unsigned*>(sm + L.buf);
+  const int w = blockIdx.x / a.T, t = blockIdx.x - w * a.T, n = a.n;
+  const int tile = a.tile, t0 = t * tile, nv = min(tile, n - t0);
+  const long long rw = static_cast<long long>(w) * (NL + 1) * n;
+  const unsigned* c = a.cnt + static_cast<long long>(w) * a.T * kDigits;
+  for (int d = threadIdx.x; d < kDigits; d += blockDim.x) {
+    int b = 0, s = 0;
+#pragma unroll 8
+    for (int u = 0; u < a.T; ++u) {
+      const int x = static_cast<int>(c[u * kDigits + d]);
+      b += u < t ? x : 0;
+      s += x;
+    }
+    goff[d] = b;
+    tst[d] = s;
+  }
+  __syncthreads();
+  scan256(tst);
+  for (int d = threadIdx.x; d < kDigits; d += blockDim.x) goff[d] += tst[d];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned ln[kSortItems][NL], ix[kSortItems];
+#pragma unroll
+  for (int k = 0; k < kSortItems; ++k) {
+    const int l = warp * 32 * kSortItems + 32 * k + lane;
+    ix[k] = 0;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) ln[k][j] = 0;
+    if (l < nv) {
+#pragma unroll
+      for (int j = 0; j < NL; ++j) ln[k][j] = in[rw + static_cast<long long>(j) * n + t0 + l];
+      ix[k] = in[rw + static_cast<long long>(NL) * n + t0 + l];
+    }
+  }
+  int pos[kSortItems];
+  rank_tile<NL>(ln, nv, p, whist, tst, pos);
+  put_sorted<NL>(buf, tile, nv, ln, ix, pos);
+  __syncthreads();
+  const bool last = p == a.passes - 1;
+  const unsigned* dl = buf + (p >> 2) * tile;
+  for (int l = threadIdx.x; l < nv; l += blockDim.x) {
+    const int d = (dl[l] >> (8 * (p & 3))) & 255;
+    const long long dst = goff[d] + (l - tst[d]);
+    if (last) {
+      a.perm[static_cast<long long>(w) * n + dst] = buf[NL * tile + l];
+    } else {
+#pragma unroll
+      for (int j = 0; j < NL; ++j)
+        out[rw + static_cast<long long>(j) * n + dst] = buf[j * tile + l];
+      out[rw + static_cast<long long>(NL) * n + dst] = buf[NL * tile + l];
+    }
+  }
+}
+
+// A sort of one tile a window: every pass in shared memory, one launch.
+template <int NL>
+__global__ void __launch_bounds__(512) window_sort_tile(const SortArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SortSmem L = sort_smem_layout(NL, a.tile);
+  int* sm = reinterpret_cast<int*>(smem);
+  int* whist = sm + L.whist;
+  int* tst = sm + L.tst;
+  unsigned* buf = reinterpret_cast<unsigned*>(sm + L.buf);
+  const int w = blockIdx.x, n = a.n, tile = a.tile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned ln[kSortItems][NL], ix[kSortItems];
+#pragma unroll
+  for (int k = 0; k < kSortItems; ++k) {
+    const int l = warp * 32 * kSortItems + 32 * k + lane;
+    ix[k] = static_cast<unsigned>(l);
+#pragma unroll
+    for (int j = 0; j < NL; ++j) ln[k][j] = 0;
+    if (l < n) map_key<NL>(a, w, l, ln[k]);
+  }
+  for (int p = 0; p < a.passes; ++p) {
+    int pos[kSortItems];
+    rank_tile<NL>(ln, n, p, whist, tst, pos);
+    put_sorted<NL>(buf, tile, n, ln, ix, pos);
+    __syncthreads();
+    if (p + 1 == a.passes) break;
+#pragma unroll
+    for (int k = 0; k < kSortItems; ++k) {
+      const int l = warp * 32 * kSortItems + 32 * k + lane;
+      if (l < n) {
+#pragma unroll
+        for (int j = 0; j < NL; ++j) ln[k][j] = buf[j * tile + l];
+        ix[k] = buf[NL * tile + l];
       }
     }
     __syncthreads();
-  };
-
-  // every tile sorted, in the direction its merge of size 2T wants;
-  // elements past n are (INT64_MAX words, index) records, last in order
-  for (long long t0 = 0; t0 < P; t0 += T) {
-    for (int l = threadIdx.x; l < T; l += kThreads) {
-      const long long i = t0 + l;
-#pragma unroll
-      for (int c = 0; c < NK; ++c)
-        sk[c * T + l] = i < n ? keys[c * a.ps + i] : LLONG_MAX;
-      si[l] = static_cast<int>(i);
-    }
-    __syncthreads();
-    for (long long k = 2; k <= T; k <<= 1)
-      tile_stages<NK>(sk, si, T, t0, k, static_cast<int>(k >> 1));
-    put_tile(t0, one);
   }
-  if (one) return;
-
-  // merges past a tile: the strides >= T through device memory, then the
-  // rest tile by tile in shared memory
-  for (long long k = 2LL * T; k <= P; k <<= 1) {
-    for (long long j = k >> 1; j >= T; j >>= 1) {
-      for (long long h = threadIdx.x; h < P / 2; h += kThreads) {
-        const long long l = ((h & ~(j - 1)) << 1) | (h & (j - 1)), u = l + j;
-        const bool asc = (l & k) == 0;
-        Rec<NK> x, y;
-#pragma unroll
-        for (int c = 0; c < NK; ++c) {
-          x.k[c] = gk[c * gps + l];
-          y.k[c] = gk[c * gps + u];
-        }
-        x.i = gi[l];
-        y.i = gi[u];
-        if (asc ? greater(x, y) : greater(y, x)) {
-#pragma unroll
-          for (int c = 0; c < NK; ++c) {
-            gk[c * gps + l] = y.k[c];
-            gk[c * gps + u] = x.k[c];
-          }
-          gi[l] = y.i;
-          gi[u] = x.i;
-        }
-      }
-      __syncthreads();
-    }
-    for (long long t0 = 0; t0 < P; t0 += T) {
-      for (int l = threadIdx.x; l < T; l += kThreads) {
-#pragma unroll
-        for (int c = 0; c < NK; ++c) sk[c * T + l] = gk[c * gps + t0 + l];
-        si[l] = gi[t0 + l];
-      }
-      __syncthreads();
-      tile_stages<NK>(sk, si, T, t0, k, T >> 1);
-      put_tile(t0, k == P);
-    }
-  }
+  for (int l = threadIdx.x; l < n; l += blockDim.x)
+    a.perm[static_cast<long long>(w) * n + l] = buf[NL * tile + l];
 }
 
 // ---------------------------------------------------------------------------
@@ -1076,23 +1512,130 @@ int launch_checked(const void* kern, size_t smem, F&& go) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NK>
-int sort_launch(const SortArgs& a, size_t smem, cudaStream_t s) {
-  return launch_checked(
-      reinterpret_cast<const void*>(window_sort_kernel<NK>), smem,
-      [&] { window_sort_kernel<NK><<<a.W, kThreads, smem, s>>>(a); });
+// mer_instances' tiles and a block's dynamic shared memory: TR read
+// tiles of TQ instances and TF reference tiles of RQ offsets a window; a
+// read tile stages the reads it touches, a reference tile the window's
+// reference
+struct InstPlan {
+  int M, Mraw, TR, TF;
+  size_t smem;
+};
+
+InstPlan inst_plan(int R, int L, int Lraw, int K, int TQ, int RQ) {
+  InstPlan o{};
+  o.M = L - K + 1;
+  o.Mraw = Lraw - K + 1;
+  o.TR = (R * o.M + TQ - 1) / TQ;
+  o.TF = (o.Mraw + RQ - 1) / RQ;
+  const size_t reads = static_cast<size_t>(TQ) +
+                       static_cast<size_t>((TQ - 1) / o.M + 2) *
+                           read_stride(L);
+  const size_t ref = seq_layout(Lraw).words;
+  o.smem = 4 * (reads > ref ? reads : ref);
+  return o;
 }
 
-size_t sort_smem_bytes(int NK, int T) {
-  return round16(sizeof(long long) * NK * T) + round16(sizeof(int) * T);
+// A sort's launches: NL key lanes a record (1, 2, 4, 6 or 8), passes of
+// 8 bits over the key's B bits, T tiles a window; one launch where a
+// tile holds the window, else 2 passes (the records and pass 0's counts,
+// then each pass's scatter and, past pass 0, its counts); scratch: int64
+// elements of two record buffers [W, NL + 1, n] and the counts [W, T,
+// 256] (32-bit); smem: a scatter or tile block's bytes.
+struct SortPlan {
+  int NL, passes, T, launches;
+  long long scratch;
+  size_t smem;
+};
+
+int sort_plan(int NK, const int* bits, const int* has_sent, int W, int n,
+              int tile, SortPlan* o) {
+  if (W <= 0 || n <= 0 || NK < 1 || NK > kSortMaxKeys || tile < 256 ||
+      tile > 4096 || (tile & (tile - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int B = 0;
+  for (int c = 0; c < NK; ++c) {
+    if (bits[c] < 1 || bits[c] > 64 || has_sent[c] < 0 || has_sent[c] > 1 ||
+        (has_sent[c] && bits[c] > 63))
+      return static_cast<int>(cudaErrorInvalidValue);
+    B += bits[c] + has_sent[c];
+  }
+  const int q = (B + 31) / 32;
+  o->NL = q <= 2 ? q : (q <= 4 ? 4 : (q <= 6 ? 6 : 8));
+  o->passes = (B + 7) / 8;
+  o->T = (n + tile - 1) / tile;
+  o->launches = o->T == 1 ? 1 : 2 * o->passes;
+  o->scratch = o->T == 1 ? 0
+                         : (2LL * W * (o->NL + 1) * n +
+                            static_cast<long long>(W) * o->T * kDigits + 1) /
+                               2;
+  o->smem = 4 * static_cast<size_t>(sort_smem_layout(o->NL, tile).total);
+  return 0;
+}
+
+template <int NL>
+int sort_run(SortArgs& a, const SortPlan& pl, unsigned* rec,
+             cudaStream_t s) {
+  const int threads = a.tile / kSortItems;
+  const size_t smem = pl.smem;
+  if (a.T == 1)
+    return launch_checked(
+        reinterpret_cast<const void*>(window_sort_tile<NL>), smem,
+        [&] { window_sort_tile<NL><<<a.W, threads, smem, s>>>(a); });
+  const long long per = static_cast<long long>(a.W) * (NL + 1) * a.n;
+  unsigned* buf[2] = {rec, rec + per};
+  a.cnt = rec + 2 * per;
+  const int grid = a.W * a.T;
+  int rc = launch_checked(
+      reinterpret_cast<const void*>(window_sort_keys<NL>), 0,
+      [&] { window_sort_keys<NL><<<grid, threads, 0, s>>>(a, buf[0]); });
+  for (int p = 0; p < a.passes && rc == 0; ++p) {
+    const unsigned* in = buf[p & 1];
+    unsigned* out = buf[(p + 1) & 1];
+    if (p > 0)
+      rc = launch_checked(
+          reinterpret_cast<const void*>(window_sort_count<NL>), 0,
+          [&] { window_sort_count<NL><<<grid, threads, 0, s>>>(a, in, p); });
+    if (rc == 0)
+      rc = launch_checked(
+          reinterpret_cast<const void*>(window_sort_scatter<NL>), smem, [&] {
+            window_sort_scatter<NL><<<grid, threads, smem, s>>>(a, in, out,
+                                                                 p);
+          });
+  }
+  return rc;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of a block (gpu/dbgk.py's *_smem).
-size_t dbg_sort_smem(int NK, int T) { return sort_smem_bytes(NK, T); }
+// mer_instances' tiles for gpu/dbgk.py's plan check: out (TR, TF, smem).
+int dbg_inst_plan(int R, int L, int Lraw, int K, int TQ, int RQ,
+                  long long* out) {
+  if (R <= 0 || K < 1 || K > 63 || L < K || Lraw < K || TQ < 1 || RQ < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const InstPlan p = inst_plan(R, L, Lraw, K, TQ, RQ);
+  out[0] = p.TR;
+  out[1] = p.TF;
+  out[2] = static_cast<long long>(p.smem);
+  return 0;
+}
+
+// window_sort's plan for gpu/dbgk.py's check: out (NL, passes, T,
+// launches, scratch, smem).
+int dbg_sort_plan(int NK, const int* bits, const int* has_sent, int W, int n,
+                  int tile, long long* out) {
+  SortPlan p{};
+  const int rc = sort_plan(NK, bits, has_sent, W, n, tile, &p);
+  if (rc) return rc;
+  out[0] = p.NL;
+  out[1] = p.passes;
+  out[2] = p.T;
+  out[3] = p.launches;
+  out[4] = p.scratch;
+  out[5] = static_cast<long long>(p.smem);
+  return 0;
+}
 
 size_t dbg_nodes_smem(int N) { return node_layout(N).total; }
 
@@ -1100,13 +1643,18 @@ size_t dbg_edges_smem(int phase, int N, int E) {
   return edge_layout(phase, N, E).total;
 }
 
-// mer_instances: W windows; ins (bases, quals, rlen, rsample, rstrand,
-// rfrag, rorder, raw, rawlen, seq_off, seq_len, window_ok), outs (keys,
-// pay, qok, fkeys).
-int dbg_instances(const void* const* ins, void* const* outs, int W, int R,
-                  int L, int Lraw, int K, int minq, void* stream) {
-  if (W <= 0 || R <= 0 || K < 1 || K > 63 || L < K || Lraw < K)
+// mer_instances, two launches: W windows; ins (bases, quals, rlen,
+// rsample, rstrand, rfrag, rorder, raw, rawlen, seq_off, seq_len,
+// window_ok), outs (keys, pay, qok, fkeys), cnt [W, TR] int32 scratch;
+// read tiles of TQ instances, reference tiles of RQ offsets.
+int dbg_instances(const void* const* ins, void* const* outs, void* cnt,
+                  int W, int R, int L, int Lraw, int K, int minq, int TQ,
+                  int RQ, size_t smem, void* stream) {
+  if (W <= 0 || R <= 0 || K < 1 || K > 63 || L < K || Lraw < K || TQ < 1 ||
+      RQ < 1 || cnt == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  const InstPlan pl = inst_plan(R, L, Lraw, K, TQ, RQ);
+  if (smem != pl.smem) return static_cast<int>(cudaErrorInvalidValue);
   InstArgs a{};
   a.bases = static_cast<const uint8_t*>(ins[0]);
   a.quals = static_cast<const uint8_t*>(ins[1]);
@@ -1124,51 +1672,74 @@ int dbg_instances(const void* const* ins, void* const* outs, int W, int R,
   a.pay = static_cast<long long*>(outs[1]);
   a.qok = static_cast<long long*>(outs[2]);
   a.fkeys = static_cast<long long*>(outs[3]);
+  a.cnt = static_cast<int*>(cnt);
   a.W = W;
   a.R = R;
   a.L = L;
   a.Lraw = Lraw;
   a.K = K;
   a.NW = (K + 30) / 31;
-  a.M = L - K + 1;
-  a.Mraw = Lraw - K + 1;
+  a.M = pl.M;
+  a.Mraw = pl.Mraw;
   a.IP = R * a.M;
   a.I = a.IP + 3 * a.Mraw;
   a.minq = minq;
+  a.TQ = TQ;
+  a.TR = pl.TR;
+  a.RQ = RQ;
+  a.TF = pl.TF;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc = launch_checked(
+      reinterpret_cast<const void*>(mer_instances_count), smem, [&] {
+        mer_instances_count<<<W * pl.TR, kInstThreads, smem, s>>>(a);
+      });
+  if (rc) return rc;
   return launch_checked(
-      reinterpret_cast<const void*>(mer_instances_kernel), 0, [&] {
-        mer_instances_kernel<<<W, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(a);
+      reinterpret_cast<const void*>(mer_instances_write), smem, [&] {
+        mer_instances_write<<<W * (pl.TR + pl.TF), kInstThreads, smem, s>>>(
+            a);
       });
 }
 
-// window_sort: W windows of n elements, NK key words each (key c of
-// window w, element i at keys[c * ps + w * wst + i]); perm [W, n] int64;
-// skeys [NK, W, P] and sidx [W, P] scratch where P > T.
+// window_sort of W windows of n elements by NK key words (word c of
+// window w, element i at keys[c * ps + w * wst + i]; its range lo[c],
+// bits[c], sent[c], has_sent[c], as SortArgs says) into perm [W, n]
+// int64, in tiles of `tile` records; scratch: the plan's int64 elements
+// (null where one tile holds a window). dbg_sort_plan's launches.
 int dbg_sort(const void* keys, long long ps, long long wst, int NK, int W,
-             int n, int P, int T, void* perm, void* skeys, void* sidx,
-             size_t smem, void* stream) {
-  if (W <= 0 || n <= 0 || NK < 1 || NK > 4 || T < 2 || P < T || P < n ||
-      (P & (P - 1)) || (T & (T - 1)) || smem != sort_smem_bytes(NK, T) ||
-      (P > T && (skeys == nullptr || sidx == nullptr)))
+             int n, const long long* lo, const int* bits,
+             const long long* sent, const int* has_sent, int tile,
+             void* perm, void* scratch, void* stream) {
+  SortPlan pl{};
+  int rc = sort_plan(NK, bits, has_sent, W, n, tile, &pl);
+  if (rc) return rc;
+  if (pl.T > 1 && scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   SortArgs a{};
   a.keys = static_cast<const long long*>(keys);
   a.ps = ps;
   a.wst = wst;
-  a.perm = static_cast<long long*>(perm);
-  a.skeys = static_cast<long long*>(skeys);
-  a.sidx = static_cast<int*>(sidx);
+  for (int c = 0; c < NK; ++c) {
+    a.lo[c] = lo[c];
+    a.sent[c] = sent[c];
+    a.bits[c] = bits[c];
+    a.has_sent[c] = has_sent[c];
+  }
+  a.NK = NK;
   a.W = W;
   a.n = n;
-  a.P = P;
-  a.T = T;
+  a.tile = tile;
+  a.T = pl.T;
+  a.passes = pl.passes;
+  a.perm = static_cast<long long*>(perm);
+  unsigned* rec = static_cast<unsigned*>(scratch);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (NK) {
-    case 1: return sort_launch<1>(a, smem, s);
-    case 2: return sort_launch<2>(a, smem, s);
-    case 3: return sort_launch<3>(a, smem, s);
-    default: return sort_launch<4>(a, smem, s);
+  switch (pl.NL) {
+    case 1: return sort_run<1>(a, pl, rec, s);
+    case 2: return sort_run<2>(a, pl, rec, s);
+    case 4: return sort_run<4>(a, pl, rec, s);
+    case 6: return sort_run<6>(a, pl, rec, s);
+    default: return sort_run<8>(a, pl, rec, s);
   }
 }
 

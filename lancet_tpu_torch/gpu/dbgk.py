@@ -4,14 +4,19 @@ kernels of `csrc/dbg.cu` and the dispatch to their plain versions.
 The JAX package compiles `tpu/dbg.py::build_k` (:120) into one device
 program a k and shape bucket; PyTorch would launch the ~1,000 ops of its
 plain version (gpu/dbg.py::build_k_plain) one by one from the host. Here a
-build is thirteen launches of four kernels, the same for every k, with no
-host sync:
+build is four stages whose launches `build_plan` fixes from the shapes and
+k alone (`BuildPlan.launches`), with no host sync:
 
 - `mer_instances`: the instance table (sort keys, payload, quality bits,
-  mate keys), one block a window, a thread an instance;
+  mate keys); two launches of (window, tile) blocks, the reads a tile
+  touches staged as bit strings in shared memory: each tile's count of
+  valid instances, then the table, each tile's stream positions from the
+  earlier tiles' counts;
 - `window_sort`: the stable sort along the window axis of up to four int64
-  key words (a bitonic network on (keys, index), one block a window,
-  through device memory past a tile of shared memory); six a build;
+  key words, an LSD radix sort of 8-bit digits over the bits each word's
+  declared range takes (`SortPlan`); one launch where a tile of SORT_TILE
+  records holds a window, else (window, tile) blocks, two launches a pass;
+  six sorts a build;
 - `node_tables`: two launches around the creation order's window_sort;
 - `edge_tables`: four launches, each after a window_sort.
 
@@ -22,12 +27,13 @@ edge_tables_plain, build_k_plain); on a CUDA device it launches the kernels
 on that device and raises, before the launch, for shapes the kernels do
 not take (build_plan, sort_plan), and after it if the library cannot be
 built or a launch is refused. There is no fallback from the card to the
-plain version. Each launch adds one to `LAUNCHES[name]`.
+plain version. Each kernel launch adds one to `LAUNCHES[name]`.
 
 `build_k` on the card composes the four stages' card paths as build_k_plain
 composes their plain versions; each allocates its outputs and one int64
-workspace for its intermediate tables (the sorts' scratch, the group and
-pair tables): 37 aten ops a build, none of which syncs the host.
+workspace for its intermediate tables (the sorts' records and digit
+counts, the instance tiles' counts, the group and pair tables): at most 37
+aten ops a build, none of which syncs the host.
 """
 
 from __future__ import annotations
@@ -47,15 +53,18 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "dbg.cu")
 LAUNCHES = {"mer_instances": 0, "window_sort": 0, "node_tables": 0,
             "edge_tables": 0}
-# launches of one build, whatever k and the shapes are
-BUILD_LAUNCHES = {"mer_instances": 1, "window_sort": 6, "node_tables": 2,
-                  "edge_tables": 4}
 MAX_K = 63  # three words of 31 bases; quality bits 0..K-1 of one int64
 MAX_SORT_KEYS = 4  # the mate sort's NW + 1 at k 63
-SORT_SMEM = SMEM_LIMIT - 1024  # a sort block's records (csrc kSmemLimit)
-MAX_SORT_N = 1 << 30  # int32 record indices
+MAX_SORT_N = 1 << 30  # uint32 record indices and digit counts
+SORT_ITEMS = 8  # records a thread (csrc kSortItems)
+SORT_TILE = 4096  # records a sort block: 512 threads
+INST_THREADS = 256  # csrc kInstThreads
+INST_TILE = 2048  # read instances a mer_instances block
+REF_TILE = 512  # reference offsets a mer_instances block
 I32_MAX = 2**31 - 1
 BIG = 1 << 30
+SENT = 1 << 62  # an invalid instance's mer words (gpu/dbg.py SENT)
+GENERIC = (-(1 << 63), 64, None)  # a key word of any int64 value
 
 # the kernels' inputs, in the order of csrc/dbg.cu's dbg_instances
 INST_INPUTS = (("bases", torch.uint8), ("quals", torch.uint8),
@@ -101,37 +110,77 @@ _lib_lock = threading.Lock()
 
 
 class SortPlan(NamedTuple):
-    """One window_sort launch: NK key words of n elements a window, padded
-    to P (a power of two), sorted in tiles of T records in shared memory
-    (smem bytes); scratch is the int64 elements of device memory the
-    merges past a tile take for W windows (0 when one tile holds P)."""
+    """One window_sort: NK key words of n elements a window, word c in the
+    range words[c] = (lo, bits, sent): lo + [0, 2^bits) or the sentinel
+    sent (None: none), which maps to 2^bits (GENERIC: any int64). The
+    record's key takes B bits (the words' bits and sentinel bits side by
+    side), NL 32-bit lanes (1, 2, 4, 6 or 8); P passes of 8 bits; T tiles
+    of `tile` records a window (csrc SortPlan): one launch where T is 1,
+    else 2P (the records, then a scatter each pass and a count each pass
+    past the first); smem: a scatter or tile block's bytes; scratch: the
+    int64 elements of device memory past one tile (two record buffers and
+    the digit counts, W windows)."""
     NK: int
     n: int
+    words: tuple
+    B: int
+    NL: int
     P: int
+    tile: int
     T: int
     smem: int
     scratch: int
+    launches: int
 
 
-def sort_smem(NK: int, T: int) -> int:
-    """A window_sort block's dynamic shared memory: T records of NK int64
-    key words and an int32 index (csrc sort_smem_bytes)."""
-    return _r16(8 * NK * T) + _r16(4 * T)
+def sort_smem(NL: int, tile: int) -> int:
+    """A scatter or tile block's dynamic shared memory: each warp's 256
+    digit counts, the window's digit offsets and the tile's digit starts,
+    and the tile's records, NL key lanes and an index (csrc
+    sort_smem_layout)."""
+    return 4 * (tile // (32 * SORT_ITEMS) * 256 + 512 + tile * (NL + 1))
 
 
-def sort_plan(NK: int, n: int, W: int) -> SortPlan:
-    """The launch of a sort of n elements a window by NK key words. Raises
-    for NK outside [1, MAX_SORT_KEYS], n < 1 or past MAX_SORT_N, W < 1."""
+def sort_plan(NK: int, n: int, W: int, words=None) -> SortPlan:
+    """The launches of a sort of n elements a window by NK key words, each
+    in its declared range (words; None: GENERIC). Raises for NK outside [1,
+    MAX_SORT_KEYS], n < 1 or past MAX_SORT_N, W < 1, or a word whose range
+    is not 1-64 bits (1-63 with a sentinel)."""
     if not 1 <= NK <= MAX_SORT_KEYS or not 1 <= n <= MAX_SORT_N or W < 1:
         raise ValueError(f"window_sort takes 1 to {MAX_SORT_KEYS} key words "
                          f"and 1 to {MAX_SORT_N} elements in W >= 1 windows, "
                          f"got NK={NK}, n={n}, W={W}")
-    P = 1 << max(1, (n - 1).bit_length())
-    T = 2
-    while 2 * T <= P and sort_smem(NK, 2 * T) <= SORT_SMEM:
-        T *= 2
-    scratch = 0 if P == T else NK * W * P + (W * P + 1) // 2
-    return SortPlan(NK, n, P, T, sort_smem(NK, T), scratch)
+    words = tuple(words) if words is not None else (GENERIC,) * NK
+    if len(words) != NK or any(
+            not 1 <= b <= (63 if s is not None else 64)
+            for _, b, s in words):
+        raise ValueError(f"window_sort: {NK} key words of 1-64 bits (63 "
+                         f"with a sentinel) expected, got {words}")
+    B = sum(b + (s is not None) for _, b, s in words)
+    q = (B + 31) // 32
+    NL = q if q <= 2 else 4 if q <= 4 else 6 if q <= 6 else 8
+    P = (B + 7) // 8
+    tile = SORT_TILE
+    T = (n + tile - 1) // tile
+    scratch = 0 if T == 1 else (2 * W * (NL + 1) * n + W * T * 256 + 1) // 2
+    return SortPlan(NK, n, words, B, NL, P, tile, T, sort_smem(NL, tile),
+                    scratch, 1 if T == 1 else 2 * P)
+
+
+def seq_words(n: int) -> int:
+    """32-bit words of a sequence of n bases staged by mer_instances: the
+    2-bit codes and two masks, each with two words of padding (csrc
+    seq_layout)."""
+    nc = (n + 31) // 32
+    return 4 * nc + 6
+
+
+def inst_smem(L: int, Lraw: int, M: int, TQ: int) -> int:
+    """A mer_instances block's dynamic shared memory: a read tile's TQ
+    stream positions and the reads it touches (each its strings and 5
+    int fields), or the window's reference (csrc inst_plan)."""
+    return 4 * max(TQ + ((TQ - 1) // M + 2) * (seq_words(L) + 5),
+                   seq_words(Lraw))
 
 
 def node_smem(N: int) -> int:
@@ -152,7 +201,10 @@ def edge_smem(phase: int, N: int, E: int) -> int:
 class BuildPlan(NamedTuple):
     """The shapes of one build and its launches: M read mers a read, Mraw
     ref mers, I = R*M + 3*Mraw instances, IP = R*M mate instances, PU =
-    R*M + Mraw pairs a window; the six sorts {name: SortPlan}."""
+    R*M + Mraw pairs a window; mer_instances' TR read tiles of TQ
+    instances and TF reference tiles of RQ offsets a window, inst_smem
+    bytes a block; the six sorts {name: SortPlan}; the kernels' launches
+    {name: count}."""
     K: int
     W: int
     R: int
@@ -167,7 +219,39 @@ class BuildPlan(NamedTuple):
     I: int
     IP: int
     PU: int
+    TQ: int
+    TR: int
+    RQ: int
+    TF: int
+    inst_smem: int
     sorts: dict
+    launches: dict
+
+
+def _span(lo: int, hi: int, sent) -> tuple:
+    """A key word of the values lo..hi and the sentinel sent (> hi)."""
+    return (lo, max(1, (hi - lo).bit_length()), sent)
+
+
+def sort_words(K: int, N: int, I: int) -> dict:
+    """Each build sort's key words and their ranges, from K, N and the
+    instances I a window (gpu/dbg.py's tables): a mer word of nb bases
+    2 nb bits or SENT; the node keys a group's first time (-1 to 2I - 1)
+    or BIG; the pair keys ((src NODECAP + dst) 4 + dir, src and dst -1 to
+    N - 1) or I32_MAX; the edge times 0 to 2I + 1 or BIG; the sources 0 to
+    N + 63 or I32_MAX; the mate keys the mer words and a fragment (any
+    int32)."""
+    NW = (K + 30) // 31
+    mer = tuple((0, 2 * nb, SENT)
+                for nb in [K - 31 * (NW - 1)] + [31] * (NW - 1))
+    NODECAP = N + 64
+    return {"inst": mer,
+            "node": (_span(-1, 2 * I, BIG),),
+            "pair": (_span(-4 * NODECAP - 4,
+                           ((N - 1) * NODECAP + N - 1) * 4 + 3, I32_MAX),),
+            "time": (_span(0, 2 * I + 1, BIG),),
+            "adj": (_span(0, N + 63, I32_MAX),),
+            "mate": mer + ((-(1 << 31), 32, None),)}
 
 
 def build_plan(K: int, W: int, R: int, L: int, Lraw: int, N: int, E: int,
@@ -175,8 +259,9 @@ def build_plan(K: int, W: int, R: int, L: int, Lraw: int, N: int, E: int,
     """The launches of a build at these shapes. Raises ValueError, before
     any launch, for what the engine never passes: K outside [1, 63], W, R,
     N, E or D below 1, L or Lraw below K, instances whose times reach BIG,
-    pair keys past int32 (N past ~23,000), or tables past a block's shared
-    memory (N past ~29,000, E past ~19,000)."""
+    pair keys past int32 (N past ~23,000), tables past a block's shared
+    memory (N past ~29,000, E past ~19,000), or reads or a reference past a
+    mer_instances block's (L past ~220,000 or Lraw past ~460,000 bases)."""
     if not 1 <= K <= MAX_K:
         raise ValueError(f"build_k takes K 1 to {MAX_K}, got K={K}")
     if min(W, R, N, E, D) < 1 or L < K or Lraw < K:
@@ -197,11 +282,22 @@ def build_plan(K: int, W: int, R: int, L: int, Lraw: int, N: int, E: int,
                                         edge_smem(3, N, E)) > SMEM_LIMIT:
         raise ValueError(f"build_k: N={N} or E={E} does not fit a block's "
                          "shared memory")
-    sorts = {"inst": sort_plan(NW, I, W), "node": sort_plan(1, N, W),
-             "pair": sort_plan(1, PU, W), "time": sort_plan(1, 2 * E, W),
-             "adj": sort_plan(1, E, W), "mate": sort_plan(NW + 1, IP, W)}
-    return BuildPlan(K, W, R, L, Lraw, N, E, D, NW, M, Mraw, I, IP, PU,
-                     sorts)
+    TQ, RQ = INST_TILE, REF_TILE
+    smem = inst_smem(L, Lraw, M, TQ)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"build_k: reads of L={L} or a reference of "
+                         f"Lraw={Lraw} do not fit a mer_instances block")
+    words = sort_words(K, N, I)
+    sizes = {"inst": I, "node": N, "pair": PU, "time": 2 * E, "adj": E,
+             "mate": IP}
+    sorts = {k: sort_plan(len(words[k]), n, W, words[k])
+             for k, n in sizes.items()}
+    launches = {"mer_instances": 2,
+                "window_sort": sum(s.launches for s in sorts.values()),
+                "node_tables": 2, "edge_tables": 4}
+    return BuildPlan(K, W, R, L, Lraw, N, E, D, NW, M, Mraw, I, IP, PU, TQ,
+                     -(-IP // TQ), RQ, -(-Mraw // RQ), smem, sorts,
+                     launches)
 
 
 def reset_launches() -> None:
@@ -221,16 +317,19 @@ def bind(path: str) -> ctypes.CDLL:
     vp, ci, ll, sz = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_size_t)
     lib.dbg_instances.restype = ci
-    lib.dbg_instances.argtypes = [vp, vp] + [ci] * 6 + [vp]
+    lib.dbg_instances.argtypes = [vp, vp, vp] + [ci] * 8 + [sz, vp]
+    lib.dbg_inst_plan.restype = ci
+    lib.dbg_inst_plan.argtypes = [ci] * 6 + [vp]
     lib.dbg_sort.restype = ci
-    lib.dbg_sort.argtypes = [vp, ll, ll] + [ci] * 5 + [vp, vp, vp, sz, vp]
+    lib.dbg_sort.argtypes = ([vp, ll, ll] + [ci] * 3 + [vp] * 4 + [ci]
+                             + [vp] * 3)
+    lib.dbg_sort_plan.restype = ci
+    lib.dbg_sort_plan.argtypes = [ci, vp, vp, ci, ci, ci, vp]
     lib.dbg_nodes.restype = ci
     lib.dbg_nodes.argtypes = [ci, vp] + [ci] * 4 + [ll, ctypes.c_float, sz,
                                                    vp]
     lib.dbg_edges.restype = ci
     lib.dbg_edges.argtypes = [ci, vp] + [ci] * 7 + [sz, vp]
-    lib.dbg_sort_smem.restype = sz
-    lib.dbg_sort_smem.argtypes = [ci, ci]
     lib.dbg_nodes_smem.restype = sz
     lib.dbg_nodes_smem.argtypes = [ci]
     lib.dbg_edges_smem.restype = sz
@@ -263,29 +362,40 @@ def _ptrs(ps) -> ctypes.Array:
     return (ctypes.c_void_p * len(ps))(*ps)
 
 
-def _ok(name: str, rc: int) -> None:
+def _ok(name: str, rc: int, n: int = 1) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    count_launch(LAUNCHES, name)
+    for _ in range(n):
+        count_launch(LAUNCHES, name)
+
+
+def _check_plan(name: str, got, want) -> None:
+    if tuple(got) != tuple(want):
+        raise RuntimeError(f"{name}: the launch plan {tuple(want)} disagrees "
+                           f"with csrc/dbg.cu's {tuple(got)}")
 
 
 def _check_smem(name: str, got: int, want: int) -> None:
-    if got != want:
-        raise RuntimeError(f"{name}: the shared-memory plan disagrees with "
-                           "csrc/dbg.cu's layout")
+    _check_plan(name, (got,), (want,))
 
 
 # ---------------------------------------------------------------------------
 # launches on pointers (the card's tensors, or a build's workspace)
 # ---------------------------------------------------------------------------
 
-def _launch_instances(c: _Card, p: BuildPlan, ins, outs,
+def _launch_instances(c: _Card, p: BuildPlan, ins, outs, cnt: int,
                       min_qual_call) -> None:
-    """mer_instances on INST_INPUTS' tensors `ins` into the pointers outs
-    (keys, pay, qok, fkeys)."""
+    """mer_instances' two launches on INST_INPUTS' tensors `ins` into the
+    pointers outs (keys, pay, qok, fkeys); cnt: W * TR int32 of scratch."""
+    got = (ctypes.c_longlong * 3)()
+    rc = c.lib.dbg_inst_plan(p.R, p.L, p.Lraw, p.K, p.TQ, p.RQ, got)
+    if rc:
+        raise RuntimeError(f"mer_instances: plan refused: CUDA error {rc}")
+    _check_plan("mer_instances", got, (p.TR, p.TF, p.inst_smem))
     _ok("mer_instances", c.lib.dbg_instances(
-        _ptrs([t.data_ptr() for t in ins]), _ptrs(outs), p.W, p.R, p.L,
-        p.Lraw, p.K, int(min_qual_call), c.stream))
+        _ptrs([t.data_ptr() for t in ins]), _ptrs(outs), cnt, p.W, p.R,
+        p.L, p.Lraw, p.K, int(min_qual_call), p.TQ, p.RQ, p.inst_smem,
+        c.stream), 2)
 
 
 def _launch_sort(c: _Card, sp: SortPlan, W: int, keys: int, ps: int,
@@ -293,11 +403,20 @@ def _launch_sort(c: _Card, sp: SortPlan, W: int, keys: int, ps: int,
     """window_sort of keys (key c of window w, element i at keys + 8 (c ps
     + w wst + i)) into perm [W, n] int64; scratch: sp.scratch int64
     elements (None when 0)."""
-    _check_smem("window_sort", c.lib.dbg_sort_smem(sp.NK, sp.T), sp.smem)
-    sidx = None if scratch is None else scratch + 8 * sp.NK * W * sp.P
+    NK = sp.NK
+    lo = (ctypes.c_longlong * NK)(*[w[0] for w in sp.words])
+    bits = (ctypes.c_int * NK)(*[w[1] for w in sp.words])
+    sent = (ctypes.c_longlong * NK)(*[w[2] or 0 for w in sp.words])
+    has = (ctypes.c_int * NK)(*[w[2] is not None for w in sp.words])
+    got = (ctypes.c_longlong * 6)()
+    rc = c.lib.dbg_sort_plan(NK, bits, has, W, sp.n, sp.tile, got)
+    if rc:
+        raise RuntimeError(f"window_sort: plan refused: CUDA error {rc}")
+    _check_plan("window_sort", got, (sp.NL, sp.P, sp.T, sp.launches,
+                                     sp.scratch, sp.smem))
     _ok("window_sort", c.lib.dbg_sort(
-        keys, ps, wst, sp.NK, W, sp.n, sp.P, sp.T, perm, scratch, sidx,
-        sp.smem, c.stream))
+        keys, ps, wst, NK, W, sp.n, lo, bits, sent, has, sp.tile, perm,
+        scratch, c.stream), sp.launches)
 
 
 def _launch_nodes(c: _Card, p: BuildPlan, ptrs: dict, phase: int,
@@ -356,17 +475,27 @@ def _plan_of(name: str, K, ins, N, E, D, Lraw) -> BuildPlan:
 # ---------------------------------------------------------------------------
 
 def _build_card(c: _Card, p: BuildPlan, ins, min_qual_call,
-                low_cov_threshold, min_cov_ratio) -> dict:
-    """The thirteen launches of a build on `c` (ins: INST_INPUTS' tensors
-    and totalreadbp last): the four stages' card paths composed as
-    build_k_plain composes their plain versions. Returns its dict."""
+                low_cov_threshold, min_cov_ratio, keep=None) -> dict:
+    """The launches of a build on `c` (ins: INST_INPUTS' tensors and
+    totalreadbp last; p.launches): the four stages' card paths composed
+    as build_k_plain composes their plain versions. Returns its dict;
+    `keep`, where a dict, gets each sort's keys [NK, W, n] (copies)."""
     from .dbg import BUILD_KEYS
 
-    inst = _instances_card(c, p, ins[:12], min_qual_call)
-    perm = _sort_card(c, inst["keys"], p.sorts["inst"])
+    W, sp = p.W, p.sorts["inst"]
+    perm = torch.empty((W, p.I), dtype=torch.int64, device=c.dev)
+    # the instance sort's scratch, and before it the instance tiles' counts
+    ws = torch.empty(max(sp.scratch, (W * p.TR + 1) // 2),
+                     dtype=torch.int64, device=c.dev)
+    inst = _instances_card(c, p, ins[:12], min_qual_call, ws.data_ptr())
+    _launch_sort(c, sp, W, inst["keys"].data_ptr(), W * p.I, p.I,
+                 perm.data_ptr(), ws.data_ptr() if sp.scratch else None)
     nodes = _nodes_card(c, p, inst, perm, ins[8], ins[12],
-                        low_cov_threshold, min_cov_ratio)
-    out = {**nodes, **_edges_card(c, p, inst, nodes, ins[11])}
+                        low_cov_threshold, min_cov_ratio, keep)
+    out = {**nodes, **_edges_card(c, p, inst, nodes, ins[11], keep)}
+    if keep is not None:
+        keep["inst"] = inst["keys"].clone()
+        keep["mate"] = inst["fkeys"].clone()
     return {k: out[k] for k in BUILD_KEYS}
 
 
@@ -374,8 +503,9 @@ def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder, raw,
             rawlen, seq_off, seq_len, totalreadbp, window_ok, *, N, E, D,
             Lraw, min_qual_call, low_cov_threshold, min_cov_ratio):
     """One k attempt's graph build (gpu.dbg.build_k_plain's arguments and
-    outputs): the plain version on the CPU, thirteen launches of the four
-    kernels on a card (BUILD_LAUNCHES), with no host sync."""
+    outputs): the plain version on the CPU, the launches of the four
+    kernels on a card (build_plan's BuildPlan.launches), with no host
+    sync."""
     args = (bases, quals, rlen, rsample, rstrand, rfrag, rorder, raw,
             rawlen, seq_off, seq_len, window_ok)
     dev = input_device("build_k", *args, totalreadbp)
@@ -397,12 +527,34 @@ def build_k(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder, raw,
                        min_cov_ratio)
 
 
+def build_sort_keys(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
+                    raw, rawlen, seq_off, seq_len, totalreadbp, window_ok,
+                    *, N, E, D, Lraw, min_qual_call, low_cov_threshold,
+                    min_cov_ratio) -> dict:
+    """The six sorts of one card build_k call, for timing each alone:
+    {name: (keys [NK, W, n] int64, its SortPlan)}, the keys copied from a
+    build on the card."""
+    args = (bases, quals, rlen, rsample, rstrand, rfrag, rorder, raw,
+            rawlen, seq_off, seq_len, window_ok)
+    dev = input_device("build_sort_keys", *args, totalreadbp)
+    if dev.type != "cuda":
+        raise ValueError(f"build_sort_keys runs on a card, got {dev}")
+    p = _plan_of("build_sort_keys", K, args, N, E, D, Lraw)
+    ins = _inputs("build_sort_keys", args) + [totalreadbp.to(torch.int32)
+                                              .contiguous()]
+    keep: dict = {}
+    _build_card(_card(dev), p, ins, min_qual_call, low_cov_threshold,
+                min_cov_ratio, keep)
+    return {k: (keep[k], sp) for k, sp in p.sorts.items()}
+
+
 # ---------------------------------------------------------------------------
 # the four stages, each on its own (the kernels held against their plain
 # versions)
 # ---------------------------------------------------------------------------
 
-def _instances_card(c: _Card, p: BuildPlan, ins, min_qual_call) -> dict:
+def _instances_card(c: _Card, p: BuildPlan, ins, min_qual_call,
+                    cnt: int) -> dict:
     W = p.W
     out = {"keys": torch.empty((p.NW, W, p.I), dtype=torch.int64,
                                device=c.dev),
@@ -411,7 +563,7 @@ def _instances_card(c: _Card, p: BuildPlan, ins, min_qual_call) -> dict:
            "fkeys": torch.empty((p.NW + 1, W, p.IP), dtype=torch.int64,
                                 device=c.dev)}
     _launch_instances(c, p, ins, [out[k].data_ptr() for k in
-                                  ("keys", "pay", "qok", "fkeys")],
+                                  ("keys", "pay", "qok", "fkeys")], cnt,
                       min_qual_call)
     return out
 
@@ -419,8 +571,9 @@ def _instances_card(c: _Card, p: BuildPlan, ins, min_qual_call) -> dict:
 def mer_instances(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
                   raw, rawlen, seq_off, seq_len, window_ok, *, Lraw,
                   min_qual_call):
-    """The instance table (gpu.dbg.mer_instances_plain). On the card one
-    launch, a block a window."""
+    """The instance table (gpu.dbg.mer_instances_plain). On the card two
+    launches of (window, tile) blocks (build_plan's TR read tiles and TF
+    reference tiles)."""
     args = (bases, quals, rlen, rsample, rstrand, rfrag, rorder, raw,
             rawlen, seq_off, seq_len, window_ok)
     dev = input_device("mer_instances", *args)
@@ -432,13 +585,13 @@ def mer_instances(K, bases, quals, rlen, rsample, rstrand, rfrag, rorder,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     p = _plan_of("mer_instances", K, args, 1, 1, 1, Lraw)
+    cnt = torch.empty((p.W, p.TR), dtype=torch.int32, device=dev)
     return _instances_card(_card(dev), p, _inputs("mer_instances", args),
-                           min_qual_call)
+                           min_qual_call, cnt.data_ptr())
 
 
-def _sort_card(c: _Card, keys, sp: SortPlan | None = None) -> torch.Tensor:
+def _sort_card(c: _Card, keys, sp: SortPlan) -> torch.Tensor:
     NK, W, n = keys.shape
-    sp = sp or sort_plan(NK, n, W)
     keys = keys.contiguous()
     perm = torch.empty((W, n), dtype=torch.int64, device=c.dev)
     scratch = (torch.empty(sp.scratch, dtype=torch.int64, device=c.dev)
@@ -448,11 +601,12 @@ def _sort_card(c: _Card, keys, sp: SortPlan | None = None) -> torch.Tensor:
     return perm
 
 
-def window_sort(keys):
+def window_sort(keys, plan: SortPlan | None = None):
     """The stable sort permutation [W, n] int64 of keys [NK, W, n] int64
     along the window axis, key 0 the most significant
-    (gpu.dbg.window_sort_plain). On the card one launch, a block a window
-    (sort_plan)."""
+    (gpu.dbg.window_sort_plain). On the card sort_plan's launches: with
+    `plan`, the key words in its declared ranges (a build's sorts,
+    BuildPlan.sorts); without, any int64 values (GENERIC words)."""
     dev = input_device("window_sort", keys)
     if dev.type == "cpu":
         from .dbg import window_sort_plain
@@ -463,7 +617,12 @@ def window_sort(keys):
     if keys.dim() != 3 or keys.dtype != torch.int64:
         raise ValueError(f"window_sort takes keys [NK, W, n] int64, got "
                          f"{tuple(keys.shape)} {keys.dtype}")
-    return _sort_card(_card(dev), keys)
+    NK, W, n = keys.shape
+    sp = plan or sort_plan(NK, n, W)
+    if (sp.NK, sp.n) != (NK, n):
+        raise ValueError(f"window_sort: a plan for NK={sp.NK}, n={sp.n} "
+                         f"given keys of NK={NK}, n={n}")
+    return _sort_card(_card(dev), keys, sp)
 
 
 def _inst_plan(name, K, inst, N, E, D, R, L, Lraw) -> BuildPlan:
@@ -480,7 +639,7 @@ def _inst_plan(name, K, inst, N, E, D, R, L, Lraw) -> BuildPlan:
 
 
 def _nodes_card(c: _Card, p: BuildPlan, inst, perm, rawlen, totalreadbp,
-                low_cov_threshold, min_cov_ratio) -> dict:
+                low_cov_threshold, min_cov_ratio, keep=None) -> dict:
     W, N = p.W, p.N
     node = p.sorts["node"]
     ws = torch.empty(2 * W * N + (W * (N + 1) + 1) // 2 + 1 + node.scratch,
@@ -507,6 +666,8 @@ def _nodes_card(c: _Card, p: BuildPlan, inst, perm, rawlen, totalreadbp,
                  scratch)
     _launch_nodes(c, p, ptrs, 1, low_cov_threshold, min_cov_ratio)
     out["mers_w"] = mers.unbind(0)
+    if keep is not None:
+        keep["node"] = ws[:W * N].view(1, W, N).clone()
     return out
 
 
@@ -533,7 +694,8 @@ def node_tables(K, inst, perm, rawlen, totalreadbp, *, N, R, L, Lraw,
                        low_cov_threshold, min_cov_ratio)
 
 
-def _edges_card(c: _Card, p: BuildPlan, inst, nodes, window_ok) -> dict:
+def _edges_card(c: _Card, p: BuildPlan, inst, nodes, window_ok,
+                keep=None) -> dict:
     W, E, PU, IP = p.W, p.E, p.PU, p.IP
     sp = {k: v for k, v in p.sorts.items() if k in ("pair", "time", "adj",
                                                      "mate")}
@@ -545,10 +707,11 @@ def _edges_card(c: _Card, p: BuildPlan, inst, nodes, window_ok) -> dict:
              ("scratch", max(s.scratch for s in sp.values())))
     ws = torch.empty(sum(n for _, n in sizes), dtype=torch.int64,
                      device=c.dev)
-    ptrs, off = {}, ws.data_ptr()
+    ptrs, at, off = {}, {}, 0
     for k, n in sizes:
-        ptrs[k] = off
-        off += 8 * n
+        ptrs[k] = ws.data_ptr() + 8 * off
+        at[k] = off
+        off += n
     out = _empty(_shapes(p), EDGE_OUTPUTS, c.dev)
     ptrs.update({k: t.data_ptr() for k, t in out.items()})
     held = {"pay": inst["pay"].contiguous(),
@@ -570,6 +733,10 @@ def _edges_card(c: _Card, p: BuildPlan, inst, nodes, window_ok) -> dict:
     _launch_sort(c, sp["mate"], W, ptrs["fkeys"], W * IP, IP, ptrs["fperm"],
                  scratch)
     _launch_edges(c, p, ptrs, 3)
+    if keep is not None:
+        for k, name, n in (("pair", "ckey", PU), ("time", "et_key", 2 * E),
+                           ("adj", "ak_key", E)):
+            keep[k] = ws[at[name]:at[name] + W * n].view(1, W, n).clone()
     return out
 
 

@@ -12,15 +12,19 @@ JAX package.
   hub past D, the mate-overlap candidate, the palindromic self-loop, a
   pair whose two mers are past N);
 - `window_sort_plain` against `numpy.lexsort` on seeded keys with ties,
-  and a numpy replay of the kernel's network (tiles in shared memory, the
-  strides past a tile through device memory) against it;
+  and a numpy replay of the kernel's radix sort (the declared ranges and
+  sentinels, each tile's digit counts, the offsets in the window, the
+  ranks by warp) against it; a numpy replay of `mer_instances` (the bit
+  strings, the read tiles' counts before the stream positions, the
+  reference tiles) against `mer_instances_plain`;
 - the dispatch: the stage wrappers and `build_k` on the CPU run the plain
   versions with no launch, `build_plan` / `sort_plan` and their refusals,
   the mixed-device refusal, the payload bits against csrc/dbg.cu's.
 
-The `cuda` test holds the kernels bit-equal to the plain versions, dtypes
-too, on the crafted batches at every bucket's shape, thirteen launches a
-build and no host sync.
+The `cuda` tests hold the kernels bit-equal to the plain versions, dtypes
+too, on the crafted batches at every bucket's shape with the plan's
+launches a build and no host sync, and window_sort on generic keys and
+mer_instances alone.
 """
 
 import contextlib
@@ -145,73 +149,388 @@ def test_window_sort_plain_equals_numpy_lexsort(NK, n, span):
         assert np.array_equal(got[w].numpy(), want)
 
 
-def _bitonic_replay(keys: np.ndarray, T: int) -> np.ndarray:
-    """csrc/dbg.cu's window_sort network on one window [NK, n]: records
-    (keys, index) padded to P with (INT64_MAX words, index); tiles of T
-    sorted in the direction of their position, then each merge's strides
-    >= T over the whole array and the rest tile by tile."""
-    NK, n = keys.shape
-    P = 1 << max(1, (n - 1).bit_length())
-    rec = [tuple(int(keys[c, i]) if i < n else 2**63 - 1
-                 for c in range(NK)) + (i,) for i in range(P)]
+def _radix_replay(keys: np.ndarray, words, tile: int) -> np.ndarray:
+    """csrc/dbg.cu's window_sort on keys [NK, W, n]: each word mapped into
+    its declared range (lo, bits, sent), the sentinel to 2^bits, the
+    records' keys the mapped words side by side (word 0 most
+    significant); then a pass for each 8 bits: each tile's digit counts,
+    a digit's offset in the window (the totals' exclusive sums over the
+    digits plus the earlier tiles' counts), each warp's records (32 x 8 a
+    warp) ranked by digit after the earlier warps' counts, every record
+    to its offset plus its place among the tile's records of its digit."""
+    NK, W, n = keys.shape
+    B = sum(b + (s is not None) for _, b, s in words)
+    P, T, S = (B + 7) // 8, -(-n // tile), 32 * 8
+    perm = np.zeros((W, n), np.int64)
+    for w in range(W):
+        recs = []
+        for i in range(n):
+            key = 0
+            for c, (lo, bits, sent) in enumerate(words):
+                v = int(keys[c, w, i])
+                u = 1 << bits if sent is not None and v == sent else \
+                    (v - lo) % (1 << 64)
+                key = (key << (bits + (sent is not None))) | u
+            recs.append((key, i))
+        for p in range(P):
+            dig = [(k >> (8 * p)) & 255 for k, _ in recs]
+            cnt = np.zeros((T, 256), np.int64)
+            for j, d in enumerate(dig):
+                cnt[j // tile, d] += 1
+            base = np.concatenate([[0], np.cumsum(cnt.sum(0))[:-1]])
+            goff = base + np.cumsum(cnt, 0) - cnt  # earlier tiles' counts
+            out = [None] * n
+            for t in range(T):
+                idx = range(t * tile, min(n, (t + 1) * tile))
+                tcnt = cnt[t]
+                tst = np.concatenate([[0], np.cumsum(tcnt)[:-1]])
+                whist = np.zeros(256, np.int64)  # the earlier warps'
+                for w0 in range(t * tile, idx.stop, S):
+                    seen = np.zeros(256, np.int64)
+                    for j in range(w0, min(idx.stop, w0 + S)):
+                        d = dig[j]
+                        pos = tst[d] + whist[d] + seen[d]
+                        seen[d] += 1
+                        out[goff[t, d] + pos - tst[d]] = recs[j]
+                    whist += seen
+            recs = out
+        perm[w] = [i for _, i in recs]
+    return perm
 
-    def stage(k, j, lo, hi):
-        for l in range(lo, hi):
-            u = l ^ j
-            if u > l and u < hi:
-                asc = (l & k) == 0
-                if (rec[l] > rec[u]) == asc:
-                    rec[l], rec[u] = rec[u], rec[l]
 
-    for t0 in range(0, P, T):
-        k = 2
-        while k <= T:
-            j = k // 2
-            while j >= 1:
-                stage(k, j, t0, t0 + T)
-                j //= 2
-            k *= 2
-    k = 2 * T
-    while k <= P:
-        j = k // 2
-        while j >= T:
-            stage(k, j, 0, P)
-            j //= 2
-        for t0 in range(0, P, T):
-            j = T // 2
-            while j >= 1:
-                stage(k, j, t0, t0 + T)
-                j //= 2
-        k *= 2
-    return np.array([r[-1] for r in rec[:n]])
+_SENTS = {"SENT": dbg.SENT, "BIG": dbg.BIG, "I32": dbgk.I32_MAX}
 
 
-@pytest.mark.parametrize("NK,n,T", [(1, 300, 8), (2, 77, 4), (4, 129, 2),
-                                    (1, 64, 64)])
-def test_window_sort_network_replay(NK, n, T):
-    rng = np.random.default_rng([NK, n, T])
-    keys = _seeded_keys(rng, NK, 2, n, 3)
-    want = dbg.window_sort_plain(keys).numpy()
-    for w in range(2):
-        assert np.array_equal(_bitonic_replay(keys[:, w].numpy(), T),
-                              want[w])
+@pytest.mark.parametrize("case", [
+    # NK, n, tile, words: a build-like instance word (2 bits a base of 11,
+    # SENT), one tile and several
+    (1, 1000, 256, ((0, 22, "SENT"),)),
+    # times from -1 with BIG, n not a power of two, two warps a tile
+    (1, 777, 512, ((-1, 17, "BIG"),)),
+    # generic full-width words with negative values and the extremes
+    (2, 600, 256, (dbgk.GENERIC, dbgk.GENERIC)),
+    # the mate sort's words at k 33 (two mer words and a fragment)
+    (3, 300, 256, ((0, 4, "SENT"), (0, 62, "SENT"), (-(1 << 31), 32, None))),
+    # pair keys from below 0 with I32_MAX, one tile
+    (1, 200, 256, ((-6404, 24, "I32"),)),
+])
+def test_window_sort_radix_replay(case):
+    NK, n, tile, words = case
+    words = tuple((lo, b, _SENTS.get(s, s)) for lo, b, s in words)
+    rng = np.random.default_rng([NK, n, tile])
+    k = np.zeros((NK, 2, n), np.int64)
+    for c, (lo, b, s) in enumerate(words):
+        if b == 64:
+            v = rng.integers(-4, 4, (2, n)) * (1 << 61)
+            v[:, ::5] = rng.integers(-(1 << 63), (1 << 63) - 1,
+                                     (2, len(range(0, n, 5))))
+            v[0, :2] = (-(1 << 63), (1 << 63) - 1)
+        else:  # few values, ties; the range's ends; the sentinel
+            v = lo + rng.integers(0, 6, (2, n)) * (((1 << b) - 1) // 5)
+            if s is not None:
+                v[rng.random((2, n)) < 0.2] = s
+        k[c] = v
+    sp = dbgk.sort_plan(NK, n, 2, words)
+    assert sp.T == -(-n // dbgk.SORT_TILE) and sp.B == sum(
+        b + (s is not None) for _, b, s in words)
+    want = dbg.window_sort_plain(torch.from_numpy(k)).numpy()
+    assert np.array_equal(_radix_replay(k, words, tile), want)
+
+
+@pytest.mark.parametrize("K", bc.KS)
+def test_build_sort_keys_lie_in_their_declared_ranges(K, monkeypatch):
+    """Every key word of the six sorts of build_k_plain on the crafted
+    windows (and the hub) lies in the range build_plan declares for it
+    (lo + [0, 2^bits) or its sentinel): the radix sort's mapping keeps
+    the order of exactly these values."""
+    seen = []
+    real = dbg.window_sort_plain
+
+    def capture(keys):
+        seen.append(keys.clone())
+        return real(keys)
+
+    monkeypatch.setattr(dbg, "window_sort_plain", capture)
+    for arrs, D in ((_batch(K), bc.D_ENGINE), (_batch(K, hub=True),
+                                               bc.HUB_D)):
+        seen.clear()
+        W = len(arrs["rlen"])
+        dbg.build_k_plain(K, *_tensors(arrs), N=N0, E=E0, D=D, Lraw=bc.LRAW,
+                          **bc.SCALARS)
+        p = dbgk.build_plan(K, W, R0, L0, bc.LRAW, N0, E0, D)
+        assert len(seen) == 6
+        for keys, (name, sp) in zip(seen, p.sorts.items()):
+            assert tuple(keys.shape) == (sp.NK, W, sp.n), name
+            for c, (lo, bits, sent) in enumerate(sp.words):
+                k = keys[c]
+                inside = (k >= lo) & (k - lo < 2 ** bits if bits < 63
+                                      else torch.ones_like(k, dtype=bool))
+                if sent is not None:
+                    inside |= k == sent
+                assert inside.all(), (K, name, c, k[~inside][:5])
 
 
 def test_sort_plan():
-    p = dbgk.sort_plan(1, 10_000, 32)
-    assert (p.P, p.T, p.scratch) == (16384, 16384, 0)
-    p = dbgk.sort_plan(1, 118_626, 32)
-    assert (p.P, p.T) == (131072, 16384) and p.smem <= dbgk.SORT_SMEM
-    assert p.scratch == 32 * 131072 + 16 * 131072
-    assert dbgk.sort_plan(4, 1, 1).P == 2
-    for NK in range(1, 5):
-        T = dbgk.sort_plan(NK, 1 << 20, 1).T
-        assert dbgk.sort_smem(NK, T) <= dbgk.SORT_SMEM
-        assert dbgk.sort_smem(NK, 2 * T) > dbgk.SORT_SMEM
+    # the largest case 1 call: W 32, k 11, bucket 2
+    p = dbgk.build_plan(11, 32, 512, 112, 1152, 4096, 10240, 12)
+    got = {k: (s.NK, s.B, s.NL, s.P, s.T, s.launches)
+           for k, s in p.sorts.items()}
+    assert got == {"inst": (1, 23, 1, 3, 14, 6), "node": (1, 18, 1, 3, 1, 1),
+                   "pair": (1, 28, 1, 4, 14, 8), "time": (1, 18, 1, 3, 5, 6),
+                   "adj": (1, 14, 1, 2, 3, 4), "mate": (2, 55, 2, 7, 13, 14)}
+    assert p.I == 55_650 and (p.TR, p.TF) == (26, 3)
+    assert p.launches == {"mer_instances": 2, "window_sort": 39,
+                          "node_tables": 2, "edge_tables": 4}
+    s = p.sorts["inst"]
+    assert s.scratch == (2 * 32 * 2 * 55_650 + 32 * 14 * 256 + 1) // 2
+    assert s.smem == 4 * (16 * 256 + 512 + 4096 * 2) <= dbgk.SMEM_LIMIT
+    # passes and launches at each bucket and at k 11, 33 and 63
+    for R, L, N, E in bc.BUCKETS:
+        for K in (11, 33, 63):
+            p = dbgk.build_plan(K, 32, R, L, bc.LRAW, N, E, bc.D_ENGINE)
+            NW = p.NW
+            mer = [2 * (K - 31 * (NW - 1)) + 1] + [63] * (NW - 1)
+            assert p.sorts["inst"].B == sum(mer)
+            assert p.sorts["mate"].B == sum(mer) + 32
+            for k, s in p.sorts.items():
+                assert s.P == -(-s.B // 8) and s.tile == dbgk.SORT_TILE
+                assert s.launches == (1 if s.T == 1 else 2 * s.P)
+                assert (s.scratch == 0) == (s.T == 1)
+                assert s.smem <= dbgk.SMEM_LIMIT
+            assert p.launches["window_sort"] == sum(
+                s.launches for s in p.sorts.values())
+            assert p.TR == -(-R * (L - K + 1) // dbgk.INST_TILE)
+    # the largest scratch a build allocates: bucket 3, k 63, the instance
+    # sort's records (six key lanes) and counts, 141 MB
+    p = dbgk.build_plan(63, 32, 768, 160, bc.LRAW, 4096, 10240, 12)
+    big = max(s.scratch for s in p.sorts.values())
+    assert p.sorts["inst"].scratch == big and p.sorts["inst"].NL == 6
+    assert 8 * big == 8 * ((2 * 32 * 7 * 78_534 + 32 * 20 * 256 + 1) // 2)
+    # any n, a power of two or not; generic words take 64 bits each
+    assert dbgk.sort_plan(1, 1, 1).launches == 1
+    g = dbgk.sort_plan(4, 5000, 2)
+    assert (g.B, g.NL, g.P, g.T, g.launches) == (256, 8, 32, 2, 64)
     for bad in ((0, 5, 1), (5, 5, 1), (1, 0, 1), (1, 5, 0),
                 (1, dbgk.MAX_SORT_N + 1, 1)):
         with pytest.raises(ValueError):
             dbgk.sort_plan(*bad)
+    for words in (((0, 0, None),), ((0, 64, 5),), ((0, 65, None),),
+                  ((0, 8, None), (0, 8, None))):
+        with pytest.raises(ValueError):
+            dbgk.sort_plan(1, 10, 1, words)
+
+
+_U64 = np.uint64
+
+
+def _spread16(x):
+    x = x & 0xFFFF
+    for s, m in ((8, 0x00FF00FF), (4, 0x0F0F0F0F), (2, 0x33333333),
+                 (1, 0x55555555)):
+        x = (x | (x << s)) & m
+    return x
+
+
+def _stage(b, q, minq):
+    """csrc/dbg.cu's stage_seqs on rows [S, n] of bases (and qualities, or
+    None): each chunk of 32 positions a warp's four ballots, the 2-bit
+    codes spread from two of them. Returns the code, bad-base and
+    bad-quality strings, uint64 arrays of 32-bit words, each with its two
+    words of padding."""
+    S, n = b.shape
+    nc = -(-n // 32)
+    bv = np.zeros((S, 32 * nc), np.int64)
+    bv[:, :n] = b
+    qb = np.zeros((S, 32 * nc), bool)
+    if q is not None:
+        qb[:, :n] = q.astype(np.int64) < minq
+    lane = np.arange(32, dtype=np.int64)
+
+    def ballot(pred):
+        return (pred.reshape(S, nc, 32).astype(np.int64) << lane).sum(-1)
+
+    lo, hi = ballot(bv & 1), ballot((bv >> 1) & 1)
+    code = np.zeros((S, 2 * nc + 2), np.int64)
+    code[:, 0:2 * nc:2] = _spread16(lo) | (_spread16(hi) << 1)
+    code[:, 1:2 * nc:2] = _spread16(lo >> 16) | (_spread16(hi >> 16) << 1)
+    pad = np.zeros((S, 2), np.int64)
+    return tuple(x.astype(_U64) for x in (
+        code, np.concatenate([ballot(bv >= 4), pad], 1),
+        np.concatenate([ballot(qb), pad], 1)))
+
+
+def _ext(s, row, off, n):
+    """csrc ext: bits [off, off + n) of rows `row` of the strings s."""
+    off = np.asarray(off, np.int64)
+    i, sh = off >> 5, (off & 31).astype(_U64)
+    v = (s[row, i] | (s[row, i + 1] << _U64(32))) >> sh
+    v |= np.where(sh > 0, s[row, i + 2] << (_U64(64) - np.maximum(sh, 1)),
+                  _U64(0))
+    n = np.asarray(n, np.int64)
+    mask = np.where(n >= 64, _U64(2**64 - 1),
+                    (_U64(1) << np.minimum(n, 63).astype(_U64)) - _U64(1))
+    return v & mask
+
+
+def _brev(x):
+    r = np.zeros_like(x)
+    for i in range(64):
+        r |= ((x >> _U64(i)) & _U64(1)) << _U64(63 - i)
+    return r
+
+
+def _mer_words(code, bad, row, m, K, NW):
+    """csrc mer_words: the forward and reverse-complement words and the
+    bases' check, a few extractions a mer."""
+    f, r = [], []
+    for i in range(NW):
+        lo, hi = max(K - 31 * (NW - i), 0), K - 31 * (NW - 1 - i)
+        x = _brev(_ext(code, row, 2 * (m + lo), 2 * (hi - lo)))
+        x = ((x >> _U64(1)) & _U64(0x5555555555555555)) | (
+            (x & _U64(0x5555555555555555)) << _U64(1))
+        f.append((x >> _U64(64 - 2 * (hi - lo))).astype(np.int64))
+        rlo = 31 * (NW - 1 - i)
+        nb = min(31 * (NW - i), K) - rlo
+        r.append((_ext(code, row, 2 * (m + rlo), 2 * nb)
+                  ^ _U64((1 << (2 * nb)) - 1)).astype(np.int64))
+    lt, eq = np.zeros(len(m), bool), np.ones(len(m), bool)
+    for a, b in zip(f, r):
+        lt |= eq & (a < b)
+        eq &= a == b
+    return f, r, lt, _ext(bad, row, m, K) == 0
+
+
+def _instances_replay(arrs, K, TQ, RQ, minq):
+    """csrc/dbg.cu's mer_instances in numpy: the reads and the reference
+    staged as bit strings; each read tile of TQ instances counts its valid
+    ones (launch 1); an instance's stream position g is the earlier
+    tiles' counts plus its place among the tile's valid ones, and a
+    reference tile's times start at the window's total (launch 2)."""
+    b, q = arrs["bases"], arrs["quals"]
+    W, R, L = b.shape
+    Lraw = arrs["raw"].shape[1]
+    NW, M, Mraw = (K + 30) // 31, L - K + 1, Lraw - K + 1
+    RM, I = R * M, R * M + 3 * (Lraw - K + 1)
+    code, bad, qbad = _stage(b.reshape(W * R, L), q.reshape(W * R, L), minq)
+    wq = np.repeat(np.arange(W), RM)
+    qq = np.tile(np.arange(RM), W)
+    rr, m = qq // M, qq % M
+    row = wq * R + rr
+    f, r, isF, bok = _mer_words(code, bad, row, m, K, NW)
+    rl = arrs["rlen"].reshape(-1)[row].astype(np.int64)
+    n_mers = np.maximum(rl - K + 1, 0)
+    use = rl - K > 0
+    valid = use & (m < n_mers) & bok
+    last = m == n_mers - 1
+    qf = ~_ext(qbad, row, m, K) & _U64((1 << K) - 1)
+    qr = _brev(qf) >> _U64(64 - K)
+    qb_pair = _ext(qbad, row, m, K + 1) != 0
+    mp = np.maximum(m - 1, 0)
+    qb_prev = np.where(m >= 1, _ext(qbad, row, mp, K + 1),
+                       _ext(qbad, row, mp, K)) != 0
+    bad_prev = np.where(m >= 1, _ext(bad, row, mp, K),
+                        _ext(bad, row, mp, K - 1)) != 0
+    samp = arrs["rsample"].reshape(-1)[row].astype(np.int64)
+    order = arrs["rorder"].reshape(-1)[row].astype(np.int64)
+    pair_ok = (m < L - K) & ~qb_pair & (samp == 0) & ~last & valid
+    prev_ok = ((m >= 1) & ~qb_prev & (samp == 0) & (m - 1 != n_mers - 1)
+               & use & (m - 1 < n_mers) & ~bad_prev)
+    # launch 1: each tile's count; launch 2: g from the counts and a scan
+    TR = -(-RM // TQ)
+    v = valid.reshape(W, RM)
+    cnt = np.stack([v[:, t * TQ:(t + 1) * TQ].sum(1) for t in range(TR)], 1)
+    g = np.zeros((W, RM), np.int64)
+    for t in range(TR):
+        blk = v[:, t * TQ:(t + 1) * TQ].astype(np.int64)
+        g[:, t * TQ:(t + 1) * TQ] = (cnt[:, :t].sum(1)[:, None]
+                                     + np.cumsum(blk, 1) - blk)
+    g = g.reshape(-1)
+    okW = arrs["window_ok"][wq].astype(bool)
+    isread = valid & okW
+    paired = (order > 0) & valid
+    tm = np.where(isread, 2 * g - (m > 0), dbg.BIG) & 0xFFFFFFFF
+    bits = ((isread, dbg.P_VALID), (isread, dbg.P_READ),
+            (arrs["rstrand"].reshape(-1)[row] != 0, dbg.P_STRAND),
+            (pair_ok | prev_ok, dbg.P_TFLAG), (isF, dbg.P_ISF),
+            (valid & ~last & okW, dbg.P_PAIR), (samp == 0, dbg.P_TMR),
+            (samp == 1, dbg.P_NML), (samp == 2, dbg.P_REF))
+    pv = tm
+    for x, bt in bits:
+        pv = pv | (x.astype(np.int64) << bt)
+    pv = pv | (np.where(paired, order, 0) << dbg.P_ORDER)
+    mw = [np.where(isF, a, c) for a, c in zip(f, r)]
+    out = {"keys": np.zeros((NW, W, I), np.int64),
+           "pay": np.zeros((W, I), np.int64),
+           "qok": np.zeros((W, I), np.int64),
+           "fkeys": np.zeros((NW + 1, W, RM), np.int64)}
+    out["pay"][:, :RM] = pv.reshape(W, RM)
+    out["qok"][:, :RM] = np.where(isF, qf, qr).astype(np.int64).reshape(
+        W, RM)
+    for i in range(NW):
+        out["keys"][i, :, :RM] = np.where(isread, mw[i], dbg.SENT).reshape(
+            W, RM)
+        out["fkeys"][i] = np.where(paired, mw[i], dbg.SENT).reshape(W, RM)
+    out["fkeys"][NW] = np.where(paired, arrs["rfrag"].reshape(-1)[row],
+                                dbgk.I32_MAX).reshape(W, RM)
+    # the reference tiles of RQ offsets, times after the window's total
+    pcode, pbad, _ = _stage(arrs["raw"], None, 0)
+    total = cnt.sum(1)
+    for t in range(-(-Mraw // RQ)):
+        ro = np.arange(t * RQ, min((t + 1) * RQ, Mraw))
+        for w in range(W):
+            wr = np.full(len(ro), w)
+            pf, prc, pisF, pok = _mer_words(pcode, pbad, wr, ro, K, NW)
+            rawlen = int(arrs["rawlen"][w])
+            nm = max(rawlen - K + 1, 0)
+            ok = bool(arrs["window_ok"][w])
+            rv = (ro < nm) & pok & (rawlen - K > 0) & ok
+            tr = 2 * (total[w] + ro) - (ro > 0)
+            pv = np.where(rv, tr, dbg.BIG) & 0xFFFFFFFF
+            pv |= (rv.astype(np.int64) << dbg.P_VALID) | (
+                rv.astype(np.int64) << dbg.P_READ) | (
+                pisF.astype(np.int64) << dbg.P_ISF) | (
+                (rv & (ro != nm - 1)).astype(np.int64) << dbg.P_PAIR) | (
+                1 << dbg.P_REF)
+            pv_ok = (ro < rawlen - K + 1) & pok & ok
+            ipos = int(arrs["seq_off"][w]) + ro
+            ip = np.clip(ipos, 0, Mraw - 1)
+            fi, ri, iisF, iok = _mer_words(pcode, pbad, wr, ip, K, NW)
+            iv = (ro < int(arrs["seq_len"][w]) - K) & (ipos < Mraw) & iok & ok
+            out["pay"][w, RM + ro] = pv
+            out["pay"][w, RM + Mraw + ro] = dbg.BIG | (
+                pv_ok.astype(np.int64) << dbg.P_VALID) | (
+                pisF.astype(np.int64) << dbg.P_ISF)
+            out["pay"][w, RM + 2 * Mraw + ro] = dbg.BIG | (
+                iv.astype(np.int64) << dbg.P_VALID) | (
+                iv.astype(np.int64) << dbg.P_IDX)
+            for i in range(NW):
+                pw = np.where(pisF, pf[i], prc[i])
+                iw = np.where(iisF, fi[i], ri[i])
+                out["keys"][i, w, RM + ro] = np.where(rv, pw, dbg.SENT)
+                out["keys"][i, w, RM + Mraw + ro] = np.where(pv_ok, pw,
+                                                             dbg.SENT)
+                out["keys"][i, w, RM + 2 * Mraw + ro] = np.where(
+                    iv, iw, dbg.SENT)
+    return out, cnt
+
+
+@pytest.mark.parametrize("K,TQ,RQ", [(11, 100, 300), (33, 2048, 512),
+                                     (63, 37, 128)])
+def test_mer_instances_tile_replay(K, TQ, RQ):
+    """The kernel's bit strings, its read tiles (TQ 100 and 37 cut reads of
+    150 and 98 mers) with each tile's count before the stream positions,
+    and its reference tiles, bit-equal to mer_instances_plain."""
+    arrs = _batch(K)
+    minq = bc.SCALARS["min_qual_call"]
+    got, cnt = _instances_replay(arrs, K, TQ, RQ, minq)
+    t = _tensors(arrs)
+    want = dbg.mer_instances_plain(K, *t[:11], t[12], Lraw=bc.LRAW,
+                                   min_qual_call=minq)
+    for k, v in want.items():
+        assert np.array_equal(got[k], v.numpy()), (K, k)
+    assert cnt.shape[1] == -(-R0 * (L0 - K + 1) // TQ)
+    assert TQ == 2048 or cnt.shape[1] > 1
+    assert cnt.sum() > 0
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +544,9 @@ def test_build_plan_takes_every_engine_shape():
                 p = dbgk.build_plan(K, W, R, L, bc.LRAW, N, E, bc.D_ENGINE)
                 assert p.I == R * (L - K + 1) + 3 * (bc.LRAW - K + 1)
                 assert len(p.sorts) == 6
-                assert all(sp.smem <= dbgk.SORT_SMEM
+                assert all(sp.smem <= dbgk.SMEM_LIMIT
                            for sp in p.sorts.values())
+                assert p.inst_smem <= dbgk.SMEM_LIMIT
     p = dbgk.build_plan(11, 32, 768, 160, bc.LRAW, 4096, 10240, 12)
     assert p.I == 118_626 and p.sorts["mate"].NK == 2
 
@@ -244,6 +564,8 @@ def test_build_plan_takes_every_engine_shape():
     (11, 4, 48, 160, 1152, 30_000, 3840, 12),
     (11, 4, 48, 160, 1152, 1536, 30_000, 12),
     (11, 1, 1 << 22, 160, 1152, 1536, 3840, 12),
+    (11, 1, 1, 240_000, 1152, 1536, 3840, 12),
+    (11, 4, 48, 160, 500_000, 1536, 3840, 12),
 ])
 def test_build_plan_refusals(args):
     with pytest.raises(ValueError):
@@ -267,6 +589,8 @@ def test_cpu_dispatch_runs_the_plain_stages():
                               min_qual_call=bc.SCALARS["min_qual_call"])
     assert inst["keys"].shape == (1, len(bc.LANES), _plan(K).I)
     perm = dbgk.window_sort(inst["keys"])
+    assert torch.equal(perm, dbgk.window_sort(
+        inst["keys"], plan=_plan(K).sorts["inst"]))
     nodes = dbgk.node_tables(
         K, inst, perm, t[8], t[11], N=N0, R=R0, L=L0, Lraw=bc.LRAW,
         low_cov_threshold=bc.SCALARS["low_cov_threshold"],
@@ -316,7 +640,7 @@ def test_payload_bits_match_the_kernel_source():
     for name, bit in names.items():
         m = re.search(rf"\b{name} = (\d+)", src)
         assert m and int(m.group(1)) == bit, name
-    assert len(re.findall(r"^__global__", src, re.M)) <= 4
+    assert len(re.findall(r"^__global__", src, re.M)) <= 8
     assert "cub::" not in src and "thrust::" not in src
 
 
@@ -356,7 +680,7 @@ def _no_sync():
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """build_k on the card bit-equal, dtypes too, to build_k_plain on the
-    crafted batches at every bucket's shape (the hub at HUB_D), thirteen
+    crafted batches at every bucket's shape (the hub at HUB_D), the plan's
     launches a build, no host sync."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
@@ -366,8 +690,10 @@ def test_kernels_match_plain_on_card():
                             (bc.hub_batch(K, R, L), bc.HUB_D)):
                 before = dict(dbgk.LAUNCHES)
                 got = bc.run(arrs, K, N, E, D, "cuda", guard=_no_sync)
+                p = dbgk.build_plan(K, arrs["rlen"].shape[0], R, L, bc.LRAW,
+                                    N, E, D)
                 assert {k: dbgk.LAUNCHES[k] - before[k]
-                        for k in before} == dbgk.BUILD_LAUNCHES
+                        for k in before} == p.launches
                 want = bc.run(arrs, K, N, E, D, "cuda", plain=True)
                 for k in dbg.BUILD_KEYS:
                     a, b = got[k], want[k]
@@ -375,3 +701,32 @@ def test_kernels_match_plain_on_card():
                         assert all(torch.equal(x, y) for x, y in zip(a, b))
                     else:
                         assert a.dtype == b.dtype and torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+def test_sort_and_instances_on_card():
+    """window_sort on generic int64 keys (both signs, ties, one tile and
+    several, n not a power of two) and mer_instances alone, on the card,
+    bit-equal to their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    rng = np.random.default_rng(3)
+    for NK, W, n in ((1, 3, 100), (1, 4, 9000), (2, 3, 5000), (4, 2, 4097)):
+        k = rng.integers(-4, 4, (NK, W, n)) * (1 << 61)
+        k[..., ::3] = rng.integers(-(1 << 63), (1 << 63) - 1,
+                                   (NK, W, len(range(0, n, 3))))
+        keys = torch.from_numpy(k).cuda()
+        before = dbgk.LAUNCHES["window_sort"]
+        got = dbgk.window_sort(keys)
+        assert dbgk.LAUNCHES["window_sort"] - before == dbgk.sort_plan(
+            NK, n, W).launches
+        assert torch.equal(got, dbg.window_sort_plain(keys))
+    R, L, N, E = bc.BUCKETS[2]
+    for K in (11, 33, 63):
+        t = [x.cuda() for x in _tensors(bc.batch(K, R, L, N, E))]
+        ik = dict(Lraw=bc.LRAW, min_qual_call=bc.SCALARS["min_qual_call"])
+        got = dbgk.mer_instances(K, *t[:11], t[12], **ik)
+        want = dbg.mer_instances_plain(K, *t[:11], t[12], **ik)
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            assert torch.equal(got[k], want[k]), (K, k)

@@ -31,7 +31,7 @@
 struct EmuDim {
   unsigned x = 0, y = 0, z = 0;
 };
-inline thread_local EmuDim threadIdx, blockIdx;
+inline thread_local EmuDim threadIdx, blockIdx, blockDim;
 
 struct EmuBlock {
   std::unique_ptr<std::barrier<>> bar;
@@ -106,6 +106,23 @@ inline int __any_sync(unsigned, int p) {
   return r;
 }
 
+inline unsigned __ballot_sync(unsigned, int p) {
+  emu_wsync();
+  emu_put<int>(p != 0);
+  emu_wsync();
+  unsigned r = 0;
+  for (unsigned l = 0; l < 32; ++l)
+    r |= static_cast<unsigned>(emu_get<int>((threadIdx.x & ~31u) + l)) << l;
+  return r;
+}
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_wsync(); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline unsigned long long __brevll(unsigned long long x) {
+  unsigned long long r = 0;
+  for (int i = 0; i < 64; ++i) r |= ((x >> i) & 1ULL) << (63 - i);
+  return r;
+}
+
 inline int atomicMin(int* a, int v) {
   std::atomic_ref<int> r(*a);
   int o = r.load();
@@ -156,6 +173,7 @@ void emu_launch(int grid, int threads, size_t smem, F&& body) {
       ts.emplace_back([&, t] {
         threadIdx.x = t;
         blockIdx.x = b;
+        blockDim.x = threads;
         emu_blk = &blk;
         body();
       });

@@ -7,12 +7,15 @@ as it binds the card's build.
 
     python3 tools/cuda_emu/emu.py --check-build
 
-builds csrc/dbg.cu so, runs gpu/dbgk.py's card path (its thirteen launches
-through the same pointers and workspace) on CPU tensors on crafted windows
-of gpu/buildcases.py at a small shape, at k 33 the sorts' tiles shrunk so
-that every sort also merges through device memory, and holds the outputs
-bit-equal, dtypes too, to gpu/dbg.py::build_k_plain. Exits 0 when every
-output is equal. What it cannot show: the card's compiler (a source that
+builds csrc/dbg.cu so, runs gpu/dbgk.py's card path (its launches through
+the same pointers and workspace) on CPU tensors on crafted windows of
+gpu/buildcases.py at small shapes (BUILD_CASES: k 13, 33 and 63, the
+sorts' and mer_instances' tiles shrunk so that the sorts take several
+passes and several tiles a window and mer_instances several tiles a
+window, cut inside reads), holds the outputs bit-equal, dtypes too, to
+gpu/dbg.py::build_k_plain and the launches equal to the plan's, and runs
+window_sort on generic int64 keys (SORT_CASES) against window_sort_plain.
+Exits 0 when every output is equal. What it cannot show: the card's compiler (a source that
 g++ takes may still fail nvcc), timing, races a barrier-per-warp schedule
 hides.
 """
@@ -60,9 +63,33 @@ def build(src: str, out_dir: str) -> str:
     return so
 
 
+# (K, L, R, N, E, sort tile, read instances a mer_instances tile,
+# reference offsets a reference tile): the plan's tiles, then tiles shrunk
+# so that every sort takes several tiles a window (the node and
+# adjacency sorts at N and E 300) and mer_instances several read tiles a
+# window, their edges inside reads
+BUILD_CASES = ((13, 48, 6, 64, 160, None, None, None),
+               (13, 48, 12, 300, 300, 256, 64, 256),
+               (33, 48, 12, 300, 300, 256, 50, 300),
+               (63, 80, 12, 64, 160, 256, 37, 128))
+# (NK, W, n): generic int64 keys (both signs, the extremes, ties), one tile
+# and several, n not a power of two
+SORT_CASES = ((1, 3, 200), (1, 3, 700), (2, 2, 1000), (4, 2, 300))
+
+
+def _equal(got, want) -> bool:
+    """Outputs equal, dtypes too (a tuple of tensors item by item)."""
+    import torch
+
+    pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in pairs)
+
+
 def check_build(out_dir: str) -> int:
     """dbgk's card path through the emulated build against build_k_plain on
-    crafted windows; returns the count of unequal outputs."""
+    crafted windows, the launches against the plan, and window_sort on
+    generic keys against window_sort_plain; returns the count of unequal
+    outputs."""
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
@@ -73,29 +100,58 @@ def check_build(out_dir: str) -> int:
     torch.set_num_threads(1)
     lib = dbgk.bind(build(dbgk._SRC, out_dir))
     card = dbgk._Card(lib, None, torch.device("cpu"))
+    tiles = (dbgk.SORT_TILE, dbgk.INST_TILE, dbgk.REF_TILE)
     bad = 0
-    for K, tile in ((13, dbgk.SORT_SMEM), (33, 3200)):
-        dbgk.SORT_SMEM = tile  # 3,200 bytes: tiles of 64-256 records
-        R, L, N, E, D = 6, 48, 64, 160, 4
-        arrs = bc.batch(K, R, L, N, E, lanes=("over_n", "mate",
-                                              "palindrome"))
-        t = [torch.from_numpy(np.ascontiguousarray(arrs[f]))
-             for f in bc.FIELDS]
-        kw = dict(N=N, E=E, D=D, Lraw=bc.LRAW, **bc.SCALARS)
-        want = dbg.build_k_plain(K, *t, **kw)
-        p = dbgk.build_plan(K, len(t[0]), R, L, bc.LRAW, N, E, D)
-        ins = dbgk._inputs("emu", t[:11] + [t[12]]) + [t[11]]
-        got = dbgk._build_card(card, p, ins, bc.SCALARS["min_qual_call"],
-                               bc.SCALARS["low_cov_threshold"],
-                               bc.SCALARS["min_cov_ratio"])
-        for k in dbg.BUILD_KEYS:
-            a, b = got[k], want[k]
-            pairs = zip(a, b) if isinstance(b, tuple) else [(a, b)]
-            ok = all(x.dtype == y.dtype and torch.equal(x, y)
-                     for x, y in pairs)
-            if not ok:
-                print(f"K {K}: {k} differs", file=sys.stderr)
+    try:
+        for K, L, R, N, E, st, it, rt in BUILD_CASES:
+            dbgk.SORT_TILE, dbgk.INST_TILE, dbgk.REF_TILE = (
+                x or d for x, d in zip((st, it, rt), tiles))
+            D = 4
+            arrs = bc.batch(K, R, L, N, E, lanes=("over_n", "mate",
+                                                  "palindrome", "codes",
+                                                  "quals", "short"))
+            t = [torch.from_numpy(np.ascontiguousarray(arrs[f]))
+                 for f in bc.FIELDS]
+            kw = dict(N=N, E=E, D=D, Lraw=bc.LRAW, **bc.SCALARS)
+            want = dbg.build_k_plain(K, *t, **kw)
+            p = dbgk.build_plan(K, len(t[0]), R, L, bc.LRAW, N, E, D)
+            ins = dbgk._inputs("emu", t[:11] + [t[12]]) + [t[11]]
+            before = dict(dbgk.LAUNCHES)
+            got = dbgk._build_card(card, p, ins,
+                                   bc.SCALARS["min_qual_call"],
+                                   bc.SCALARS["low_cov_threshold"],
+                                   bc.SCALARS["min_cov_ratio"])
+            launched = {k: dbgk.LAUNCHES[k] - before[k] for k in before}
+            shape = (f"K {K} L {L} tiles {dbgk.SORT_TILE}/"
+                     f"{dbgk.INST_TILE}/{dbgk.REF_TILE}")
+            print(f"{shape}: read tiles {p.TR}, reference tiles {p.TF}, "
+                  f"sorts (passes, tiles) "
+                  f"{ {k: (s.P, s.T) for k, s in p.sorts.items()} }, "
+                  f"launches {launched}", file=sys.stderr)
+            if launched != p.launches:
+                print(f"{shape}: launches {launched}, the plan "
+                      f"{p.launches}", file=sys.stderr)
                 bad += 1
+            for k in dbg.BUILD_KEYS:
+                if not _equal(got[k], want[k]):
+                    print(f"{shape}: {k} differs", file=sys.stderr)
+                    bad += 1
+        dbgk.SORT_TILE = 256
+        rng = np.random.default_rng(5)
+        for NK, W, n in SORT_CASES:
+            k = rng.integers(-5, 5, (NK, W, n)) * (1 << 60)
+            k[:, :, ::7] = rng.integers(-(1 << 63), (1 << 63) - 1,
+                                        (NK, W, len(range(0, n, 7))))
+            k[0, 0, :3] = (-(1 << 63), (1 << 63) - 1, 0)
+            keys = torch.from_numpy(k)
+            sp = dbgk.sort_plan(NK, n, W)
+            got = dbgk._sort_card(card, keys, sp)
+            if not torch.equal(got, dbg.window_sort_plain(keys)):
+                print(f"window_sort NK {NK} W {W} n {n} differs",
+                      file=sys.stderr)
+                bad += 1
+    finally:
+        dbgk.SORT_TILE, dbgk.INST_TILE, dbgk.REF_TILE = tiles
     return bad
 
 

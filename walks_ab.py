@@ -9,7 +9,7 @@ a parent commit's, on one card.
     python3 walks_ab.py --only compress
     python3 walks_ab.py --only graphstate
     python3 walks_ab.py --only cleanup
-    python3 walks_ab.py --only build
+    python3 walks_ab.py --only build [--parent build/parent]
     python3 walks_ab.py --only bodies --parent build/parent
 
 Walks: captures every path_cover, almost_repeat_paths and cycle_dfs call of
@@ -94,10 +94,19 @@ to cleanup_plain.
 The build (`--only build`, without a parent): device-graph case 1 and
 the hard corpus's device graph run with gpu/dbg.py::build_k patched to
 build_k_plain (its ~1,000 torch ops launched from the host) and with the
-thirteen launches of csrc/dbg.cu, in turns (plain, kernel, kernel,
+launches of csrc/dbg.cu, in turns (plain, kernel, kernel,
 plain), as plain_ab runs the other parts, with t_dg_pack and its three
 parts (chip_smoke.pack_split: pack_chunk, the H2D copy, build_k's
-dispatch) beside each run's keys.
+dispatch) beside each run's keys. With `--parent` (the parent's
+csrc/dbg.cu and gpu/dbgk.py, from `git archive <parent>
+lancet_tpu_torch/csrc/dbg.cu lancet_tpu_torch/gpu/dbgk.py`): the parent's
+build against this tree's instead (build_calls_ab): on the largest card
+build_k call of each case both bit-equal to build_k_plain and each
+stage's kernels timed by their device time in turns, and each of the six
+sorts alone (the parent's window_sort and this tree's with the build's
+plan); then both end to end in turns (parent, this, this, parent) as
+plain_ab runs the other parts: t_dg_build, windows/s, the device events
+and busy share of a profiled run.
 
 The moved bodies (`--only bodies`, the parent's csrc/walks.cu and
 csrc/compress.cu, from `git archive <parent> lancet_tpu_torch/csrc`):
@@ -882,13 +891,14 @@ BUILD_KEYS = ("t_dg_pack", "t_dg_build", "t_dg_a_dispatch")
 SYNC_ATTEMPTS = 2
 
 
-def plain_ab(part: str, case: str, workdir: str,
-             region: str) -> tuple[dict, bool]:
+def plain_ab(part: str, case: str, workdir: str, region: str,
+             versions: dict | None = None) -> tuple[dict, bool]:
     """Device-graph runs of `region` after one warm-up run: with the part's
     functions (PLAIN_AB) patched to their plain versions, run on the card
     op by op, and with their kernels, in turns (plain, kernel, kernel,
-    plain); then one instrumented and one profiled run each. Returns (JSON
-    line, every VCF equal)."""
+    plain); then one instrumented and one profiled run each. `versions`
+    ({name: the functions}, two of them) replaces plain and kernel.
+    Returns (JSON line, every VCF equal)."""
     import importlib
 
     import chip_smoke as cs
@@ -897,9 +907,11 @@ def plain_ab(part: str, case: str, workdir: str,
         f"lancet_tpu_torch.gpu.{PLAIN_AB_MODULE.get(part, 'stages')}")
     names = PLAIN_AB[part]
     real = tuple(getattr(mod, n) for n in names)
-    versions = {"plain": tuple(getattr(mod, f"{n}_plain")
-                               for n in names),
-                "kernel": real}
+    versions = versions or {"plain": tuple(getattr(mod, f"{n}_plain")
+                                           for n in names),
+                            "kernel": real}
+    first, second = versions
+    order = [first, second, second, first]
 
     def use(fns):
         for n, f in zip(names, fns):
@@ -912,7 +924,7 @@ def plain_ab(part: str, case: str, workdir: str,
     keys = SCREEN_KEYS + (BUILD_KEYS if part == "build" else ())
     try:
         vcfs.add(cs.run_devgraph(workdir, region, {})[0])  # warm-up
-        for ver in ("plain", "kernel", "kernel", "plain"):
+        for ver in order:
             use(versions[ver])
             st: dict = {}
             split: dict = {}
@@ -946,8 +958,7 @@ def plain_ab(part: str, case: str, workdir: str,
         for v, rs in runs.items():
             spread[v]["t_build_k"] = cs.spread(
                 [r["t_dg_pack_split"]["t_build_k"] for r in rs])
-    return {part: case, "region": region, "order": ["plain", "kernel",
-                                                    "kernel", "plain"],
+    return {part: case, "region": region, "order": order,
             "runs": runs, "spread": spread,
             "counted_functions": {v: {n: o[n] for n in names if n in o}
                                   for v, o in ops.items()},
@@ -1099,6 +1110,104 @@ def cleanup_calls_ab(case: str, workdir: str, region: str) -> tuple:
             "source": "TorchDispatchMode; the wrappers' launch counts; "
                       "torch.cuda.set_sync_debug_mode('warn'); "
                       "torch.profiler CUDA activity; perf_counter"}, ok
+
+
+def _load_parent_dbgk(parent: str):
+    """The parent's gpu/dbgk.py as a module of this package
+    (lancet_tpu_torch.gpu._dbgk_parent), which builds the parent's
+    csrc/dbg.cu beside it (both from `git archive <parent>
+    lancet_tpu_torch/csrc/dbg.cu lancet_tpu_torch/gpu/dbgk.py`)."""
+    import importlib.util
+
+    path = os.path.join(os.path.abspath(parent), "lancet_tpu_torch", "gpu",
+                        "dbgk.py")
+    spec = importlib.util.spec_from_file_location(
+        "lancet_tpu_torch.gpu._dbgk_parent", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+BUILD_STAGES = ("mer_instances", "window_sort", "node_tables",
+                "edge_tables")
+
+
+def build_calls_ab(pmod, case: str, workdir: str,
+                   region: str) -> tuple[dict, bool]:
+    """build_call_ab on the largest card build_k call of one device-graph
+    run of `region` (chip_smoke.instrument_devgraph's)."""
+    import torch
+
+    import chip_smoke as cs
+
+    kept: dict = {}
+    with cs.instrument_devgraph(kept, None):
+        cs.run_devgraph(workdir, region, {})
+    _, args, kw = kept["build_k"][:3]
+    torch.cuda.synchronize()
+    line, ok = build_call_ab(pmod, args, kw)
+    return {"build_ab": case, "region": region, **line}, ok
+
+
+def build_call_ab(pmod, args, kw) -> tuple[dict, bool]:
+    """One build_k call built by the parent's kernels (pmod.build_k) and by
+    this tree's, both held bit-equal (dtypes too) to build_k_plain; then in
+    turns (parent, this; this, parent; ...), TURNS turns, the device time
+    of each stage's kernels (their names hold the stage's in both trees;
+    a profile counts where it holds each launch) and of the whole call
+    (torch.profiler), and each of the six sorts alone on its keys (this
+    tree's with the build's plan, the parent's window_sort on the same
+    keys), every sort held equal to window_sort_plain."""
+    import torch
+
+    import chip_smoke as cs
+    from lancet_tpu_torch.gpu import dbg, dbgk
+
+    want = dbg.build_k_plain(*args, **kw)
+    fns = {"parent": lambda: pmod.build_k(*args, **kw),
+           "this": lambda: dbgk.build_k(*args, **kw)}
+    mism = {v: cs.dtype_mismatches(f(), want) for v, f in fns.items()}
+    del want
+    sorts = dbgk.build_sort_keys(*args, **kw)
+    sort_fns = {
+        name: {"parent": (lambda k=k: pmod.window_sort(k)),
+               "this": (lambda k=k, sp=sp: dbgk.window_sort(k, plan=sp))}
+        for name, (k, sp) in sorts.items()}
+    for name, (k, _) in sorts.items():
+        w = dbg.window_sort_plain(k)
+        for v, f in sort_fns[name].items():
+            mism[f"{v}/{name}_sort"] = int(not torch.equal(f(), w))
+    W, R, L = args[1].shape
+    plan = dbgk.build_plan(args[0], W, R, L, kw["Lraw"], kw["N"], kw["E"],
+                           kw["D"])
+    # each stage's launches a call: the parent's thirteen, this tree's plan
+    launches = {"parent": dict(zip(BUILD_STAGES, (1, 6, 2, 4))),
+                "this": plan.launches}
+    sort_launches = {name: {"parent": 1, "this": sp.launches}
+                     for name, (_, sp) in sorts.items()}
+    dev = {v: {s: [] for s in (*BUILD_STAGES, "all")} for v in fns}
+    sdev = {name: {v: [] for v in fns} for name in sorts}
+    for turn in range(TURNS):
+        order = ("parent", "this") if turn % 2 == 0 else ("this", "parent")
+        for v in order:
+            got = cs.device_ms_by_kernel(fns[v], list(BUILD_STAGES),
+                                         launches=launches[v])
+            for s, t in got.items():
+                dev[v][s].append(t)
+            for name, f in sort_fns.items():
+                sdev[name][v].append(cs.device_ms_by_kernel(
+                    f[v], ["window_sort"], launches={
+                        "window_sort": sort_launches[name][v]})
+                    ["window_sort"])
+    return {"largest": {"K": args[0], "W": W, "R": R, "L": L,
+                        "N": kw["N"], "E": kw["E"]},
+            "mismatches": mism,
+            "device_ms": {v: {s: _spread(t) for s, t in d.items()}
+                          for v, d in dev.items()},
+            "sort_device_ms": {name: {v: _spread(t) for v, t in d.items()}
+                               for name, d in sdev.items()},
+            "order": "turns of (parent, this) and (this, parent)",
+            "source": "torch.profiler CUDA activity"}, not any(mism.values())
 
 
 def _build_parent_bodies(parent: str) -> dict:
@@ -1267,6 +1376,31 @@ def main() -> int:
         lines, ok = screens_parent_ab(_build_parent_screens(a.parent))
         for line in lines:
             print(json.dumps(line), flush=True)
+        print(cs.nvidia_smi(), flush=True)
+        print(json.dumps({"ok": ok}), flush=True)
+        return 0 if ok else 1
+    if a.only == "build" and a.parent:
+        from lancet_tpu_torch.gpu import dbg
+
+        pmod = _load_parent_dbgk(a.parent)
+        workdir = os.path.join(HERE, "build", "smoke_corpus")
+        corpus.write_default_corpus(workdir)
+        hdir = os.path.join(HERE, "build", "smoke_hard")
+        os.makedirs(hdir, exist_ok=True)
+        refseq, tumor, normal, hregion = corpus.hard_corpus()
+        corpus.write_pair(hdir, refseq, "chr1", tumor, normal)
+        ok = True
+        for case, wd, region in (("devgraph_case_1", workdir,
+                                  cs.DEVGRAPH_REGION),
+                                 ("hard", hdir, hregion)):
+            line, eq = build_calls_ab(pmod, case, wd, region)
+            print(json.dumps(line), flush=True)
+            ok &= eq
+            line, eq = plain_ab("build", case, wd, region,
+                                {"parent": (pmod.build_k,),
+                                 "this": (dbg.build_k,)})
+            print(json.dumps(line), flush=True)
+            ok &= eq
         print(cs.nvidia_smi(), flush=True)
         print(json.dumps({"ok": ok}), flush=True)
         return 0 if ok else 1
