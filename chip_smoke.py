@@ -1219,8 +1219,11 @@ _BUILD_KERNELS = {
     "mer_instances": ("mer_instances_count", "mer_instances_write"),
     "window_sort": ("window_sort_keys", "window_sort_count",
                     "window_sort_scatter", "window_sort_tile"),
-    "node_tables": ("node_tables_kernel",),
-    "edge_tables": ("edge_tables_kernel",)}
+    "node_tables": ("node_tables_count", "node_tables_groups",
+                    "node_tables_order"),
+    "edge_tables": ("edge_tables_pairs", "edge_tables_count",
+                    "edge_tables_groups", "edge_tables_order",
+                    "edge_tables_adj")}
 # aten ops of one build_k call on the card: its stages' allocations (the
 # instance table's 4, the instance sort's permutation and workspace (its
 # records and the instance tiles' counts), the node tables' 16 and
@@ -2448,7 +2451,8 @@ def graphstate_case(name: str, args, kw: dict, rate: dict) -> dict:
 
 
 def device_ms_by_kernel(fn, kernels, n: int = 10,
-                        launches: dict | None = None) -> dict:
+                        launches: dict | None = None,
+                        blocks: bool = False) -> dict:
     """{kernel: device ms per call of fn} summed over the launches whose
     name holds the kernel's (a tuple of names: any of them, keyed by the
     tuple), and "all": every kernel of the call, from torch.profiler's
@@ -2456,13 +2460,32 @@ def device_ms_by_kernel(fn, kernels, n: int = 10,
     `launches` ({kernel: launches a call}) a profile counts only where it
     holds every launch of each kernel (n of them a launch a call: a
     profile can drop kernel records, and a sum over some of them reads
-    low); a kernel never seen whole reads None, and so does "all"."""
+    low); a kernel never seen whole reads None, and so does "all". With
+    `blocks`, also "blocks": {kernel: the blocks of its launches' grids in
+    the profile returned, each distinct count once, least first}, read
+    from the profiler's kernel records (its trace's "grid")."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def hits(k, m):
         return any(x in m for x in ((k,) if isinstance(k, str) else k))
+
+    def with_blocks(prof, out):
+        if not blocks:
+            return out
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                tr = json.load(f)
+        grids = [(e["name"], e["args"]["grid"]) for e in tr["traceEvents"]
+                 if e.get("cat") == "kernel" and "grid" in e.get("args", {})]
+        return {**out, "blocks": {
+            k: sorted({g[0] * g[1] * g[2] for m, g in grids if hits(k, m)})
+            for k in kernels}}
 
     fn()
     torch.cuda.synchronize()
@@ -2480,16 +2503,17 @@ def device_ms_by_kernel(fn, kernels, n: int = 10,
         out["all"] = sum(d for _, d in ev) / n / 1e6
         if launches is None:
             if all(out[k] for k in kernels):
-                return out
+                return with_blocks(prof, out)
             continue
         whole = {k: sum(hits(k, m) for m, _ in ev) == n * launches.get(k, 0)
                  for k in kernels}
         if all(whole.values()):
-            return {k: v or None for k, v in out.items()}
+            return with_blocks(prof, {k: v or None for k, v in out.items()})
     if launches is not None:
-        return {**{k: out[k] if whole[k] and out[k] else None
-                   for k in kernels}, "all": None}
-    return {k: out[k] or None for k in out}
+        return with_blocks(prof, {**{k: out[k] if whole[k] and out[k]
+                                     else None for k in kernels},
+                                  "all": None})
+    return with_blocks(prof, {k: out[k] or None for k in out})
 
 
 def queued_ms(fn, n: int = 20) -> float:
@@ -2646,8 +2670,11 @@ def build_case(args, kw: dict, rate: dict) -> dict:
     time and its call's, torch.profiler), its bound on this data
     (build_accounting), and for window_sort (the instance sort, with the
     build's plan) one stable torch.sort of the last key word at the same
-    shape; under window_sort also each of the six sorts
-    (build_sorts_case) and the whole build_k call's device time."""
+    shape; for node_tables and edge_tables also each kernel's device time
+    (one launch a call each), the stage's a launch and the blocks of each
+    kernel's grid as the profiler recorded them; under window_sort also
+    each of the six sorts (build_sorts_case) and the whole build_k call's
+    device time."""
     import torch
 
     from lancet_tpu_torch.gpu import dbg, dbgk
@@ -2701,8 +2728,19 @@ def build_case(args, kw: dict, rate: dict) -> dict:
             last = inst["keys"][-1]
             lib = spread(cuda_times(
                 lambda: torch.sort(last, dim=1, stable=True), *KERNEL_REPS))
+        split = {}
+        if name in ("node_tables", "edge_tables"):
+            by = device_ms_by_kernel(fn, list(ks),
+                                     launches={k: 1 for k in ks},
+                                     blocks=True)
+            split = {"device_ms_by_kernel": {k: by[k] for k in ks},
+                     "device_ms_per_launch": (dev[ks] / launched[name]
+                                              if dev[ks] else None),
+                     "blocks_by_kernel": {
+                         k: b[0] if len(b) == 1 else b
+                         for k, b in by["blocks"].items()}}
         out[name] = {"name": name, "tolerance": 0, "max_abs_err": err,
-                     "ms": ms, "device_ms": dev[ks],
+                     "ms": ms, "device_ms": dev[ks], **split,
                      "queued_ms": queued_ms(fn),
                      "call_device_ms": dev["all"], "plain_ms": plain_ms,
                      "bound": bound, "library_ms": lib,
@@ -4313,6 +4351,10 @@ def main() -> int:
             "hard_largest": {"K": h["K"], "W": h["W"], "R": h["R"],
                              "ms": h["ms"]["median"],
                              "device_ms": h["device_ms"],
+                             "device_ms_by_kernel": h.get(
+                                 "device_ms_by_kernel"),
+                             "blocks_by_kernel": h.get(
+                                 "blocks_by_kernel"),
                              "plain_ms": h["plain_ms"]["median"],
                              "bound_ms": h["bound"][hby], "bound_by": hby,
                              "library_ms": med(h["library_ms"])},
@@ -4320,6 +4362,10 @@ def main() -> int:
                 "build_device_ms": r["build_device_ms"],
                 "hard_build_device_ms": h["build_device_ms"]}
                if name == "window_sort" else {}),
+            **({k: r[k] for k in ("device_ms_by_kernel",
+                                  "device_ms_per_launch",
+                                  "blocks_by_kernel")}
+               if name in ("node_tables", "edge_tables") else {}),
             "library_ms": med(r["library_ms"])})
     emit({"kernels": line, "t_smoke": time.perf_counter() - t_start})
     print(smi, flush=True)

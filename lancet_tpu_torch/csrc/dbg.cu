@@ -15,26 +15,27 @@
 //                     the creation order :367, the canonical edges :461,
 //                     the time order :501, the adjacency :518 and the
 //                     mate overlap :575
-//   node_tables    <- :239-327 (two launches: the groups, their first
-//                     read times; then, after window_sort gives the
-//                     creation order, the tables in that order and the
-//                     prune)
-//   edge_tables    <- :329-478 (four launches: the pair keys; their
-//                     canonical groups and directed rows; the time order;
-//                     the adjacency, the reference projection, the mate
-//                     candidates and the fallback flags)
+//   node_tables    <- :239-327 (three launches: each tile's counts, then
+//                     the groups and their first read times; after
+//                     window_sort gives the creation order, the tables in
+//                     that order and the prune)
+//   edge_tables    <- :329-478 (five launches: the pair keys; each tile's
+//                     counts, then the canonical groups and directed rows;
+//                     the time order, the reference projection and the
+//                     mate candidates; the adjacency and the fallback
+//                     flags)
 // The launch sequence (gpu/dbgk.py::build_k): mer_instances (2),
-// window_sort (instances), node_tables 0, window_sort (node keys),
-// node_tables 1, edge_tables 0, window_sort (pair keys), edge_tables 1,
-// window_sort (times), edge_tables 2, window_sort (sources), window_sort
-// (mate keys), edge_tables 3.
+// window_sort (instances), node_tables 0 (2), window_sort (node keys),
+// node_tables 1, edge_tables 0, window_sort (pair keys), edge_tables 1
+// (2), window_sort (times), window_sort (mate keys), edge_tables 2,
+// window_sort (sources), edge_tables 3.
 //
 // What bounds them on this card: a build moves ~15 MB at k 13 in bucket 0
 // (W 32: mq and totq, [W, N, K, 4] int32 and [W, N, K] int64, are most of
 // it) and its instance tables and sorts a few tens of MB at the largest
 // bucket, tens of microseconds of memory; the work is the sorts' passes
-// and the instances' mer words. So the two stages that hold most records
-// fill the card with many blocks a window:
+// and the instances' mer words. So every stage but the adjacency fills
+// the card with many blocks a window:
 // - mer_instances: (window, tile of 2,048 read instances) blocks and
 //   (window, tile of 512 reference offsets) blocks, 256 threads. A block
 //   stages the reads its tile touches as bit strings in shared memory (a
@@ -60,12 +61,21 @@
 //   the tile's records ranked by digit in shared memory from warp ballots,
 //   written in sorted runs) and, before every pass but the first, a count
 //   of each tile's digits as the last pass left them;
-// - node_tables and edge_tables: one block of 1,024 threads a window;
-//   block scans for the group boundaries, shared-memory atomic minima for
-//   the groups' first times, a warp a node for its counts (lanes over the
-//   group's instances, then each lane's quality bits over the instances
-//   broadcast by shuffles), shared counters for the adjacency's first slot
-//   and degree.
+// - node_tables and edge_tables: (window, tile of 2,048 positions) blocks
+//   of 256 threads wherever the work is a pass over positions. A group of
+//   equal sorted keys may cross tile edges: a first launch counts each
+//   tile's group starts and its head (the least times of its positions
+//   ahead of its first start); the second numbers the groups from the
+//   earlier tiles' counts and one tile scan (no look-back, no spin on
+//   another block), takes a group's least times by shared atomic minima and
+//   its last group's with the heads of the tiles it runs into. A key's
+//   words are gathered once, every gather of a tile in flight together
+//   (the position before's from the lane before), and the sorted payload
+//   and packed pair records are written in order for the launch after.
+//   The creation order runs (window, 32 slots) blocks, a warp a slot, its
+//   quality bits counted by warp ballots; the adjacency keeps a block a
+//   window (its first slots and counts over N + 64 sources in shared
+//   memory), after the tiles that fill adj and set the mate flags.
 // Data outside what gpu/dbgk.py::build_plan takes gives wrong answers,
 // never a fault: every index into shared memory is bounded.
 
@@ -77,7 +87,6 @@
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kSmemLimit = 232448;  // bytes a block may use on Hopper
 constexpr long long kSent = 1LL << 62;
@@ -959,6 +968,94 @@ __global__ void __launch_bounds__(512) window_sort_tile(const SortArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// node_tables and edge_tables: tiles of sorted positions
+// ---------------------------------------------------------------------------
+
+constexpr int kTileThreads = 256;
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kTileItems = 8;  // positions a thread, at most
+constexpr int kTileMax = kTileThreads * kTileItems;  // positions a tile
+constexpr int kScanSlots = kTileItems * kTileWarps;
+constexpr int kNewg = 62;  // a sorted payload's group-start bit
+
+__device__ __forceinline__ int warp_min_i(int x) {
+#pragma unroll
+  for (int d = 16; d; d >>= 1) x = min(x, __shfl_xor_sync(kFull, x, d));
+  return x;
+}
+
+__device__ __forceinline__ int warp_sum_i(int x) {
+#pragma unroll
+  for (int d = 16; d; d >>= 1) x += __shfl_xor_sync(kFull, x, d);
+  return x;
+}
+
+// A tile of `items` x 256 positions holds item k of a thread at position
+// 256 k + threadIdx.x (a warp's 32 consecutive positions). Each item's
+// count of set flags f ahead of it in the tile into before; returns the
+// tile's total. tot: kScanSlots + 1 ints of shared memory. Every thread
+// calls it; it ends in a barrier.
+__device__ int tile_scan(const bool (&f)[kTileItems], int items,
+                         int (&before)[kTileItems], int* tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned m[kTileItems];
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    m[k] = __ballot_sync(kFull, k < items && f[k]);
+    if (lane == 0 && k < items) tot[k * kTileWarps + warp] = __popc(m[k]);
+  }
+  __syncthreads();
+  if (warp == 0) {  // the (item, warp) totals' exclusive sums, in order
+    const int n = items * kTileWarps;
+    const int a = lane < n ? tot[lane] : 0;
+    const int b = lane + 32 < n ? tot[lane + 32] : 0;
+    int x = a, y = b;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(kFull, x, d);
+      const int v = __shfl_up_sync(kFull, y, d);
+      if (lane >= d) {
+        x += u;
+        y += v;
+      }
+    }
+    const int sa = __shfl_sync(kFull, x, 31);
+    const int sb = __shfl_sync(kFull, y, 31);
+    tot[lane] = x - a;
+    tot[lane + 32] = sa + y - b;
+    if (lane == 0) tot[kScanSlots] = sa + sb;
+  }
+  __syncthreads();
+  const unsigned lt = (1u << lane) - 1;
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k)
+    before[k] = k < items ? tot[k * kTileWarps + warp] + __popc(m[k] & lt)
+                          : 0;
+  const int total = tot[kScanSlots];
+  __syncthreads();  // tot is reused by the next call
+  return total;
+}
+
+// s[0]: the sum of the window's tile counts c over tiles [0, t); s[1]:
+// over all n. Warp 0 writes them; the caller's next barrier shows them.
+__device__ void tile_sums(const int* c, int n, int t, int* s) {
+  if (threadIdx.x < 32) {
+    int b = 0, all = 0;
+    for (int u = threadIdx.x; u < n; u += 32) {
+      const int x = c[u];
+      b += u < t ? x : 0;
+      all += x;
+    }
+    b = warp_sum_i(b);
+    all = warp_sum_i(all);
+    if (threadIdx.x == 0) {
+      s[0] = b;
+      s[1] = all;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // node_tables
 // ---------------------------------------------------------------------------
 
@@ -983,205 +1080,324 @@ struct NodeArgs {
   float* avgcov;        // [W]
   long long* rawlen_dev;
   long long* nid;       // [W, I]
+  long long* spay;      // [W, I]: the payload in sorted order, kNewg set
+                        // at each group's start
+  int* tcnt;            // [3, W, TN]: each tile's group starts, valid
+                        // instances and head time
   int W, I, N, K, NW;
+  int T, TN, SL, NB;  // positions a tile and tiles a window; creation
+                      // slots a block and slot blocks a window
   long long low_cov_threshold;
   float min_cov_ratio;
 };
 
-struct NodeLayout {
-  size_t gs, nk, total;
-};
-
-__host__ __device__ inline NodeLayout node_layout(int N) {
-  NodeLayout o{};
-  o.gs = 0;
-  o.nk = round16(sizeof(int) * (N + 1));
-  o.total = o.nk + round16(sizeof(int) * N);
-  return o;
-}
-
-__device__ __forceinline__ bool words_differ(const long long* keys,
-                                             long long plane, int NW,
-                                             long long x, long long y) {
-  bool d = false;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    if (i < NW) d |= keys[i * plane + x] != keys[i * plane + y];
-  return d;
-}
-
-// phase 0: the groups of equal keys in sorted order (their starts, at
-// most N + 1, into gstart; over_n) and each group's first read time
-__device__ __forceinline__ void node_groups(const NodeArgs& a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int ws[kWarps];
-  const int N = a.N, I = a.I, w = blockIdx.x;
-  const NodeLayout lay = node_layout(N);
-  int* gs = reinterpret_cast<int*>(smem + lay.gs);
-  int* nk = reinterpret_cast<int*>(smem + lay.nk);
-  const long long plane = static_cast<long long>(a.W) * I;
-  const long long* keys = a.keys + static_cast<long long>(w) * I;
-  const long long* pay = a.pay + static_cast<long long>(w) * I;
-  const long long* perm = a.perm + static_cast<long long>(w) * I;
-  for (int g = threadIdx.x; g < N; g += kThreads) nk[g] = kBigI;
-  __syncthreads();
-  int carry = 0, nvalid = 0;
-  for (int base = 0; base < I; base += kThreads) {
-    const int p = base + threadIdx.x;
-    int newg = 0, valid = 0, tm = kBigI;
-    if (p < I) {
-      const long long x = perm[p];
-      const long long pv = pay[x];
-      valid = bit(pv, kValid);
-      if (valid) {
-        tm = static_cast<int>(pay_time(pv));
-        newg = p == 0 || words_differ(keys, plane, a.NW, x, perm[p - 1]);
-      }
-    }
-    int total;
-    const int before = block_scan(newg, ws, &total);
-    const int gid = carry + before + newg - 1;
-    if (newg && gid <= N) gs[gid] = p;
-    if (valid && gid < N) atomicMin(&nk[gid], tm);
-    nvalid += __syncthreads_count(valid);
-    carry += total;
-  }
-  for (int g = threadIdx.x; g <= N; g += kThreads)
-    if (g >= carry) gs[g] = nvalid;
-  __syncthreads();
-  int* gout = a.gstart + static_cast<long long>(w) * (N + 1);
-  for (int g = threadIdx.x; g <= N; g += kThreads) gout[g] = gs[g];
-  for (int g = threadIdx.x; g < N; g += kThreads)
-    a.node_key[static_cast<long long>(w) * N + g] = nk[g];
-  if (threadIdx.x == 0) a.over_n[w] = carry > N;
-}
-
-// phase 1: after window_sort gives the creation order, a warp a creation
-// slot: its group's instances (their nodes into nid), counts, quality
-// counts, flags and mer words, then the prune
-__device__ __forceinline__ void node_order(const NodeArgs& a) {
-  __shared__ int n_nodes;
-  const int N = a.N, I = a.I, K = a.K, NW = a.NW, w = blockIdx.x;
+// phase 0, launch 1, a tile of sorted positions: each position's payload
+// in sorted order with its group-start bit (its NW key words against the
+// position before's: every gather of the tile in flight before the first
+// use, the words before a chunk of 32 from the chunk before's last lane,
+// in shared memory), the tile's count of group starts, of valid
+// instances, and its head time (the least time of its valid positions
+// ahead of its first start: the tail of a group begun in an earlier
+// tile); nid of the tile's instances to -1 for launch 3
+template <int NW>
+__global__ void __launch_bounds__(kTileThreads)
+    node_tables_count(const NodeArgs a) {
+  __shared__ int tot[kScanSlots + 1];
+  __shared__ long long last[kScanSlots * NW], halo[NW];
+  __shared__ int head, nval;
+  const int w = blockIdx.x / a.TN, t = blockIdx.x - w * a.TN;
+  const int I = a.I, items = a.T / kTileThreads, t0 = t * a.T;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long plane = static_cast<long long>(a.W) * I;
   const long long wI = static_cast<long long>(w) * I;
   const long long* keys = a.keys + wI;
   const long long* pay = a.pay + wI;
-  const long long* qok = a.qok + wI;
   const long long* perm = a.perm + wI;
-  const int* gs = a.gstart + static_cast<long long>(w) * (N + 1);
+  long long* spay = a.spay + wI;
   long long* nid = a.nid + wI;
-  for (int i = threadIdx.x; i < I; i += kThreads) nid[i] = -1;
-  if (threadIdx.x == 0) n_nodes = 0;
+  long long x[kTileItems], pv[kTileItems], kw[kTileItems][NW];
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    const int p = t0 + k * kTileThreads + threadIdx.x;
+    x[k] = k < items && p < I ? perm[p] : -1;
+  }
+  const long long y = threadIdx.x == 0 && t0 > 0 ? perm[t0 - 1] : -1;
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    pv[k] = x[k] >= 0 ? pay[x[k]] : 0;
+#pragma unroll
+    for (int i = 0; i < NW; ++i)
+      kw[k][i] = x[k] >= 0 ? keys[i * plane + x[k]] : 0;
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) halo[i] = y >= 0 ? keys[i * plane + y] : 0;
+    head = kBigI;
+    nval = 0;
+  }
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k)
+    if (k < items && lane == 31)
+#pragma unroll
+      for (int i = 0; i < NW; ++i)
+        last[(k * kTileWarps + warp) * NW + i] = kw[k][i];
+  for (int i = t0 + threadIdx.x; i < min(t0 + a.T, I); i += kTileThreads)
+    nid[i] = -1;
+  __syncthreads();
+  bool newg[kTileItems], valid[kTileItems];
+  int tm[kTileItems];
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    newg[k] = valid[k] = false;
+    tm[k] = kBigI;
+    if (k >= items) continue;  // the same for the whole block
+    const int p = t0 + k * kTileThreads + threadIdx.x;
+    const int c = k * kTileWarps + warp;
+    bool differ = false;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      long long pw = __shfl_up_sync(kFull, kw[k][i], 1);
+      if (lane == 0) pw = c == 0 ? halo[i] : last[(c - 1) * NW + i];
+      differ |= kw[k][i] != pw;
+    }
+    valid[k] = x[k] >= 0 && bit(pv[k], kValid);
+    newg[k] = valid[k] && (p == 0 || differ);
+    if (valid[k]) tm[k] = static_cast<int>(pay_time(pv[k]));
+    if (x[k] >= 0)
+      spay[p] = pv[k] | (static_cast<long long>(newg[k]) << kNewg);
+  }
+  int before[kTileItems];
+  const int n = tile_scan(newg, items, before, tot);
+  int h = kBigI, v = 0;
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    if (valid[k] && before[k] + newg[k] == 0) h = min(h, tm[k]);
+    v += valid[k];
+  }
+  h = warp_min_i(h);
+  v = warp_sum_i(v);
+  if (lane == 0) {
+    atomicMin(&head, h);
+    atomicAdd(&nval, v);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const long long st = static_cast<long long>(a.W) * a.TN;
+    int* c = a.tcnt + static_cast<long long>(w) * a.TN + t;
+    c[0] = n;
+    c[st] = nval;
+    c[2 * st] = head;
+  }
+}
+
+// the least of v and the head times of the tiles after t up to the first
+// that holds a group start: a group that runs on past tile t
+__device__ __forceinline__ int heads_after(const int* cnt, const int* head,
+                                           int n, int t, int v) {
+  for (int u = t + 1; u < n; ++u) {
+    v = min(v, head[u]);
+    if (cnt[u] > 0) break;
+  }
+  return v;
+}
+
+// phase 0, launch 2, a tile: its groups' starts into gstart (at most N + 1
+// a window) and their first read times into node_key (a group's least
+// time in the tile by shared atomic minima; its last group's with the
+// heads it runs into), the group numbers from the earlier tiles' counts
+// and one tile scan; the groups past the window's last start at its valid
+// count; over_n; n_nodes zeroed for launch 3's sums
+__global__ void __launch_bounds__(kTileThreads)
+    node_tables_groups(const NodeArgs a) {
+  __shared__ int tot[kScanSlots + 1];
+  __shared__ int smin[kTileMax];
+  __shared__ int sums[4];
+  const int w = blockIdx.x / a.TN, t = blockIdx.x - w * a.TN;
+  const int N = a.N, I = a.I, items = a.T / kTileThreads, t0 = t * a.T;
+  const long long st = static_cast<long long>(a.W) * a.TN;
+  const int* cnt = a.tcnt + static_cast<long long>(w) * a.TN;
+  const long long* spay = a.spay + static_cast<long long>(w) * I;
+  int* gs = a.gstart + static_cast<long long>(w) * (N + 1);
+  long long* nk = a.node_key + static_cast<long long>(w) * N;
+  tile_sums(cnt, a.TN, t, sums);           // carry, all groups
+  tile_sums(cnt + st, a.TN, 0, sums + 2);  // -, the valid instances
+  for (int l = threadIdx.x; l < a.T; l += kTileThreads) smin[l] = kBigI;
+  bool newg[kTileItems], valid[kTileItems];
+  int tm[kTileItems];
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    const int p = t0 + k * kTileThreads + threadIdx.x;
+    const long long pv = k < items && p < I ? spay[p] : 0;
+    valid[k] = bit(pv, kValid);
+    newg[k] = bit(pv, kNewg);
+    tm[k] = valid[k] ? static_cast<int>(pay_time(pv)) : kBigI;
+  }
+  int before[kTileItems];
+  const int n = tile_scan(newg, items, before, tot);
+  const int carry = sums[0], total = sums[1], nvalid = sums[3];
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    if (!valid[k]) continue;
+    const int l = before[k] + newg[k] - 1;  // -1: the head
+    if (newg[k] && carry + l <= N)
+      gs[carry + l] = t0 + k * kTileThreads + threadIdx.x;
+    if (l >= 0) atomicMin(&smin[l], tm[k]);
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < n && carry + l < N; l += kTileThreads) {
+    int v = smin[l];
+    if (l == n - 1) v = heads_after(cnt, cnt + 2 * st, a.TN, t, v);
+    nk[carry + l] = v;
+  }
+  for (int g = total + t * kTileThreads + threadIdx.x; g <= N;
+       g += a.TN * kTileThreads) {
+    gs[g] = nvalid;
+    if (g < N) nk[g] = kBigI;
+  }
+  if (t == 0 && threadIdx.x == 0) {
+    a.over_n[w] = total > N;
+    a.n_nodes[w] = 0;
+  }
+}
+
+// creation slot c of window w (its group's sorted positions [s, e)): its
+// instances' nodes into nid, 32 at a time from the sorted payload; the
+// class counts and each quality bit's by warp ballots (a class mask a
+// ballot, bit b's count popc(ballot(q >> b & 1) & mask), kept by lane
+// b % 32), the flags, the mer words and the prune. A warp calls it;
+// returns whether the node exists.
+__device__ __forceinline__ bool node_slot(const NodeArgs& a, int w, int c,
+                                          int s, int e, float thr) {
+  const int N = a.N, I = a.I, K = a.K, NW = a.NW, lane = threadIdx.x & 31;
+  const long long wI = static_cast<long long>(w) * I;
+  const long long wc = static_cast<long long>(w) * N + c;
+  int lo[4] = {0, 0, 0, 0}, hi[4] = {0, 0, 0, 0};
+  long long cn[4] = {0, 0, 0, 0};
+  bool has = false, inidx = false, nml = false, tum = false;
+  for (int base = s; base < e; base += 32) {
+    const int p = base + lane;
+    long long pv = 0, q = 0;
+    if (p < e) {
+      const long long x = a.perm[wI + p];
+      pv = a.spay[wI + p];
+      q = a.qok[wI + x];
+      a.nid[wI + x] = c;
+    }
+    const bool rd = bit(pv, kRead);
+    has |= __any_sync(kFull, rd);
+    inidx |= __any_sync(kFull, bit(pv, kIdx));
+    nml |= __any_sync(kFull, rd && bit(pv, kNml));
+    tum |= __any_sync(kFull, bit(pv, kTflag));
+    const bool cov = rd && !bit(pv, kRef);
+    const int cls = (bit(pv, kTmr) ? 0 : 2) + (bit(pv, kStrand) ? 1 : 0);
+    unsigned cm[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      cm[j] = __ballot_sync(kFull, cov && cls == j);
+      cn[j] += __popc(cm[j]);
+    }
+    for (int bt = 0; bt < K; ++bt) {
+      const unsigned m = __ballot_sync(kFull, (q >> bt) & 1);
+      if (lane == (bt & 31)) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int d = __popc(m & cm[j]);
+          if (bt < 32)
+            lo[j] += d;
+          else
+            hi[j] += d;
+        }
+      }
+    }
+  }
+  // the group's mer (all-T words for a group without instances)
+  if (lane < NW) {
+    const int nb = lane == 0 ? K - 31 * (NW - 1) : 31;
+    a.mers[lane * static_cast<long long>(a.W) * N + wc] =
+        s < e ? a.keys[lane * static_cast<long long>(a.W) * I + wI +
+                       a.perm[wI + s]]
+              : (1LL << (2 * nb)) - 1;
+  }
+  long long tmin = LLONG_MAX;
+  if (lane < K) {
+    reinterpret_cast<int4*>(a.mq)[wc * K + lane] =
+        make_int4(lo[0], lo[1], lo[2], lo[3]);
+    const long long t = static_cast<long long>(lo[0]) + lo[1] + lo[2] + lo[3];
+    a.totq[wc * K + lane] = t;
+    tmin = t;
+  }
+  if (lane + 32 < K) {
+    reinterpret_cast<int4*>(a.mq)[wc * K + lane + 32] =
+        make_int4(hi[0], hi[1], hi[2], hi[3]);
+    const long long t = static_cast<long long>(hi[0]) + hi[1] + hi[2] + hi[3];
+    a.totq[wc * K + lane + 32] = t;
+    tmin = t < tmin ? t : tmin;
+  }
+  tmin = warp_min(tmin);
+  if (lane == 0) {
+    long long* o = a.counts + wc * 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = cn[j];
+    const long long mincov = has ? tmin : 0;
+    const bool low = mincov <= a.low_cov_threshold ||
+                     __ll2float_rn(mincov) <= thr ||
+                     (cn[0] + cn[1] == 1 && cn[2] + cn[3] == 1);
+    a.mincov_qv[wc] = mincov;
+    a.exists[wc] = has;
+    a.alive[wc] = has && !low;
+    a.low[wc] = low;
+    a.in_index[wc] = inidx;
+    a.is_tumor[wc] = tum;
+    a.is_normal[wc] = nml;
+  }
+  return has;
+}
+
+// phase 1, after window_sort gives the creation order: (window, SL
+// creation slots) blocks, a warp a slot at a time (node_slot), a warp's
+// slots' groups and ranges loaded by its lanes first, all in flight
+// together; n_nodes summed over the blocks
+__global__ void __launch_bounds__(kTileThreads)
+    node_tables_order(const NodeArgs a) {
+  __shared__ int nn;
+  const int w = blockIdx.x / a.NB, b = blockIdx.x - w * a.NB;
+  const int N = a.N;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* gs = a.gstart + static_cast<long long>(w) * (N + 1);
+  if (threadIdx.x == 0) nn = 0;
   __syncthreads();
   const float avg =
       __fdiv_rn(static_cast<float>(a.totalreadbp[w]),
                 fmaxf(static_cast<float>(static_cast<long long>(a.rawlen[w])),
                       1.0f));
   const float thr = __fmul_rn(a.min_cov_ratio, avg);
-  for (int c = warp; c < N; c += kWarps) {
-    const long long wc = static_cast<long long>(w) * N + c;
-    const long long g = a.order[wc];
+  // the warp's slots c0 + 8 i: lane i loads slot i's group and its range
+  // (SL <= 256: at most 32 a warp)
+  const int c0 = b * a.SL + warp, c1 = min((b + 1) * a.SL, N);
+  const int nsl = c0 < c1 ? (c1 - c0 + kTileWarps - 1) / kTileWarps : 0;
+  int sl = 0, el = 0;
+  if (lane < nsl) {
+    const long long g =
+        a.order[static_cast<long long>(w) * N + c0 + lane * kTileWarps];
     const int gg = static_cast<int>(g < 0 ? 0 : (g > N - 1 ? N - 1 : g));
-    const int s = gs[gg], e = gs[gg + 1];
-    int lo0 = 0, lo1 = 0, lo2 = 0, lo3 = 0, hi0 = 0, hi1 = 0, hi2 = 0, hi3 = 0;
-    long long c0 = 0, c1 = 0, c2 = 0, c3 = 0;
-    bool has = false, inidx = false, nml = false, tum = false;
-    for (int base = s; base < e; base += 32) {
-      const int p = base + lane;
-      long long pv = 0, q = 0;
-      if (p < e) {
-        const long long x = perm[p];
-        pv = pay[x];
-        q = qok[x];
-        nid[x] = c;
-      }
-      has |= __any_sync(kFull, bit(pv, kRead));
-      inidx |= __any_sync(kFull, bit(pv, kIdx));
-      nml |= __any_sync(kFull, bit(pv, kRead) && bit(pv, kNml));
-      tum |= __any_sync(kFull, bit(pv, kTflag));
-      const int cnt = min(32, e - base);
-      for (int t = 0; t < cnt; ++t) {
-        const long long pt = __shfl_sync(kFull, pv, t);
-        const long long qt = __shfl_sync(kFull, q, t);
-        if (!bit(pt, kRead) || bit(pt, kRef)) continue;  // not coverage
-        const int lo = static_cast<int>((qt >> lane) & 1);
-        const int hi = static_cast<int>((qt >> (lane + 32)) & 1);
-        const int cls = (bit(pt, kTmr) ? 0 : 2) + (bit(pt, kStrand) ? 1 : 0);
-        if (cls == 0) {
-          lo0 += lo; hi0 += hi; ++c0;
-        } else if (cls == 1) {
-          lo1 += lo; hi1 += hi; ++c1;
-        } else if (cls == 2) {
-          lo2 += lo; hi2 += hi; ++c2;
-        } else {
-          lo3 += lo; hi3 += hi; ++c3;
-        }
-      }
-    }
-    // the group's mer (all-T words for a group without instances)
-    if (lane < NW) {
-      long long v;
-      if (s < e) {
-        v = keys[lane * plane + perm[s]];
-      } else {
-        const int nb = lane == 0 ? K - 31 * (NW - 1) : 31;
-        v = (1LL << (2 * nb)) - 1;
-      }
-      a.mers[lane * static_cast<long long>(a.W) * N + wc] = v;
-    }
-    long long tmin = LLONG_MAX;
-    if (lane < K) {
-      reinterpret_cast<int4*>(a.mq)[wc * K + lane] =
-          make_int4(lo0, lo1, lo2, lo3);
-      const long long t = static_cast<long long>(lo0) + lo1 + lo2 + lo3;
-      a.totq[wc * K + lane] = t;
-      tmin = t;
-    }
-    if (lane + 32 < K) {
-      reinterpret_cast<int4*>(a.mq)[wc * K + lane + 32] =
-          make_int4(hi0, hi1, hi2, hi3);
-      const long long t = static_cast<long long>(hi0) + hi1 + hi2 + hi3;
-      a.totq[wc * K + lane + 32] = t;
-      tmin = t < tmin ? t : tmin;
-    }
-    tmin = warp_min(tmin);
-    if (lane == 0) {
-      long long* cn = a.counts + wc * 4;
-      cn[0] = c0;
-      cn[1] = c1;
-      cn[2] = c2;
-      cn[3] = c3;
-      const long long mincov = has ? tmin : 0;
-      const bool low = mincov <= a.low_cov_threshold ||
-                       __ll2float_rn(mincov) <= thr ||
-                       (c0 + c1 == 1 && c2 + c3 == 1);
-      a.mincov_qv[wc] = mincov;
-      a.exists[wc] = has;
-      a.alive[wc] = has && !low;
-      a.low[wc] = low;
-      a.in_index[wc] = inidx;
-      a.is_tumor[wc] = tum;
-      a.is_normal[wc] = nml;
-      if (has) atomicAdd(&n_nodes, 1);
-    }
+    sl = gs[gg];
+    el = gs[gg + 1];
   }
+  int has = 0;
+  for (int i = 0; i < nsl; ++i)
+    has += node_slot(a, w, c0 + i * kTileWarps, __shfl_sync(kFull, sl, i),
+                     __shfl_sync(kFull, el, i), thr);
+  if (lane == 0 && has) atomicAdd(&nn, has);
   __syncthreads();
   if (threadIdx.x == 0) {
-    a.n_nodes[w] = n_nodes;
-    a.avgcov[w] = avg;
-    a.rawlen_dev[w] = a.rawlen[w];
+    if (nn)
+      atomicAdd(reinterpret_cast<unsigned long long*>(a.n_nodes + w),
+                static_cast<unsigned long long>(nn));
+    if (b == 0) {
+      a.avgcov[w] = avg;
+      a.rawlen_dev[w] = a.rawlen[w];
+    }
   }
-}
-
-// one kernel, two launches: phase 0 before the creation order's sort,
-// phase 1 after it
-__global__ void __launch_bounds__(kThreads)
-    node_tables_kernel(const NodeArgs a, int phase) {
-  if (phase == 0)
-    node_groups(a);
-  else
-    node_order(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -1198,13 +1414,12 @@ struct EdgeArgs {
   const uint8_t* window_ok;
   const long long* fkeys;   // [NW + 1, W, IP]
   const long long* fperm;   // [W, IP]
-  long long* ckey;   // [W, PU]
-  long long* tab;    // [W, PU]: tA | tB << 32
+  long long* ckey;   // [W, PU]: the pair sort's keys
+  long long* ct;     // [W, PU]: each pair's key and time lane (pack_ct)
   const long long* cperm;   // [W, PU]
-  long long* de_src;  // [W, 2E]
-  long long* de_dst;
-  long long* de_dx;   // dir | exists << 2
-  long long* et_key;
+  long long* sct;    // [W, PU]: ct in sorted order
+  long long* de;     // [W, 2E]: the directed rows (pack_row)
+  long long* et_key;  // [W, 2E]
   const long long* eorder;  // [W, 2E]
   uint8_t* over_e;    // [W]
   long long* ak_key;  // [W, E]
@@ -1221,186 +1436,497 @@ struct EdgeArgs {
   long long* refcov;  // [W, Lraw, 4]
   uint8_t* mate_cand;  // [W]
   uint8_t* fallback;
+  int* ecnt;         // [3, W, TPu]: each tile's canonical group starts and
+                     // its head's two time lanes
+  int* nself;        // [W, TPu]: each tile's palindromic self-loops
+  int* flags;        // [W]: 2 where a mate tile found a candidate
   int W, R, M, Mraw, Lraw, K, NW, I, IP, PU, N, E, D;
+  int T, TPu, TE, TJ, TM;  // positions a tile; tiles a window of T pair
+                           // keys, rows, reference positions, mate keys
 };
 
+// The edge tables' launches: 0 the pair keys; 1 their tiles' counts and 2
+// their groups and rows (after the pair sort); 3 the time order, the
+// reference projection and the mate candidates (after the time and mate
+// sorts); 4 the adjacency and the flags (after the adjacency sort). An
+// adjacency block's shared memory: each source's first slot and count
+// [N + 64] ints, then the sources in the adjacency sort's order [E] ints.
 struct EdgeLayout {
-  size_t a, b, c, total;
+  size_t cn, ks, total;
 };
 
-// phase 1: group starts, tA and tB minima [E + 1, E, E] ints; phase 3:
-// the first slot and count of each source [N + 64] ints twice
-__host__ __device__ inline EdgeLayout edge_layout(int phase, int N, int E) {
+__host__ __device__ inline EdgeLayout edge_layout(int N, int E) {
   EdgeLayout o{};
-  if (phase == 1) {
-    o.b = round16(sizeof(int) * (E + 1));
-    o.c = o.b + round16(sizeof(int) * E);
-    o.total = o.c + round16(sizeof(int) * E);
-  } else if (phase == 3) {
-    o.b = round16(sizeof(int) * (N + 64));
-    o.total = 2 * o.b;
-  }
+  o.cn = round16(sizeof(int) * (N + 64));
+  o.ks = 2 * o.cn;
+  o.total = o.ks + round16(sizeof(int) * E);
   return o;
 }
 
-// phase 0: each adjacent pair's canonical key and its two time lanes
-__device__ __forceinline__ void edge_pairs(const EdgeArgs& a) {
-  const int w = blockIdx.x, M = a.M, Mraw = a.Mraw, RM = a.R * a.M;
+// A pair's key and time lane in one int64 (the key, int32 since every
+// pair key lies in int32 (build_plan), in the high half; bit 31 whether
+// the pair is its twin's orientation; its time, below 2^30), so that the
+// gather in sorted order moves one 32-byte sector a pair.
+__device__ __forceinline__ long long pack_ct(long long ck, bool tw,
+                                             long long t) {
+  return static_cast<long long>(
+      (static_cast<unsigned long long>(
+           static_cast<unsigned>(static_cast<int>(ck)))
+       << 32) |
+      (static_cast<unsigned long long>(tw) << 31) |
+      static_cast<unsigned long long>(t & 0x7fffffff));
+}
+
+__device__ __forceinline__ int ct_key(long long ct) {
+  return static_cast<int>(ct >> 32);
+}
+
+// time lane 0 (the pair in its canonical orientation) or 1 (its twin's):
+// its time, BIG in the other lane
+__device__ __forceinline__ int ct_lane(long long ct, int lane) {
+  const int tw = static_cast<int>((ct >> 31) & 1);
+  return tw == lane ? static_cast<int>(ct & 0x7fffffff) : kBigI;
+}
+
+// A directed row in one int64: src + 2, dst + 2 (each -2 to N + 63: a
+// twin's ends are its canonical row's) and dir | exists << 2, 24, 24 and
+// 3 bits (N below 2^24 - 66, and build_plan keeps it far below)
+__device__ __forceinline__ long long pack_row(long long src, long long dst,
+                                              long long dx) {
+  return (src + 2) | ((dst + 2) << 24) | (dx << 48);
+}
+
+// launch 0: each adjacent pair's canonical key and its packed time lane,
+// tiles of T pairs (every load of a thread's kPairBatch pairs before
+// their stores)
+constexpr int kPairBatch = 4;
+
+__global__ void __launch_bounds__(kTileThreads)
+    edge_tables_pairs(const EdgeArgs a) {
+  const int w = blockIdx.x / a.TPu, t = blockIdx.x - w * a.TPu;
+  const int M = a.M, Mraw = a.Mraw, RM = a.R * a.M;
   const long long wI = static_cast<long long>(w) * a.I;
   const long long* pay = a.pay + wI;
   const long long* nid = a.nid + wI;
   const long long NODECAP = a.N + 64;
-  for (int q = threadIdx.x; q < a.PU; q += kThreads) {
-    int off;
-    bool nxt;
-    if (q < RM) {
-      off = q % M;
-      nxt = off + 1 < M;
-    } else {
-      off = q - RM;
-      nxt = off + 1 < Mraw;
+  const int q1 = min((t + 1) * a.T, a.PU);
+  for (int q0 = t * a.T + threadIdx.x; q0 < q1;
+       q0 += kPairBatch * kTileThreads) {
+    long long pv[kPairBatch], u[kPairBatch], v[kPairBatch], p1[kPairBatch];
+    int off[kPairBatch];
+#pragma unroll
+    for (int k = 0; k < kPairBatch; ++k) {
+      const int q = q0 + k * kTileThreads;
+      bool nxt = false;
+      off[k] = 0;
+      if (q < q1) {
+        off[k] = q < RM ? q % M : q - RM;
+        nxt = off[k] + 1 < (q < RM ? M : Mraw);
+      }
+      pv[k] = q < q1 ? pay[q] : 0;
+      u[k] = q < q1 ? nid[q] : 0;
+      v[k] = nxt ? nid[q + 1] : -1;
+      p1[k] = nxt ? pay[q + 1] : 0;
     }
-    const long long pv = pay[q];
-    const long long u = nid[q];
-    const long long v = nxt ? nid[q + 1] : -1;
-    const long long uF = bit(pv, kIsF);
-    const long long vF = nxt ? bit(pay[q + 1], kIsF) : 0;
-    const bool pm = bit(pv, kPair);
-    const long long t = pay_time(pv) + (off > 0 ? 1 : 0);
-    const long long fdir = (1 - uF) * 2 + (1 - vF);
-    const long long rdir = fliplink(fdir);
-    const bool tw = v < u || (v == u && rdir < fdir);
-    const long long cs = tw ? v : u, cd = tw ? u : v, cr = tw ? rdir : fdir;
-    const long long ck = pm ? (cs * NODECAP + cd) * 4 + cr : kI32Max;
-    const long long tA = pm && !tw ? t : kBig;
-    const long long tB = pm && tw ? t : kBig;
-    const long long o = static_cast<long long>(w) * a.PU + q;
-    a.ckey[o] = ck;
-    a.tab[o] = (tA & 0xffffffffLL) | (tB << 32);
+#pragma unroll
+    for (int k = 0; k < kPairBatch; ++k) {
+      const int q = q0 + k * kTileThreads;
+      if (q >= q1) continue;
+      const long long uF = bit(pv[k], kIsF), vF = bit(p1[k], kIsF);
+      const bool pm = bit(pv[k], kPair);
+      const long long tq = pay_time(pv[k]) + (off[k] > 0 ? 1 : 0);
+      const long long fdir = (1 - uF) * 2 + (1 - vF);
+      const long long rdir = fliplink(fdir);
+      const bool tw = v[k] < u[k] || (v[k] == u[k] && rdir < fdir);
+      const long long cs = tw ? v[k] : u[k], cd = tw ? u[k] : v[k];
+      const long long cr = tw ? rdir : fdir;
+      const long long ck = pm ? (cs * NODECAP + cd) * 4 + cr : kI32Max;
+      const long long o = static_cast<long long>(w) * a.PU + q;
+      a.ckey[o] = ck;
+      a.ct[o] = pack_ct(ck, pm && tw, pm ? tq : 0);
+    }
   }
 }
 
-// phase 1: the canonical groups of the sorted pair keys (at most E) and
-// their directed rows, each with its time key
-__device__ __forceinline__ void edge_groups(const EdgeArgs& a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int ws[kWarps];
-  __shared__ int n_self;
-  const int w = blockIdx.x, E = a.E, PU = a.PU;
-  const EdgeLayout lay = edge_layout(1, a.N, E);
-  int* es = reinterpret_cast<int*>(smem);
-  int* sA = reinterpret_cast<int*>(smem + lay.b);
-  int* sB = reinterpret_cast<int*>(smem + lay.c);
+// launch 1, a tile of the sorted pair keys: each key's packed record
+// gathered once (every gather of the tile in flight before the first
+// use; the key before a chunk of 32 from the chunk before's last lane, in
+// shared memory) and written in sorted order; the tile's count of
+// canonical group starts and its head's two time lane minima (of its
+// keys ahead of its first start)
+__global__ void __launch_bounds__(kTileThreads)
+    edge_tables_count(const EdgeArgs a) {
+  __shared__ int tot[kScanSlots + 1];
+  __shared__ int last[kScanSlots];  // each chunk's last key
+  __shared__ int halo, hA, hB;
+  const int w = blockIdx.x / a.TPu, t = blockIdx.x - w * a.TPu;
+  const int PU = a.PU, items = a.T / kTileThreads, t0 = t * a.T;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long wP = static_cast<long long>(w) * PU;
-  const long long* ckey = a.ckey + wP;
-  const long long* tab = a.tab + wP;
   const long long* cperm = a.cperm + wP;
-  for (int g = threadIdx.x; g < E; g += kThreads) sA[g] = sB[g] = kI32MaxI;
-  if (threadIdx.x == 0) n_self = 0;
-  __syncthreads();
-  int carry = 0, nev = 0;
-  for (int base = 0; base < PU; base += kThreads) {
-    const int p = base + threadIdx.x;
-    int enew = 0, ev = 0;
-    long long tb = 0;
-    if (p < PU) {
-      const long long x = cperm[p];
-      const long long ck = ckey[x];
-      ev = ck != kI32Max;
-      if (ev) {
-        enew = p == 0 || ck != ckey[cperm[p - 1]];
-        tb = tab[x];
-      }
-    }
-    int total;
-    const int before = block_scan(enew, ws, &total);
-    const int gid = carry + before + enew - 1;
-    if (enew && gid <= E) es[gid] = p;
-    if (ev && gid < E) {
-      atomicMin(&sA[gid], static_cast<int>(tb & 0xffffffffLL));
-      atomicMin(&sB[gid], static_cast<int>(tb >> 32));
-    }
-    nev += __syncthreads_count(ev);
-    carry += total;
+  const long long* ctab = a.ct + wP;
+  const long long none = pack_ct(kI32Max, false, 0);
+  long long x[kTileItems], ct[kTileItems];
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    const int p = t0 + k * kTileThreads + threadIdx.x;
+    x[k] = k < items && p < PU ? cperm[p] : -1;
   }
-  for (int g = threadIdx.x; g <= E; g += kThreads)
-    if (g >= carry) es[g] = nev;
+  const long long y = threadIdx.x == 0 && t0 > 0 ? cperm[t0 - 1] : -1;
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) ct[k] = x[k] >= 0 ? ctab[x[k]] : none;
+  if (threadIdx.x == 0) {
+    halo = y >= 0 ? ct_key(ctab[y]) : kI32MaxI;
+    hA = hB = kI32MaxI;
+  }
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k)
+    if (k < items && lane == 31) last[k * kTileWarps + warp] = ct_key(ct[k]);
   __syncthreads();
-  const long long NODECAP = a.N + 64;
-  const long long w2 = static_cast<long long>(w) * 2 * E;
-  for (int g = threadIdx.x; g < E; g += kThreads) {
-    const long long ck = es[g] < es[g + 1] ? ckey[cperm[es[g]]] : kI32Max;
-    const long long gA = sA[g], gB = sB[g];
-    const bool ex = ck != kI32Max;
-    const long long dir = ex ? floormod(ck, 4) : 0;
-    const long long dst = ex ? floormod(floordiv(ck, 4), NODECAP) : 0;
-    const long long src = ex ? floordiv(ck, 4 * NODECAP) : 0;
-    const long long tc = min(gA, min(gB, kBig - 1) + 1);
-    const long long tt = min(gB, min(gA, kBig - 1) + 1);
-    const bool selftw = ex && src == dst && (dir == 1 || dir == 2);
-    const bool ex2 = ex && !selftw;
-    a.de_src[w2 + g] = src;
-    a.de_dst[w2 + g] = dst;
-    a.de_dx[w2 + g] = dir | (static_cast<long long>(ex) << 2);
-    a.et_key[w2 + g] = ex ? tc : kBig;
-    a.de_src[w2 + E + g] = dst;
-    a.de_dst[w2 + E + g] = src;
-    a.de_dx[w2 + E + g] = fliplink(dir) | (static_cast<long long>(ex2) << 2);
-    a.et_key[w2 + E + g] = ex2 ? tt : kBig;
-    if (selftw) atomicAdd(&n_self, 1);
+  bool enew[kTileItems], ev[kTileItems];
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    enew[k] = ev[k] = false;
+    if (k >= items) continue;  // the same for the whole block
+    const int p = t0 + k * kTileThreads + threadIdx.x;
+    const int ck = ct_key(ct[k]);
+    int prev = __shfl_up_sync(kFull, ck, 1);
+    if (lane == 0) {
+      const int c = k * kTileWarps + warp;
+      prev = c == 0 ? halo : last[c - 1];
+    }
+    if (p < PU) a.sct[wP + p] = ct[k];
+    ev[k] = p < PU && ck != kI32MaxI;
+    enew[k] = ev[k] && (p == 0 || ck != prev);
+  }
+  int before[kTileItems];
+  const int n = tile_scan(enew, items, before, tot);
+  int mA = kI32MaxI, mB = kI32MaxI;
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    if (ev[k] && before[k] + enew[k] == 0) {
+      mA = min(mA, ct_lane(ct[k], 0));
+      mB = min(mB, ct_lane(ct[k], 1));
+    }
+  }
+  mA = warp_min_i(mA);
+  mB = warp_min_i(mB);
+  if (lane == 0) {
+    atomicMin(&hA, mA);
+    atomicMin(&hB, mB);
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    const long long n_edges = 2LL * min(carry, E) - n_self;
-    a.n_edges[w] = n_edges;
-    a.over_e[w] = n_edges > E || carry > E;
+    const long long st = static_cast<long long>(a.W) * a.TPu;
+    int* c = a.ecnt + static_cast<long long>(w) * a.TPu + t;
+    c[0] = n;
+    c[st] = hA;
+    c[2 * st] = hB;
   }
 }
 
-// phase 2: the directed rows in time order, truncated to E; the sources'
-// sort key; deg zeroed for phase 3's sums
-__device__ __forceinline__ void edge_order(const EdgeArgs& a) {
-  const int w = blockIdx.x, E = a.E;
+// canonical group g's two directed rows, each with its time key (ck its
+// key, gA and gB its time lanes' minima; ck I32_MAX: an empty group);
+// returns whether it is a palindromic self-loop (its own twin)
+__device__ __forceinline__ bool edge_row(const EdgeArgs& a, int w, int g,
+                                         long long ck, long long gA,
+                                         long long gB) {
+  const long long NODECAP = a.N + 64;
+  const int E = a.E;
+  const long long w2 = static_cast<long long>(w) * 2 * E;
+  const bool ex = ck != kI32Max;
+  const long long dir = ex ? floormod(ck, 4) : 0;
+  const long long dst = ex ? floormod(floordiv(ck, 4), NODECAP) : 0;
+  const long long src = ex ? floordiv(ck, 4 * NODECAP) : 0;
+  const long long tc = min(gA, min(gB, kBig - 1) + 1);
+  const long long tt = min(gB, min(gA, kBig - 1) + 1);
+  const bool selftw = ex && src == dst && (dir == 1 || dir == 2);
+  const bool ex2 = ex && !selftw;
+  a.de[w2 + g] = pack_row(src, dst, dir | (static_cast<long long>(ex) << 2));
+  a.et_key[w2 + g] = ex ? tc : kBig;
+  a.de[w2 + E + g] =
+      pack_row(dst, src, fliplink(dir) | (static_cast<long long>(ex2) << 2));
+  a.et_key[w2 + E + g] = ex2 ? tt : kBig;
+  return selftw;
+}
+
+// launch 2, a tile of the sorted pair keys: its canonical groups (at most
+// E a window) numbered from the earlier tiles' counts and one tile scan,
+// their time lane minima by shared atomic minima (its last group's with
+// the heads it runs into), their directed rows; the rows past the
+// window's last group empty; the tile's count of palindromic self-loops;
+// tile 0 clears the window's flags
+__global__ void __launch_bounds__(kTileThreads)
+    edge_tables_groups(const EdgeArgs a) {
+  __shared__ int tot[kScanSlots + 1];
+  __shared__ int gA[kTileMax], gB[kTileMax], gck[kTileMax];
+  __shared__ int sums[2];
+  __shared__ int n_self;
+  const int w = blockIdx.x / a.TPu, t = blockIdx.x - w * a.TPu;
+  const int PU = a.PU, E = a.E, items = a.T / kTileThreads, t0 = t * a.T;
+  const int lane = threadIdx.x & 31;
+  const long long st = static_cast<long long>(a.W) * a.TPu;
+  const int* cnt = a.ecnt + static_cast<long long>(w) * a.TPu;
+  const long long* sct = a.sct + static_cast<long long>(w) * PU;
+  tile_sums(cnt, a.TPu, t, sums);  // carry, all groups
+  for (int l = threadIdx.x; l < a.T; l += kTileThreads)
+    gA[l] = gB[l] = kI32MaxI;
+  if (threadIdx.x == 0) n_self = 0;
+  const long long none = pack_ct(kI32Max, false, 0);
+  bool enew[kTileItems], ev[kTileItems];
+  long long ct[kTileItems];
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    const int p = t0 + k * kTileThreads + threadIdx.x;
+    const bool in = k < items && p < PU;
+    ct[k] = in ? sct[p] : none;
+    const int ck = ct_key(ct[k]);
+    int prev = __shfl_up_sync(kFull, ck, 1);
+    if (lane == 0 && in && p > 0) prev = ct_key(sct[p - 1]);
+    ev[k] = in && ck != kI32MaxI;
+    enew[k] = ev[k] && (p == 0 || ck != prev);
+  }
+  int before[kTileItems];
+  const int n = tile_scan(enew, items, before, tot);
+  const int carry = sums[0], total = sums[1];
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    if (!ev[k]) continue;
+    const int l = before[k] + enew[k] - 1;  // -1: the head
+    if (enew[k]) gck[l] = ct_key(ct[k]);
+    if (l >= 0) {
+      atomicMin(&gA[l], ct_lane(ct[k], 0));
+      atomicMin(&gB[l], ct_lane(ct[k], 1));
+    }
+  }
+  __syncthreads();
+  int ns = 0;
+  for (int l = threadIdx.x; l < n && carry + l < E; l += kTileThreads) {
+    int mA = gA[l], mB = gB[l];
+    if (l == n - 1) {
+      mA = heads_after(cnt, cnt + st, a.TPu, t, mA);
+      mB = heads_after(cnt, cnt + 2 * st, a.TPu, t, mB);
+    }
+    ns += edge_row(a, w, carry + l, gck[l], mA, mB);
+  }
+  for (int g = total + t * kTileThreads + threadIdx.x; g < E;
+       g += a.TPu * kTileThreads)
+    edge_row(a, w, g, kI32Max, kI32MaxI, kI32MaxI);
+  ns = warp_sum_i(ns);
+  if (lane == 0 && ns) atomicAdd(&n_self, ns);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    a.nself[static_cast<long long>(w) * a.TPu + t] = n_self;
+    if (t == 0) a.flags[w] = 0;  // for launch 3's mate tiles
+  }
+}
+
+// launch 3, row tile t of window w: the directed rows in time order,
+// truncated to E, and the sources' sort key; a slice of deg zeroed and of
+// adj set to -1 for launch 4; tile 0: n_edges and over_e from every pair
+// tile's counts
+__device__ void order_tile(const EdgeArgs& a, int w, int t, int* sums) {
+  const int E = a.E, N = a.N;
   const long long w2 = static_cast<long long>(w) * 2 * E;
   const long long wE = static_cast<long long>(w) * E;
-  for (int t = threadIdx.x; t < E; t += kThreads) {
-    const long long o = a.eorder[w2 + t];
-    const long long dx = a.de_dx[w2 + o];
-    const bool ex = (dx >> 2) & 1;
-    const long long src = ex ? a.de_src[w2 + o] : -1;
-    a.edge_src[wE + t] = src;
-    a.edge_dst[wE + t] = ex ? a.de_dst[w2 + o] : -1;
-    a.edge_dir[wE + t] = ex ? (dx & 3) : 0;
-    a.edge_exists[wE + t] = src >= 0;
-    a.ak_key[wE + t] = src >= 0 ? src : kI32Max;
+  const int r0 = t * a.T + threadIdx.x, r1 = min((t + 1) * a.T, E);
+  long long d[kTileItems];  // every load of the tile before its stores
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    const int r = r0 + k * kTileThreads;
+    d[k] = r < r1 ? a.eorder[w2 + r] : -1;
   }
-  for (int v = threadIdx.x; v < a.N; v += kThreads)
-    a.deg[static_cast<long long>(w) * a.N + v] = 0;
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) d[k] = d[k] >= 0 ? a.de[w2 + d[k]] : -1;
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    const int r = r0 + k * kTileThreads;
+    if (r >= r1) continue;
+    const long long dx = d[k] >> 48;
+    const bool ex = (dx >> 2) & 1;
+    const long long src = ex ? (d[k] & 0xffffff) - 2 : -1;
+    a.edge_src[wE + r] = src;
+    a.edge_dst[wE + r] = ex ? ((d[k] >> 24) & 0xffffff) - 2 : -1;
+    a.edge_dir[wE + r] = ex ? (dx & 3) : 0;
+    a.edge_exists[wE + r] = src >= 0;
+    a.ak_key[wE + r] = src >= 0 ? src : kI32Max;
+  }
+  const int vs = (N + a.TE - 1) / a.TE;
+  for (int v = t * vs + threadIdx.x; v < min((t + 1) * vs, N);
+       v += kTileThreads)
+    a.deg[static_cast<long long>(w) * N + v] = 0;
+  const long long ND = static_cast<long long>(N) * a.D;
+  const long long as = (ND + a.TE - 1) / a.TE;
+  long long* adj = a.adj + static_cast<long long>(w) * ND;
+  for (long long i = t * as + threadIdx.x; i < min((t + 1) * as, ND);
+       i += kTileThreads)
+    adj[i] = -1;
+  if (t == 0) {  // the same for the whole block
+    const long long wT = static_cast<long long>(w) * a.TPu;
+    tile_sums(a.ecnt + wT, a.TPu, 0, sums);
+    tile_sums(a.nself + wT, a.TPu, 0, sums + 2);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int total = sums[1];
+      const long long n_edges = 2LL * min(total, E) - sums[3];
+      a.n_edges[w] = n_edges;
+      a.over_e[w] = n_edges > E || total > E;
+    }
+  }
 }
 
-// phase 3: the adjacency and degrees, the reference projection, the mate
-// candidates and the fallback flags
-__device__ __forceinline__ void edge_adj(const EdgeArgs& a) {
+// launch 3, reference tile j of window w: T positions of the projection's
+// node ids and strands and of refcov (mer i covers base i + K - 1, mer 0
+// bases 0..K-1)
+__device__ void ref_tile(const EdgeArgs& a, int w, int j) {
+  const int K = a.K, N = a.N, RM = a.R * a.M, Mraw = a.Mraw;
+  const long long wI = static_cast<long long>(w) * a.I;
+  const long long* nidp = a.nid + wI + RM + Mraw;
+  const long long n_proj = max(a.rawlen[w] - K, 0LL);
+  const int r1 = min((j + 1) * a.T, a.Lraw);
+  for (int r = j * a.T + threadIdx.x; r < r1; r += kTileThreads) {
+    if (r < Mraw) {
+      a.nid_proj[static_cast<long long>(w) * Mraw + r] = nidp[r];
+      a.proj_isF[static_cast<long long>(w) * Mraw + r] =
+          bit(a.pay[wI + RM + r], kIsF);
+    }
+    const int i = r >= K - 1 ? r - K + 1 : 0;
+    const bool on = r >= K - 1 ? i < n_proj : n_proj > 0;
+    const long long nd = on ? nidp[i] : -1;
+    long long* out = a.refcov + (static_cast<long long>(w) * a.Lraw + r) * 4;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      long long val = 0;
+      if (nd >= 0) {
+        const long long wn = static_cast<long long>(w) * N + nd;
+        const long long cc = a.counts[wn * 4 + c];
+        val = a.in_index[wn] && cc > 0 ? cc : 0;
+      }
+      out[c] = val;
+    }
+  }
+}
+
+// launch 3, mate tile m of window w: T sorted mate keys; whether a run of
+// (mer, fragment) holds both mate orders of one fragment. A key's
+// fragment is gathered once (every gather of the tile in flight first;
+// the key before a chunk of 32 from the chunk before's last lane, in
+// shared memory), its words only where the fragments agree. Every thread
+// calls it.
+__device__ bool mate_tile(const EdgeArgs& a, int w, int m) {
+  __shared__ long long lx[kScanSlots], lf[kScanSlots];
+  __shared__ long long hx, hf;
+  const int IP = a.IP, NW = a.NW, items = a.T / kTileThreads;
+  const int t0 = m * a.T, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long fplane = static_cast<long long>(a.W) * IP;
+  const long long wF = static_cast<long long>(w) * IP;
+  const long long wI = static_cast<long long>(w) * a.I;
+  const long long* fk = a.fkeys + wF;
+  const long long* fperm = a.fperm + wF;
+  const long long* fr = fk + NW * fplane;
+  long long x[kTileItems], fx[kTileItems];
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    const int p = t0 + k * kTileThreads + threadIdx.x;
+    x[k] = k < items && p < IP ? fperm[p] : -1;
+  }
+  const long long y = threadIdx.x == 0 && t0 > 0 ? fperm[t0 - 1] : -1;
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k)
+    fx[k] = x[k] >= 0 ? fr[x[k]] : kI32Max;
+  if (threadIdx.x == 0) {
+    hx = y;
+    hf = y >= 0 ? fr[y] : kI32Max;
+  }
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    if (k < items && lane == 31) {
+      lx[k * kTileWarps + warp] = x[k];
+      lf[k * kTileWarps + warp] = fx[k];
+    }
+  }
+  __syncthreads();
+  bool cand = false;
+#pragma unroll
+  for (int k = 0; k < kTileItems; ++k) {
+    if (k >= items) continue;  // the same for the whole block
+    long long px = __shfl_up_sync(kFull, x[k], 1);
+    long long pf = __shfl_up_sync(kFull, fx[k], 1);
+    if (lane == 0) {
+      const int c = k * kTileWarps + warp;
+      px = c == 0 ? hx : lx[c - 1];
+      pf = c == 0 ? hf : lf[c - 1];
+    }
+    if (x[k] >= 0 && px >= 0 && fx[k] != kI32Max && fx[k] == pf) {
+      bool same = true;
+      for (int i = 0; i < NW; ++i)
+        same &= fk[i * fplane + x[k]] == fk[i * fplane + px];
+      const long long ox = (a.pay[wI + x[k]] >> kOrder) & 0xff;
+      const long long oy = (a.pay[wI + px] >> kOrder) & 0xff;
+      cand |= same && ox != oy && ox > 0 && oy > 0;
+    }
+  }
+  return __syncthreads_or(cand);
+}
+
+// launch 3, after the time and mate sorts: each window's TE row tiles
+// (order_tile), TJ reference tiles (ref_tile) and TM mate tiles
+// (mate_tile, which sets the window's mate flag, cleared by launch 2)
+__global__ void __launch_bounds__(kTileThreads)
+    edge_tables_order(const EdgeArgs a) {
+  __shared__ int sums[4];
+  const int per = a.TE + a.TJ + a.TM;
+  const int w = blockIdx.x / per, j = blockIdx.x - w * per;
+  if (j < a.TE) {  // the same for the whole block
+    order_tile(a, w, j, sums);
+  } else if (j < a.TE + a.TJ) {
+    ref_tile(a, w, j - a.TE);
+  } else if (mate_tile(a, w, j - a.TE - a.TJ) && threadIdx.x == 0) {
+    atomicOr(&a.flags[w], 2);
+  }
+}
+
+// launch 4, after the adjacency sort, a block a window: each source's
+// first slot and count in shared memory (sources: node ids and the N + 63
+// of a pair whose two mers are past N), adj and deg (a count added to
+// deg's segment w (N + 1) + source where it falls, as the JAX build's
+// segment sum); then mate_cand and fallback, every tile's flag being in
+__global__ void __launch_bounds__(kThreads) edge_tables_adj(const EdgeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int w = blockIdx.x, E = a.E, N = a.N, D = a.D, K = a.K;
-  const int NC = N + 64;  // sources: node ids and the N + 63 of a pair
-                          // whose two mers are past N
-  const EdgeLayout lay = edge_layout(3, N, E);
+  const int w = blockIdx.x, E = a.E, N = a.N, D = a.D;
+  const int NC = N + 64;
+  const EdgeLayout lay = edge_layout(N, E);
   int* fp = reinterpret_cast<int*>(smem);
-  int* cn = reinterpret_cast<int*>(smem + lay.b);
+  int* cn = reinterpret_cast<int*>(smem + lay.cn);
+  int* ks = reinterpret_cast<int*>(smem + lay.ks);
   const long long wE = static_cast<long long>(w) * E;
+  const long long* aperm = a.aperm + wE;
+  const long long* ak = a.ak_key + wE;
   for (int v = threadIdx.x; v < NC; v += kThreads) {
     fp[v] = kI32MaxI;
     cn[v] = 0;
   }
-  long long* adj = a.adj + static_cast<long long>(w) * N * D;
-  for (long long i = threadIdx.x; i < static_cast<long long>(N) * D;
-       i += kThreads)
-    adj[i] = -1;
+  constexpr int kBatch = 4;  // loads in flight a thread
+  for (int p0 = threadIdx.x; p0 < E; p0 += kBatch * kThreads) {
+    long long x[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + u * kThreads;
+      x[u] = p < E ? aperm[p] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + u * kThreads;
+      if (p < E) {
+        const long long k1 = ak[x[u]];
+        ks[p] = k1 >= 0 && k1 < NC ? static_cast<int>(k1) : -1;
+      }
+    }
+  }
   __syncthreads();
   for (int p = threadIdx.x; p < E; p += kThreads) {
-    const long long k1 = a.ak_key[wE + a.aperm[wE + p]];
-    if (k1 >= 0 && k1 < NC) {
+    const int k1 = ks[p];
+    if (k1 >= 0) {
       atomicMin(&fp[k1], p);
       atomicAdd(&cn[k1], 1);
     }
@@ -1418,76 +1944,30 @@ __device__ __forceinline__ void edge_adj(const EdgeArgs& a) {
                   static_cast<unsigned long long>(cn[v]));
     }
   }
-  for (int p = threadIdx.x; p < E; p += kThreads) {
-    const long long x = a.aperm[wE + p];
-    const long long k1 = a.ak_key[wE + x];
-    if (k1 >= 0 && k1 < N) {
-      const int slot = p - fp[k1];
-      if (slot < D) adj[k1 * D + slot] = x;
-    }
-  }
-  // the reference coverage projection: mer i covers base i + K - 1, mer 0
-  // bases 0..K-1
-  const long long wI = static_cast<long long>(w) * a.I;
-  const int RM = a.R * a.M, Mraw = a.Mraw;
-  const long long* nidp = a.nid + wI + RM + Mraw;
-  const long long n_proj = max(a.rawlen[w] - K, 0LL);
-  for (int r = threadIdx.x; r < Mraw; r += kThreads) {
-    a.nid_proj[static_cast<long long>(w) * Mraw + r] = nidp[r];
-    a.proj_isF[static_cast<long long>(w) * Mraw + r] =
-        bit(a.pay[wI + RM + r], kIsF);
-  }
-  for (int pos = threadIdx.x; pos < a.Lraw; pos += kThreads) {
-    const int i = pos >= K - 1 ? pos - K + 1 : 0;
-    const bool on = pos >= K - 1 ? i < n_proj : n_proj > 0;
-    const long long nd = nidp[i];
-    long long* out = a.refcov + (static_cast<long long>(w) * a.Lraw + pos) * 4;
+  long long* adj = a.adj + static_cast<long long>(w) * N * D;
+  for (int p0 = threadIdx.x; p0 < E; p0 += kBatch * kThreads) {
+    long long x[kBatch];  // every load of the batch before its stores
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      long long val = 0;
-      if (on && nd >= 0) {
-        const long long wn = static_cast<long long>(w) * N + nd;
-        const long long cc = a.counts[wn * 4 + c];
-        val = a.in_index[wn] && cc > 0 ? cc : 0;
-      }
-      out[c] = val;
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + u * kThreads;
+      const int k1 = p < E ? ks[p] : -1;
+      x[u] = k1 >= 0 && k1 < N && p - fp[k1] < D ? aperm[p] : -1;
     }
-  }
-  // a run of (mer, fragment) holding both mate orders of one fragment
-  const long long fplane = static_cast<long long>(a.W) * a.IP;
-  const long long wF = static_cast<long long>(w) * a.IP;
-  const long long* fk = a.fkeys + wF;
-  const long long* fperm = a.fperm + wF;
-  bool cand = false;
-  for (int p = 1 + threadIdx.x; p < a.IP; p += kThreads) {
-    const long long x = fperm[p], y = fperm[p - 1];
-    const long long fx = fk[a.NW * fplane + x];
-    if (fx == kI32Max || fx != fk[a.NW * fplane + y]) continue;
-    bool same = true;
-    for (int i = 0; i < a.NW; ++i)
-      same &= fk[i * fplane + x] == fk[i * fplane + y];
-    const long long ox = (a.pay[wI + x] >> kOrder) & 0xff;
-    const long long oy = (a.pay[wI + y] >> kOrder) & 0xff;
-    cand |= same && ox != oy && ox > 0 && oy > 0;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + u * kThreads;
+      if (x[u] >= 0) {
+        const int k1 = ks[p];
+        adj[static_cast<long long>(k1) * D + p - fp[k1]] = x[u];
+      }
+    }
   }
   over_d = __syncthreads_or(over_d);
-  cand = __syncthreads_or(cand);
   if (threadIdx.x == 0) {
     const bool ok = a.window_ok[w] != 0;
+    const bool cand = (a.flags[w] & 2) != 0;
     a.mate_cand[w] = cand && ok;
     a.fallback[w] = (a.over_n[w] || a.over_e[w] || over_d || cand) && ok;
-  }
-}
-
-// one kernel, four launches, each phase after a window_sort of the last
-// one's keys (the mate keys' sort before phase 3)
-__global__ void __launch_bounds__(kThreads)
-    edge_tables_kernel(const EdgeArgs a, int phase) {
-  switch (phase) {
-    case 0: edge_pairs(a); break;
-    case 1: edge_groups(a); break;
-    case 2: edge_order(a); break;
-    default: edge_adj(a);
   }
 }
 
@@ -1605,6 +2085,42 @@ int sort_run(SortArgs& a, const SortPlan& pl, unsigned* rec,
   return rc;
 }
 
+// node_tables' and edge_tables' blocks: TN tiles of T sorted instances
+// and NB blocks of SL creation slots a window; TPu tiles of T pair keys,
+// TE of T directed rows, TJ of T reference positions and TM of T mate
+// keys a window; smem: an edge_tables_adj block's bytes. T a multiple
+// of 256 up to kTileMax, SL of kTileWarps up to 256 (a warp's slots in
+// its lanes).
+struct TablePlan {
+  int TN, NB, TPu, TE, TJ, TM;
+  size_t smem;
+};
+
+bool tiles_ok(int T, int SL) {
+  return T >= kTileThreads && T <= kTileMax && T % kTileThreads == 0 &&
+         SL >= kTileWarps && SL <= 32 * kTileWarps && SL % kTileWarps == 0;
+}
+
+// node_tables' blocks a window: TN tiles of T of the I sorted instances,
+// NB blocks of SL creation slots.
+void node_blocks(int I, int N, int T, int SL, int* TN, int* NB) {
+  *TN = (I + T - 1) / T;
+  *NB = (N + SL - 1) / SL;
+}
+
+TablePlan table_plan(int R, int L, int Lraw, int K, int N, int E, int T,
+                     int SL) {
+  const int M = L - K + 1, Mraw = Lraw - K + 1, IP = R * M;
+  TablePlan o{};
+  node_blocks(IP + 3 * Mraw, N, T, SL, &o.TN, &o.NB);
+  o.TPu = (IP + Mraw + T - 1) / T;
+  o.TE = (E + T - 1) / T;
+  o.TJ = (Lraw + T - 1) / T;
+  o.TM = (IP + T - 1) / T;
+  o.smem = edge_layout(N, E).total;
+  return o;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1637,10 +2153,22 @@ int dbg_sort_plan(int NK, const int* bits, const int* has_sent, int W, int n,
   return 0;
 }
 
-size_t dbg_nodes_smem(int N) { return node_layout(N).total; }
-
-size_t dbg_edges_smem(int phase, int N, int E) {
-  return edge_layout(phase, N, E).total;
+// node_tables' and edge_tables' blocks for gpu/dbgk.py's plan check: out
+// (TN, NB, TPu, TE, TJ, TM, smem).
+int dbg_table_plan(int R, int L, int Lraw, int K, int N, int E, int T,
+                   int SL, long long* out) {
+  if (R <= 0 || K < 1 || K > 63 || L < K || Lraw < K || N <= 0 || E <= 0 ||
+      !tiles_ok(T, SL))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TablePlan p = table_plan(R, L, Lraw, K, N, E, T, SL);
+  out[0] = p.TN;
+  out[1] = p.NB;
+  out[2] = p.TPu;
+  out[3] = p.TE;
+  out[4] = p.TJ;
+  out[5] = p.TM;
+  out[6] = static_cast<long long>(p.smem);
+  return 0;
 }
 
 // mer_instances, two launches: W windows; ins (bases, quals, rlen,
@@ -1743,14 +2271,15 @@ int dbg_sort(const void* keys, long long ps, long long wst, int NK, int W,
   }
 }
 
-// node_tables, phase 0 (groups) or 1 (creation order): p the pointers in
-// the order of gpu/dbgk.py's NODE_PTRS.
+// node_tables, phase 0 (two launches: each tile's counts, then the
+// groups) or 1 (the creation order; one launch): p the pointers in the
+// order of gpu/dbgk.py's NODE_PTRS; tiles of T sorted instances, blocks
+// of SL creation slots.
 int dbg_nodes(int phase, void* const* p, int W, int I, int N, int K,
-              long long low_cov_threshold, float min_cov_ratio, size_t smem,
-              void* stream) {
-  if (W <= 0 || I <= 0 || N <= 0 || K < 1 || K > 63 ||
-      (phase == 0 && smem != node_layout(N).total) ||
-      (phase == 1 && smem != 0) || phase < 0 || phase > 1)
+              long long low_cov_threshold, float min_cov_ratio, int T,
+              int SL, void* stream) {
+  if (W <= 0 || I <= 0 || N <= 0 || K < 1 || K > 63 || phase < 0 ||
+      phase > 1 || !tiles_ok(T, SL))
     return static_cast<int>(cudaErrorInvalidValue);
   NodeArgs a{};
   a.keys = static_cast<const long long*>(p[0]);
@@ -1778,26 +2307,60 @@ int dbg_nodes(int phase, void* const* p, int W, int I, int N, int K,
   a.avgcov = static_cast<float*>(p[22]);
   a.rawlen_dev = static_cast<long long*>(p[23]);
   a.nid = static_cast<long long*>(p[24]);
+  a.spay = static_cast<long long*>(p[25]);
+  a.tcnt = static_cast<int*>(p[26]);
   a.W = W;
   a.I = I;
   a.N = N;
   a.K = K;
   a.NW = (K + 30) / 31;
+  a.T = T;
+  a.SL = SL;
+  node_blocks(I, N, T, SL, &a.TN, &a.NB);
   a.low_cov_threshold = low_cov_threshold;
   a.min_cov_ratio = min_cov_ratio;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (phase == 1)
+    return launch_checked(
+        reinterpret_cast<const void*>(node_tables_order), 0, [&] {
+          node_tables_order<<<W * a.NB, kTileThreads, 0, s>>>(a);
+        });
+  const int grid = W * a.TN;
+  int rc;
+  switch (a.NW) {
+    case 1:
+      rc = launch_checked(
+          reinterpret_cast<const void*>(node_tables_count<1>), 0,
+          [&] { node_tables_count<1><<<grid, kTileThreads, 0, s>>>(a); });
+      break;
+    case 2:
+      rc = launch_checked(
+          reinterpret_cast<const void*>(node_tables_count<2>), 0,
+          [&] { node_tables_count<2><<<grid, kTileThreads, 0, s>>>(a); });
+      break;
+    default:
+      rc = launch_checked(
+          reinterpret_cast<const void*>(node_tables_count<3>), 0,
+          [&] { node_tables_count<3><<<grid, kTileThreads, 0, s>>>(a); });
+  }
+  if (rc) return rc;
   return launch_checked(
-      reinterpret_cast<const void*>(node_tables_kernel), smem,
-      [&] { node_tables_kernel<<<W, kThreads, smem, s>>>(a, phase); });
+      reinterpret_cast<const void*>(node_tables_groups), 0, [&] {
+        node_tables_groups<<<W * a.TN, kTileThreads, 0, s>>>(a);
+      });
 }
 
-// edge_tables, phase 0-3: p the pointers in the order of gpu/dbgk.py's
-// EDGE_PTRS.
+// edge_tables, phase 0 (the pair keys; one launch), 1 (after the pair
+// sort: each tile's counts, then the groups and rows; two launches), 2
+// (after the time and mate sorts: the time order, the reference and mate
+// tiles; one launch) or 3 (after the adjacency sort: the adjacency and
+// the flags; one launch): p the pointers in the order of gpu/dbgk.py's
+// EDGE_PTRS; tiles of T positions; smem: table_plan's.
 int dbg_edges(int phase, void* const* p, int W, int R, int L, int Lraw,
-              int K, int N, int E, int D, size_t smem, void* stream) {
+              int K, int N, int E, int D, int T, size_t smem, void* stream) {
   if (W <= 0 || R <= 0 || K < 1 || K > 63 || L < K || Lraw < K || N <= 0 ||
       E <= 0 || D <= 0 || phase < 0 || phase > 3 ||
-      smem != edge_layout(phase, N, E).total)
+      !tiles_ok(T, kTileWarps) || smem != edge_layout(N, E).total)
     return static_cast<int>(cudaErrorInvalidValue);
   EdgeArgs a{};
   a.pay = static_cast<const long long*>(p[0]);
@@ -1810,28 +2373,30 @@ int dbg_edges(int phase, void* const* p, int W, int R, int L, int Lraw,
   a.fkeys = static_cast<const long long*>(p[7]);
   a.fperm = static_cast<const long long*>(p[8]);
   a.ckey = static_cast<long long*>(p[9]);
-  a.tab = static_cast<long long*>(p[10]);
+  a.ct = static_cast<long long*>(p[10]);
   a.cperm = static_cast<const long long*>(p[11]);
-  a.de_src = static_cast<long long*>(p[12]);
-  a.de_dst = static_cast<long long*>(p[13]);
-  a.de_dx = static_cast<long long*>(p[14]);
-  a.et_key = static_cast<long long*>(p[15]);
-  a.eorder = static_cast<const long long*>(p[16]);
-  a.over_e = static_cast<uint8_t*>(p[17]);
-  a.ak_key = static_cast<long long*>(p[18]);
-  a.aperm = static_cast<const long long*>(p[19]);
-  a.n_edges = static_cast<long long*>(p[20]);
-  a.edge_src = static_cast<long long*>(p[21]);
-  a.edge_dst = static_cast<long long*>(p[22]);
-  a.edge_dir = static_cast<long long*>(p[23]);
-  a.edge_exists = static_cast<uint8_t*>(p[24]);
-  a.adj = static_cast<long long*>(p[25]);
-  a.deg = static_cast<long long*>(p[26]);
-  a.nid_proj = static_cast<long long*>(p[27]);
-  a.proj_isF = static_cast<uint8_t*>(p[28]);
-  a.refcov = static_cast<long long*>(p[29]);
-  a.mate_cand = static_cast<uint8_t*>(p[30]);
-  a.fallback = static_cast<uint8_t*>(p[31]);
+  a.sct = static_cast<long long*>(p[12]);
+  a.de = static_cast<long long*>(p[13]);
+  a.et_key = static_cast<long long*>(p[14]);
+  a.eorder = static_cast<const long long*>(p[15]);
+  a.over_e = static_cast<uint8_t*>(p[16]);
+  a.ak_key = static_cast<long long*>(p[17]);
+  a.aperm = static_cast<const long long*>(p[18]);
+  a.n_edges = static_cast<long long*>(p[19]);
+  a.edge_src = static_cast<long long*>(p[20]);
+  a.edge_dst = static_cast<long long*>(p[21]);
+  a.edge_dir = static_cast<long long*>(p[22]);
+  a.edge_exists = static_cast<uint8_t*>(p[23]);
+  a.adj = static_cast<long long*>(p[24]);
+  a.deg = static_cast<long long*>(p[25]);
+  a.nid_proj = static_cast<long long*>(p[26]);
+  a.proj_isF = static_cast<uint8_t*>(p[27]);
+  a.refcov = static_cast<long long*>(p[28]);
+  a.mate_cand = static_cast<uint8_t*>(p[29]);
+  a.fallback = static_cast<uint8_t*>(p[30]);
+  a.ecnt = static_cast<int*>(p[31]);
+  a.nself = static_cast<int*>(p[32]);
+  a.flags = static_cast<int*>(p[33]);
   a.W = W;
   a.R = R;
   a.M = L - K + 1;
@@ -1845,12 +2410,41 @@ int dbg_edges(int phase, void* const* p, int W, int R, int L, int Lraw,
   a.N = N;
   a.E = E;
   a.D = D;
-  return launch_checked(
-      reinterpret_cast<const void*>(edge_tables_kernel), smem,
-      [&] {
-        edge_tables_kernel<<<W, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(a, phase);
-      });
+  const TablePlan pl = table_plan(R, L, Lraw, K, N, E, T, kTileWarps);
+  a.T = T;
+  a.TPu = pl.TPu;
+  a.TE = pl.TE;
+  a.TJ = pl.TJ;
+  a.TM = pl.TM;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = 0;
+  switch (phase) {
+    case 0:
+      return launch_checked(
+          reinterpret_cast<const void*>(edge_tables_pairs), 0, [&] {
+            edge_tables_pairs<<<W * a.TPu, kTileThreads, 0, s>>>(a);
+          });
+    case 1:
+      rc = launch_checked(
+          reinterpret_cast<const void*>(edge_tables_count), 0, [&] {
+            edge_tables_count<<<W * a.TPu, kTileThreads, 0, s>>>(a);
+          });
+      if (rc) return rc;
+      return launch_checked(
+          reinterpret_cast<const void*>(edge_tables_groups), 0, [&] {
+            edge_tables_groups<<<W * a.TPu, kTileThreads, 0, s>>>(a);
+          });
+    case 2:
+      return launch_checked(
+          reinterpret_cast<const void*>(edge_tables_order), 0, [&] {
+            edge_tables_order<<<W * (a.TE + a.TJ + a.TM), kTileThreads, 0,
+                                s>>>(a);
+          });
+    default:
+      return launch_checked(
+          reinterpret_cast<const void*>(edge_tables_adj), smem,
+          [&] { edge_tables_adj<<<W, kThreads, smem, s>>>(a); });
+  }
 }
 
 }  // extern "C"

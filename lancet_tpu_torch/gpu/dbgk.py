@@ -17,8 +17,15 @@ k alone (`BuildPlan.launches`), with no host sync:
   declared range takes (`SortPlan`); one launch where a tile of SORT_TILE
   records holds a window, else (window, tile) blocks, two launches a pass;
   six sorts a build;
-- `node_tables`: two launches around the creation order's window_sort;
-- `edge_tables`: four launches, each after a window_sort.
+- `node_tables`: three launches of (window, tile) blocks: each tile of
+  BUILD_TILE sorted instances' group starts and head, then the groups;
+  after the creation order's window_sort, (window, NODE_SLOTS slots)
+  blocks, a warp a node;
+- `edge_tables`: five launches: the pair keys; each tile's canonical
+  group starts and head, then the groups and rows (after the pair sort);
+  the time order, the reference projection and the mate candidates in
+  tiles (after the time and mate sorts); the adjacency, a block a window,
+  and the flags (after the adjacency sort).
 
 Each wrapper takes tensors on one device and raises, before any work, when
 they span two. On the CPU it runs the plain version (gpu.dbg's
@@ -32,8 +39,9 @@ plain version. Each kernel launch adds one to `LAUNCHES[name]`.
 `build_k` on the card composes the four stages' card paths as build_k_plain
 composes their plain versions; each allocates its outputs and one int64
 workspace for its intermediate tables (the sorts' records and digit
-counts, the instance tiles' counts, the group and pair tables): at most 37
-aten ops a build, none of which syncs the host.
+counts, the tiles' counts, the sorted payload and pair keys, the group
+and pair tables): at most 37 aten ops a build, none of which syncs the
+host.
 """
 
 from __future__ import annotations
@@ -61,6 +69,13 @@ SORT_TILE = 4096  # records a sort block: 512 threads
 INST_THREADS = 256  # csrc kInstThreads
 INST_TILE = 2048  # read instances a mer_instances block
 REF_TILE = 512  # reference offsets a mer_instances block
+TILE_THREADS = 256  # csrc kTileThreads
+BUILD_TILE = 2048  # positions a node_tables or edge_tables tile (at most
+                   # csrc kTileMax; a multiple of TILE_THREADS)
+NODE_SLOTS = 32  # creation slots a node_tables_order block (a multiple of
+                 # its 8 warps, up to 256)
+NODE_LAUNCHES = (2, 1)  # node_tables' launches by phase (dbg_nodes)
+EDGE_LAUNCHES = (1, 2, 1, 1)  # edge_tables' (dbg_edges)
 I32_MAX = 2**31 - 1
 BIG = 1 << 30
 SENT = 1 << 62  # an invalid instance's mer words (gpu/dbg.py SENT)
@@ -77,13 +92,14 @@ INST_INPUTS = (("bases", torch.uint8), ("quals", torch.uint8),
 NODE_PTRS = ("keys", "pay", "qok", "perm", "order", "rawlen", "totalreadbp",
              "node_key", "gstart", "over_n", "mers", "counts", "mq", "totq",
              "mincov_qv", "exists", "alive", "low", "in_index", "is_tumor",
-             "is_normal", "n_nodes", "avgcov", "rawlen_dev", "nid")
+             "is_normal", "n_nodes", "avgcov", "rawlen_dev", "nid", "spay",
+             "tcnt")
 EDGE_PTRS = ("pay", "nid", "counts", "in_index", "over_n", "rawlen_dev",
-             "window_ok", "fkeys", "fperm", "ckey", "tab", "cperm", "de_src",
-             "de_dst", "de_dx", "et_key", "eorder", "over_e", "ak_key",
-             "aperm", "n_edges", "edge_src", "edge_dst", "edge_dir",
-             "edge_exists", "adj", "deg", "nid_proj", "proj_isF", "refcov",
-             "mate_cand", "fallback")
+             "window_ok", "fkeys", "fperm", "ckey", "ct", "cperm", "sct",
+             "de", "et_key", "eorder", "over_e", "ak_key", "aperm",
+             "n_edges", "edge_src", "edge_dst", "edge_dir", "edge_exists",
+             "adj", "deg", "nid_proj", "proj_isF", "refcov", "mate_cand",
+             "fallback", "ecnt", "nself", "flags")
 # node_tables' outputs beside the workspace: (key, dtype, shape), the
 # shapes over W, N, K, NW, I
 NODE_OUTPUTS = (("counts", torch.int64, "WN4"), ("mq", torch.int32, "WNK4"),
@@ -183,19 +199,12 @@ def inst_smem(L: int, Lraw: int, M: int, TQ: int) -> int:
                    seq_words(Lraw))
 
 
-def node_smem(N: int) -> int:
-    """node_tables' phase 0 block: the group starts [N + 1] and first
-    times [N], int32 (csrc node_layout)."""
-    return _r16(4 * (N + 1)) + _r16(4 * N)
-
-
-def edge_smem(phase: int, N: int, E: int) -> int:
-    """edge_tables' block: phase 1 the canonical groups' starts [E + 1] and
-    two time minima [E]; phase 3 each source's first slot and count
-    [N + 64]; int32 (csrc edge_layout)."""
-    if phase == 1:
-        return _r16(4 * (E + 1)) + 2 * _r16(4 * E)
-    return 2 * _r16(4 * (N + 64)) if phase == 3 else 0
+def edge_smem(N: int, E: int) -> int:
+    """An edge_tables_adj block's dynamic shared memory: the first slot
+    and count of each source [N + 64], then the sources in the adjacency
+    sort's order [E]; int32 (csrc edge_layout). The other node_tables and
+    edge_tables kernels take static shared memory only."""
+    return 2 * _r16(4 * (N + 64)) + _r16(4 * E)
 
 
 class BuildPlan(NamedTuple):
@@ -203,8 +212,11 @@ class BuildPlan(NamedTuple):
     ref mers, I = R*M + 3*Mraw instances, IP = R*M mate instances, PU =
     R*M + Mraw pairs a window; mer_instances' TR read tiles of TQ
     instances and TF reference tiles of RQ offsets a window, inst_smem
-    bytes a block; the six sorts {name: SortPlan}; the kernels' launches
-    {name: count}."""
+    bytes a block; node_tables' TN tiles of T sorted instances and NB
+    blocks of SL creation slots a window, edge_tables' TPu tiles of T pair
+    keys, TE of T rows, TJ of T reference positions and TM of T mate keys
+    a window, edge_smem bytes an adjacency block; the six sorts {name:
+    SortPlan}; the kernels' launches {name: count}."""
     K: int
     W: int
     R: int
@@ -224,6 +236,15 @@ class BuildPlan(NamedTuple):
     RQ: int
     TF: int
     inst_smem: int
+    T: int
+    SL: int
+    TN: int
+    NB: int
+    TPu: int
+    TE: int
+    TJ: int
+    TM: int
+    edge_smem: int
     sorts: dict
     launches: dict
 
@@ -259,9 +280,11 @@ def build_plan(K: int, W: int, R: int, L: int, Lraw: int, N: int, E: int,
     """The launches of a build at these shapes. Raises ValueError, before
     any launch, for what the engine never passes: K outside [1, 63], W, R,
     N, E or D below 1, L or Lraw below K, instances whose times reach BIG,
-    pair keys past int32 (N past ~23,000), tables past a block's shared
-    memory (N past ~29,000, E past ~19,000), or reads or a reference past a
-    mer_instances block's (L past ~220,000 or Lraw past ~460,000 bases)."""
+    pair keys past int32 (N past ~23,000), an adjacency block's shared
+    memory past the card's (8 (N + 64) + 4 E bytes: E past ~54,000 at N
+    1,536), reads or a reference past a mer_instances block's (L past
+    ~220,000 or Lraw past ~460,000 bases), or BUILD_TILE and NODE_SLOTS
+    outside what the kernels take."""
     if not 1 <= K <= MAX_K:
         raise ValueError(f"build_k takes K 1 to {MAX_K}, got K={K}")
     if min(W, R, N, E, D) < 1 or L < K or Lraw < K:
@@ -278,10 +301,16 @@ def build_plan(K: int, W: int, R: int, L: int, Lraw: int, N: int, E: int,
     NODECAP = N + 64
     if ((NODECAP - 1) * NODECAP + NODECAP - 1) * 4 + 3 >= I32_MAX:
         raise ValueError(f"build_k: N={N} takes pair keys past int32")
-    if node_smem(N) > SMEM_LIMIT or max(edge_smem(1, N, E),
-                                        edge_smem(3, N, E)) > SMEM_LIMIT:
-        raise ValueError(f"build_k: N={N} or E={E} does not fit a block's "
-                         "shared memory")
+    if edge_smem(N, E) > SMEM_LIMIT:
+        raise ValueError(f"build_k: N={N} and E={E} do not fit an "
+                         "adjacency block's shared memory")
+    T, SL = BUILD_TILE, NODE_SLOTS
+    if (not TILE_THREADS <= T <= 8 * TILE_THREADS or T % TILE_THREADS
+            or not 8 <= SL <= 256 or SL % 8):
+        raise ValueError(f"build_k: tiles of {T} positions and blocks of "
+                         f"{SL} slots: the kernels take multiples of "
+                         f"{TILE_THREADS} up to {8 * TILE_THREADS} and of 8 "
+                         "up to 256")
     TQ, RQ = INST_TILE, REF_TILE
     smem = inst_smem(L, Lraw, M, TQ)
     if smem > SMEM_LIMIT:
@@ -294,10 +323,13 @@ def build_plan(K: int, W: int, R: int, L: int, Lraw: int, N: int, E: int,
              for k, n in sizes.items()}
     launches = {"mer_instances": 2,
                 "window_sort": sum(s.launches for s in sorts.values()),
-                "node_tables": 2, "edge_tables": 4}
+                "node_tables": sum(NODE_LAUNCHES),
+                "edge_tables": sum(EDGE_LAUNCHES)}
     return BuildPlan(K, W, R, L, Lraw, N, E, D, NW, M, Mraw, I, IP, PU, TQ,
-                     -(-IP // TQ), RQ, -(-Mraw // RQ), smem, sorts,
-                     launches)
+                     -(-IP // TQ), RQ, -(-Mraw // RQ), smem, T, SL,
+                     -(-I // T), -(-N // SL), -(-PU // T), -(-E // T),
+                     -(-Lraw // T), -(-IP // T), edge_smem(N, E),
+                     sorts, launches)
 
 
 def reset_launches() -> None:
@@ -326,14 +358,12 @@ def bind(path: str) -> ctypes.CDLL:
     lib.dbg_sort_plan.restype = ci
     lib.dbg_sort_plan.argtypes = [ci, vp, vp, ci, ci, ci, vp]
     lib.dbg_nodes.restype = ci
-    lib.dbg_nodes.argtypes = [ci, vp] + [ci] * 4 + [ll, ctypes.c_float, sz,
-                                                   vp]
+    lib.dbg_nodes.argtypes = [ci, vp] + [ci] * 4 + [ll, ctypes.c_float, ci,
+                                                   ci, vp]
     lib.dbg_edges.restype = ci
-    lib.dbg_edges.argtypes = [ci, vp] + [ci] * 7 + [sz, vp]
-    lib.dbg_nodes_smem.restype = sz
-    lib.dbg_nodes_smem.argtypes = [ci]
-    lib.dbg_edges_smem.restype = sz
-    lib.dbg_edges_smem.argtypes = [ci, ci, ci]
+    lib.dbg_edges.argtypes = [ci, vp] + [ci] * 9 + [sz, vp]
+    lib.dbg_table_plan.restype = ci
+    lib.dbg_table_plan.argtypes = [ci] * 8 + [vp]
     return lib
 
 
@@ -373,10 +403,6 @@ def _check_plan(name: str, got, want) -> None:
     if tuple(got) != tuple(want):
         raise RuntimeError(f"{name}: the launch plan {tuple(want)} disagrees "
                            f"with csrc/dbg.cu's {tuple(got)}")
-
-
-def _check_smem(name: str, got: int, want: int) -> None:
-    _check_plan(name, (got,), (want,))
 
 
 # ---------------------------------------------------------------------------
@@ -419,22 +445,37 @@ def _launch_sort(c: _Card, sp: SortPlan, W: int, keys: int, ps: int,
         scratch, c.stream), sp.launches)
 
 
+def _check_tables(c: _Card, p: BuildPlan, name: str) -> None:
+    """The library's node_tables and edge_tables blocks against the
+    plan's."""
+    got = (ctypes.c_longlong * 7)()
+    rc = c.lib.dbg_table_plan(p.R, p.L, p.Lraw, p.K, p.N, p.E, p.T, p.SL,
+                              got)
+    if rc:
+        raise RuntimeError(f"{name}: plan refused: CUDA error {rc}")
+    _check_plan(name, got, (p.TN, p.NB, p.TPu, p.TE, p.TJ, p.TM,
+                            p.edge_smem))
+
+
 def _launch_nodes(c: _Card, p: BuildPlan, ptrs: dict, phase: int,
                   low_cov_threshold, min_cov_ratio) -> None:
-    smem = node_smem(p.N) if phase == 0 else 0
+    """node_tables' phase 0 (two launches) or 1 (one)."""
     if phase == 0:
-        _check_smem("node_tables", c.lib.dbg_nodes_smem(p.N), smem)
+        _check_tables(c, p, "node_tables")
     _ok("node_tables", c.lib.dbg_nodes(
         phase, _ptrs([ptrs.get(k) for k in NODE_PTRS]), p.W, p.I, p.N, p.K,
-        int(low_cov_threshold), float(min_cov_ratio), smem, c.stream))
+        int(low_cov_threshold), float(min_cov_ratio), p.T, p.SL, c.stream),
+        NODE_LAUNCHES[phase])
 
 
 def _launch_edges(c: _Card, p: BuildPlan, ptrs: dict, phase: int) -> None:
-    smem = edge_smem(phase, p.N, p.E)
-    _check_smem("edge_tables", c.lib.dbg_edges_smem(phase, p.N, p.E), smem)
+    """edge_tables' phase 0-3 (EDGE_LAUNCHES[phase] launches)."""
+    if phase == 0:
+        _check_tables(c, p, "edge_tables")
     _ok("edge_tables", c.lib.dbg_edges(
         phase, _ptrs([ptrs.get(k) for k in EDGE_PTRS]), p.W, p.R, p.L,
-        p.Lraw, p.K, p.N, p.E, p.D, smem, c.stream))
+        p.Lraw, p.K, p.N, p.E, p.D, p.T, p.edge_smem, c.stream),
+        EDGE_LAUNCHES[phase])
 
 
 def _empty(shapes: dict, spec, dev) -> dict:
@@ -638,12 +679,26 @@ def _inst_plan(name, K, inst, N, E, D, R, L, Lraw) -> BuildPlan:
     return p
 
 
+def _carve(ws_sizes) -> tuple[int, dict]:
+    """A workspace's int64 elements and each table's offset in them, from
+    (name, int64 elements) in order."""
+    at, off = {}, 0
+    for k, n in ws_sizes:
+        at[k] = off
+        off += n
+    return off, at
+
+
 def _nodes_card(c: _Card, p: BuildPlan, inst, perm, rawlen, totalreadbp,
                 low_cov_threshold, min_cov_ratio, keep=None) -> dict:
     W, N = p.W, p.N
     node = p.sorts["node"]
-    ws = torch.empty(2 * W * N + (W * (N + 1) + 1) // 2 + 1 + node.scratch,
-                     dtype=torch.int64, device=c.dev)
+    # int32 tables take half an int64 an element, rounded up
+    total, at = _carve((("node_key", W * N), ("order", W * N),
+                        ("spay", W * p.I), ("gstart", (W * (N + 1) + 1) // 2),
+                        ("tcnt", (3 * W * p.TN + 1) // 2),
+                        ("scratch", node.scratch)))
+    ws = torch.empty(total, dtype=torch.int64, device=c.dev)
     base = ws.data_ptr()
     mers = torch.empty((p.NW, W, N), dtype=torch.int64, device=c.dev)
     out = _empty(_shapes(p), NODE_OUTPUTS, c.dev)
@@ -656,11 +711,10 @@ def _nodes_card(c: _Card, p: BuildPlan, inst, perm, rawlen, totalreadbp,
     ptrs = {k: t.data_ptr() for k, t in out.items()}
     ptrs.update({k: t.data_ptr() for k, t in inst.items()})
     ptrs.update(perm=perm.data_ptr(), rawlen=rawlen.data_ptr(),
-                totalreadbp=totalreadbp.data_ptr(), mers=mers.data_ptr(),
-                node_key=base, order=base + 8 * W * N,
-                gstart=base + 16 * W * N)
-    scratch = base + 8 * (ws.numel() - node.scratch) if node.scratch \
-        else None
+                totalreadbp=totalreadbp.data_ptr(), mers=mers.data_ptr())
+    ptrs.update({k: base + 8 * at[k] for k in ("node_key", "order", "spay",
+                                                "gstart", "tcnt")})
+    scratch = base + 8 * at["scratch"] if node.scratch else None
     _launch_nodes(c, p, ptrs, 0, low_cov_threshold, min_cov_ratio)
     _launch_sort(c, node, W, ptrs["node_key"], W * N, N, ptrs["order"],
                  scratch)
@@ -675,7 +729,7 @@ def node_tables(K, inst, perm, rawlen, totalreadbp, *, N, R, L, Lraw,
                 low_cov_threshold, min_cov_ratio):
     """The node tables in creation order and each instance's node
     (gpu.dbg.node_tables_plain; R, L and Lraw give the instance table's
-    shape). On the card two launches around a window_sort."""
+    shape). On the card three launches, a window_sort before the last."""
     dev = input_device("node_tables", inst["keys"], inst["pay"],
                        inst["qok"], perm, rawlen, totalreadbp)
     if dev.type == "cpu":
@@ -699,19 +753,17 @@ def _edges_card(c: _Card, p: BuildPlan, inst, nodes, window_ok,
     W, E, PU, IP = p.W, p.E, p.PU, p.IP
     sp = {k: v for k, v in p.sorts.items() if k in ("pair", "time", "adj",
                                                      "mate")}
-    sizes = (("ckey", W * PU), ("tab", W * PU), ("cperm", W * PU),
-             ("de_src", 2 * W * E), ("de_dst", 2 * W * E),
-             ("de_dx", 2 * W * E), ("et_key", 2 * W * E),
+    # int32 tables take half an int64 an element, rounded up
+    sizes = (("ckey", W * PU), ("ct", W * PU), ("cperm", W * PU),
+             ("sct", W * PU), ("ecnt", (3 * W * p.TPu + 1) // 2),
+             ("nself", (W * p.TPu + 1) // 2), ("flags", (W + 1) // 2),
+             ("de", 2 * W * E), ("et_key", 2 * W * E),
              ("eorder", 2 * W * E), ("ak_key", W * E), ("aperm", W * E),
              ("over_e", (W + 7) // 8), ("fperm", W * IP),
              ("scratch", max(s.scratch for s in sp.values())))
-    ws = torch.empty(sum(n for _, n in sizes), dtype=torch.int64,
-                     device=c.dev)
-    ptrs, at, off = {}, {}, 0
-    for k, n in sizes:
-        ptrs[k] = ws.data_ptr() + 8 * off
-        at[k] = off
-        off += n
+    total, at = _carve(sizes)
+    ws = torch.empty(total, dtype=torch.int64, device=c.dev)
+    ptrs = {k: ws.data_ptr() + 8 * off for k, off in at.items()}
     out = _empty(_shapes(p), EDGE_OUTPUTS, c.dev)
     ptrs.update({k: t.data_ptr() for k, t in out.items()})
     held = {"pay": inst["pay"].contiguous(),
@@ -727,10 +779,10 @@ def _edges_card(c: _Card, p: BuildPlan, inst, nodes, window_ok,
     _launch_edges(c, p, ptrs, 1)
     _launch_sort(c, sp["time"], W, ptrs["et_key"], 2 * W * E, 2 * E,
                  ptrs["eorder"], scratch)
+    _launch_sort(c, sp["mate"], W, ptrs["fkeys"], W * IP, IP, ptrs["fperm"],
+                 scratch)
     _launch_edges(c, p, ptrs, 2)
     _launch_sort(c, sp["adj"], W, ptrs["ak_key"], W * E, E, ptrs["aperm"],
-                 scratch)
-    _launch_sort(c, sp["mate"], W, ptrs["fkeys"], W * IP, IP, ptrs["fperm"],
                  scratch)
     _launch_edges(c, p, ptrs, 3)
     if keep is not None:
@@ -745,9 +797,9 @@ EDGE_NODE_KEYS = ("nid", "counts", "in_index", "over_n", "rawlen_dev")
 
 def edge_tables(K, inst, nodes, window_ok, *, R, L, N, E, D, Lraw):
     """The edge tables, the reference projection, the mate candidates and
-    the fallback flags (gpu.dbg.edge_tables_plain). On the card four
-    launches, with a window_sort before each of the last three (two before
-    the last)."""
+    the fallback flags (gpu.dbg.edge_tables_plain). On the card five
+    launches in four phases, with a window_sort before each of the last
+    three (two before the third)."""
     dev = input_device("edge_tables", inst["pay"], inst["fkeys"], window_ok,
                        *[nodes[k] for k in EDGE_NODE_KEYS])
     if dev.type == "cpu":

@@ -16,7 +16,12 @@ JAX package.
   sentinels, each tile's digit counts, the offsets in the window, the
   ranks by warp) against it; a numpy replay of `mer_instances` (the bit
   strings, the read tiles' counts before the stream positions, the
-  reference tiles) against `mer_instances_plain`;
+  reference tiles) against `mer_instances_plain`; numpy replays of
+  `node_tables` and `edge_tables` (tiles of sorted positions: each tile's
+  group starts and head, the groups numbered from the earlier tiles'
+  counts, least times across tile edges; the quality bits' ballot counts)
+  against `node_tables_plain` and `edge_tables_plain`, also at exactly N +
+  1 and E + 1 groups and with the sorts' ties reversed;
 - the dispatch: the stage wrappers and `build_k` on the CPU run the plain
   versions with no launch, `build_plan` / `sort_plan` and their refusals,
   the mixed-device refusal, the payload bits against csrc/dbg.cu's.
@@ -280,7 +285,14 @@ def test_sort_plan():
                    "adj": (1, 14, 1, 2, 3, 4), "mate": (2, 55, 2, 7, 13, 14)}
     assert p.I == 55_650 and (p.TR, p.TF) == (26, 3)
     assert p.launches == {"mer_instances": 2, "window_sort": 39,
-                          "node_tables": 2, "edge_tables": 4}
+                          "node_tables": 3, "edge_tables": 5}
+    # node_tables: 28 tiles of 2,048 sorted instances, 128 blocks of 32
+    # creation slots a window; edge_tables: 27 tiles of pair keys, 5 of
+    # rows, 1 reference tile and 26 mate tiles a window, and the
+    # adjacency block's [N + 64] first slots and counts and [E] sources
+    assert (p.T, p.SL, p.TN, p.NB) == (2048, 32, 28, 128)
+    assert (p.TPu, p.TE, p.TJ, p.TM) == (27, 5, 1, 26)
+    assert p.edge_smem == 2 * 4 * 4160 + 4 * 10240 <= dbgk.SMEM_LIMIT
     s = p.sorts["inst"]
     assert s.scratch == (2 * 32 * 2 * 55_650 + 32 * 14 * 256 + 1) // 2
     assert s.smem == 4 * (16 * 256 + 512 + 4096 * 2) <= dbgk.SMEM_LIMIT
@@ -533,6 +545,448 @@ def test_mer_instances_tile_replay(K, TQ, RQ):
     assert cnt.sum() > 0
 
 
+_POP16 = np.array([bin(i).count("1") for i in range(1 << 16)], np.int64)
+
+
+def _popc(x):
+    x = np.asarray(x, np.int64)
+    return _POP16[x & 0xFFFF] + _POP16[(x >> 16) & 0xFFFF]
+
+
+def _ballots(pred, chunk):
+    """A warp's ballot of each chunk of 32 positions: pred [n] and each
+    position's chunk (chunks of consecutive positions, lane i of a chunk
+    its i-th) -> [chunk.max() + 1] 32-bit masks, lane i bit i."""
+    nch = int(chunk.max()) + 1 if len(chunk) else 0
+    start = np.searchsorted(chunk, chunk, "left")
+    lane = np.arange(len(chunk)) - start
+    return np.bincount(chunk, weights=pred.astype(np.int64) << lane,
+                       minlength=nch).astype(np.int64), lane
+
+
+def _tile_scan(f):
+    """csrc tile_scan on each tile's flags f [tiles, T] (a tile's
+    positions in order: warp chunks of 32): each chunk's ballot total,
+    exclusive-summed in order, plus the popcount of the chunk's ballot
+    below each lane. Returns each position's count of set flags ahead of
+    it in its tile [tiles, T] and each tile's total [tiles]."""
+    nt, T = f.shape
+    col = np.arange(T)
+    chunk = (np.arange(nt)[:, None] * (-(-T // 32)) + col // 32).ravel()
+    m, lane = _ballots(f.ravel(), chunk)
+    pm = _popc(m).reshape(nt, -1)
+    run = np.cumsum(pm, 1) - pm
+    below = _popc(m[chunk] & ((1 << lane) - 1)).reshape(nt, T)
+    return run[:, col // 32] + below, pm.sum(1)
+
+
+def _tile_groups(start, live, t_vals, T, cap):
+    """Phase 0's two launches (node_tables' groups, edge_tables' canonical
+    groups) on one window's sorted positions in tiles of T: start[p] a
+    group's first position, live[p] a position of some group, t_vals [V,
+    n] its time lanes. Launch 1: each tile's count of starts and its head
+    (the least time of each lane over its live positions ahead of its
+    first start). Launch 2: a group's number is the earlier tiles' counts
+    plus its tile scan; its least times by tile (shared minima), the last
+    group of a tile's with the heads of the tiles it runs into, up to the
+    first that holds a start. Returns (first position [min(total, cap +
+    1)], least times [V, min(total, cap)], total, the most tiles a group
+    spans)."""
+    n, V = len(start), len(t_vals)
+    nt = -(-n // T)
+    pad = nt * T - n
+
+    def tiled(a, fill):
+        return np.concatenate([a, np.full(a.shape[:-1] + (pad,), fill,
+                                          a.dtype)], -1).reshape(
+            a.shape[:-1] + (nt, T))
+
+    st, lv, tv = tiled(start, False), tiled(live, False), tiled(t_vals, 0)
+    # launch 1: the counts and the heads
+    before, cnt = _tile_scan(st)
+    h = lv & (before + st == 0)
+    inf = np.int64(1) << 62
+    head = np.where(h, tv, inf).min(-1)  # [V, tiles]; inf: no head
+    total = int(cnt.sum())
+    # launch 2: the groups
+    carry = np.cumsum(cnt) - cnt
+    lo = before + st - 1  # -1: the head
+    g = carry[:, None] + lo
+    pos = np.arange(nt * T).reshape(nt, T)
+    s = st & (g <= cap)
+    first = np.full(min(total, cap + 1), -1, np.int64)
+    first[g[s]] = pos[s]
+    gt = np.unique(np.stack([g[lv], np.nonzero(lv)[0]]), axis=1)[0]
+    span = int(np.bincount(gt - gt.min()).max()) if len(gt) else 0
+    m = lv & (lo >= 0)
+    smin = np.full((V, total), inf, np.int64)
+    for v in range(V):
+        np.minimum.at(smin[v], g[m], tv[v][m])
+    # the last group of each tile that holds a start: the heads of the
+    # tiles after it, up to and with the next that holds one
+    starts = np.nonzero(cnt > 0)[0]
+    gl = carry[starts] + cnt[starts] - 1
+    for v in range(V):
+        seg = np.minimum.reduceat(np.append(head[v], inf), starts + 1)
+        smin[v, gl] = np.minimum(smin[v, gl], seg)
+    least = smin[:, :min(total, cap)]
+    return first, least, total, span
+
+
+def _node_tables_replay(K, inst, perm, rawlen, totalreadbp, N, T, SL):
+    """csrc/dbg.cu's node_tables in numpy, window by window: phase 0 in
+    tiles of T sorted positions (_tile_groups: the group starts into
+    gstart, their first read times, heads across tile edges), the groups
+    past the last start at the valid count; the creation order (a stable
+    sort of the first times); phase 1 in blocks of SL slots, a warp a slot
+    over its group's positions 32 at a time: the class counts and each
+    quality bit's count by ballots (popc(ballot(q >> b & 1) & class
+    mask)), nid, the flags, the mers and the prune."""
+    keys, pay, qok = (inst[k].numpy() for k in ("keys", "pay", "qok"))
+    perm = perm.numpy()
+    NW, W, I = keys.shape
+    thr = bc.SCALARS["low_cov_threshold"]
+    ratio = np.float32(bc.SCALARS["min_cov_ratio"])
+    out = {"counts": np.zeros((W, N, 4), np.int64),
+           "mq": np.zeros((W, N, K, 4), np.int32),
+           "totq": np.zeros((W, N, K), np.int64),
+           "mincov_qv": np.zeros((W, N), np.int64),
+           "nid": np.full((W, I), -1, np.int64),
+           "n_nodes": np.zeros(W, np.int64),
+           "over_n": np.zeros(W, bool)}
+    for k in ("exists", "alive", "low", "in_index", "is_tumor",
+              "is_normal"):
+        out[k] = np.zeros((W, N), bool)
+    mers = np.zeros((NW, W, N), np.int64)
+    out["avgcov"] = (totalreadbp.numpy().astype(np.float32)
+                     / np.maximum(rawlen.numpy().astype(np.float32),
+                                  np.float32(1)))
+    out["rawlen_dev"] = rawlen.numpy().astype(np.int64)
+    stats = {"span": 0, "groups": []}
+
+    def bit(v, b):
+        return ((v >> b) & 1).astype(bool)
+
+    for w in range(W):
+        x = perm[w]
+        pv, kw = pay[w, x], keys[:, w, x]
+        valid = bit(pv, dbg.P_VALID)
+        differ = np.ones(I, bool)
+        differ[1:] = (kw[:, 1:] != kw[:, :-1]).any(0)
+        newg = valid & differ
+        tm = np.where(valid, dbg.pay_time(torch.from_numpy(pv)).numpy(),
+                      dbg.BIG)
+        gs, nk, total, span = _tile_groups(newg, valid, tm[None], T, N)
+        stats["span"] = max(stats["span"], span)
+        stats["groups"].append(total)
+        gstart = np.full(N + 1, int(valid.sum()), np.int64)
+        gstart[:len(gs)] = gs
+        node_key = np.full(N, dbg.BIG, np.int64)
+        node_key[:nk.shape[1]] = nk[0]
+        out["over_n"][w] = total > N
+        order = np.argsort(node_key, kind="stable")
+        # phase 1: slot c (a warp) walks its group's positions 32 at a time
+        gs0, ln = gstart[order], gstart[order + 1] - gstart[order]
+        slot = np.repeat(np.arange(N), ln)
+        off = np.arange(len(slot)) - np.repeat(np.cumsum(ln) - ln, ln)
+        xs = x[gs0[slot] + off]
+        nch = -(-ln // 32)
+        chunk = np.repeat(np.cumsum(nch) - nch, ln) + off // 32
+        cslot = np.repeat(np.arange(N), nch)
+        p, q = pay[w, xs], qok[w, xs]
+        out["nid"][w, xs] = slot
+        rd = bit(p, dbg.P_READ)
+
+        def any_(f):
+            return np.bincount(slot, weights=f, minlength=N) > 0
+
+        has, inidx = any_(rd), any_(bit(p, dbg.P_IDX))
+        nml, tum = any_(rd & bit(p, dbg.P_NML)), any_(bit(p, dbg.P_TFLAG))
+        cov = rd & ~bit(p, dbg.P_REF)
+        cls = np.where(bit(p, dbg.P_TMR), 0, 2) + bit(p, dbg.P_STRAND)
+        cm = [_ballots(cov & (cls == j), chunk)[0] for j in range(4)]
+        qm = np.stack([_ballots(((q >> b) & 1).astype(bool), chunk)[0]
+                       for b in range(K)], 1)  # [chunks, K]
+        cn = np.stack([np.bincount(cslot, weights=_popc(cm[j]),
+                                   minlength=N) for j in range(4)],
+                      1).astype(np.int64)
+        qc = np.stack([np.stack([np.bincount(
+            cslot, weights=_popc(qm[:, b] & cm[j]), minlength=N)
+            for b in range(K)], 1) for j in range(4)], 1).astype(np.int64)
+        for i in range(NW):
+            nb = K - 31 * (NW - 1) if i == 0 else 31
+            mers[i, w] = np.where(ln > 0, keys[i, w, x[np.minimum(gs0,
+                                                                I - 1)]],
+                                  (1 << (2 * nb)) - 1)
+        out["mq"][w] = qc.transpose(0, 2, 1)
+        out["totq"][w] = qc.sum(1)
+        mincov = np.where(has, qc.sum(1).min(1), 0)
+        low = ((mincov <= thr) | (mincov.astype(np.float32)
+                                  <= ratio * out["avgcov"][w])
+               | ((cn[:, 0] + cn[:, 1] == 1) & (cn[:, 2] + cn[:, 3] == 1)))
+        out["counts"][w] = cn
+        out["mincov_qv"][w] = mincov
+        for k, v in (("exists", has), ("alive", has & ~low), ("low", low),
+                     ("in_index", inidx), ("is_tumor", tum),
+                     ("is_normal", nml)):
+            out[k][w] = v
+        # n_nodes: each block of SL slots adds its count
+        out["n_nodes"][w] = np.add.reduceat(has.astype(np.int64),
+                                            np.arange(0, N, SL)).sum()
+    out["mers_w"] = tuple(mers)
+    return out, stats
+
+
+def _nodes_at(K, N):
+    """The instance table of the crafted windows at bucket 0's shape, its
+    sort permutation and node_tables_plain at N."""
+    t = _tensors(_batch(K))
+    inst = dbg.mer_instances_plain(K, *t[:11], t[12], Lraw=bc.LRAW,
+                                   min_qual_call=bc.SCALARS["min_qual_call"])
+    perm = dbg.window_sort_plain(inst["keys"])
+    nodes = dbg.node_tables_plain(
+        K, inst, perm, t[8], t[11], N=N,
+        low_cov_threshold=bc.SCALARS["low_cov_threshold"],
+        min_cov_ratio=bc.SCALARS["min_cov_ratio"])
+    return t, inst, perm, nodes
+
+
+def _equal_outputs(got: dict, want: dict, keys, tag) -> None:
+    for k in keys:
+        a, b = got[k], want[k]
+        if isinstance(b, tuple):
+            assert all(np.array_equal(x, y.numpy()) for x, y in zip(a, b)), \
+                (tag, k)
+        else:
+            b = b.numpy()
+            assert a.dtype == b.dtype, (tag, k, a.dtype, b.dtype)
+            assert np.array_equal(a, b), (tag, k, np.argwhere(a != b)[:5])
+
+
+def _plain_groups(K):
+    """Each crafted window's count of groups of equal mers."""
+    _, inst, perm, _ = _nodes_at(K, N0)
+    out = []
+    for w in range(perm.shape[0]):
+        x = perm[w].numpy()
+        kw = inst["keys"][:, w].numpy()[:, x]
+        valid = dbg.pay_bit(inst["pay"][w], dbg.P_VALID).numpy()[x]
+        d = np.ones(len(x), bool)
+        d[1:] = (kw[:, 1:] != kw[:, :-1]).any(0)
+        out.append(int((d & valid).sum()))
+    return out
+
+
+@pytest.mark.parametrize("K,T,SL", [(11, 7, 8), (33, 16, 16), (63, 5, 8)])
+@pytest.mark.parametrize("at", ["bucket", "groups_plus_one", "ties_reversed"])
+def test_node_tables_tile_replay(K, T, SL, at):
+    """node_tables' three launches replayed in numpy (tiles of T sorted
+    positions: groups cut at tile edges, one over three tiles or more;
+    the heads; the ballot counts) bit-equal to node_tables_plain on the
+    crafted windows, at bucket 0's N, at N one below the plain window's
+    group count (exactly N + 1 groups: over_n) and on a permutation with
+    the sort's ties reversed (each group's first read time at its end: the
+    heads decide it; node_tables_plain's outputs do not depend on the
+    order of ties)."""
+    N = N0
+    if at == "groups_plus_one":
+        N = _plain_groups(K)[bc.lane("plain")] - 1
+    t, inst, perm, want = _nodes_at(K, N)
+    if at == "ties_reversed":
+        perm = _reversed_ties(inst["keys"])
+    got, stats = _node_tables_replay(K, inst, perm, t[8], t[11], N, T, SL)
+    _equal_outputs(got, want, [k for k in want], (K, T, at))
+    assert stats["span"] >= 3
+    if at == "groups_plus_one":
+        assert stats["groups"][bc.lane("plain")] == N + 1
+        assert got["over_n"][bc.lane("plain")]
+
+
+def _reversed_ties(keys):
+    """A sort permutation of keys [NK, W, n] with ties in reverse index
+    order (window_sort's are in index order): the groups' least times then
+    lie at their last positions, across tile edges."""
+    k = keys.numpy()
+    n = k.shape[2]
+    return torch.from_numpy(np.stack([
+        np.lexsort((-np.arange(n),) + tuple(k[c, w] for c in
+                                            reversed(range(len(k)))))
+        for w in range(k.shape[1])]))
+
+
+def _edge_tables_replay(K, inst, nodes, window_ok, N, E, D, T,
+                        ties="stable"):
+    """csrc/dbg.cu's edge_tables in numpy, window by window: launch 0 the
+    pair keys and time lanes; after the pair sort, launches 1-2 in tiles
+    of T sorted keys (_tile_groups: the canonical groups and their two
+    time lanes' minima, heads across tile edges) and each group's two
+    directed rows, the rows past the last group empty, each tile's
+    self-loops; after the time sort, launch 3: the rows in time order cut
+    to E, n_edges and over_e from the tiles' counts, the reference
+    projection and refcov, the mate keys' runs (after the mate sort too:
+    fragments first, words only where they agree); after the adjacency
+    sort, launch 4: each source's first slot and count, adj, deg by its
+    segment arithmetic, the flags. ties "reversed": the pair sort's ties
+    in reverse index order."""
+    pay, fk = inst["pay"].numpy(), inst["fkeys"].numpy()
+    nid, counts = nodes["nid"].numpy(), nodes["counts"].numpy()
+    in_index, rawlen = nodes["in_index"].numpy(), nodes["rawlen_dev"].numpy()
+    over_n, ok = nodes["over_n"].numpy(), window_ok.numpy()
+    fperm = dbg.window_sort_plain(inst["fkeys"]).numpy()
+    W, NW, Lraw = pay.shape[0], fk.shape[0] - 1, bc.LRAW
+    M, Mraw = L0 - K + 1, bc.LRAW - K + 1
+    RM = R0 * M
+    PU, NODECAP, NC = RM + Mraw, N + 64, N + 64
+    BIG, I32 = dbg.BIG, dbgk.I32_MAX
+    out = {"n_edges": np.zeros(W, np.int64),
+           "edge_src": np.zeros((W, E), np.int64),
+           "edge_dst": np.zeros((W, E), np.int64),
+           "edge_dir": np.zeros((W, E), np.int64),
+           "edge_exists": np.zeros((W, E), bool),
+           "adj": np.full((W, N, D), -1, np.int64),
+           "deg": np.zeros((W, N), np.int64),
+           "nid_proj": nid[:, RM + Mraw:RM + 2 * Mraw].copy(),
+           "proj_isF": ((pay[:, RM:RM + Mraw] >> dbg.P_ISF) & 1).astype(bool),
+           "refcov": np.zeros((W, Lraw, 4), np.int64),
+           "mate_cand": np.zeros(W, bool), "fallback": np.zeros(W, bool)}
+    stats = {"span": 0, "groups": []}
+
+    def bit(v, b):
+        return (v >> b) & 1
+
+    def flip(d):
+        return ((d & 1) ^ 1) * 2 + ((d >> 1) ^ 1)
+
+    q = np.arange(PU)
+    off = np.where(q < RM, q % M, q - RM)
+    nxt = np.where(q < RM, off + 1 < M, off + 1 < Mraw)
+    for w in range(W):
+        # launch 0
+        pv, u = pay[w, :PU], nid[w, :PU]
+        v = np.where(nxt, nid[w, q + 1], -1)
+        uF = bit(pv, dbg.P_ISF)
+        vF = np.where(nxt, bit(pay[w, q + 1], dbg.P_ISF), 0)
+        pm = bit(pv, dbg.P_PAIR).astype(bool)
+        tq = dbg.pay_time(torch.from_numpy(pv)).numpy() + (off > 0)
+        fdir = (1 - uF) * 2 + (1 - vF)
+        rdir = flip(fdir)
+        tw = (v < u) | ((v == u) & (rdir < fdir))
+        ckey = np.where(pm, (np.where(tw, v, u) * NODECAP + np.where(tw, u, v))
+                        * 4 + np.where(tw, rdir, fdir), I32)
+        tA = np.where(pm & ~tw, tq, BIG)
+        tB = np.where(pm & tw, tq, BIG)
+        # launches 1-2, after the pair sort
+        cperm = (np.argsort(ckey, kind="stable") if ties == "stable" else
+                 _reversed_ties(torch.from_numpy(ckey)[None, None])[0].numpy())
+        ck = ckey[cperm]
+        ev = ck != I32
+        enew = ev.copy()
+        enew[1:] &= ck[1:] != ck[:-1]
+        first, least, total, span = _tile_groups(
+            enew, ev, np.stack([tA[cperm], tB[cperm]]), T, E)
+        stats["span"] = max(stats["span"], span)
+        stats["groups"].append(total)
+        n = min(total, E)
+        gck = np.full(E, I32, np.int64)
+        gA = np.full(E, I32, np.int64)
+        gB = np.full(E, I32, np.int64)
+        gck[:n], gA[:n], gB[:n] = ck[first[:n]], least[0], least[1]
+        ex = gck != I32
+        gdir = np.where(ex, gck % 4, 0)
+        gdst = np.where(ex, (gck // 4) % NODECAP, 0)
+        gsrc = np.where(ex, gck // (4 * NODECAP), 0)
+        tc = np.minimum(gA, np.minimum(gB, BIG - 1) + 1)
+        tt = np.minimum(gB, np.minimum(gA, BIG - 1) + 1)
+        selftw = ex & (gsrc == gdst) & ((gdir == 1) | (gdir == 2))
+        ex2 = ex & ~selftw
+        de_src = np.concatenate([gsrc, gdst])
+        de_dst = np.concatenate([gdst, gsrc])
+        de_dir = np.concatenate([gdir, flip(gdir)])
+        de_ex = np.concatenate([ex, ex2])
+        et = np.concatenate([np.where(ex, tc, BIG), np.where(ex2, tt, BIG)])
+        # launch 3, after the time sort
+        n_edges = 2 * n - int(selftw.sum())
+        over_e = n_edges > E or total > E
+        out["n_edges"][w] = n_edges
+        eo = np.argsort(et, kind="stable")[:E]
+        exo = de_ex[eo]
+        src = np.where(exo, de_src[eo], -1)
+        out["edge_src"][w] = src
+        out["edge_dst"][w] = np.where(exo, de_dst[eo], -1)
+        out["edge_dir"][w] = np.where(exo, de_dir[eo], 0)
+        out["edge_exists"][w] = src >= 0
+        ak = np.where(src >= 0, src, I32)
+        # launch 3: the reference tiles, the mate tiles
+        nidp = nid[w, RM + Mraw:RM + 2 * Mraw]
+        n_proj = max(int(rawlen[w]) - K, 0)
+        r = np.arange(Lraw)
+        i = np.where(r >= K - 1, r - K + 1, 0)
+        on = np.where(r >= K - 1, i < n_proj, n_proj > 0)
+        nd = np.where(on, nidp[i], -1)
+        ndc = np.maximum(nd, 0)
+        for c in range(4):
+            cc = counts[w, ndc, c]
+            out["refcov"][w, :, c] = np.where(
+                (nd >= 0) & in_index[w, ndc] & (cc > 0), cc, 0)
+        x = fperm[w]
+        fx = fk[NW, w, x]
+        cand = False
+        for p in np.nonzero((fx[1:] != I32) & (fx[1:] == fx[:-1]))[0] + 1:
+            a, b = x[p], x[p - 1]
+            same = all(fk[i, w, a] == fk[i, w, b] for i in range(NW))
+            oa, ob = (pay[w, a] >> dbg.P_ORDER) & 0xFF, (
+                pay[w, b] >> dbg.P_ORDER) & 0xFF
+            cand |= bool(same and oa != ob and oa > 0 and ob > 0)
+        # launch 4, after the adjacency sort
+        aperm = np.argsort(ak, kind="stable")
+        ks = ak[aperm]
+        inr = (ks >= 0) & (ks < NC)
+        fp = np.full(NC, I32, np.int64)
+        cn = np.zeros(NC, np.int64)
+        np.minimum.at(fp, ks[inr], np.nonzero(inr)[0])
+        np.add.at(cn, ks[inr], 1)
+        for s in np.nonzero(cn)[0]:  # deg's segment w (N + 1) + source
+            sw, sn = divmod(w * (N + 1) + int(s), N + 1)
+            if sw < W and sn < N:
+                out["deg"][sw, sn] += cn[s]
+        for p in np.nonzero(inr & (ks < N))[0]:
+            slot = p - fp[ks[p]]
+            if slot < D:
+                out["adj"][w, ks[p], slot] = aperm[p]
+        out["mate_cand"][w] = cand and bool(ok[w])
+        out["fallback"][w] = (bool(over_n[w]) or over_e or bool(
+            (cn > D).any()) or cand) and bool(ok[w])
+    return out, stats
+
+
+@pytest.mark.parametrize("K,T", [(11, 7), (33, 16), (63, 5)])
+@pytest.mark.parametrize("at", ["bucket", "groups_plus_one", "ties_reversed"])
+def test_edge_tables_tile_replay(K, T, at):
+    """edge_tables' five launches replayed in numpy (the canonical groups in
+    tiles of T sorted pair keys, cut at tile edges, one over three tiles
+    or more; their time minima sA and sB with the heads) bit-equal to
+    edge_tables_plain on the crafted windows, at bucket 0's E, at E one
+    below the plain window's canonical group count (exactly E + 1 groups:
+    over_e) and with the pair sort's ties reversed (each group's least
+    times at its end: the heads decide them)."""
+    t, inst, _, nodes = _nodes_at(K, N0)
+    D = bc.D_ENGINE
+    E = E0
+    if at == "groups_plus_one":
+        _, stats = _edge_tables_replay(K, inst, nodes, t[12], N0, E0, D, T)
+        E = stats["groups"][bc.lane("plain")] - 1
+    want = dbg.edge_tables_plain(K, inst, nodes, t[12], R=R0, L=L0, N=N0,
+                                 E=E, D=D, Lraw=bc.LRAW)
+    got, stats = _edge_tables_replay(
+        K, inst, nodes, t[12], N0, E, D, T,
+        "reversed" if at == "ties_reversed" else "stable")
+    _equal_outputs(got, want, [k for k in want], (K, T, at))
+    assert stats["span"] >= 3
+    if at == "groups_plus_one":
+        assert stats["groups"][bc.lane("plain")] == E + 1
+        assert got["fallback"][bc.lane("plain")]
+
+
 # ---------------------------------------------------------------------------
 # plans, dispatch and refusals
 # ---------------------------------------------------------------------------
@@ -547,6 +1001,11 @@ def test_build_plan_takes_every_engine_shape():
                 assert all(sp.smem <= dbgk.SMEM_LIMIT
                            for sp in p.sorts.values())
                 assert p.inst_smem <= dbgk.SMEM_LIMIT
+                assert p.edge_smem <= dbgk.SMEM_LIMIT
+                # every launch but the adjacency's on more than W blocks
+                assert min(p.TN, p.NB, p.TPu, p.TE, p.TJ + p.TM) > 1
+                assert p.launches["node_tables"] == 3
+                assert p.launches["edge_tables"] == 5
     p = dbgk.build_plan(11, 32, 768, 160, bc.LRAW, 4096, 10240, 12)
     assert p.I == 118_626 and p.sorts["mate"].NK == 2
 
@@ -562,12 +1021,28 @@ def test_build_plan_takes_every_engine_shape():
     (11, 4, 48, 160, 1152, 1536, 0, 12),
     (11, 4, 48, 160, 1152, 1536, 3840, 0),
     (11, 4, 48, 160, 1152, 30_000, 3840, 12),
-    (11, 4, 48, 160, 1152, 1536, 30_000, 12),
+    (11, 4, 48, 160, 1152, 1536, 60_000, 12),
+    (11, 4, 48, 160, 1152, 4096, 50_000, 12),
     (11, 1, 1 << 22, 160, 1152, 1536, 3840, 12),
     (11, 1, 1, 240_000, 1152, 1536, 3840, 12),
     (11, 4, 48, 160, 500_000, 1536, 3840, 12),
+    # node_tables' and edge_tables' tiles: 128 and 2,304 positions, 1,000
+    # (not a multiple of 256); blocks of 4, 12 and 264 slots
+    (11, 4, 48, 160, 1152, 1536, 3840, 12, (128, 32)),
+    (11, 4, 48, 160, 1152, 1536, 3840, 12, (2304, 32)),
+    (11, 4, 48, 160, 1152, 1536, 3840, 12, (1000, 32)),
+    (11, 4, 48, 160, 1152, 1536, 3840, 12, (2048, 4)),
+    (11, 4, 48, 160, 1152, 1536, 3840, 12, (2048, 12)),
+    (11, 4, 48, 160, 1152, 1536, 3840, 12, (2048, 264)),
 ])
-def test_build_plan_refusals(args):
+def test_build_plan_refusals(args, monkeypatch):
+    """Shapes the kernels do not take (an adjacency block past the card's
+    shared memory: E 60,000 at N 1,536, E 50,000 at N 4,096), and tiles
+    and slot blocks they do not take."""
+    *args, tiles = args if len(args) == 9 else (*args, None)
+    if tiles is not None:
+        monkeypatch.setattr(dbgk, "BUILD_TILE", tiles[0])
+        monkeypatch.setattr(dbgk, "NODE_SLOTS", tiles[1])
     with pytest.raises(ValueError):
         dbgk.build_plan(*args)
 
@@ -640,7 +1115,13 @@ def test_payload_bits_match_the_kernel_source():
     for name, bit in names.items():
         m = re.search(rf"\b{name} = (\d+)", src)
         assert m and int(m.group(1)) == bit, name
-    assert len(re.findall(r"^__global__", src, re.M)) <= 8
+    # mer_instances 2, window_sort 4, node_tables 3, edge_tables 5
+    assert len(re.findall(r"^__global__", src, re.M)) == 14
+    for name in ("node_tables_count", "node_tables_groups",
+                 "node_tables_order", "edge_tables_pairs",
+                 "edge_tables_count", "edge_tables_groups",
+                 "edge_tables_order", "edge_tables_adj"):
+        assert re.search(rf"\b{name}\(const (Node|Edge)Args a\)", src), name
     assert "cub::" not in src and "thrust::" not in src
 
 

@@ -130,6 +130,9 @@ inline int atomicMin(int* a, int v) {
   }
   return o;
 }
+inline int atomicOr(int* a, int v) {
+  return std::atomic_ref<int>(*a).fetch_or(v);
+}
 inline int atomicAdd(int* a, int v) {
   return std::atomic_ref<int>(*a).fetch_add(v);
 }

@@ -13,7 +13,13 @@ gpu/buildcases.py at small shapes (BUILD_CASES: k 13, 33 and 63, the
 sorts' and mer_instances' tiles shrunk so that the sorts take several
 passes and several tiles a window and mer_instances several tiles a
 window, cut inside reads), holds the outputs bit-equal, dtypes too, to
-gpu/dbg.py::build_k_plain and the launches equal to the plan's, and runs
+gpu/dbg.py::build_k_plain and the launches equal to the plan's (node_tables'
+and edge_tables' tiles shrunk too, to 256 positions and 8 creation slots
+a block, so that every phase takes several tiles a window, groups cross
+tile edges and some span three tiles; TIES_CASE once more with the
+instance and pair sorts' ties put in reverse index order, which moves each
+group's least times to its end, so that the heads across tile edges decide
+them), and runs
 window_sort on generic int64 keys (SORT_CASES) against window_sort_plain.
 Exits 0 when every output is equal. What it cannot show: the card's compiler (a source that
 g++ takes may still fail nvcc), timing, races a barrier-per-warp schedule
@@ -23,6 +29,7 @@ hides.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import re
 import subprocess
@@ -64,14 +71,19 @@ def build(src: str, out_dir: str) -> str:
 
 
 # (K, L, R, N, E, sort tile, read instances a mer_instances tile,
-# reference offsets a reference tile): the plan's tiles, then tiles shrunk
-# so that every sort takes several tiles a window (the node and
-# adjacency sorts at N and E 300) and mer_instances several read tiles a
-# window, their edges inside reads
-BUILD_CASES = ((13, 48, 6, 64, 160, None, None, None),
-               (13, 48, 12, 300, 300, 256, 64, 256),
-               (33, 48, 12, 300, 300, 256, 50, 300),
-               (63, 80, 12, 64, 160, 256, 37, 128))
+# reference offsets a reference tile, node_tables' and edge_tables' tile,
+# creation slots a node_tables_order block): the plan's tiles, then tiles
+# shrunk so that every sort takes several tiles a window (the node and
+# adjacency sorts at N and E 300), mer_instances several read tiles a
+# window, their edges inside reads, and node_tables and edge_tables
+# several tiles a window (the rows' at E 300 too)
+BUILD_CASES = ((13, 48, 6, 64, 160, None, None, None, None, None),
+               (13, 48, 12, 300, 300, 256, 64, 256, 256, 8),
+               (33, 48, 12, 300, 300, 256, 50, 300, 256, 16),
+               (63, 80, 12, 64, 300, 256, 37, 128, 512, 8))
+# a BUILD_CASES entry run again with the instance and pair sorts' ties
+# reversed
+TIES_CASE = BUILD_CASES[1]
 # (NK, W, n): generic int64 keys (both signs, the extremes, ties), one tile
 # and several, n not a power of two
 SORT_CASES = ((1, 3, 200), (1, 3, 700), (2, 2, 1000), (4, 2, 300))
@@ -83,6 +95,42 @@ def _equal(got, want) -> bool:
 
     pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
     return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in pairs)
+
+
+def _reversing_ties(dbgk, p):
+    """dbgk._launch_sort, patched while active: after the instance and pair
+    sorts of plan p, their permutations rewritten (the emulation's device
+    memory is the host's) with ties in reverse index order: a sort still,
+    and build_k_plain's outputs do not depend on the order of ties."""
+    import ctypes
+
+    import numpy as np
+
+    real = dbgk._launch_sort
+
+    def view(ptr, n):
+        return np.ctypeslib.as_array((ctypes.c_int64 * n).from_address(ptr))
+
+    def launch(c, sp, W, keys, ps, wst, perm, scratch):
+        real(c, sp, W, keys, ps, wst, perm, scratch)
+        if sp is p.sorts["inst"] or sp is p.sorts["pair"]:
+            n = sp.n
+            k = view(keys, sp.NK * ps).reshape(sp.NK, -1)
+            out = view(perm, W * n).reshape(W, n)
+            for w in range(W):
+                out[w] = np.lexsort((-np.arange(n),) + tuple(
+                    k[j][w * wst:w * wst + n]
+                    for j in reversed(range(sp.NK))))
+
+    @contextlib.contextmanager
+    def active():
+        dbgk._launch_sort = launch
+        try:
+            yield
+        finally:
+            dbgk._launch_sort = real
+
+    return active()
 
 
 def check_build(out_dir: str) -> int:
@@ -100,12 +148,15 @@ def check_build(out_dir: str) -> int:
     torch.set_num_threads(1)
     lib = dbgk.bind(build(dbgk._SRC, out_dir))
     card = dbgk._Card(lib, None, torch.device("cpu"))
-    tiles = (dbgk.SORT_TILE, dbgk.INST_TILE, dbgk.REF_TILE)
+    tiles = (dbgk.SORT_TILE, dbgk.INST_TILE, dbgk.REF_TILE,
+             dbgk.BUILD_TILE, dbgk.NODE_SLOTS)
     bad = 0
     try:
-        for K, L, R, N, E, st, it, rt in BUILD_CASES:
-            dbgk.SORT_TILE, dbgk.INST_TILE, dbgk.REF_TILE = (
-                x or d for x, d in zip((st, it, rt), tiles))
+        for case, ties in ([(c, False) for c in BUILD_CASES]
+                           + [(TIES_CASE, True)]):
+            K, L, R, N, E, *shrunk = case
+            (dbgk.SORT_TILE, dbgk.INST_TILE, dbgk.REF_TILE, dbgk.BUILD_TILE,
+             dbgk.NODE_SLOTS) = (x or d for x, d in zip(shrunk, tiles))
             D = 4
             arrs = bc.batch(K, R, L, N, E, lanes=("over_n", "mate",
                                                   "palindrome", "codes",
@@ -117,14 +168,21 @@ def check_build(out_dir: str) -> int:
             p = dbgk.build_plan(K, len(t[0]), R, L, bc.LRAW, N, E, D)
             ins = dbgk._inputs("emu", t[:11] + [t[12]]) + [t[11]]
             before = dict(dbgk.LAUNCHES)
-            got = dbgk._build_card(card, p, ins,
-                                   bc.SCALARS["min_qual_call"],
-                                   bc.SCALARS["low_cov_threshold"],
-                                   bc.SCALARS["min_cov_ratio"])
+            with (_reversing_ties(dbgk, p) if ties
+                  else contextlib.nullcontext()):
+                got = dbgk._build_card(card, p, ins,
+                                       bc.SCALARS["min_qual_call"],
+                                       bc.SCALARS["low_cov_threshold"],
+                                       bc.SCALARS["min_cov_ratio"])
             launched = {k: dbgk.LAUNCHES[k] - before[k] for k in before}
             shape = (f"K {K} L {L} tiles {dbgk.SORT_TILE}/"
-                     f"{dbgk.INST_TILE}/{dbgk.REF_TILE}")
+                     f"{dbgk.INST_TILE}/{dbgk.REF_TILE}/{dbgk.BUILD_TILE}/"
+                     f"{dbgk.NODE_SLOTS}" + (", ties reversed" if ties
+                                              else ""))
             print(f"{shape}: read tiles {p.TR}, reference tiles {p.TF}, "
+                  f"node tiles {p.TN}, slot blocks {p.NB}, pair tiles "
+                  f"{p.TPu}, row tiles {p.TE}, reference and mate tiles "
+                  f"{p.TJ}, {p.TM}, "
                   f"sorts (passes, tiles) "
                   f"{ {k: (s.P, s.T) for k, s in p.sorts.items()} }, "
                   f"launches {launched}", file=sys.stderr)
@@ -151,7 +209,8 @@ def check_build(out_dir: str) -> int:
                       file=sys.stderr)
                 bad += 1
     finally:
-        dbgk.SORT_TILE, dbgk.INST_TILE, dbgk.REF_TILE = tiles
+        (dbgk.SORT_TILE, dbgk.INST_TILE, dbgk.REF_TILE, dbgk.BUILD_TILE,
+         dbgk.NODE_SLOTS) = tiles
     return bad
 
 

@@ -9,7 +9,7 @@ a parent commit's, on one card.
     python3 walks_ab.py --only compress
     python3 walks_ab.py --only graphstate
     python3 walks_ab.py --only cleanup
-    python3 walks_ab.py --only build [--parent build/parent]
+    python3 walks_ab.py --only build [--parent build/parent] [--turns N]
     python3 walks_ab.py --only bodies --parent build/parent
 
 Walks: captures every path_cover, almost_repeat_paths and cycle_dfs call of
@@ -102,9 +102,9 @@ csrc/dbg.cu and gpu/dbgk.py, from `git archive <parent>
 lancet_tpu_torch/csrc/dbg.cu lancet_tpu_torch/gpu/dbgk.py`): the parent's
 build against this tree's instead (build_calls_ab): on the largest card
 build_k call of each case both bit-equal to build_k_plain and each
-stage's kernels timed by their device time in turns, and each of the six
-sorts alone (the parent's window_sort and this tree's with the build's
-plan); then both end to end in turns (parent, this, this, parent) as
+stage's kernels timed by their device time in turns (this tree's
+node_tables and edge_tables kernel by kernel), and each of the six sorts
+alone (each tree's window_sort with its build plan); then both end to end in turns (parent, this, this, parent) as
 plain_ab runs the other parts: t_dg_build, windows/s, the device events
 and busy share of a profiled run.
 
@@ -892,13 +892,15 @@ SYNC_ATTEMPTS = 2
 
 
 def plain_ab(part: str, case: str, workdir: str, region: str,
-             versions: dict | None = None) -> tuple[dict, bool]:
+             versions: dict | None = None,
+             turns: int = 2) -> tuple[dict, bool]:
     """Device-graph runs of `region` after one warm-up run: with the part's
     functions (PLAIN_AB) patched to their plain versions, run on the card
     op by op, and with their kernels, in turns (plain, kernel, kernel,
-    plain); then one instrumented and one profiled run each. `versions`
-    ({name: the functions}, two of them) replaces plain and kernel.
-    Returns (JSON line, every VCF equal)."""
+    plain, repeated: `turns` runs each, an even count); then one
+    instrumented and one profiled run each. `versions` ({name: the
+    functions}, two of them) replaces plain and kernel. Returns (JSON
+    line, every VCF equal)."""
     import importlib
 
     import chip_smoke as cs
@@ -911,7 +913,7 @@ def plain_ab(part: str, case: str, workdir: str, region: str,
                                            for n in names),
                             "kernel": real}
     first, second = versions
-    order = [first, second, second, first]
+    order = [first, second, second, first] * max(turns // 2, 1)
 
     def use(fns):
         for n, f in zip(names, fns):
@@ -1155,9 +1157,11 @@ def build_call_ab(pmod, args, kw) -> tuple[dict, bool]:
     turns (parent, this; this, parent; ...), TURNS turns, the device time
     of each stage's kernels (their names hold the stage's in both trees;
     a profile counts where it holds each launch) and of the whole call
-    (torch.profiler), and each of the six sorts alone on its keys (this
-    tree's with the build's plan, the parent's window_sort on the same
-    keys), every sort held equal to window_sort_plain."""
+    (torch.profiler), and each of the six sorts alone on its keys (each
+    tree's window_sort with its tree's build plan), every sort held equal
+    to window_sort_plain; and this tree's node_tables and edge_tables kernels
+    one by one (chip_smoke._BUILD_KERNELS), with each stage's device time
+    a launch in both trees."""
     import torch
 
     import chip_smoke as cs
@@ -1168,22 +1172,26 @@ def build_call_ab(pmod, args, kw) -> tuple[dict, bool]:
            "this": lambda: dbgk.build_k(*args, **kw)}
     mism = {v: cs.dtype_mismatches(f(), want) for v, f in fns.items()}
     del want
+    W, R, L = args[1].shape
+    shape = (args[0], W, R, L, kw["Lraw"], kw["N"], kw["E"], kw["D"])
+    plan, pplan = dbgk.build_plan(*shape), pmod.build_plan(*shape)
+    # each stage's launches a call, by each tree's plan
+    launches = {"parent": pplan.launches, "this": plan.launches}
     sorts = dbgk.build_sort_keys(*args, **kw)
     sort_fns = {
-        name: {"parent": (lambda k=k: pmod.window_sort(k)),
+        name: {"parent": (lambda k=k, sp=pplan.sorts[name]:
+                          pmod.window_sort(k, plan=sp)),
                "this": (lambda k=k, sp=sp: dbgk.window_sort(k, plan=sp))}
         for name, (k, sp) in sorts.items()}
     for name, (k, _) in sorts.items():
         w = dbg.window_sort_plain(k)
         for v, f in sort_fns[name].items():
             mism[f"{v}/{name}_sort"] = int(not torch.equal(f(), w))
-    W, R, L = args[1].shape
-    plan = dbgk.build_plan(args[0], W, R, L, kw["Lraw"], kw["N"], kw["E"],
-                           kw["D"])
-    # each stage's launches a call: the parent's thirteen, this tree's plan
-    launches = {"parent": dict(zip(BUILD_STAGES, (1, 6, 2, 4))),
-                "this": plan.launches}
-    sort_launches = {name: {"parent": 1, "this": sp.launches}
+    tables = ("node_tables", "edge_tables")
+    kernels = {k: 1 for s in tables for k in cs._BUILD_KERNELS[s]}
+    kdev = {k: [] for k in kernels}
+    sort_launches = {name: {"parent": pplan.sorts[name].launches,
+                            "this": sp.launches}
                      for name, (_, sp) in sorts.items()}
     dev = {v: {s: [] for s in (*BUILD_STAGES, "all")} for v in fns}
     sdev = {name: {v: [] for v in fns} for name in sorts}
@@ -1194,6 +1202,11 @@ def build_call_ab(pmod, args, kw) -> tuple[dict, bool]:
                                          launches=launches[v])
             for s, t in got.items():
                 dev[v][s].append(t)
+            if v == "this":
+                got = cs.device_ms_by_kernel(fns[v], list(kernels),
+                                             launches=kernels)
+                for k in kernels:
+                    kdev[k].append(got[k])
             for name, f in sort_fns.items():
                 sdev[name][v].append(cs.device_ms_by_kernel(
                     f[v], ["window_sort"], launches={
@@ -1206,6 +1219,12 @@ def build_call_ab(pmod, args, kw) -> tuple[dict, bool]:
                           for v, d in dev.items()},
             "sort_device_ms": {name: {v: _spread(t) for v, t in d.items()}
                                for name, d in sdev.items()},
+            "launches": launches,
+            "kernel_device_ms": {k: _spread(t) for k, t in kdev.items()},
+            "device_ms_per_launch": {
+                v: {s: (None if not dev[v][s] or None in dev[v][s] else
+                        _spread([t / launches[v][s] for t in dev[v][s]]))
+                    for s in tables} for v in fns},
             "order": "turns of (parent, this) and (this, parent)",
             "source": "torch.profiler CUDA activity"}, not any(mism.values())
 
@@ -1350,10 +1369,17 @@ def main() -> int:
                          "repeat gates, the screens, the compression "
                          "pass, the graphstate functions, the cleanup or "
                          "the build")
+    ap.add_argument("--turns", type=int, default=2,
+                    help="end-to-end runs of each version in the "
+                         "device-graph A/B (--only screens, compress, "
+                         "graphstate, cleanup or build), in turns (A, B, "
+                         "B, A, ...): an even count")
     a = ap.parse_args()
     if a.only not in PLAIN_AB and not a.parent:
         ap.error("--parent is needed unless --only screens, compress, "
                  "graphstate, cleanup or build")
+    if a.turns < 2 or a.turns % 2:
+        ap.error("--turns takes an even count of at least 2")
     import torch
 
     if not torch.cuda.is_available():
@@ -1398,7 +1424,7 @@ def main() -> int:
             ok &= eq
             line, eq = plain_ab("build", case, wd, region,
                                 {"parent": (pmod.build_k,),
-                                 "this": (dbg.build_k,)})
+                                 "this": (dbg.build_k,)}, a.turns)
             print(json.dumps(line), flush=True)
             ok &= eq
         print(cs.nvidia_smi(), flush=True)
@@ -1419,7 +1445,7 @@ def main() -> int:
                 line, eq = cleanup_calls_ab(case, wd, region)
                 print(json.dumps(line), flush=True)
                 ok &= eq
-            line, eq = plain_ab(a.only, case, wd, region)
+            line, eq = plain_ab(a.only, case, wd, region, turns=a.turns)
             print(json.dumps(line), flush=True)
             ok &= eq
         print(cs.nvidia_smi(), flush=True)
