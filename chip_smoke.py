@@ -78,8 +78,11 @@ Phases, each printing one JSON line:
      phase mesh (b)) held bit-equal, dtypes too, to compress_round_plain on
      the card, at most COMPRESS_MAX_ATEN_OPS aten ops a call, and one
      kernels line for its largest call at each item axis (NI 1,552 and
-     528) with the plain version's time, the byte bound and the chain
-     floor (compress_accounting: the slowest window's jumping rounds);
+     528) with the plain version's time, the byte bound, the chain floor
+     (compress_accounting: the slowest window's jumping rounds), the
+     blocks of its grid and its cluster size, blocks / W, from the
+     profiler's records (cluster_grid, which fails the phase unless they
+     are W whole clusters of the wrapper's plan's size);
      every components, compact_state, low_cov_pass and item_mincovs call
      of both cases (and of phase mesh (b)) held bit-equal, dtypes too, to
      its plain version on the card and run again under
@@ -96,7 +99,8 @@ Phases, each printing one JSON line:
      tip_fixpoint and short_link_strings call held against its plain
      version, and one kernels line for the largest tips-mode, links-mode
      and strings call with the plain version's time and the bound on this
-     data (cleanup_accounting), at most CLEANUP_MAX_ATEN_OPS a call;
+     data (cleanup_accounting; tip_fixpoint's cluster size and grid, as
+     compress_round's), at most CLEANUP_MAX_ATEN_OPS a call;
      every build_k call of both cases (and of phase mesh (b)) held
      bit-equal, dtypes too, to build_k_plain on its inputs on the card and
      run again under set_sync_debug_mode("error") with the launches of
@@ -171,13 +175,15 @@ Phases, each printing one JSON line:
      empty windows, one launch each), and tandem_at and cycle_screen on
      the batches of gpu/screencases.py (at its TANDEM_PARAMS and
      SCREEN_ROUNDS), compress_round on the batches of
-     gpu/compresscases.py, and components, compact_state, item_mincovs and
+     gpu/compresscases.py (also at each cluster size its plan takes where
+     it is forced to), and components, compact_state, item_mincovs and
      low_cov_pass on the batches of gpu/statecases.py (under
      set_sync_debug_mode("error"); compact_state's hold-point flag on
      dead_edge_batch's first lane alone), one launch each, held bit-equal
      to the plain versions; the cleanup on the batches of
      gpu/cleanupcases.py, free of host syncs with its eight launches,
-     bit-equal (dtypes too) to cleanup_plain; and build_k on the crafted
+     bit-equal (dtypes too) to cleanup_plain (and tip_fixpoint's tips call
+     at each cluster size, bit-equal to tip_fixpoint_plain); and build_k on the crafted
      windows of gpu/buildcases.py at every bucket's shape (the hub at
      HUB_D), free of host syncs with its plan's launches, bit-equal
      (dtypes too) to build_k_plain.
@@ -2313,8 +2319,10 @@ def compress_case(args, kw: dict, rate: dict, chase: dict) -> dict:
     acc = compress_accounting(args)
     bound = {"bytes": acc["bytes"] / HBM_BYTES_PER_S * 1e3,
              "operations": acc["int_ops"] / rate["int_ops_per_s"] * 1e3}
-    return {"name": _COMPRESS, "smem": compress.compress_plan(
-        acc["NI"], acc["EE"], acc["NM"]), "tolerance": 0,
+    W, NI, EE, NM = acc["W"], acc["NI"], acc["EE"], acc["NM"]
+    grid = cluster_grid(fn, "compress_kernel", W, compress.plan_for(
+        W, NI, EE, NM, args[0]["alive"].device))
+    return {"name": _COMPRESS, **grid, "tolerance": 0,
         "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
         "plain_ms": plain_ms, "bound": bound,
         "aten_ops_per_call": aten_ops(fn),
@@ -2463,7 +2471,8 @@ def device_ms_by_kernel(fn, kernels, n: int = 10,
     low); a kernel never seen whole reads None, and so does "all". With
     `blocks`, also "blocks": {kernel: the blocks of its launches' grids in
     the profile returned, each distinct count once, least first}, read
-    from the profiler's kernel records (its trace's "grid")."""
+    from the profiler's kernel records (its trace's "grid"), and "smem"
+    (their "shared memory" a block, where the trace has it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2481,11 +2490,14 @@ def device_ms_by_kernel(fn, kernels, n: int = 10,
             prof.export_chrome_trace(path)
             with open(path) as f:
                 tr = json.load(f)
-        grids = [(e["name"], e["args"]["grid"]) for e in tr["traceEvents"]
-                 if e.get("cat") == "kernel" and "grid" in e.get("args", {})]
+        recs = [(e["name"], e["args"]) for e in tr["traceEvents"]
+                if e.get("cat") == "kernel" and "grid" in e.get("args", {})]
         return {**out, "blocks": {
-            k: sorted({g[0] * g[1] * g[2] for m, g in grids if hits(k, m)})
-            for k in kernels}}
+            k: sorted({a["grid"][0] * a["grid"][1] * a["grid"][2]
+                       for m, a in recs if hits(k, m)}) for k in kernels},
+            "smem": {k: sorted({a["shared memory"] for m, a in recs
+                                if hits(k, m) and "shared memory" in a})
+                     for k in kernels}}
 
     fn()
     torch.cuda.synchronize()
@@ -2514,6 +2526,34 @@ def device_ms_by_kernel(fn, kernels, n: int = 10,
                                      else None for k in kernels},
                                   "all": None})
     return with_blocks(prof, {k: out[k] or None for k in out})
+
+
+def cluster_grid(fn, kernel: str, W: int, plan) -> dict:
+    """The cluster size and grid of the one launch of `kernel` a call of
+    fn makes, read from the profiler's records: "blocks" the grid's block
+    count (one count over the profile), "cluster" blocks // W, and "smem"
+    the records' shared memory a block (None where the trace has none).
+    Raises unless the grid is W whole clusters of a size of
+    gpu.compress.CLUSTER_SIZES, and that size is the wrapper's `plan`'s
+    (plan_for)."""
+    from lancet_tpu_torch.gpu import compress
+
+    by = device_ms_by_kernel(fn, [kernel], launches={kernel: 1}, blocks=True)
+    blocks = by["blocks"][kernel]
+    if len(blocks) != 1:
+        raise AssertionError(f"{kernel}: the profile holds grids of "
+                             f"{blocks} blocks, one count expected")
+    C = blocks[0] // W
+    if blocks[0] != W * C or C not in compress.CLUSTER_SIZES:
+        raise AssertionError(f"{kernel}: a grid of {blocks[0]} blocks is not "
+                             f"{W} clusters of one of "
+                             f"{compress.CLUSTER_SIZES} blocks")
+    if C != plan.C:
+        raise AssertionError(f"{kernel}: the profile's grid gives clusters "
+                             f"of {C} blocks, the wrapper's plan {plan.C}")
+    smem = by["smem"][kernel]
+    return {"cluster": C, "blocks": blocks,
+            "smem": smem[0] if len(smem) == 1 else smem or None}
 
 
 def queued_ms(fn, n: int = 20) -> float:
@@ -2920,10 +2960,15 @@ def cleanup_case(key: str, args, kw: dict, rate: dict) -> dict:
     acc = cleanup_accounting(name, args, kw, rounds)
     bound = {"bytes": acc["bytes"] / HBM_BYTES_PER_S * 1e3,
              "operations": acc["int_ops"] / rate["int_ops_per_s"] * 1e3}
+    grid = {}
+    if name == "tip_fixpoint":  # its cluster and the blocks of its grid
+        W, NI, EE, NM = acc["W"], acc["NI"], acc["EE"], acc["NM"]
+        grid = cluster_grid(fn, _CLEANUP_KERNELS[name], W, cleanup.plan_for(
+            W, NI, EE, NM, args[5], args[6], args[0]["alive"].device))
     return {"name": key, "tolerance": 0, "max_abs_err": err, "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound": bound,
             "aten_ops_per_call": ops, "plain_aten_ops_per_call":
-            aten_ops(plain), **acc}
+            aten_ops(plain), **grid, **acc}
 
 
 def mesh_main_case(workdir: str, region: str, mesh, case: str, vcf: str,
@@ -4021,11 +4066,24 @@ def main() -> int:
         bad = dtype_mismatches(
             ({k: got[0][k] for k in compress.OUTPUT_KEYS}, got[1]),
             ({k: want[0][k] for k in compress.OUTPUT_KEYS}, want[1]))
+        # and at each cluster size the plan takes where it is forced to
+        st = compresscases.to_torch(arrs, "cuda")
+        W = arrs["alive"].shape[0]
+        NI, EE, NM = compresscases.shape_of(arrs)
+        by_c = {}
+        for C in compress.CLUSTER_SIZES:
+            forced = {c: W if c == C else 0 for c in compress.CLUSTER_SIZES}
+            ran = compress.compress_plan(W, NI, EE, NM, forced).C
+            outs, fb = compress._launch(st, K, NI, NI - 2 * compresscases.CMAX,
+                                        64, clusters=forced)
+            by_c[ran] = dtype_mismatches(
+                (dict(zip(compress.OUTPUT_KEYS, outs)), fb),
+                ({k: want[0][k] for k in compress.OUTPUT_KEYS}, want[1]))
         crafted[f"compress_round/{name}"] = {
-            "W": arrs["alive"].shape[0],
-            "shape": list(compresscases.shape_of(arrs)),
-            "launches": launched, "mismatches": bad + int(launched != 1)}
-        crafted_compress = max(crafted_compress, bad)
+            "W": W, "shape": [NI, EE, NM], "launches": launched,
+            "mismatches_by_cluster": by_c,
+            "mismatches": bad + int(launched != 1) + sum(by_c.values())}
+        crafted_compress = max(crafted_compress, bad + sum(by_c.values()))
     # the graphstate kernels on the batches of gpu/statecases.py: one
     # launch a call, no host sync, the hold-point flag on its lane alone
     from lancet_tpu_torch.gpu import graphstate, statecases
@@ -4067,10 +4125,36 @@ def main() -> int:
         got = _walk_out("cleanup", pipeline.cleanup(*args, **kw))
         want = _walk_out("cleanup", pipeline.cleanup_plain(*args, **kw))
         bad = dtype_mismatches(got, want)
+        # tip_fixpoint's tips call at each cluster size the plan takes
+        # where it is forced to (the state after the cleanup's
+        # low-coverage pass and compress)
+        from lancet_tpu_torch.gpu import cleanup, compress, stages
+
+        st, K_, N, NI, cfg, avg = args
+        st, _ = stages.low_cov_pass(st, K_, N, NI, cfg["low_cov_threshold"],
+                                    cfg["min_cov_ratio"], avg)
+        st, fb0 = stages.compress_round(st, K_, NI, N)
+        tips = ("tips", cfg["max_tip_len"])
+        targs = (st, tips, K_, N, NI, kw["U"], kw["D2"], kw["TIP_ROUNDS"],
+                 fb0)
+        twant = _walk_out("tip_fixpoint",
+                          pipeline.tip_fixpoint_plain(*targs))
+        W = arrs["alive"].shape[0]
+        EE, NM = st["e_src"].shape[1], st["mer_item"].shape[1]
+        by_c = {}
+        for C in compress.CLUSTER_SIZES:
+            forced = {c: W if c == C else 0 for c in compress.CLUSTER_SIZES}
+            ran = cleanup.tip_fixpoint_plan(W, NI, EE, NM, kw["U"], kw["D2"],
+                                            forced).C
+            by_c[ran] = dtype_mismatches(_walk_out(
+                "tip_fixpoint", cleanup.tip_fixpoint(*targs,
+                                                     clusters=forced)),
+                twant)
         crafted[f"cleanup/{name}"] = {
-            "W": arrs["alive"].shape[0], "sync_free": ok,
-            "fallback": got[1].tolist(), "mismatches": bad + int(not ok)}
-        crafted_cleanup = max(crafted_cleanup, bad)
+            "W": W, "sync_free": ok, "fallback": got[1].tolist(),
+            "tip_fixpoint_mismatches_by_cluster": by_c,
+            "mismatches": bad + int(not ok) + sum(by_c.values())}
+        crafted_cleanup = max(crafted_cleanup, bad + sum(by_c.values()))
     # the build on the crafted windows of gpu/buildcases.py at every
     # bucket's shape (the hub at HUB_D): the plan's launches free of host
     # syncs, against build_k_plain on the card, dtypes too
@@ -4238,6 +4322,7 @@ def main() -> int:
     def shape_line(r):
         b = max(r["bound"], key=r["bound"].get)
         return {"W": r["W"], "NI": r["NI"], "EE": r["EE"], "NM": r["NM"],
+                "cluster": r["cluster"], "blocks": r["blocks"],
                 "ms": r["ms"]["median"], "device_ms": r["device_ms"],
                 "plain_ms": r["plain_ms"]["median"], "bound_ms": r["bound"][b],
                 "bound_by": b, "chain_floor_ms": r["chain_floor_ms"],
@@ -4303,7 +4388,8 @@ def main() -> int:
                     "plain_ms": r["plain_ms"]["median"],
                     "bound_ms": r["bound"][b], "bound_by": b,
                     **{k: r[k] for k in ("compress_rounds", "removal_passes",
-                                         "candidates", "kept_bases", "K")
+                                         "candidates", "kept_bases", "K",
+                                         "cluster", "blocks")
                        if k in r}}
 
         line.append({

@@ -17,14 +17,22 @@ device graph run, then on each:
   the three;
 - the kernel (csrc/compress.cu) built with -DCOMPRESS_STAMPS into build/
   (`stamped()`), which writes each block's clock64() at its start and at
-  the end of each phase (PHASES: links, jumping, merge; the items' order, their aggregates'
-  gather, scan, start_off and outputs; the mers' keys, order, scans and
-  outputs; the edges' keys, slots and outputs): per phase the cycles of
-  the median and of the slowest block, and in microseconds at the SM's
-  maximum clock (nvidia-smi); its outputs
-  held equal to the plain version's; the kernel's own device time
-  (torch.profiler, chip_smoke.device_ms), the library's build and the
-  stamped one;
+  the end of each of its steps (PHASES: rank 0's links, jumping, merge,
+  the items' order, their aggregates' gather, scan, start_off and the
+  item outputs; a worker's edge keys, the edges' owner's slots, the edge
+  outputs, the mers' keys, the mers' owner's order by counting and kept
+  intervals, the mers' new_pos (mer_out), and the owner's sort where
+  counting cannot order (mer_check); every rank's end; every
+  rank's exit from the cluster's first barrier and from the one after
+  start_off, sync0 and sync4), at the
+  plan's cluster size: for each rank, per step the cycles since the
+  rank's previous stamp (a barrier's wait counts in the step after it;
+  clock64 is an SM's own counter, so ranks are not compared stamp to
+  stamp), of the median and of the slowest window, in microseconds at
+  the SM's maximum clock (nvidia-smi), and the rank's cycles from start
+  to end; its outputs held equal to the plain version's; the kernel's
+  own device time (torch.profiler, chip_smoke.device_ms), the library's
+  build and the stamped one;
 - the stamped kernel's SASS (cuobjdump) cut at its clock reads: for each
   stretch between two reads, in code order, the count of its local
   memory, shared memory, global memory, shuffle, atomic and barrier
@@ -45,10 +53,12 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PLAIN_TURNS = 5
+# csrc/compress_body.cuh's Phase, after kStart
 PHASES = ("links", "jump", "merge", "item_order", "item_gather",
           "item_scan", "item_start_off", "item_out", "mer_keys",
-          "mer_order", "mer_scans", "mer_out", "edge_keys", "edge_slots",
-          "edge_out")
+          "mer_order", "mer_check", "mer_out", "edge_keys", "edge_slots",
+          "edge_out", "end", "sync0", "sync4")
+MAX_C = 4  # ranks a window's stamps hold (kMaxC)
 
 
 def _device(fn) -> dict:
@@ -131,8 +141,8 @@ def stamped():
 
 
 def kernel_split(args, kw, clock_hz: float, lib) -> dict:
-    """The kernel's phases by its blocks' clock64() stamps (`lib`, the
-    stamped build)."""
+    """The kernel's steps by its blocks' clock64() stamps (`lib`, the
+    stamped build), rank by rank."""
     import torch
 
     import chip_smoke as cs
@@ -140,28 +150,36 @@ def kernel_split(args, kw, clock_hz: float, lib) -> dict:
 
     st, K, NI, N = args[:4]
     Dcap = kw.get("Dcap", args[4] if len(args) > 4 else 64)
-    W = st["alive"].shape[0]
-    stamps = torch.zeros((W, lib.compress_phases()), dtype=torch.int64,
-                         device="cuda")
+    W, EE = st["e_src"].shape
+    NM = st["mer_item"].shape[1]
+    plan = compress.plan_for(W, NI, EE, NM, st["alive"].device, lib)
+    stamps = torch.zeros((W, MAX_C, lib.compress_phases()),
+                         dtype=torch.int64, device="cuda")
     lib.compress_set_stamps(stamps.data_ptr())
     outs, fb = compress._launch(st, K, NI, N, Dcap, lib=lib)
     torch.cuda.synchronize()
     got = ({k: o for k, o in zip(compress.OUTPUT_KEYS, outs)}, fb)
     bad = cs.dtype_mismatches(got, cs.compress_plain(*args, **kw))
-    cyc = (stamps[:, 1:] - stamps[:, :-1]).cpu().tolist()
-    tot = (stamps[:, -1] - stamps[:, 0]).cpu().tolist()
-    per = {}
-    for j, name in enumerate(PHASES):
-        col = [c[j] for c in cyc]
-        per[name] = {"median_cycles": statistics.median(col),
-                     "max_cycles": max(col),
-                     "median_us": statistics.median(col) / clock_hz * 1e6}
-    slow = max(range(W), key=lambda w: tot[w])
-    return {"mismatches": bad, "phases": per,
-            "block_cycles": {"median": statistics.median(tot),
-                             "max": max(tot)},
-            "slowest_block": {"window": slow, "cycles": dict(zip(
-                PHASES, cyc[slow]))},
+    sv = stamps.cpu().tolist()
+    ranks = {}
+    for r in range(plan.C):
+        steps: dict = {}
+        tot = []
+        for w in range(W):
+            row = sv[w][r]
+            ran = sorted((t, j) for j, t in enumerate(row) if j and t)
+            prev = row[0]
+            for t, j in ran:
+                steps.setdefault(PHASES[j - 1], []).append(t - prev)
+                prev = t
+            tot.append(row[1 + PHASES.index("end")] - row[0])
+        ranks[r] = {
+            "steps": {n: {"median_cycles": statistics.median(c),
+                          "max_cycles": max(c),
+                          "median_us": statistics.median(c) / clock_hz
+                          * 1e6} for n, c in steps.items()},
+            "cycles": {"median": statistics.median(tot), "max": max(tot)}}
+    return {"mismatches": bad, "cluster": plan.C, "ranks": ranks,
             "device_ms": cs.device_ms(
                 lambda: compress.compress_round(*args, **kw),
                 "compress_kernel"),

@@ -16,44 +16,47 @@
 // short_link_stage_plain) run those loops on the host, reading a bool from
 // the card every round and for the stage's gate.
 //
-// tip_fixpoint: one cooperative launch, one block of kThreads a window, the
-// JAX loop over the whole batch:
-// - the block first copies its window's state (the 16 keys the passes
-//   rewrite) from the inputs to the outputs (none where an output is its
-//   input: an in-place call, as the cleanup's links call); every phase
-//   after that works on the outputs in place, the window's own slice of
-//   device memory, ordered by __syncthreads (a window's state never leaves
-//   its block, so no other ordering is needed). The state stays in device
-//   memory between phases, not in shared memory: the removal pass stages a
-//   compact layout of its own (flags, keys, edge words) and the
-//   compression pass another (orders, scans), so one staged layout for both
-//   would change both bodies; a round's extra traffic is the state's
-//   ~100 KB a window, read from L2;
-// - round r (tips mode) runs the removal body (csrc/removal_body.cuh)
-//   under the tips test; each block writes its window's removed_any to row
-//   r of a [rounds, W] flag table, then grid.sync(); every block ORs the
-//   row: where the batch hit, every window runs the compression body
-//   (csrc/compress_body.cuh), as lax.cond(hit, compress_round) does. The
-//   loop goes on while r < rounds and (r == 0 or the last round hit); after
-//   a last round that hit, the verify pass (the removal body, its state not
-//   kept). fallback |= over of every pass | fb of every compression |
+// tip_fixpoint: one cooperative launch of a thread block cluster of C
+// blocks a window (the compression body's cluster, csrc/compress_body.cuh;
+// this card takes the cluster and cooperative attributes together in one
+// cudaLaunchKernelEx, tools/cluster_probe.py), the JAX loop over the whole
+// batch:
+// - the cluster's blocks first copy their window's state (the 16 keys the
+//   passes rewrite) from the inputs to the outputs, each block a C-th of
+//   each key (none where an output is its input: an in-place call, as the
+//   cleanup's links call); every phase after that works on the outputs in
+//   place, the window's own slice of device memory. The state stays in
+//   device memory between phases, not in shared memory: the removal pass
+//   stages a compact layout of its own (flags, keys, edge words) and the
+//   compression pass another (orders, scans, over the cluster), so one
+//   staged layout for both would change both bodies; a round's extra
+//   traffic is the state's ~100 KB a window, read from L2;
+// - round r (tips mode) runs the removal body (csrc/removal_body.cuh) on
+//   rank 0 under the tips test; rank 0 writes its window's removed_any to
+//   row r of a [rounds, W] flag table, then grid.sync(); every block ORs
+//   the row: where the batch hit, every window's cluster runs the
+//   compression body, as lax.cond(hit, compress_round) does. The loop goes
+//   on while r < rounds and (r == 0 or the last round hit); after a last
+//   round that hit, the verify pass (the removal body on rank 0, its state
+//   not kept). fallback |= over of every pass | fb of every compression |
 //   removed_any of the verify pass. The batch-wide flag, not a per-window
 //   exit: a window whose graph no longer changes still takes the compress
 //   of every round the batch hit, and with it that compress's fallback
 //   (mutual-buddy cycles, mid-compress self-loops), as the JAX loop does;
 // - the links mode is one round with no verify: the removal body under the
-//   links test (mincov, thr, guard), then the compression body, both only
-//   where the batch gate (any of short_link_strings' per-window pre flags)
-//   is set; each block ORs the W flags itself, so the gate needs no zeroed
-//   buffer and no host read.
+//   links test (mincov, thr, guard) on rank 0, a cluster barrier, then the
+//   compression body, both only where the batch gate (any of
+//   short_link_strings' per-window pre flags) is set; each block ORs the W
+//   flags itself, so the gate needs no zeroed buffer and no host read.
 // The removal body takes a 256-thread block's work on 512 threads (every
 // barrier of it is reached by all), so the block fits the compression body
 // (512 threads, __launch_bounds__(512, 1)). Shared memory is one region the
 // phases reuse: the larger of the two bodies' layouts (the compression's at
 // the engine's shapes). A cooperative launch needs every block resident at
 // once: at one block an SM (the compression body's registers), at most the
-// card's SM count of windows (gpu/cleanup.py::tip_fixpoint_plan refuses
-// more before a launch; the launch itself refuses too).
+// clusters cudaOccupancyMaxActiveClusters reports (30 of 4 blocks, 66 of 2,
+// 132 of 1 on an H100 SXM; gpu/cleanup.py::tip_fixpoint_plan picks C and
+// refuses more windows before a launch; the launch itself refuses too).
 //
 // short_link_strings: one block of kSlThreads a window. The window's
 // short-link candidates (alive, not special, 0 < merlen < max_link), their
@@ -72,7 +75,8 @@
 // needs no host test.
 //
 // What bounds them: tip_fixpoint is the compression body's time a round
-// (csrc/compress.cu) plus a grid barrier a round; short_link_strings moves
+// (csrc/compress.cu, about its rank 0's item chain) plus the removal
+// pass's and a grid barrier a round; short_link_strings moves
 // a few tens of KB a window and its atomics. Inputs are the engine's
 // tensors as they are: int64 and bool (one byte, 0 or 1). Preconditions:
 // those of the two bodies (alive edges' endpoints in [0, NI), NI <= 32,767,
@@ -95,16 +99,14 @@ namespace cg = cooperative_groups;
 constexpr size_t kSmemLimit = 232448;  // bytes a block may use on Hopper
 constexpr int kThreads = compress::kThreads;  // a tip_fixpoint block
 constexpr int kKeys = 16;  // the state keys the passes rewrite
-// dynamic shared memory a block may take beside the compression body's
-// static arrays and the kernel's two flag bytes (gpu/cleanup.py
-// FIXPOINT_DYN_LIMIT)
-constexpr size_t kFixDynLimit = compress::kDynLimit - 16;
 
-// Dynamic shared memory of a tip_fixpoint block (gpu/cleanup.py::
-// tip_fixpoint_smem computes the same): the larger of the two bodies'.
-size_t fixpoint_smem(int NI, int EE, int NM, int U) {
-  const size_t c = compress::layout(NI, EE, NM).total;
-  const size_t r = removal::smem_bytes(NI, EE, U);
+// Dynamic shared memory of a tip_fixpoint block of a C-block cluster
+// (gpu/cleanup.py::tip_fixpoint_smem computes the same): the larger of the
+// compression body's and, behind the body's head (whose two bytes take
+// the pass's flags), the removal body's.
+size_t fixpoint_smem(int NI, int EE, int NM, int U, int C) {
+  const size_t c = compress::cluster_smem(NI, EE, NM, C);
+  const size_t r = compress::kHead + removal::smem_bytes(NI, EE, U);
   return c > r ? c : r;
 }
 
@@ -120,14 +122,16 @@ struct FixArgs {
   const uint8_t* fb_in;       // [W] or null
   uint8_t* fb_out;            // [W]
   uint8_t* hits;              // tips mode [rounds, W]
-  int W, U, D2, mode, rounds;
+  int W, C, U, D2, mode, rounds;
   long long max_len;
 };
 
-// One window's slice of each key, input to output, with 16-byte moves
-// where both slices and the length allow; none for a key the call
-// rewrites in place.
-__device__ __forceinline__ void copy_window(const FixArgs& f, int w) {
+// Block `rank`'s C-th of one window's slice of each key, input to output,
+// with 16-byte moves where both slices and the length allow; none for a
+// key the call rewrites in place.
+__device__ __forceinline__ void copy_window(const FixArgs& f, int w,
+                                            int rank) {
+  const int C = f.C;
   for (int k = 0; k < kKeys; ++k) {
     if (f.src[k] == f.dst[k]) continue;
     const size_t n = static_cast<size_t>(f.wbytes[k]);
@@ -137,63 +141,77 @@ __device__ __forceinline__ void copy_window(const FixArgs& f, int w) {
           n) & 15) == 0) {
       const uint4* s4 = reinterpret_cast<const uint4*>(s);
       uint4* d4 = reinterpret_cast<uint4*>(d);
-      for (size_t i = threadIdx.x; i < n / 16; i += blockDim.x) d4[i] = s4[i];
+      const size_t per = (n / 16 + C - 1) / C, lo = rank * per;
+      const size_t hi = lo + per < n / 16 ? lo + per : n / 16;
+      for (size_t i = lo + threadIdx.x; i < hi; i += blockDim.x) d4[i] = s4[i];
     } else {
-      for (size_t i = threadIdx.x; i < n; i += blockDim.x) d[i] = s[i];
+      const size_t per = (n + C - 1) / C, lo = rank * per;
+      const size_t hi = lo + per < n ? lo + per : n;
+      for (size_t i = lo + threadIdx.x; i < hi; i += blockDim.x) d[i] = s[i];
     }
   }
 }
 
+// a cluster of f.C blocks a window (window blockIdx.x / C)
 __global__ void __launch_bounds__(kThreads, 1)
     tip_fixpoint_kernel(const FixArgs f) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ uint8_t flags[2];  // a removal pass's removed_any and over
-  const int w = blockIdx.x, tid = threadIdx.x, W = f.W;
+  const int C = f.C, w = blockIdx.x / C, tid = threadIdx.x, W = f.W;
+  const int rank = C > 1 ? compress::cluster_rank() : 0;
+  compress::Head* head = reinterpret_cast<compress::Head*>(smem);
+  unsigned char* rsm = smem + compress::kHead;  // the removal pass's
   const compress::Args& a = f.ca;
   const bool tips = f.mode == 0;
-  copy_window(f, w);
+  copy_window(f, w, rank);
   int gate = 0;
   if (!tips)
     for (int i = tid; i < W; i += kThreads) gate |= f.gate[i];
   gate = __syncthreads_or(gate);  // also orders the copy before the passes
-  bool fb = f.fb_in != nullptr && f.fb_in[w];
+  if (C > 1 && (tips || gate))
+    compress::cluster_sync_all();  // and the other blocks' copies
+  // the fallback so far, in rank 0's head (the registers go to the passes)
+  if (rank == 0 && tid == 0) head->fb = f.fb_in != nullptr && f.fb_in[w];
   bool last = true;
   const int nr = tips ? f.rounds : 1;
   for (int r = 0; r < nr && (r == 0 || last); ++r) {
     bool hit = gate;
-    if (tips || gate) {
+    if ((tips || gate) && rank == 0) {
       removal::pass<kThreads>(
           a.o_alive, a.special, a.rank, a.o_merlen, a.o_e_src, a.o_e_dst,
           a.o_e_alive, f.mincov, f.thr, f.guard, a.o_alive, a.o_e_alive,
-          &flags[0], &flags[1], w, a.NI, a.EE, f.U, f.D2, f.mode, f.max_len,
-          smem);
+          &head->removal[0], &head->removal[1], w, a.NI, a.EE, f.U, f.D2,
+          f.mode, f.max_len, rsm);
+      if (tid == 0) head->fb |= head->removal[1] != 0;
       __syncthreads();
-      fb |= flags[1] != 0;
     }
     if (tips) {
       const size_t row = static_cast<size_t>(r) * W;
-      if (tid == 0) f.hits[row + w] = flags[0];
+      if (rank == 0 && tid == 0) f.hits[row + w] = head->removal[0];
       cg::this_grid().sync();
       int h = 0;
       for (int i = tid; i < W; i += kThreads)
         h |= *reinterpret_cast<volatile const uint8_t*>(&f.hits[row + i]);
       hit = __syncthreads_or(h);
+    } else if (gate && C > 1) {
+      compress::cluster_sync_all();  // the links pass's state, to every block
     }
     if (hit) {
-      fb |= compress::body(a, w, smem);
+      const bool cfb = compress::body(a, w, smem, C);
+      if (rank == 0 && tid == 0) head->fb |= cfb;
       __syncthreads();
     }
     last = hit;
   }
-  if (tips && last) {  // the verify pass: one more must remove nothing
-    removal::pass<kThreads>(
+  if (tips && last && rank == 0) {  // the verify pass: one more must
+    removal::pass<kThreads>(        // remove nothing
         a.o_alive, a.special, a.rank, a.o_merlen, a.o_e_src, a.o_e_dst,
-        a.o_e_alive, nullptr, nullptr, nullptr, nullptr, nullptr, &flags[0],
-        &flags[1], w, a.NI, a.EE, f.U, f.D2, 0, f.max_len, smem);
-    __syncthreads();
-    fb |= flags[0] != 0 || flags[1] != 0;
+        a.o_e_alive, nullptr, nullptr, nullptr, nullptr, nullptr,
+        &head->removal[0], &head->removal[1], w, a.NI, a.EE, f.U, f.D2, 0,
+        f.max_len, rsm);
+    if (tid == 0)
+      head->fb |= head->removal[0] != 0 || head->removal[1] != 0;
   }
-  if (tid == 0) f.fb_out[w] = fb;
+  if (rank == 0 && tid == 0) f.fb_out[w] = head->fb;
 }
 
 // ---------------------------------------------------------------------------
@@ -338,39 +356,77 @@ int set_smem(const void* kern, size_t smem) {
       static_cast<int>(smem)));
 }
 
+// tip_fixpoint's launch: W clusters of C blocks, cooperative
+struct FixLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[2];
+};
+
+void fix_configure(FixLaunch* l, int W, int C, size_t smem, void* stream) {
+  l->cfg = cudaLaunchConfig_t{};
+  l->attr[0].id = cudaLaunchAttributeClusterDimension;
+  l->attr[0].val.clusterDim.x = C;
+  l->attr[0].val.clusterDim.y = 1;
+  l->attr[0].val.clusterDim.z = 1;
+  l->attr[1].id = cudaLaunchAttributeCooperative;
+  l->attr[1].val.cooperative = 1;
+  l->cfg.gridDim = dim3(static_cast<unsigned>(W * C));
+  l->cfg.blockDim = dim3(kThreads);
+  l->cfg.dynamicSmemBytes = smem;
+  l->cfg.stream = static_cast<cudaStream_t>(stream);
+  l->cfg.attrs = l->attr;
+  l->cfg.numAttrs = 2;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory of a block of each kernel (gpu/cleanup.py).
-size_t tip_fixpoint_smem(int NI, int EE, int NM, int U) {
-  return fixpoint_smem(NI, EE, NM, U);
+size_t tip_fixpoint_smem(int NI, int EE, int NM, int U, int C) {
+  return fixpoint_smem(NI, EE, NM, U, C);
 }
 
 size_t short_link_strings_smem(int NI) { return strings_smem(NI); }
 
-// tip_fixpoint: W windows; ins and outs the 16 state keys in the order of
+// The most clusters of C blocks at `smem` a cooperative launch of
+// tip_fixpoint holds at once (cudaOccupancyMaxActiveClusters), or -1 -
+// the error code.
+int tip_fixpoint_max_clusters(int C, size_t smem) {
+  const void* kern = reinterpret_cast<const void*>(tip_fixpoint_kernel);
+  int rc = set_smem(kern, smem);
+  if (rc != 0) return -1 - rc;
+  FixLaunch l;
+  fix_configure(&l, 1, C, smem, nullptr);
+  int n = 0;
+  rc = static_cast<int>(cudaOccupancyMaxActiveClusters(&n, kern, &l.cfg));
+  return rc ? -1 - rc : n;
+}
+
+// tip_fixpoint: W windows, a cluster of C blocks each; ins and outs the 16
+// state keys in the order of
 // gpu/cleanup.py's STATE (compress_round's outputs); special and rank [W,
 // NI]; the links mode (1) also mincov, thr, guard and gate (null in the
 // tips mode, 0); a key's out may be its in (in place), no other overlap;
 // fb_in [W] or null; fb_out [W]; hits [rounds, W] bytes of
-// scratch (tips mode); smem must equal tip_fixpoint_smem. A grid that
-// cannot be resident at once is refused
+// scratch (tips mode); smem must equal tip_fixpoint_smem(..., C). A grid
+// that cannot be resident at once is refused
 // (cudaErrorCooperativeLaunchTooLarge).
 int tip_fixpoint(const void* const* ins, void* const* outs,
                  const void* special, const void* rank, const void* mincov,
                  const void* thr, const void* guard, const void* gate,
-                 const void* fb_in, void* fb_out, void* hits, int W, int NI,
-                 int EE, int NM, int U, int D2, int mode, int rounds,
+                 const void* fb_in, void* fb_out, void* hits, int W, int C,
+                 int NI, int EE, int NM, int U, int D2, int mode, int rounds,
                  long long max_len, long long N, long long K, long long Dcap,
                  size_t smem, void* stream) {
-  if (W < 1 || NI < 1 || NI > removal::kMaxItems ||
+  if (W < 1 || C < 1 || C > compress::kMaxC || NI < 1 ||
+      NI > removal::kMaxItems ||
       2LL * NI >= compress::kMaxStates || EE < 0 || NM < 0 || U < 0 ||
       D2 < 1 || mode < 0 || mode > 1 || rounds < 0 ||
       (mode == 0 && rounds > 0 && hits == nullptr) ||
       (mode == 1 && (mincov == nullptr || thr == nullptr ||
                      guard == nullptr || gate == nullptr)) ||
-      smem != fixpoint_smem(NI, EE, NM, U) || smem > kFixDynLimit)
+      smem != fixpoint_smem(NI, EE, NM, U, C) || smem > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   FixArgs f{};
   compress::Args& a = f.ca;
@@ -439,6 +495,7 @@ int tip_fixpoint(const void* const* ins, void* const* outs,
   f.fb_out = static_cast<uint8_t*>(fb_out);
   f.hits = static_cast<uint8_t*>(hits);
   f.W = W;
+  f.C = C;
   f.U = U;
   f.D2 = D2;
   f.mode = mode;
@@ -447,10 +504,9 @@ int tip_fixpoint(const void* const* ins, void* const* outs,
   const void* kern = reinterpret_cast<const void*>(tip_fixpoint_kernel);
   int rc = set_smem(kern, smem);
   if (rc != 0) return rc;
-  void* params[] = {&f};
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      kern, dim3(static_cast<unsigned>(W)), dim3(kThreads), params, smem,
-      static_cast<cudaStream_t>(stream)));
+  FixLaunch l;
+  fix_configure(&l, W, C, smem, stream);
+  return static_cast<int>(cudaLaunchKernelEx(&l.cfg, tip_fixpoint_kernel, f));
 }
 
 // short_link_strings: W windows; ins alive, special, merlen [W, NI], e_src,

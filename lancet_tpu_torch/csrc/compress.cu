@@ -9,8 +9,10 @@
 //                     lax.while_loop at :369)
 // The plain PyTorch version (gpu/stages.py::compress_round_plain) is that
 // function op for op, launched from the host: ~390 small ops a call, and a
-// host sync a round of its pointer jumping. Here it is one launch, one
-// block a window, and nothing goes back to the host.
+// host sync a round of its pointer jumping. Here it is one launch, a thread
+// block cluster of C blocks a window (compress_body.cuh: rank 0 the item
+// chain, the others the mers' and edges' ranges and orders), and nothing
+// goes back to the host.
 //
 // What bounds it: a call moves ~17 MB (W 32 windows of NI 1,552 items,
 // EE 3,872 edges and NM 1,536 mers, int64, in and out: ~5 us of this
@@ -23,7 +25,11 @@
 // targets collide becomes a scan over a sorted order. A block runs each
 // stretch of its code about once, so the time also follows the code it
 // executes (instruction fetch, compress_split.py): the scans are one
-// shared function, the lanes a loop.
+// shared function, the lanes a loop. One block a window left 100 of the
+// 132 SMs idle at the engine's W 32 and ran the mers' and edges' phases
+// (half a window's cycles) after the item chain; a cluster runs them on
+// its other blocks while rank 0 runs the chain, so a window takes about
+// the chain's time (the cluster's size: gpu/compress.py::compress_plan).
 //
 // The stages, as compress_round_plain orders them, and what each becomes:
 // - links: an alive edge adds one to its start state's count (shared
@@ -92,26 +98,48 @@ int set_smem(const void* kern, size_t smem) {
       static_cast<int>(smem)));
 }
 
-// One block a window (blockIdx.x), kThreads threads.
-__global__ void __launch_bounds__(kThreads, 1) compress_kernel(const Args a) {
+// A cluster of C blocks a window (window blockIdx.x / C), kThreads threads.
+__global__ void __launch_bounds__(kThreads, 1)
+    compress_kernel(const Args a, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
-  body(a, blockIdx.x, smem);
+  body(a, blockIdx.x / C, smem, C);
 }
 
-int check(int W, int NI, int EE, int NM, size_t smem) {
+int check(int W, int NI, int EE, int NM, int C, size_t smem) {
   if (W < 1 || NI < 1 || 2LL * NI >= kMaxStates || EE < 0 || NM < 0 ||
-      smem > kDynLimit || smem != layout(NI, EE, NM).total)
+      C < 1 || C > kMaxC || smem > kSmemLimit ||
+      smem != cluster_smem(NI, EE, NM, C))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
+}
+
+// the launch's configuration: W clusters of C blocks
+struct Launch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+};
+
+void configure(Launch* l, int W, int C, size_t smem, void* stream) {
+  l->cfg = cudaLaunchConfig_t{};
+  l->attr[0].id = cudaLaunchAttributeClusterDimension;
+  l->attr[0].val.clusterDim.x = C;
+  l->attr[0].val.clusterDim.y = 1;
+  l->attr[0].val.clusterDim.z = 1;
+  l->cfg.gridDim = dim3(static_cast<unsigned>(W * C));
+  l->cfg.blockDim = dim3(kThreads);
+  l->cfg.dynamicSmemBytes = smem;
+  l->cfg.stream = static_cast<cudaStream_t>(stream);
+  l->cfg.attrs = l->attr;
+  l->cfg.numAttrs = 1;
 }
 
 // the stamped build's buffer (compress_set_stamps)
 long long* g_stamps = nullptr;
 
 int launch(const void* const* ins, void* const* outs, int W, int NI, int EE,
-           int NM, long long N, long long K, long long Dcap, size_t smem,
-           void* stream) {
-  int rc = check(W, NI, EE, NM, smem);
+           int NM, int C, long long N, long long K, long long Dcap,
+           size_t smem, void* stream) {
+  int rc = check(W, NI, EE, NM, C, smem);
   if (rc != 0) return rc;
   if (kStamps && g_stamps == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -164,32 +192,47 @@ int launch(const void* const* ins, void* const* outs, int W, int NI, int EE,
   const void* kern = reinterpret_cast<const void*>(compress_kernel);
   rc = set_smem(kern, smem);
   if (rc != 0) return rc;
-  compress_kernel<<<W, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      a);
-  return static_cast<int>(cudaGetLastError());
+  Launch l;
+  configure(&l, W, C, smem, stream);
+  return static_cast<int>(cudaLaunchKernelEx(&l.cfg, compress_kernel, a, C));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of a block (gpu/compress.py::compress_smem).
-size_t compress_smem(int NI, int EE, int NM) {
-  return layout(NI, EE, NM).total;
+// Dynamic shared memory of a block of a C-block cluster
+// (gpu/compress.py::cluster_smem).
+size_t compress_smem(int NI, int EE, int NM, int C) {
+  return cluster_smem(NI, EE, NM, C);
 }
 
-// compress_round: W windows; ins the 18 input pointers and outs the 17
-// output pointers in the order of gpu/compress.py's INPUTS and OUTPUTS (then
-// the fallback); smem must equal compress_smem.
+// The most clusters of C blocks at `smem` the card holds at once
+// (cudaOccupancyMaxActiveClusters), or -1 - the error code.
+int compress_max_clusters(int C, size_t smem) {
+  const void* kern = reinterpret_cast<const void*>(compress_kernel);
+  int rc = set_smem(kern, smem);
+  if (rc != 0) return -1 - rc;
+  Launch l;
+  configure(&l, 1, C, smem, nullptr);
+  int n = 0;
+  rc = static_cast<int>(cudaOccupancyMaxActiveClusters(&n, kern, &l.cfg));
+  return rc ? -1 - rc : n;
+}
+
+// compress_round: W windows, a cluster of C blocks each; ins the 18 input
+// pointers and outs the 17 output pointers in the order of
+// gpu/compress.py's INPUTS and OUTPUTS (then the fallback); smem must
+// equal compress_smem(NI, EE, NM, C).
 int compress_round(const void* const* ins, void* const* outs, int W, int NI,
-                   int EE, int NM, long long N, long long K, long long Dcap,
-                   size_t smem, void* stream) {
-  return launch(ins, outs, W, NI, EE, NM, N, K, Dcap, smem, stream);
+                   int EE, int NM, int C, long long N, long long K,
+                   long long Dcap, size_t smem, void* stream) {
+  return launch(ins, outs, W, NI, EE, NM, C, N, K, Dcap, smem, stream);
 }
 
 #ifdef COMPRESS_STAMPS
-// The stamped build: the int64 buffer [W, kPhases] on the card that each
-// later launch of W windows writes its blocks' clock64 stamps to.
+// The stamped build: the int64 buffer [W, kMaxC, kPhases] on the card that
+// each later launch of W windows writes its blocks' clock64 stamps to.
 void compress_set_stamps(void* stamps) {
   g_stamps = static_cast<long long*>(stamps);
 }

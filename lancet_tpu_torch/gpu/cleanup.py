@@ -10,12 +10,14 @@ card every round and for the stage's gate, and assemble the guard's strings
 in a K-step loop of torch ops. Here each is one kernel launch per call,
 with no host read:
 
-- `tip_fixpoint`: one cooperative launch, one block a window, the JAX loop
-  over the whole batch (a grid barrier a round, the batch's hit from a
-  per-round flag row), the removal and compression passes being the bodies
-  of `seq_removal` (csrc/removal_body.cuh) and `compress_round`
-  (csrc/compress_body.cuh); the tips mode runs the fixpoint and its verify
-  pass, the links mode the links pass and its compress under the gate;
+- `tip_fixpoint`: one cooperative launch, a thread block cluster of C
+  blocks a window (`tip_fixpoint_plan`), the JAX loop over the whole batch
+  (a grid barrier a round, the batch's hit from a per-round flag row), the
+  removal and compression passes being the bodies of `seq_removal`
+  (csrc/removal_body.cuh, on the cluster's rank 0) and `compress_round`
+  (csrc/compress_body.cuh, on the whole cluster); the tips mode runs the
+  fixpoint and its verify pass, the links mode the links pass and its
+  compress under the gate;
 - `short_link_strings`: one block a window, the short-link candidates,
   their gate (`pre_any`, a candidate the links pass may kill) and the
   guard's candidate strings.
@@ -71,11 +73,6 @@ STRINGS_INPUTS = (("alive", torch.bool, "i"), ("special", torch.bool, "i"),
                   ("mer_base", torch.int64, "mK"))
 STRINGS_READS = tuple(k for k, _, _ in STRINGS_INPUTS)
 
-FIXPOINT_THREADS = 512  # a tip_fixpoint block (csrc/compress.cu kThreads)
-# dynamic shared memory a tip_fixpoint block may take beside the
-# compression body's static arrays and its two flag bytes
-# (csrc/cleanup.cu kFixDynLimit)
-FIXPOINT_DYN_LIMIT = compress.DYN_LIMIT - 16
 SL_ITEMS = 64  # strings a window (gpu/pipeline.py _SL_ITEMS)
 SL_CAP = 64  # bases a string (_SL_CAP)
 SL_MAX_K = 64  # a packed write key holds j < 64 in its top bits
@@ -83,41 +80,73 @@ SL_MAX_MERS = 1 << 24  # and the mer index in 24 bits
 
 _lib = None
 _lib_lock = threading.Lock()
+_plans: dict = {}  # (library, device, W, NI, EE, NM, U, D2) -> Plan
 
 
-def tip_fixpoint_smem(NI: int, EE: int, NM: int, U: int) -> int:
-    """A tip_fixpoint block's dynamic shared memory, as csrc/cleanup.cu's
-    fixpoint_smem: the larger of the compression body's layout
-    (gpu.compress.compress_smem) and the removal body's
-    (gpu.walks.seq_removal_smem), one region the phases reuse."""
-    return max(compress.compress_smem(NI, EE, NM),
-               walks.seq_removal_smem(NI, EE, U))
+def tip_fixpoint_smem(NI: int, EE: int, NM: int, U: int, C: int) -> int:
+    """A tip_fixpoint block's dynamic shared memory in a cluster of C
+    blocks, as csrc/cleanup.cu's fixpoint_smem: the larger of the
+    compression body's (gpu.compress.cluster_smem) and, behind the body's
+    head, the removal body's (gpu.walks.seq_removal_smem), one region the
+    phases reuse."""
+    return max(compress.cluster_smem(NI, EE, NM, C),
+               compress.HEAD + walks.seq_removal_smem(NI, EE, U))
 
 
 def tip_fixpoint_plan(W: int, NI: int, EE: int, NM: int, U: int, D2: int,
-                      sms: int) -> int:
-    """The bytes of dynamic shared memory a tip_fixpoint block takes
-    (123,072 at the engine's NI 528, EE 1,568, NM 1,536, U 256). Raises for
-    what either body refuses (gpu.compress.compress_plan,
-    gpu.walks.seq_removal_plan), for a window beyond a block's shared
-    memory, and for more windows than a cooperative launch can hold
-    resident at once: one block an SM (the compression body's
-    __launch_bounds__(512, 1) lets it take an SM's registers), so at most
-    `sms` windows (132 on an H100 SXM; the engine's W 32, a mesh shard's
-    8-16)."""
+                      clusters: dict) -> compress.Plan:
+    """The cluster a window takes and its blocks' shared memory (C 3 and
+    170,448 bytes at the engine's W 32, NI 528, EE 1,568, NM 1,536, U 256 on
+    an H100 SXM; C 4 at a mesh shard's 8-16). Raises for what either body
+    refuses (gpu.compress.compress_plan, gpu.walks.seq_removal_plan), for a
+    window beyond a block's shared memory, and for more windows than a
+    cooperative launch can hold resident at once: `clusters` {C: the most
+    clusters of C the card holds at once} (one block an SM, the
+    compression body's __launch_bounds__(512, 1) letting it take an SM's
+    registers: 30 clusters of 4, 39 of 3, 66 of 2, 132 of 1 on an H100
+    SXM); C is the largest of gpu.compress.CLUSTER_SIZES that holds W."""
     walks.seq_removal_plan(NI, EE, U, D2)
     if NI < 1 or 2 * NI >= compress.MAX_STATES or EE < 0 or NM < 0:
         raise ValueError(f"tip_fixpoint: NI={NI}, EE={EE}, NM={NM}")
-    smem = tip_fixpoint_smem(NI, EE, NM, U)
-    if smem > FIXPOINT_DYN_LIMIT:
-        raise ValueError(f"tip_fixpoint: a window of NI={NI} items, EE={EE} "
-                         f"edges and NM={NM} mers does not fit in a block's "
-                         f"shared memory")
-    if W > sms:
+    def smem_of(C):
+        return tip_fixpoint_smem(NI, EE, NM, U, C)
+
+    fits = compress.fitting_sizes(
+        smem_of, f"tip_fixpoint: a window of NI={NI} items, EE={EE} edges "
+        f"and NM={NM} mers")
+    plan = compress.resident_cluster(W, fits, smem_of, clusters)
+    if plan is None:
+        most = max(clusters.get(C, 0) for C in fits)
         raise ValueError(f"tip_fixpoint: {W} windows cannot be resident at "
-                         f"once for a cooperative launch (one block an SM, "
-                         f"{sms} SMs)")
-    return smem
+                         f"once for a cooperative launch (at most {most} "
+                         f"clusters)")
+    return plan
+
+
+def plan_for(W: int, NI: int, EE: int, NM: int, U: int, D2: int, dev,
+             lib=None, clusters: dict | None = None) -> compress.Plan:
+    """The Plan tip_fixpoint's launch on `dev` takes: tip_fixpoint_plan
+    over the card's clusters (gpu.compress.max_clusters of `lib`'s
+    tip_fixpoint_max_clusters, by default `build()`'s), its smem checked
+    against the build's own layout; cached by (lib, device, shape).
+    `clusters` forces {C: clusters held at once} (not cached)."""
+    lib = lib or _load()
+    key = (lib, dev.index, W, NI, EE, NM, U, D2)
+    cache = clusters is None
+    if cache and key in _plans:
+        return _plans[key]
+    with compress.on_device(dev):
+        if cache:
+            clusters = compress.max_clusters(
+                lib.tip_fixpoint_max_clusters,
+                lambda C: tip_fixpoint_smem(NI, EE, NM, U, C))
+        plan = tip_fixpoint_plan(W, NI, EE, NM, U, D2, clusters)
+        if lib.tip_fixpoint_smem(NI, EE, NM, U, plan.C) != plan.smem:
+            raise RuntimeError("tip_fixpoint_smem disagrees with "
+                               "csrc/cleanup.cu's layout")
+    if cache:
+        _plans[key] = plan
+    return plan
 
 
 def strings_smem(NI: int) -> int:
@@ -162,12 +191,14 @@ def bind(path: str) -> ctypes.CDLL:
     vp, ci, ll, sz = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_size_t)
     lib.tip_fixpoint.restype = ci
-    lib.tip_fixpoint.argtypes = ([vp] * 11 + [ci] * 8 + [ll] * 4
+    lib.tip_fixpoint.argtypes = ([vp] * 11 + [ci] * 9 + [ll] * 4
                                  + [sz, vp])
+    lib.tip_fixpoint_max_clusters.restype = ci
+    lib.tip_fixpoint_max_clusters.argtypes = [ci, sz]
     lib.short_link_strings.restype = ci
     lib.short_link_strings.argtypes = [vp, vp] + [ci] * 5 + [ll, sz, vp]
     lib.tip_fixpoint_smem.restype = sz
-    lib.tip_fixpoint_smem.argtypes = [ci] * 4
+    lib.tip_fixpoint_smem.argtypes = [ci] * 5
     lib.short_link_strings_smem.restype = sz
     lib.short_link_strings_smem.argtypes = [ci]
     return lib
@@ -224,7 +255,7 @@ def _cond_tensors(cond) -> tuple:
 
 def tip_fixpoint(st: dict, cond, K: int, N: int, NI: int, U: int, D2: int,
                  rounds: int, fallback, Dcap: int = 64,
-                 inplace: bool = False):
+                 inplace: bool = False, lib=None, clusters: dict | None = None):
     """The cleanup's removal loop (gpu.pipeline.tip_fixpoint_plain) on the
     state dict `st`: cond ("tips", max_tip) runs the removeTips fixpoint
     of at most `rounds` rounds and its verify pass, cond ("links",
@@ -232,20 +263,23 @@ def tip_fixpoint(st: dict, cond, K: int, N: int, NI: int, U: int, D2: int,
     pass and its compress where any gate lane is set. fallback [W] bool is
     the flag so far. Returns (a new dict with the keys of STATE rewritten,
     every other key passed through as the same tensor; fallback | the
-    loop's flags). On the card one cooperative launch, one block a window
-    (tip_fixpoint_plan); `inplace` writes the rewritten keys into st's own
-    tensors (contiguous; the caller gives them up), so that a links call
-    whose gate is closed copies nothing. The plain version returns new
-    tensors either way."""
+    loop's flags). On the card one cooperative launch, a cluster of
+    tip_fixpoint_plan's C blocks a window; `inplace` writes the rewritten
+    keys into st's own tensors (contiguous; the caller gives them up), so
+    that a links call whose gate is closed copies nothing. The plain
+    version returns new tensors either way. `lib` and `clusters` (a build
+    of csrc/cleanup.cu and {C: clusters held at once}; by default the
+    card's) take the card path on CPU tensors for an emulated build
+    (tools/cuda_emu)."""
     extra = _cond_tensors(cond)
     dev = input_device("tip_fixpoint", *[st[k] for k in READS], fallback,
                        *extra)
-    if dev.type == "cpu":
+    if dev.type == "cpu" and lib is None:
         from .pipeline import tip_fixpoint_plain
 
         return tip_fixpoint_plain(st, cond, K, N, NI, U, D2, rounds,
                                   fallback, Dcap)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     W, EE = st["e_src"].shape
     NM = st["mer_item"].shape[1]
@@ -262,8 +296,7 @@ def tip_fixpoint(st: dict, cond, K: int, N: int, NI: int, U: int, D2: int,
             _check("tip_fixpoint (links)", t, shp, dt)
     if int(rounds) < 0:
         raise ValueError(f"tip_fixpoint: rounds={rounds} is below 0")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    smem = tip_fixpoint_plan(W, NI, EE, NM, U, D2, sms)
+    walks.seq_removal_plan(NI, EE, U, D2)
     if inplace and not all(st[k].is_contiguous() for k in STATE_KEYS):
         raise ValueError("tip_fixpoint: an in-place call takes contiguous "
                          "state tensors")
@@ -282,18 +315,16 @@ def tip_fixpoint(st: dict, cond, K: int, N: int, NI: int, U: int, D2: int,
     side = [st["special"].contiguous(), st["rank"].contiguous()] + [
         None if t is None else t.contiguous() for t in extra]
     max_len = _i64("tip_fixpoint max_len", cond[1])
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        lib = _load()
-        if lib.tip_fixpoint_smem(NI, EE, NM, U) != smem:
-            raise RuntimeError("tip_fixpoint_smem disagrees with "
-                               "csrc/cleanup.cu's layout")
+    lib = lib or _load()
+    plan = plan_for(W, NI, EE, NM, U, D2, dev, lib, clusters)
+    with compress.on_device(dev):  # the launch goes to the current device
         rc = lib.tip_fixpoint(
             _ptrs(ins), _ptrs(outs), *[None if t is None else t.data_ptr()
                                        for t in side],
             fallback.contiguous().data_ptr(), fb_out.data_ptr(),
-            None if hits is None else hits.data_ptr(), W, NI, EE, NM, U, D2,
-            int(links), int(rounds), max_len, int(N), int(K), int(Dcap),
-            smem, _stream(dev))
+            None if hits is None else hits.data_ptr(), W, plan.C, NI, EE,
+            NM, U, D2, int(links), int(rounds), max_len, int(N), int(K),
+            int(Dcap), plan.smem, compress.stream(dev))
     _launched("tip_fixpoint", rc)
     return out, fb_out
 

@@ -35,7 +35,14 @@ permutation of the regular items and 2^28 on the anchors. The cases:
 - at its compact shape (NI 528, EE 1,568, NM 1,536) the cases above and
   seeded windows of long unitigs (merlen up to 23: member mers that take
   junction trims);
-- W 1 and an empty window at a small shape.
+- W 1 and an empty window at a small shape;
+- `straddle` at the small shape: the kernel's worker ranges
+  (gpu.compress.range_chunk: 80 and 112 mers, 112 and 160 edges at a
+  cluster of 4 and of 3 blocks) cut through one member item's mers,
+  through the 70-edge hub's out-edges and between a negative-new_pos
+  member item's mers; beside it `far_members`, members whose ranks are
+  0..c - 1 but whose new_pos start past 8,191 (the mers go by the sort
+  though counting would place them).
 """
 
 from __future__ import annotations
@@ -304,6 +311,42 @@ def seeded(w: Window, n_paths: int, path_len: tuple, merlen: tuple,
     return used
 
 
+def straddle(w: Window):
+    """dead_mers' items with their two past-merlen mers moved behind a
+    chain of four items of 30 mers each (mers ~15-135: its members' mers
+    cross mer 80 and 112), then 90 filler edges between two items and
+    sentinels' hub, whose 70 out-edges (~100-170) cross edge 112 and
+    160."""
+    dead_mers(w, base=0)
+    late = w.mers[-2:]
+    del w.mers[-2:]
+    chain = list(range(10, 14))
+    for i in chain:
+        w.item(i, merlen=30)
+    w.path(chain, _ori(4, flips=(2,)))
+    w.mers.extend(late)
+    a, b = 30, 31
+    w.item(a, merlen=1)
+    w.item(b, merlen=1)
+    for _ in range(45):
+        w.edge(a, b, FF)
+    sentinels(w, base=20)
+    return chain
+
+
+def far_members(w: Window, base: int = 0):
+    """A chain of three items, its ends of merlen 9,000 and the first the
+    survivor (rank 0): the middle member's start_off is 9,000 from either
+    end, its mers' ranks 0 and 1."""
+    items = [base, base + 1, base + 2]
+    for i in items:
+        w.item(i, merlen=2)
+    w.merlen[[base, base + 2]] = 9000
+    w.path(items, [0, 0, 0])
+    w.rank[items] = [0, 1, 2]
+    return items
+
+
 CASES = {"flip_chain": flip_chain, "buddy_cycle": buddy_cycle,
          "loopback": loopback, "blocked": blocked, "sentinels": sentinels,
          "dead_mers": dead_mers}
@@ -381,7 +424,8 @@ def compact_batch() -> tuple[dict, list, int]:
 
 
 def edge_batches() -> list[tuple[str, dict, int]]:
-    """W 1 (one seeded window) and an empty window (nothing alive)."""
+    """W 1 (one seeded window), an empty window (nothing alive) and the
+    straddle and far_members windows."""
     NI, EE, NM = SMALL
     w = Window(NI, EE, NM, K_SMALL, np.random.default_rng(9))
     w.ranks()
@@ -389,7 +433,14 @@ def edge_batches() -> list[tuple[str, dict, int]]:
     one = _stack([w.arrays()])
     e = Window(NI, EE, NM, K_SMALL, np.random.default_rng(10))
     empty = _stack([e.arrays()])
-    return [("w1", one, K_SMALL), ("empty", empty, K_SMALL)]
+    s = Window(NI, EE, NM, K_SMALL, np.random.default_rng(13))
+    s.ranks()
+    straddle(s)
+    f = Window(NI, EE, NM, K_SMALL, np.random.default_rng(14))
+    f.ranks()
+    far_members(f)
+    return [("w1", one, K_SMALL), ("empty", empty, K_SMALL),
+            ("straddle", _stack([s.arrays(), f.arrays()]), K_SMALL)]
 
 
 def batches() -> list[tuple[str, dict, int]]:

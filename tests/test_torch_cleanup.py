@@ -351,21 +351,43 @@ def test_replay_meets_clamped_writes():
 # plans, dispatch, build
 # ---------------------------------------------------------------------------
 
+# the most clusters of C blocks an H100 SXM holds at once at tip_fixpoint's
+# 512 threads and one block an SM (tools/cluster_probe.py)
+H100_CLUSTERS = {4: 30, 3: 39, 2: 66, 1: 132}
+
+
 def test_plans():
+    """tip_fixpoint_plan: the cluster size it picks by W (C 4 up to W 30,
+    3 up to 39, 2 up to 66, 1 up to 132, every window's cluster resident at
+    once for the cooperative launch), the blocks' shared memory (the
+    compression body's, larger than the removal body's behind the head),
+    and its refusals, more windows than the card holds among them;
+    strings_plan and its refusals."""
     NI, EE, NM = cl.ENGINE_COMPACT
-    assert ck.tip_fixpoint_plan(32, NI, EE, NM, cl.U, cl.D2, 132) == 123072
-    assert ck.tip_fixpoint_smem(NI, EE, NM, cl.U) == 123072
+    plan = ck.tip_fixpoint_plan(32, NI, EE, NM, cl.U, cl.D2, H100_CLUSTERS)
+    assert plan == (3, 170448)
+    assert ck.tip_fixpoint_smem(NI, EE, NM, cl.U, 3) == 170448
+    for W, C in ((1, 4), (8, 4), (16, 4), (30, 4), (31, 3), (32, 3),
+                 (33, 3), (34, 3), (39, 3), (40, 2), (66, 2), (67, 1),
+                 (132, 1)):
+        assert ck.tip_fixpoint_plan(W, NI, EE, NM, cl.U, cl.D2,
+                                    H100_CLUSTERS).C == C, W
     # the compression body's layout is the larger one
     for shape in ((4, 4000, 0, 256), (528, 1568, 1536, 256), (1, 0, 0, 9)):
-        assert ck.tip_fixpoint_smem(*shape) >= walks.seq_removal_smem(
-            shape[0], shape[1], shape[3])
-    assert ck.tip_fixpoint_plan(132, NI, EE, NM, cl.U, cl.D2, 132) == 123072
-    for bad in (dict(W=133), dict(W=33, sms=32), dict(NI=32768),
-                dict(D2=0), dict(NI=2000, EE=4000), dict(U=-1)):
-        kw = dict(W=32, NI=NI, EE=EE, NM=NM, U=cl.U, D2=cl.D2, sms=132)
+        for C in (1, 2, 3, 4):
+            assert ck.tip_fixpoint_smem(*shape, C) >= 64 + (
+                walks.seq_removal_smem(shape[0], shape[1], shape[3]))
+    for bad in (dict(W=133), dict(W=33, clusters={4: 8, 3: 8, 2: 16,
+                                                  1: 32}),
+                dict(W=31, clusters={4: 30}), dict(NI=32768), dict(D2=0),
+                dict(NI=2000, EE=4000), dict(U=-1)):
+        kw = dict(W=32, NI=NI, EE=EE, NM=NM, U=cl.U, D2=cl.D2,
+                  clusters=H100_CLUSTERS)
         kw.update(bad)
         with pytest.raises(ValueError):
             ck.tip_fixpoint_plan(**kw)
+    with pytest.raises(ValueError, match="resident"):
+        ck.tip_fixpoint_plan(133, NI, EE, NM, cl.U, cl.D2, H100_CLUSTERS)
     assert ck.strings_plan(NI, NM, 21) == 20608
     assert ck.strings_plan(NI, NM, 64) == 20608
     for bad in (dict(K=65), dict(K=0), dict(NM=(1 << 24) + 1), dict(NI=0),
@@ -374,6 +396,53 @@ def test_plans():
         kw.update(bad)
         with pytest.raises(ValueError):
             ck.strings_plan(**kw)
+
+
+class _Occupancy:
+    """A stand-in for a build of csrc/cleanup.cu's plan entry points: the
+    clusters of each C held at once, the layout's smem (`skew` bytes off),
+    and a count of its occupancy queries."""
+
+    def __init__(self, clusters: dict, skew: int = 0):
+        self.clusters, self.skew, self.queries = clusters, skew, 0
+
+    def tip_fixpoint_max_clusters(self, C, smem):
+        self.queries += 1
+        return self.clusters[C]
+
+    def tip_fixpoint_smem(self, NI, EE, NM, U, C):
+        return ck.tip_fixpoint_smem(NI, EE, NM, U, C) + self.skew
+
+
+def test_plan_for_caches_by_shape():
+    """cleanup.plan_for: tip_fixpoint_plan over the build's occupancy,
+    queried once a shape (U and D2 part of it); a forced `clusters`
+    neither queries nor enters the cache; a disagreeing layout and a
+    refused W raise and leave nothing cached."""
+    cpu = torch.device("cpu")
+    lib = _Occupancy(H100_CLUSTERS)
+    NI, EE, NM = cl.ENGINE_COMPACT
+    args = (NI, EE, NM, cl.U, cl.D2, cpu, lib)
+    assert ck.plan_for(32, *args) == (3, 170448)
+    asked = lib.queries
+    assert asked == len(ck.compress.CLUSTER_SIZES)
+    for _ in range(3):
+        assert ck.plan_for(32, *args) == (3, 170448)
+    assert lib.queries == asked
+    assert ck.plan_for(8, *args).C == 4
+    assert ck.plan_for(32, NI, EE, NM, cl.U, cl.D2 + 1, cpu, lib).C == 3
+    assert lib.queries == 3 * asked
+    assert ck.plan_for(32, *args, {4: 0, 3: 0, 2: 40, 1: 0}).C == 2
+    assert lib.queries == 3 * asked
+    bad = _Occupancy(H100_CLUSTERS, skew=16)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="disagrees"):
+            ck.plan_for(32, NI, EE, NM, cl.U, cl.D2, cpu, bad)
+    assert bad.queries == 2 * asked
+    for _ in range(2):
+        with pytest.raises(ValueError, match="resident"):
+            ck.plan_for(133, *args)
+    assert lib.queries == 3 * asked + 2 * asked
 
 
 def test_cpu_runs_the_plain_versions():

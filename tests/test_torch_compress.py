@@ -18,12 +18,16 @@
 - a numpy replay of the kernel, step for step (the state words and their
   per-window fixed point, the orders by counting and the bitonic network
   of (key, index) pairs, run totals from inclusive sums, the edges' ranks
-  in their sources' buckets), bit-equal to the plain version on every
-  batch: the crafted one, the compact shape's, W 1 and an empty window;
+  in their sources' buckets), by clusters of 1 to 4 blocks (the workers'
+  ranges adding counts and 64-bit width totals into the owners'),
+  bit-equal to the plain version on every batch: the crafted one, the
+  compact shape's, W 1, an empty window and the straddle window, whose
+  mers and edges the workers' ranges cut;
 - the plain version on a batch equal to it on each window alone (the
   kernel stops each window at its own fixed point);
-- `compress.compress_plan` on the engine's shapes and its refusals; the
-  wrapper's dispatch on the CPU and its refusal of mixed devices.
+- `compress.compress_plan`: the cluster size it picks by W, the blocks'
+  shared memory at the engine's shapes, and its refusals; the wrapper's
+  dispatch on the CPU and its refusal of mixed devices.
 
 The JAX side runs once, at one shape (its compile takes ~20 s). The `cuda`
 test holds the kernel bit-equal to the plain version on every batch on the
@@ -141,12 +145,23 @@ def _place(ranks, groups, n_groups):
     return ix, s0, rend
 
 
-def replay_window(a, w, K, NI, N, Dcap=64, sort=False, paths=None):
+def _ranges(n, C):
+    """The workers' contiguous ranges of n elements in a cluster of C
+    blocks (csrc/compress_body.cuh roles, range_chunk)."""
+    nw = C - 1 if C > 1 else 1
+    ch = compress._range_chunk(n, nw)
+    return [(min(j * ch, n), min(j * ch + ch, n)) for j in range(nw)]
+
+
+def replay_window(a, w, K, NI, N, Dcap=64, sort=False, paths=None, C=1):
     """csrc/compress.cu's compress_kernel on window w of the batch `a`
-    (numpy [W, ...]); returns (outputs, fallback, label, pos_u). `sort`
-    takes the bitonic sorts of the items and mers everywhere; `paths` (a
-    dict) counts the windows whose items and mers went by counting and
-    whose mtot went by item (negpos)."""
+    (numpy [W, ...]) by a cluster of C blocks; returns (outputs, fallback,
+    label, pos_u). `sort` takes the bitonic sorts of the items and mers
+    everywhere; `paths` (a dict) counts the windows whose items and mers
+    went by counting, whose mtot went by item (negpos), whose workers'
+    ranges cut a member item's mers (mers_cut) or a source's edges
+    (edges_cut), and whose negative-new_pos item took width totals from
+    two ranges (negpos_ranks)."""
     EE, NM = a["e_src"].shape[1], a["mer_item"].shape[1]
     S = 2 * NI
     paths = {} if paths is None else paths
@@ -232,7 +247,9 @@ def replay_window(a, w, K, NI, N, Dcap=64, sort=False, paths=None):
     out = {"alive": surv, "merlen": tot[:, 0], "csum": tot[:, 1:5],
            "n_t": tot[:, 5], "is_tumor": tot[:, 6] > 0,
            "is_normal": tot[:, 7] > 0}
-    # mers
+    # mers: each worker's range (C - 1 workers, or the one block at C =
+    # 1) adds its member mers' counts and 64-bit width totals into the
+    # owner's, in any order
     mi = np.clip(a["mer_item"][w], 0, NI - 1)
     mp, lo, hi = a["mer_pos"][w], a["keep_lo"][w], a["keep_hi"][w]
     uf = flip[mi]
@@ -240,9 +257,34 @@ def replay_window(a, w, K, NI, N, Dcap=64, sort=False, paths=None):
     np_ = soff[mi] + np.where(uf, ml - 1 - mp, mp)
     mem = sit[mi] != mi
     width = hi - lo
+    mtot = np.zeros(NI, np.uint64)
+    mcnt = np.zeros(NI, np.int64)
+    mrank = np.full(NM, -1)
+    for r, (m0, m1) in enumerate(_ranges(NM, C)):
+        on = np.zeros(NM, bool)
+        on[m0:m1] = mem[m0:m1]
+        mrank[m0:m1] = r
+        mcnt += np.bincount(mi[on], minlength=NI)
+        part = np.zeros(NI, np.uint64)
+        np.add.at(part, mi[on], width[on].astype(np.uint64))
+        mtot += part
+    cut = {i for i in set(mi[mem].tolist())
+           if len(set(mrank[mem & (mi == i)].tolist())) > 1}
+    if cut:
+        paths["mers_cut"] = paths.get("mers_cut", 0) + 1
     members = np.nonzero(mem)[0]
-    placed = None if sort or ((np_[mem] < 0) | (np_[mem] > 8191)).any() \
-        else _place((np_ - soff[mi])[members], mi[members], NI)
+    # the order by counting needs no start_off (a member's rank is new_pos
+    # - start_off); then the range check of new_pos
+    placed = None if sort else _place((np_ - soff[mi])[members],
+                                      mi[members], NI)
+    assert placed is None or (mcnt[mi[members]]
+                              == np.bincount(mi[members],
+                                             minlength=NI)[mi[members]]
+                              ).all()
+    if ((np_[mem] < 0) | (np_[mem] > 8191)).any():
+        if placed is not None:
+            paths["far"] = paths.get("far", 0) + 1
+        placed = None
     if placed is not None:  # the member mers only
         mx, mrs, mrend = placed
         mx = members[mx]
@@ -256,11 +298,12 @@ def replay_window(a, w, K, NI, N, Dcap=64, sort=False, paths=None):
     cex = _excl(cw)
     mrb = np.maximum.accumulate(np.where(mnr, cex, 0))
     before_k = cex - mrb
-    if (mem & (np_ < 0)).any():  # mtot by item
+    neg = mem & (np_ < 0)
+    if neg.any():  # mtot by item
         paths["negpos"] = paths.get("negpos", 0) + 1
-        mtot = np.zeros(NI, np.int64)
-        np.add.at(mtot, mi[mem], width[mem])
-        tot_k = mtot[mi[mx]]
+        if set(mi[neg].tolist()) & cut:
+            paths["negpos_ranks"] = paths.get("negpos_ranks", 0) + 1
+        tot_k = mtot.view(np.int64)[mi[mx]]
     else:  # the member item's run total
         tot_k = cw[mrend[mrs]] - np.where(mrs > 0,
                                           cw[np.maximum(mrs - 1, 0)], 0)
@@ -277,18 +320,30 @@ def replay_window(a, w, K, NI, N, Dcap=64, sort=False, paths=None):
                mer_pos=np_,
                keep_lo=np.where(mem & facing_low, klo2 + cut_lo, klo2),
                keep_hi=np.where(mem & ~facing_low, khi2 - cut_hi, khi2))
-    # edges: the renorm's slots, the rewiring
+    # edges: each worker's range adds its alive edges' degrees into the
+    # owner's; the owner ranks each alive edge by (clamped okey, index) in
+    # its source's whole bucket; then the rewiring
     ok = a["e_okey"][w]
     ok2 = np.where(ok >= BIG - 2,
                    np.minimum(ok - (BIG - 2) + ((1 << 14) - 2),
                               (1 << 14) - 1),
                    np.minimum(ok, (1 << 14) - 3))
-    # each alive edge's rank by (clamped okey, index) in its bucket
-    slot = np.zeros(EE, np.int64)
     esrc = np.clip(src, 0, NI - 1)
-    for e in np.nonzero(ea)[0]:
-        b = np.nonzero(ea & (esrc == esrc[e]))[0]
-        slot[e] = ((ok2[b] < ok2[e]) | ((ok2[b] == ok2[e]) & (b < e))).sum()
+    deg = np.zeros(NI, np.int64)
+    erank = np.full(EE, -1)
+    for r, (e0, e1) in enumerate(_ranges(EE, C)):
+        on = np.zeros(EE, bool)
+        on[e0:e1] = ea[e0:e1]
+        erank[e0:e1] = r
+        deg += np.bincount(esrc[on], minlength=NI)
+    if any(len(set(erank[ea & (esrc == s)].tolist())) > 1
+           for s in np.nonzero(deg >= 2)[0]):
+        paths["edges_cut"] = paths.get("edges_cut", 0) + 1
+    alive_e = np.nonzero(ea)[0]
+    order = alive_e[np.lexsort((alive_e, ok2[alive_e], esrc[alive_e]))]
+    start = np.concatenate([[0], np.cumsum(deg)[:-1]])
+    slot = np.zeros(EE, np.int64)
+    slot[order] = np.arange(len(order)) - start[esrc[order]]
     sb, db = dr >> 1, dr & 1
     consumed = ea & valid[np.clip(src * 2 + sb, 0, S - 1)]
     es, ed = np.clip(src, 0, NI - 1), np.clip(dst, 0, NI - 1)
@@ -305,10 +360,10 @@ def replay_window(a, w, K, NI, N, Dcap=64, sort=False, paths=None):
     return out, cyc or bool(loop), lab, posu
 
 
-def replay(a, K, sort=False, paths=None):
+def replay(a, K, sort=False, paths=None, C=1):
     NI = a["alive"].shape[1]
     N = NI - 2 * cc.CMAX
-    per = [replay_window(a, w, K, NI, N, sort=sort, paths=paths)
+    per = [replay_window(a, w, K, NI, N, sort=sort, paths=paths, C=C)
            for w in range(a["alive"].shape[0])]
     outs = {k: np.stack([p[0][k] for p in per]) for k in OUT_KEYS}
     return (outs, np.array([p[1] for p in per], bool),
@@ -386,21 +441,35 @@ def test_plain_equals_jax():
 # the kernel's formulation
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("batch", ["crafted", "compact", "w1", "empty"])
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+@pytest.mark.parametrize("batch", ["crafted", "compact", "w1", "empty",
+                                   "straddle"])
 @pytest.mark.parametrize("sort", [False, True])
-def test_replay_equals_plain(batch, sort):
-    """The numpy replay of csrc/compress.cu bit-equal to the plain version
-    on every window of the batch, mer_pos included: as the kernel runs
-    (the items' and mers' orders by counting where they can be, else the
-    bitonic sort), and with those sorts everywhere."""
+def test_replay_equals_plain(batch, sort, C):
+    """The numpy replay of csrc/compress.cu by a cluster of C blocks
+    bit-equal to the plain version on every window of the batch, mer_pos
+    included: as the kernel runs (the items' and mers' orders by counting
+    where they can be, else the bitonic sort; the workers' ranges adding
+    counts and 64-bit width totals into the owners'), and with those sorts
+    everywhere. In the straddle window at C 3 and 4 the ranges cut a
+    member item's mers, the 70-edge hub's edges and a negative-new_pos
+    item's mers; in far_members counting would place the mers but their
+    new_pos leave [0, 8191]."""
     arrs, K = _batches()[batch]
     paths: dict = {}
-    got, fb, _, _ = replay(arrs, K, sort=sort, paths=paths)
+    got, fb, _, _ = replay(arrs, K, sort=sort, paths=paths, C=C)
     want, wfb = _plain(arrs, K)
     np.testing.assert_array_equal(fb, wfb)
     _assert_equal(got, want, batch)
     W = arrs["alive"].shape[0]
-    if sort:
+    if batch == "straddle":
+        want_cut = {"mers_cut", "edges_cut", "negpos_ranks"}
+        assert want_cut <= set(paths) if C >= 3 else not want_cut & set(
+            paths)
+        # far_members: counting places its mers, their new_pos do not fit
+        assert paths["negpos"] == 1
+        assert paths.get("far", 0) == (0 if sort else 1)
+    elif sort:
         assert not {"items", "mers"} & set(paths)
     elif batch in ("crafted", "compact"):
         # the cycles' items sort, so do dead_mers' (twice: alone and in
@@ -445,20 +514,110 @@ def test_bitonic_is_the_stable_sort(n):
 # the plan and the wrapper
 # ---------------------------------------------------------------------------
 
+# the most clusters of C blocks an H100 SXM holds at once at the kernel's
+# 512 threads and one block an SM (cudaOccupancyMaxActiveClusters,
+# tools/cluster_probe.py)
+H100_CLUSTERS = {4: 30, 3: 39, 2: 66, 1: 132}
+
+
 def test_plan():
-    """compress_plan on the engine's shapes, W 1 and the crafted shapes;
-    its refusals."""
-    assert compress.compress_plan(*cc.ENGINE_FIRST) == 206160
-    assert compress.compress_plan(*cc.ENGINE_COMPACT) == 123072
-    assert compress.compress_plan(*cc.SMALL) == 18272
-    assert compress.compress_plan(1, 0, 0) == 336
-    assert compress.compress_plan(1610, 4000, 1536) == 213008
+    """compress_plan: the cluster size it picks by W on an H100's cluster
+    occupancy (C 4 up to W 30, 3 up to 39, 2 up to 66, then 1, past 132
+    in turns), the blocks' shared memory at the engine's shapes, W 1 and
+    the crafted shapes (each C's largest rank's, as csrc/compress_body.cuh
+    lays them out); where a C does not fit a block the next one; its
+    refusals."""
+    for W, C in ((1, 4), (8, 4), (16, 4), (30, 4), (31, 3), (32, 3),
+                 (33, 3), (34, 3), (39, 3), (40, 2), (66, 2), (67, 1),
+                 (132, 1), (133, 1)):
+        assert compress.compress_plan(W, *cc.ENGINE_COMPACT,
+                                      H100_CLUSTERS).C == C, W
+    assert compress.compress_plan(32, *cc.ENGINE_FIRST,
+                                  H100_CLUSTERS) == (3, 224656)
+    assert compress.compress_plan(16, *cc.ENGINE_FIRST,
+                                  H100_CLUSTERS) == (4, 224656)
+    # W 64 would take C 2, whose rank 1 (the mers' and the edges' owner)
+    # does not fit at the engine's first shape: C 1
+    assert compress.compress_plan(64, *cc.ENGINE_FIRST,
+                                  H100_CLUSTERS) == (1, 231296)
+    assert compress.compress_plan(64, *cc.ENGINE_COMPACT,
+                                  H100_CLUSTERS) == (2, 229328)
+    assert compress.compress_plan(32, *cc.ENGINE_COMPACT,
+                                  H100_CLUSTERS) == (3, 170448)
+    assert compress.compress_plan(16, *cc.ENGINE_COMPACT,
+                                  H100_CLUSTERS) == (4, 162000)
+    assert compress.compress_plan(1, *cc.SMALL, H100_CLUSTERS) == (4, 31264)
+    assert compress.compress_plan(1, 1, 0, 0, H100_CLUSTERS) == (4, 18832)
+    # rank 0 the largest at the engine's first shape
+    assert [compress.rank_smem(*cc.ENGINE_FIRST, 3, r)
+            for r in range(3)] == [224656, 190928, 114576]
+    assert compress.cluster_smem(*cc.ENGINE_FIRST, 2) == 303056
+    # NI 1,610 at EE 4,000: neither C 2's rank 1 nor C 1's block fits, so
+    # W 39 takes C 3 and W 40, past C 3's 39 clusters, C 3 in turns
+    assert compress.compress_plan(39, 1610, 4000, 1536,
+                                  H100_CLUSTERS) == (3, 231504)
+    assert compress.compress_plan(40, 1610, 4000, 1536,
+                                  H100_CLUSTERS) == (3, 231504)
+    assert compress.cluster_smem(1610, 4000, 1536, 1) > 232448
     for shape in ((0, 10, 10), (1 << 17, 10, 10), (10, -1, 10)):
         with pytest.raises(ValueError):
-            compress.compress_plan(*shape)
-    for shape in ((1620, 4000, 1536), (4000, 8000, 1536)):
+            compress.compress_plan(1, *shape, H100_CLUSTERS)
+    for shape in ((1620, 4000, 1536), (4000, 8000, 1536),
+                  (1000, 17, 3000)):
         with pytest.raises(ValueError, match="shared memory"):
-            compress.compress_plan(*shape)
+            compress.compress_plan(1, *shape, H100_CLUSTERS)
+
+
+class _Occupancy:
+    """A stand-in for a build of csrc/compress.cu's plan entry points: the
+    clusters of each C held at once, the layout's smem (`skew` bytes off),
+    and a count of its occupancy queries."""
+
+    def __init__(self, clusters: dict, skew: int = 0):
+        self.clusters, self.skew, self.queries = clusters, skew, 0
+
+    def compress_max_clusters(self, C, smem):
+        self.queries += 1
+        return self.clusters[C]
+
+    def compress_smem(self, NI, EE, NM, C):
+        return compress.cluster_smem(NI, EE, NM, C) + self.skew
+
+
+def test_plan_for_caches_by_shape():
+    """compress.plan_for: compress_plan over the build's occupancy, queried
+    once a shape (a repeated call is a lookup, another W or shape a new
+    query); a forced `clusters` neither queries nor enters the cache; a
+    build whose layout disagrees, a failed occupancy query and a refused
+    shape raise and leave nothing cached."""
+    cpu = torch.device("cpu")
+    lib = _Occupancy(H100_CLUSTERS)
+    shape = cc.ENGINE_COMPACT
+    assert compress.plan_for(32, *shape, cpu, lib) == (3, 170448)
+    asked = lib.queries
+    assert asked == len(compress.CLUSTER_SIZES)
+    for _ in range(3):
+        assert compress.plan_for(32, *shape, cpu, lib) == (3, 170448)
+    assert lib.queries == asked
+    assert compress.plan_for(16, *shape, cpu, lib) == (4, 162000)
+    assert lib.queries == 2 * asked
+    # C 2 does not fit a block at the engine's first shape: not queried
+    assert compress.plan_for(32, *cc.ENGINE_FIRST, cpu, lib) == (3, 224656)
+    assert lib.queries == 2 * asked + 3
+    forced = {4: 0, 3: 0, 2: 32, 1: 0}
+    assert compress.plan_for(32, *shape, cpu, lib, forced).C == 2
+    assert lib.queries == 2 * asked + 3
+    assert compress.plan_for(32, *shape, cpu, lib) == (3, 170448)
+    bad = _Occupancy(H100_CLUSTERS, skew=16)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="disagrees"):
+            compress.plan_for(32, *shape, cpu, bad)
+    assert bad.queries == 2 * asked
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        compress.plan_for(32, *shape, cpu, _Occupancy({4: -3, 3: 39, 2: 66,
+                                                       1: 132}))
+    with pytest.raises(ValueError, match="shared memory"):
+        compress.plan_for(1, 1620, 4000, 1536, cpu, lib)
 
 
 def test_cpu_runs_the_plain_version():

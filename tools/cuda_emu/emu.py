@@ -1,11 +1,28 @@
 #!/usr/bin/env python3
 """Run a CUDA source of lancet_tpu_torch/csrc on the CPU: g++ builds it
-against tools/cuda_emu/cuda_runtime.h (a launch's blocks one after another,
-each thread a std::thread), with the launch syntax rewritten, into a shared
-library with the source's plain C interface, which the wrapper module binds
-as it binds the card's build.
+against tools/cuda_emu/cuda_runtime.h (a launch's clusters one after
+another, a cluster's blocks at once, a cooperative launch's every block at
+once, each thread a std::thread), with the launch syntax rewritten, into a
+shared library with the source's plain C interface, which the wrapper
+module binds as it binds the card's build.
 
     python3 tools/cuda_emu/emu.py --check-build
+    python3 tools/cuda_emu/emu.py --check-compress
+    python3 tools/cuda_emu/emu.py --check-cleanup
+
+--check-compress builds csrc/compress.cu so and runs gpu/compress.py's card
+path (compress._launch: its plan, the launch through the same pointers) on
+CPU tensors on every batch of gpu/compresscases.py, the plan's cluster
+size forced to each of CLUSTER_C (where a size does not fit the shape's
+shared memory the plan takes the next that does: at NI 1,552 C 2 becomes
+1), the outputs and fallback held bit-equal, dtypes too, to
+gpu/stages.py::compress_round_plain. --check-cleanup builds csrc/cleanup.cu
+and runs gpu/cleanup.py's tip_fixpoint card path (one cooperative launch:
+every window's cluster at once, a grid barrier a round) on each batch of
+gpu/cleanupcases.py at the cleanup's tips call (the state after its
+low-coverage pass and compress) and its links call (the state after the
+tips fixpoint, its mincov and thr, the gate open and, in place, closed) at
+each of CLUSTER_C, held bit-equal to gpu/pipeline.py::tip_fixpoint_plain.
 
 builds csrc/dbg.cu so, runs gpu/dbgk.py's card path (its launches through
 the same pointers and workspace) on CPU tensors on crafted windows of
@@ -51,6 +68,10 @@ def translate(src: str) -> str:
     return _LAUNCH.sub(r"emu_launch(\2, \3, \4, [&] { \1(\6); });", src)
 
 
+# the cluster sizes the compress and cleanup checks force
+CLUSTER_C = (1, 2, 3, 4)
+
+
 def build(src: str, out_dir: str) -> str:
     """g++ build of `src` under the emulation into out_dir; returns the
     .so path."""
@@ -63,7 +84,8 @@ def build(src: str, out_dir: str) -> str:
     with open(cpp, "w") as f:
         f.write(text)
     cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-           "-Wno-unknown-pragmas", "-I", HERE, cpp, "-o", so]
+           "-Wno-unknown-pragmas", "-I", HERE, "-I",
+           os.path.dirname(os.path.abspath(src)), cpp, "-o", so]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"g++ refused {src}:\n{r.stderr[-4000:]}")
@@ -214,16 +236,129 @@ def check_build(out_dir: str) -> int:
     return bad
 
 
+def _forced(C: int) -> dict:
+    """A clusters table ({C: most held at once}) that makes a plan take C
+    where it fits."""
+    from lancet_tpu_torch.gpu import compress
+
+    return {c: (1 << 20 if c == C else 0) for c in compress.CLUSTER_SIZES}
+
+
+def check_compress(out_dir: str) -> int:
+    """compress's card path through the emulated build against
+    compress_round_plain on every batch of compresscases, at each of
+    CLUSTER_C; returns the count of unequal outputs."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from lancet_tpu_torch.gpu import compress, stages
+    from lancet_tpu_torch.gpu import compresscases as cc
+
+    torch.set_num_threads(1)
+    lib = compress.bind(build(compress._SRC, out_dir))
+    bad = 0
+    for name, arrs, K in cc.batches():
+        st = cc.to_torch(arrs)
+        W, NI = arrs["alive"].shape
+        NM = arrs["mer_item"].shape[1]
+        EE = arrs["e_src"].shape[1]
+        N = NI - 2 * cc.CMAX
+        want, wfb = stages.compress_round_plain(st, K, NI, N)
+        for C in CLUSTER_C:
+            ran = compress.compress_plan(W, NI, EE, NM, _forced(C)).C
+            outs, fb = compress._launch(st, K, NI, N, 64, lib=lib,
+                                        clusters=_forced(C))
+            got = dict(zip(compress.OUTPUT_KEYS, outs))
+            diff = [k for k in compress.OUTPUT_KEYS
+                    if not _equal(got[k], want[k])]
+            if not _equal(fb, wfb):
+                diff.append("fallback")
+            print(f"compress {name} W {W} NI {NI} C {C} (ran {ran}): "
+                  f"{'equal' if not diff else 'differs: ' + str(diff)}",
+                  file=sys.stderr)
+            bad += len(diff)
+    return bad
+
+
+def check_cleanup(out_dir: str) -> int:
+    """tip_fixpoint's card path through the emulated build against
+    tip_fixpoint_plain on every batch of cleanupcases, the tips call and
+    the links call (gate open; closed and in place), at each of
+    CLUSTER_C; returns the count of unequal outputs."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from lancet_tpu_torch.gpu import cleanup, pipeline, stages
+    from lancet_tpu_torch.gpu import cleanupcases as cl
+
+    torch.set_num_threads(1)
+    lib = cleanup.bind(build(cleanup._SRC, out_dir))
+    bad = 0
+    for tag, arrs, K in cl.batches():
+        st, K, N, NI, cfg, avg = cl.inputs(arrs, K)
+        W = st["alive"].shape[0]
+        st, _ = stages.low_cov_pass(st, K, N, NI, cfg["low_cov_threshold"],
+                                    cfg["min_cov_ratio"], avg)
+        st, fb0 = stages.compress_round(st, K, NI, N)
+        tips = ("tips", cfg["max_tip_len"])
+        after, _ = pipeline.tip_fixpoint_plain(st, tips, K, N, NI, cl.U,
+                                               cl.D2, cl.TIP_ROUNDS, fb0)
+        mincov, _ = stages.item_mincovs_plain(after, K, N, NI)
+        thr = torch.full((W,), 5, dtype=torch.int64)
+        pre = pipeline.short_link_stage_plain(
+            after, mincov, thr, K, NI, cfg["max_link_len"])["pre_any"]
+        guard = torch.zeros_like(after["alive"])
+        calls = [("tips", st, tips, False),
+                 ("links", after, ("links", cfg["max_link_len"], mincov, thr,
+                                   guard, pre | True), False),
+                 ("links_closed_inplace", after,
+                  ("links", cfg["max_link_len"], mincov, thr, guard,
+                   pre & False), True)]
+        for what, s0, cond, inplace in calls:
+            want, wfb = pipeline.tip_fixpoint_plain(
+                s0, cond, K, N, NI, cl.U, cl.D2, cl.TIP_ROUNDS, fb0)
+            for C in CLUSTER_C:
+                own = {k: v.clone() for k, v in s0.items()}
+                got, fb = cleanup.tip_fixpoint(
+                    own, cond, K, N, NI, cl.U, cl.D2, cl.TIP_ROUNDS, fb0,
+                    inplace=inplace, lib=lib, clusters=_forced(C))
+                diff = [k for k in cleanup.STATE_KEYS
+                        if not _equal(got[k], want[k])]
+                if not _equal(fb, wfb):
+                    diff.append("fallback")
+                if inplace and any(got[k] is not own[k]
+                                   for k in cleanup.STATE_KEYS):
+                    diff.append("not in place")
+                print(f"tip_fixpoint {tag} {what} W {W} C {C}: "
+                      f"{'equal' if not diff else 'differs: ' + str(diff)}",
+                      file=sys.stderr)
+                bad += len(diff)
+    return bad
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--check-build", action="store_true",
                     help="hold csrc/dbg.cu's kernels, emulated, against "
                          "build_k_plain")
+    ap.add_argument("--check-compress", action="store_true",
+                    help="hold csrc/compress.cu, emulated, against "
+                         "compress_round_plain")
+    ap.add_argument("--check-cleanup", action="store_true",
+                    help="hold csrc/cleanup.cu's tip_fixpoint, emulated, "
+                         "against tip_fixpoint_plain")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "cuda_emu"))
     a = ap.parse_args()
-    if not a.check_build:
-        ap.error("nothing to do: pass --check-build")
-    bad = check_build(a.out)
+    if not (a.check_build or a.check_compress or a.check_cleanup):
+        ap.error("nothing to do: pass --check-build, --check-compress or "
+                 "--check-cleanup")
+    bad = 0
+    if a.check_build:
+        bad += check_build(a.out)
+    if a.check_compress:
+        bad += check_compress(a.out)
+    if a.check_cleanup:
+        bad += check_cleanup(a.out)
     print("equal" if not bad else f"{bad} outputs differ")
     return 1 if bad else 0
 

@@ -6,9 +6,9 @@ a parent commit's, on one card.
     git archive <parent commit> lancet_tpu_torch/csrc | tar -x -C build/parent
     python3 walks_ab.py --parent build/parent [--only walks|removal|gates]
     python3 walks_ab.py --only screens [--parent build/parent]
-    python3 walks_ab.py --only compress
+    python3 walks_ab.py --only compress [--parent build/parent]
     python3 walks_ab.py --only graphstate
-    python3 walks_ab.py --only cleanup
+    python3 walks_ab.py --only cleanup [--parent build/parent] [--turns N]
     python3 walks_ab.py --only build [--parent build/parent] [--turns N]
     python3 walks_ab.py --only bodies --parent build/parent
 
@@ -90,6 +90,25 @@ kernel, kernel, plain), and the host syncs of the first SYNC_ATTEMPTS
 attempt tails (devicepipe._assemble) with each version (cleanup_calls_ab);
 then the end-to-end turns of the other parts with pipeline.cleanup patched
 to cleanup_plain.
+
+The compression pass and the tips fixpoint against the parent's
+(`--only compress --parent` and `--only cleanup --parent`; the parent's
+csrc/compress.cu, csrc/cleanup.cu and the headers they include, from `git
+archive <parent> lancet_tpu_torch/csrc`, built beside this tree's and
+driven through their own entry points: compress_round(2 pointers, 4 ints,
+3 long longs, size_t, stream) with compress_smem(3 ints), tip_fixpoint(11
+pointers, 8 ints, 4 long longs, size_t, stream) with tip_fixpoint_smem(4
+ints), one block a window): every card compress_round (or tip_fixpoint)
+call of device-graph case 1 and of the hard corpus's device graph run,
+launched as both, bit-equal (an in-place links call each on its own copy
+of the inputs), the device time summed over the calls (torch.profiler,
+3 launches each), and in TURNS turns of PER_TURN launches, alternating,
+on the largest call of each item axis (NI 1,552 and 528; tip_fixpoint:
+of each mode), with this tree's cluster size and the blocks of its grid
+from the profiler's records (kernels_ab). With --only cleanup both cases
+then run end to end with the parent's compress_round and tip_fixpoint
+against this tree's, in turns (`--turns` runs each, as plain_ab runs the
+other parts).
 
 The build (`--only build`, without a parent): device-graph case 1 and
 the hard corpus's device graph run with gpu/dbg.py::build_k patched to
@@ -882,7 +901,8 @@ PLAIN_AB = {"screens": ("tandem_at", "cycle_screen"),
             "compress": ("compress_round",),
             "graphstate": ("components", "compact_state", "low_cov_pass",
                            "item_mincovs"),
-            "cleanup": ("cleanup",), "build": ("build_k",)}
+            "cleanup": ("cleanup",), "build": ("build_k",),
+            "clusters": ("compress.compress_round", "cleanup.tip_fixpoint")}
 PLAIN_AB_MODULE = {"cleanup": "pipeline", "build": "dbg"}
 # the build's runs also report t_dg_pack and its parts
 BUILD_KEYS = ("t_dg_pack", "t_dg_build", "t_dg_a_dispatch")
@@ -905,19 +925,23 @@ def plain_ab(part: str, case: str, workdir: str, region: str,
 
     import chip_smoke as cs
 
-    mod = importlib.import_module(
-        f"lancet_tpu_torch.gpu.{PLAIN_AB_MODULE.get(part, 'stages')}")
-    names = PLAIN_AB[part]
-    real = tuple(getattr(mod, n) for n in names)
-    versions = versions or {"plain": tuple(getattr(mod, f"{n}_plain")
-                                           for n in names),
+    def target(n):  # "module.name" or a name of the part's module
+        m, _, n = n.rpartition(".")
+        m = m or PLAIN_AB_MODULE.get(part, "stages")
+        return importlib.import_module(f"lancet_tpu_torch.gpu.{m}"), n
+
+    targets = [target(n) for n in PLAIN_AB[part]]
+    names = tuple(n for _, n in targets)
+    real = tuple(getattr(m, n) for m, n in targets)
+    versions = versions or {"plain": tuple(getattr(m, f"{n}_plain")
+                                           for m, n in targets),
                             "kernel": real}
     first, second = versions
     order = [first, second, second, first] * max(turns // 2, 1)
 
     def use(fns):
-        for n, f in zip(names, fns):
-            setattr(mod, n, f)
+        for (m, n), f in zip(targets, fns):
+            setattr(m, n, f)
 
     runs = {v: [] for v in versions}
     ops = {}
@@ -1337,6 +1361,205 @@ def bodies_ab(parent: str, workdir: str) -> tuple[list, bool]:
     return lines, ok
 
 
+def _build_parent_kernels(parent: str) -> dict:
+    """The parent's csrc/compress.cu and csrc/cleanup.cu (and the headers
+    beside them), built beside this tree's, their entry points as the
+    parent declared them."""
+    from lancet_tpu_torch._build import build_shared
+    from lancet_tpu_torch.gpu.gotoh import NVCC_FLAGS, _nvcc
+
+    csrc = os.path.join(os.path.abspath(parent), "lancet_tpu_torch", "csrc")
+    libs = {}
+    vp, ci, ll, sz = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_size_t)
+    for stem in ("compress", "cleanup"):
+        src = os.path.join(csrc, f"{stem}.cu")
+        libs[stem] = ctypes.CDLL(build_shared(
+            src, f"lib{stem}_parent", [_nvcc()] + NVCC_FLAGS + [src]))
+    c, f = libs["compress"], libs["cleanup"]
+    c.compress_round.restype = ci
+    c.compress_round.argtypes = [vp, vp] + [ci] * 4 + [ll] * 3 + [sz, vp]
+    c.compress_smem.restype = sz
+    c.compress_smem.argtypes = [ci] * 3
+    f.tip_fixpoint.restype = ci
+    f.tip_fixpoint.argtypes = [vp] * 11 + [ci] * 8 + [ll] * 4 + [sz, vp]
+    f.tip_fixpoint_smem.restype = sz
+    f.tip_fixpoint_smem.argtypes = [ci] * 4
+    return libs
+
+
+def parent_compress_round(lib, st, K, NI, N, Dcap=64):
+    """compress.compress_round's result from the parent's kernel (one
+    block a window)."""
+    import torch
+
+    from lancet_tpu_torch.gpu import compress
+
+    W, EE = st["e_src"].shape
+    NM = st["mer_item"].shape[1]
+    dev = st["alive"].device
+    shape = {"i": (W, NI), "i4": (W, NI, 4), "e": (W, EE), "m": (W, NM)}
+    outs = [torch.empty(shape[ax], dtype=dt, device=dev)
+            for _, dt, ax in compress.OUTPUTS]
+    fb = torch.empty((W,), dtype=torch.bool, device=dev)
+    ins = [st[k].contiguous() for k in compress.INPUT_KEYS]
+    ip = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
+    op = (ctypes.c_void_p * (len(outs) + 1))(
+        *[t.data_ptr() for t in outs], fb.data_ptr())
+    with torch.cuda.device(dev):
+        rc = lib.compress_round(ip, op, W, NI, EE, NM, int(N), int(K),
+                                int(Dcap), lib.compress_smem(NI, EE, NM),
+                                compress.stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"the parent's compress_round: CUDA error {rc}")
+    out = dict(st)
+    out.update(zip(compress.OUTPUT_KEYS, outs))
+    return out, fb
+
+
+def parent_tip_fixpoint(lib, st, cond, K, N, NI, U, D2, rounds, fallback,
+                        Dcap=64, inplace=False):
+    """cleanup.tip_fixpoint's result from the parent's kernel (one
+    cooperative launch, one block a window)."""
+    import torch
+
+    from lancet_tpu_torch.gpu import cleanup, compress
+
+    W, EE = st["e_src"].shape
+    NM = st["mer_item"].shape[1]
+    dev = st["alive"].device
+    shape = {"i": (W, NI), "i4": (W, NI, 4), "e": (W, EE), "m": (W, NM)}
+    extra = cleanup._cond_tensors(cond)
+    links = cond[0] == "links"
+    outs = ([st[k] for k in cleanup.STATE_KEYS] if inplace else
+            [torch.empty(shape[ax], dtype=dt, device=dev)
+             for _, dt, ax in cleanup.STATE])
+    fb_out = torch.empty((W,), dtype=torch.bool, device=dev)
+    hits = (None if links else
+            torch.empty((max(int(rounds), 1) * W,), dtype=torch.uint8,
+                        device=dev))
+    ins = [st[k].contiguous() for k in cleanup.STATE_KEYS]
+    side = [st["special"].contiguous(), st["rank"].contiguous()] + [
+        None if t is None else t.contiguous() for t in extra]
+    with torch.cuda.device(dev):
+        rc = lib.tip_fixpoint(
+            cleanup._ptrs(ins), cleanup._ptrs(outs),
+            *[None if t is None else t.data_ptr() for t in side],
+            fallback.contiguous().data_ptr(), fb_out.data_ptr(),
+            None if hits is None else hits.data_ptr(), W, NI, EE, NM, U, D2,
+            int(links), int(rounds), int(cond[1]), int(N), int(K),
+            int(Dcap), lib.tip_fixpoint_smem(NI, EE, NM, U),
+            compress.stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"the parent's tip_fixpoint: CUDA error {rc}")
+    out = dict(st)
+    out.update(zip(cleanup.STATE_KEYS, outs))
+    return out, fb_out
+
+
+# the kernel each A/B times, by this tree's wrapper
+_AB_KERNELS = {"compress_round": "compress_kernel",
+               "tip_fixpoint": "tip_fixpoint_kernel"}
+
+
+def kernels_ab(name: str, libs: dict, case: str, workdir: str,
+               region: str) -> tuple[list, bool]:
+    """Every card call of `name` (compress_round or tip_fixpoint) of one
+    device-graph run of `region`, launched as the parent's kernel and as
+    this tree's, bit-equal (dtypes too; an in-place call each on a copy of
+    its inputs as captured), the device time summed over the calls (3
+    launches each), and on the largest call of each item axis
+    (compress_round) or mode (tip_fixpoint) in TURNS turns of PER_TURN
+    launches, alternating (parent, this; this, parent; ...), with this
+    tree's cluster size and its grid's blocks from the profiler's
+    records. Returns (JSON lines, every call equal)."""
+    import torch
+
+    import chip_smoke as cs
+    from lancet_tpu_torch.gpu import cleanup, compress
+
+    calls: list = []
+    with cs.instrument_devgraph(None, None, calls):
+        cs.run_devgraph(workdir, region, {})
+    torch.cuda.synchronize()
+    mine = [(a, k) for n, a, k, _, _ in calls if n == name]
+    kernel = _AB_KERNELS[name]
+
+    def launchers(args, kw):
+        fresh = lambda: [cs._tree(x, lambda t: t.clone() if torch.is_tensor(t)
+                                  else t) for x in args]
+        if name == "compress_round":
+            def par():
+                return parent_compress_round(libs["compress"], *args, **kw)
+
+            def new():
+                return compress.compress_round(*args, **kw)
+            return par, new, par, new
+        inplace = kw.get("inplace", False)
+        pa, na = fresh(), fresh()  # the timed calls' own copies
+
+        def par(a=pa):
+            return parent_tip_fixpoint(libs["cleanup"], *a, **kw)
+
+        def new(a=na):
+            return cleanup.tip_fixpoint(*a, **kw)
+
+        def par_check():
+            return parent_tip_fixpoint(libs["cleanup"], *fresh(), **kw)
+
+        def new_check():
+            return cleanup.tip_fixpoint(*fresh(), **kw)
+        return ((par_check, new_check, par, new) if inplace
+                else (par, new, par, new))
+
+    def out(res):
+        return cs._walk_out(name, res)
+
+    mism, total = 0, {"parent": [], "this": []}
+    largest: dict = {}
+    for args, kw in mine:
+        pc, nc, par, new = launchers(args, kw)
+        a, b = out(pc()), out(nc())
+        torch.cuda.synchronize()
+        mism += cs.dtype_mismatches(b, a) > 0
+        for ver, fn in (("parent", par), ("this", new)):
+            total[ver].append(cs.device_ms(fn, kernel, 3))
+        key = cs._kept_key(name, args)
+        work = cs._walk_work(name, args)
+        if key not in largest or largest[key][0] < work:
+            largest[key] = (work, args, kw)
+    lines = []
+    for key, (work, args, kw) in sorted(largest.items()):
+        _, _, par, new = launchers(args, kw)
+        dev = {"parent": [], "this": []}
+        for turn in range(TURNS):
+            order = (("parent", par), ("this", new))
+            for ver, fn in (order if turn % 2 == 0 else order[::-1]):
+                dev[ver].append(cs.device_ms(fn, kernel, PER_TURN))
+        st = args[0]
+        W, NI = st["alive"].shape
+        EE, NM = st["e_src"].shape[1], st["mer_item"].shape[1]
+        on = st["alive"].device
+        plan = (compress.plan_for(W, NI, EE, NM, on)
+                if name == "compress_round" else
+                cleanup.plan_for(W, NI, EE, NM, args[5], args[6], on))
+        lines.append({
+            "kernel_ab": key, "case": case, "W": W, "NI": NI, "EE": EE,
+            "NM": NM, "alive_items": work,
+            **cs.cluster_grid(new, kernel, W, plan),
+            "device_ms": {v: _spread(t) for v, t in dev.items()},
+            "source": "torch.profiler CUDA activity"})
+    lines.append({
+        "kernel_ab": name, "case": case, "calls": len(mine),
+        "calls_mismatched": mism,
+        "device_ms_all_calls": {
+            v: {"sum": sum(t for t in ts if t is not None),
+                "missed": sum(t is None for t in ts)}
+            for v, ts in total.items()},
+        "source": "torch.profiler CUDA activity"})
+    return lines, mism == 0 and bool(mine)
+
+
 def _compare(par, new, o_par, o_new) -> int:
     import torch
 
@@ -1402,6 +1625,41 @@ def main() -> int:
         lines, ok = screens_parent_ab(_build_parent_screens(a.parent))
         for line in lines:
             print(json.dumps(line), flush=True)
+        print(cs.nvidia_smi(), flush=True)
+        print(json.dumps({"ok": ok}), flush=True)
+        return 0 if ok else 1
+    if a.only in ("compress", "cleanup") and a.parent:
+        import functools
+
+        from lancet_tpu_torch.gpu import cleanup, compress
+
+        libs = _build_parent_kernels(a.parent)
+        workdir = os.path.join(HERE, "build", "smoke_corpus")
+        corpus.write_default_corpus(workdir)
+        hdir = os.path.join(HERE, "build", "smoke_hard")
+        os.makedirs(hdir, exist_ok=True)
+        refseq, tumor, normal, hregion = corpus.hard_corpus()
+        corpus.write_pair(hdir, refseq, "chr1", tumor, normal)
+        name = "compress_round" if a.only == "compress" else "tip_fixpoint"
+        ok = True
+        for case, wd, region in (("devgraph_case_1", workdir,
+                                  cs.DEVGRAPH_REGION),
+                                 ("hard", hdir, hregion)):
+            lines, eq = kernels_ab(name, libs, case, wd, region)
+            for line in lines:
+                print(json.dumps(line), flush=True)
+            ok &= eq
+            if a.only == "cleanup":
+                line, eq = plain_ab(
+                    "clusters", case, wd, region,
+                    {"parent": (functools.partial(parent_compress_round,
+                                                  libs["compress"]),
+                                functools.partial(parent_tip_fixpoint,
+                                                  libs["cleanup"])),
+                     "this": (compress.compress_round,
+                              cleanup.tip_fixpoint)}, a.turns)
+                print(json.dumps(line), flush=True)
+                ok &= eq
         print(cs.nvidia_smi(), flush=True)
         print(json.dumps({"ok": ok}), flush=True)
         return 0 if ok else 1
