@@ -179,7 +179,8 @@ Phases, each printing one JSON line:
      it is forced to), and components, compact_state, item_mincovs and
      low_cov_pass on the batches of gpu/statecases.py (under
      set_sync_debug_mode("error"); compact_state's hold-point flag on
-     dead_edge_batch's first lane alone), one launch each, held bit-equal
+     dead_edge_batch's first lane alone; the low-coverage kernels also at
+     each cluster size, forced), one launch each, held bit-equal
      to the plain versions; the cleanup on the batches of
      gpu/cleanupcases.py, free of host syncs with its eight launches,
      bit-equal (dtypes too) to cleanup_plain (and tip_fixpoint's tips call
@@ -1189,6 +1190,9 @@ _GRAPHSTATE_SOURCES = {"components": "lancet_tpu/tpu/stages.py:73",
                        "compact_state": "lancet_tpu/tpu/stages.py:406",
                        "low_cov_pass": "lancet_tpu/tpu/stages.py:528",
                        "item_mincovs": "lancet_tpu/tpu/stages.py:382"}
+# the low-coverage kernels: a cluster of graphstate.lowcov_plan(...).C blocks
+# a window, the kernels lines' grid checked against it (cluster_grid)
+_LOWCOV = ("low_cov_pass", "item_mincovs")
 _GRAPHSTATE_KERNELS = {"components": "components_kernel",
                        "compact_state": "compact_kernel",
                        "low_cov_pass": "lowcov_kernel",
@@ -2452,9 +2456,17 @@ def graphstate_case(name: str, args, kw: dict, rate: dict) -> dict:
     acc = graphstate_accounting(name, args)
     bound = {"bytes": acc["bytes"] / HBM_BYTES_PER_S * 1e3,
              "operations": acc["int_ops"] / rate["int_ops_per_s"] * 1e3}
+    grid = {}
+    if name in _LOWCOV:  # W clusters of the plan's C
+        st, K, NI = args[0], args[1], args[3]
+        W, NM = st["mer_item"].shape
+        low = name == "low_cov_pass"
+        EE = st["e_src"].shape[1] if low else 0
+        plan = graphstate.lowcov_plan(NI, NM, K, low, EE)
+        grid = cluster_grid(fn, _GRAPHSTATE_KERNELS[name], W, plan)
     return {"name": name, "tolerance": 0, "max_abs_err": err, "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound": bound,
-            "aten_ops_per_call": aten_ops(fn),
+            **grid, "aten_ops_per_call": aten_ops(fn),
             "plain_aten_ops_per_call": aten_ops(plain), **acc}
 
 
@@ -2535,7 +2547,7 @@ def cluster_grid(fn, kernel: str, W: int, plan) -> dict:
     the records' shared memory a block (None where the trace has none).
     Raises unless the grid is W whole clusters of a size of
     gpu.compress.CLUSTER_SIZES, and that size is the wrapper's `plan`'s
-    (plan_for)."""
+    (plan_for, lowcov_plan)."""
     from lancet_tpu_torch.gpu import compress
 
     by = device_ms_by_kernel(fn, [kernel], launches={kernel: 1}, blocks=True)
@@ -4103,10 +4115,27 @@ def main() -> int:
         launched = graphstate.LAUNCHES[func] - before
         want = statecases.run(func, arrs, params, plain=True)
         bad = dtype_mismatches(got, want)
+        # the low-coverage kernels also at each cluster size, forced
+        by_c = {}
+        if func in _LOWCOV:
+            st = statecases.state(arrs, params, "cuda")
+            K, NI = params["K"], arrs["alive"].shape[1]
+            for C in compress.CLUSTER_SIZES:
+                if func == "item_mincovs":
+                    out = graphstate._mincovs_card(st, K, NI, C=C)
+                    keys = ("mincov", "mincov_qv")
+                else:
+                    lct, ratio = params["params"]
+                    thr = ratio * torch.from_numpy(params["avgcov"]).cuda()
+                    out = graphstate._lowcov_card(st, K, NI, lct, thr, C=C)
+                    keys = ("alive", "e_alive", "any")
+                by_c[C] = dtype_mismatches(
+                    {k: v.cpu() for k, v in zip(keys, out)}, want)
         crafted[f"{func}/{name}"] = {
             "W": arrs["alive"].shape[0], "launches": launched,
-            "mismatches": bad + int(launched != 1)}
-        crafted_gs[func] = max(crafted_gs[func], bad)
+            **({"mismatches_by_cluster": by_c} if by_c else {}),
+            "mismatches": bad + int(launched != 1) + sum(by_c.values())}
+        crafted_gs[func] = max(crafted_gs[func], bad + sum(by_c.values()))
     held = statecases.run("compact_state", statecases.dead_edge_batch(),
                           {"caps": statecases.SMALL_CAPS}, "cuda")
     crafted["compact_state/dead_edge"] = {
@@ -4370,10 +4399,14 @@ def main() -> int:
             "device_ms": r["device_ms"],
             "aten_ops_per_call": r["aten_ops_per_call"],
             "plain_aten_ops_per_call": r["plain_aten_ops_per_call"],
+            **{k: r[k] for k in ("cluster", "blocks", "W", "NI", "NM", "K")
+               if k in r},
             "hard_largest": {"K": h.get("K"), "ms": h["ms"]["median"],
                              "device_ms": h["device_ms"],
                              "plain_ms": h["plain_ms"]["median"],
-                             "bound_ms": h["bound"][hby], "bound_by": hby},
+                             "bound_ms": h["bound"][hby], "bound_by": hby,
+                             **{k: h[k] for k in ("cluster", "blocks")
+                                if k in h}},
             "library_ms": None})
     for name in _CLEANUP:
         keys = sorted(k for k in wres if k.split("/")[0] == name)

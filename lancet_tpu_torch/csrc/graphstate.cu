@@ -39,11 +39,28 @@
 //   own scan), the mers.
 // - low_cov_pass / item_mincovs: read only the kept positions of mer_totq
 //   [W, NM, K] (int64: 16 MB at NM 1,536, K 41, W 32 if every position
-//   were kept; the engine keeps ~1 a mer). A warp takes a mer
-//   at a time, its lanes the kept positions (coalesced, only those
-//   inside the mer's kept window), eight mers' loads in flight; the
-//   per-item minima are 64-bit shared atomics; then the low test and the
-//   removal of items and edges.
+//   were kept; the engine keeps ~1.1 a mer) and the mers' scalars: ~1.3 MB
+//   a call at the engine's W 32, under 0.4 us of memory. The work is a
+//   few dependent round trips, so the design cuts them: a window is a
+//   thread block cluster of C blocks (gpu/graphstate.py::lowcov_plan; C 4
+//   at W 32, 128 blocks), rank r taking a contiguous range of the mers,
+//   the items and the edges; a lane takes a mer, loads its scalars, then
+//   its kept positions (a kept window wider than kNarrow, a unitig's first
+//   mer, by the whole warp, a lane a position) and keeps the minimum in a
+//   register; one shared atomicMin a mer into its block's own minima; after
+//   a cluster barrier each item's owner takes the minimum over the C
+//   blocks' copies (DSMEM loads); low_cov_pass tests its items, keeps their
+//   low flags in shared memory and, after a second barrier, clears each
+//   edge of its range whose end's owner flags it. The items' and edges'
+//   inputs, which wait on no minimum, are loaded beside the mers'. So a
+//   call is two dependent global round trips (the scalars, then mer_totq),
+//   two or three cluster barriers and the stores, where one block a window
+//   (a warp a mer, eight mers' loads at a time) made ~15 dependent round
+//   trips a warp and ran on 32 of 132 SMs.
+// Built with -DLOWCOV_STAMPS (lowcov_split.py builds such a copy into
+// build/), each low-coverage block also writes its clock64 at its start
+// and at the end of each step to the buffer lowcov_set_stamps names.
+//
 // Inputs are the engine's tensors as they are: int64 and bool (one byte, 0
 // or 1), float32 for the low-coverage threshold. Indices into shared
 // memory are clamped, so data outside what the wrappers state gives wrong
@@ -51,8 +68,11 @@
 
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstdint>
+
+#ifndef CUDA_EMU
+#include <cooperative_groups.h>
+#endif
 
 namespace {
 
@@ -75,9 +95,17 @@ constexpr size_t kSmemLimit = 232448;  // bytes a block may use on Hopper
 constexpr long long kBig = 1LL << 30;
 constexpr int kBigI = 1 << 30;
 constexpr int kThreads = 512;  // every kernel's block
-constexpr int kMerBatch = 8;   // mers a warp loads at once (low_cov_pass)
 constexpr int kMaxK = 64;      // k a mer row may have: two loads a lane
+constexpr int kMaxC = 4;       // blocks a low-coverage window's cluster
+// kept positions a lane loads itself; a mer's wider kept window is read by
+// its warp (low_cov_pass, item_mincovs)
+constexpr int kNarrow = 8;
 constexpr unsigned kFull = 0xffffffffu;
+// a low-coverage block's steps, stamped in the -DLOWCOV_STAMPS build
+enum LowPhase {
+  kLowStart, kLowInit, kLowMers, kLowSync1, kLowOwners, kLowSync2,
+  kLowEdges, kLowEnd, kLowPhases
+};
 
 int set_smem(const void* kern, size_t smem) {
   if (smem <= 48 * 1024) return 0;
@@ -462,17 +490,47 @@ __global__ void __launch_bounds__(kThreads) compact_kernel(
 // item_mincovs / low_cov_pass
 // ---------------------------------------------------------------------------
 
+// the cluster (tools/cuda_emu/cuda_runtime.h stands in for these on the CPU)
+#ifndef CUDA_EMU
+__device__ __forceinline__ int cluster_rank() {
+  return static_cast<int>(cooperative_groups::this_cluster().block_rank());
+}
+
+// p, an address of this block's shared memory, in block `rank`'s
+template <class T>
+__device__ __forceinline__ T* peer(T* p, int rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+#endif
+
+__device__ __forceinline__ void cluster_sync_all() {
+  cluster_arrive();
+  cluster_wait();
+}
+
 // Byte offsets of a low-coverage block's dynamic shared memory
-// (gpu/graphstate.py::lowcov_smem): each item's least mincov_qv (int64),
-// its least mincov (item_mincovs only), its low flag (low_cov_pass only).
+// (gpu/graphstate.py::lowcov_smem): the block's low flag (an int, ORed
+// into the window's low.any), then over every item of the window its
+// least mincov_qv (int64) of the mers this block takes, its least mincov
+// (item_mincovs only), and the low flags of the items it owns
+// (low_cov_pass only).
 struct LowLayout {
-  size_t qv, mc, low, total;
+  size_t any, qv, mc, low, total;
 };
 
 __host__ __device__ inline LowLayout low_layout(int NI, bool low) {
   LowLayout L{};
   const size_t ni = NI;
   size_t o = 0;
+  L.any = o; o += 16;
   L.qv = o;  o += round16(8 * ni);
   L.mc = o;  o += low ? 0 : round16(8 * ni);
   L.low = o; o += low ? round16(ni) : 0;
@@ -506,107 +564,222 @@ struct LowArgs {
   uint8_t* o_e_alive;
   uint8_t* o_any;
   int NI, EE, NM, K;
+  // the cluster's C blocks a window and each rank's range of the mers,
+  // the items and the edges (rank r: [r * chunk, (r + 1) * chunk))
+  int C, mch, ich, ech;
   long long totq_ws;  // mer_totq's window stride (the engine slices NM)
   long long low_cov_threshold;
+#ifdef LOWCOV_STAMPS
+  long long* stamps;  // [W, kMaxC, kLowPhases] clock64 stamps
+#endif
 };
 
-// One block a window (blockIdx.x), kThreads threads.
+// an item's inputs to the low test; an edge's to the removal
+struct ItemIn {
+  bool alive, special;
+  long long merlen, tt, tn;
+};
+
+struct EdgeIn {
+  bool alive;
+  long long src, dst;
+};
+
+__device__ __forceinline__ ItemIn load_item(const LowArgs& a, size_t s) {
+  const int64_t* cs = a.csum + s * 4;
+  return {a.alive[s] != 0, a.special[s] != 0, a.merlen[s],
+          add64(cs[0], cs[1]), add64(cs[2], cs[3])};
+}
+
+__device__ __forceinline__ EdgeIn load_edge(const LowArgs& a, size_t s) {
+  return {a.e_alive[s] != 0, a.e_src[s], a.e_dst[s]};
+}
+
+// [r * chunk, (r + 1) * chunk) cut to [0, n)
+struct Range {
+  int lo, hi;
+};
+
+__device__ __forceinline__ Range range_of(int r, int chunk, int n) {
+  const long long lo = min(static_cast<long long>(r) * chunk,
+                           static_cast<long long>(n));
+  return {static_cast<int>(lo),
+          static_cast<int>(min(lo + chunk, static_cast<long long>(n)))};
+}
+
+// A cluster of C blocks a window (window blockIdx.x / C, rank blockIdx.x %
+// C), kThreads threads each. Rank r takes the mers, items and edges of its
+// ranges:
+// 1. it issues the loads that wait on no minimum (its first items and
+//    edges: low_cov_pass), sets its minima over all NI items to BIG;
+// 2. a lane a mer: the mer's scalars, then its kept positions of mer_totq
+//    (a narrow window by the lane itself, kNarrow loads in flight; a wider
+//    one, found by a ballot, by the whole warp, a lane a position), the
+//    minimum kept in a register, then one shared atomicMin into this
+//    block's own minima (a mer of width <= 0 donates nothing; the plain
+//    version scatters BIG, its fill, into item NI - 1);
+// 3. cluster barrier; each item's minimum over the C blocks' minima, by
+//    its owner (DSMEM loads): item_mincovs writes them; low_cov_pass tests
+//    its items, keeps their low flags in its shared memory, ORs its block
+//    flag;
+// 4. low_cov_pass: cluster barrier; an edge is cleared where the owner of
+//    either end flags it (DSMEM loads); rank 0 writes the OR of the
+//    blocks' flags;
+// 5. a last cluster barrier, so that no block leaves while another reads
+//    its shared memory.
 template <bool kLow>
 __global__ void __launch_bounds__(kThreads) lowcov_kernel(const LowArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int NI = a.NI, NM = a.NM, K = a.K, tid = threadIdx.x, T = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
-  const size_t w = blockIdx.x;
+  const int NI = a.NI, NM = a.NM, K = a.K, C = a.C;
+  const int tid = threadIdx.x, T = blockDim.x, lane = tid & 31;
+  const int r = cluster_rank();
+  const size_t w = blockIdx.x / C;
   const LowLayout L = low_layout(NI, kLow);
+  int* any = reinterpret_cast<int*>(smem + L.any);
   long long* qv = reinterpret_cast<long long*>(smem + L.qv);
   long long* mc = reinterpret_cast<long long*>(smem + L.mc);
+  uint8_t* low = smem + L.low;
+  const Range mr = range_of(r, a.mch, NM), ir = range_of(r, a.ich, NI);
+  // the stamped build's clock64 at the end of a step, when the block's
+  // threads are all past it
+  auto stamp = [&](int ph, bool sync) {
+#ifdef LOWCOV_STAMPS
+    if (sync) __syncthreads();
+    if (tid == 0) a.stamps[(w * kMaxC + r) * kLowPhases + ph] = clock64();
+#endif
+  };
+  stamp(kLowStart, false);
+
+  // 1. the first pass's items and edges, in flight beside the mers'
+  ItemIn it0{};
+  EdgeIn ed0{};
+  Range er{0, 0};
+  if (kLow) {
+    er = range_of(r, a.ech, a.EE);
+    if (ir.lo + tid < ir.hi) it0 = load_item(a, w * NI + ir.lo + tid);
+    if (er.lo + tid < er.hi) ed0 = load_edge(a, w * a.EE + er.lo + tid);
+  }
   for (int i = tid; i < NI; i += T) {
     qv[i] = kBig;
     if (!kLow) mc[i] = kBig;
   }
+  if (tid == 0) *any = 0;
   __syncthreads();
+  stamp(kLowInit, false);
 
-  // the mers: a warp takes 32 at a time, lane l loading mer l's scalars;
-  // a mer of width <= 0 donates nothing (the plain version scatters BIG,
-  // its fill, into item NI - 1)
+  // 2. the mers: lane l of warp q takes mer m0 + 32 q + l (then a block's
+  // stride on), a warp-uniform loop
   const int64_t* totq = a.totq + w * a.totq_ws;
-  for (int base = warp * 32; base < NM; base += nw * 32) {
+  for (int base = mr.lo + (tid & ~31); base < mr.hi; base += T) {
     const int m = base + lane;
-    int clo = 0, chi = 0, mi = 0;
-    bool on = false;
-    if (m < NM) {
+    long long lo = 0, hi = 0, tot = 0, item = 0;
+    bool f = false;
+    if (m < mr.hi) {
       const size_t s = w * NM + m;
-      const long long lo = a.keep_lo[s], hi = a.keep_hi[s];
-      on = hi - lo > 0;
-      if (on) {
-        // the kept interval in the mer's canonical coordinates
-        const bool f = a.mer_flip[s];
-        clo = static_cast<int>(clampv<long long>(f ? K - hi : lo, 0, K));
-        chi = static_cast<int>(clampv<long long>(f ? K - lo : hi, 0, K));
-        mi = static_cast<int>(clampv<long long>(a.mer_item[s], 0, NI - 1));
-        if (!kLow) atomicMin(&mc[mi], static_cast<long long>(a.tot[s]));
-      }
+      lo = a.keep_lo[s];
+      hi = a.keep_hi[s];
+      f = a.mer_flip[s] != 0;
+      item = a.mer_item[s];
+      if (!kLow) tot = a.tot[s];
     }
-    const int nb = min(32, NM - base);
-    for (int u0 = 0; u0 < nb; u0 += kMerBatch) {
-      long long v[kMerBatch][2];
+    const bool on = m < mr.hi && hi - lo > 0;
+    // the kept interval in the mer's canonical coordinates
+    const int clo = static_cast<int>(clampv<long long>(f ? K - hi : lo, 0, K));
+    const int chi = static_cast<int>(clampv<long long>(f ? K - lo : hi, 0, K));
+    const int wd = on ? chi - clo : 0;
+    const int64_t* row = totq + static_cast<size_t>(m) * K;
+    long long v[kNarrow];
 #pragma unroll
-      for (int u = 0; u < kMerBatch; ++u) {
-        const int lo_u = __shfl_sync(kFull, clo, u0 + u);
-        const int hi_u = __shfl_sync(kFull, chi, u0 + u);
-        // positions outside the kept window count BIG; lanes past K none
-        const int64_t* row = totq + static_cast<size_t>(base + u0 + u) * K;
+    for (int u = 0; u < kNarrow; ++u)
+      v[u] = u < wd && wd <= kNarrow ? static_cast<long long>(row[clo + u])
+                                    : kBig;
+    long long x = kBig;
+    // the wide windows (a unitig's first mer keeps up to K): a warp each
+    unsigned wide = __ballot_sync(kFull, wd > kNarrow);
+    while (wide) {
+      const int src = __ffs(static_cast<int>(wide)) - 1;
+      wide &= wide - 1;
+      const int lo_u = __shfl_sync(kFull, clo, src);
+      const int hi_u = __shfl_sync(kFull, chi, src);
+      const int64_t* ru = totq + static_cast<size_t>(base + src) * K;
+      long long y = kBig;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int j = lane + 32 * h;
-          v[u][h] = j >= K ? LLONG_MAX
-                           : (j >= lo_u && j < hi_u ? row[j] : kBig);
-        }
+      for (int h = 0; h < kMaxK / 32; ++h) {
+        const int j = lane + 32 * h;
+        if (j >= lo_u && j < hi_u) y = min(y, static_cast<long long>(ru[j]));
       }
 #pragma unroll
-      for (int u = 0; u < kMerBatch; ++u) {
-        long long x = min(v[u][0], v[u][1]);
+      for (int o = 16; o > 0; o >>= 1)
+        y = min(y, __shfl_xor_sync(kFull, y, o));
+      if (lane == src) x = y;
+    }
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          x = min(x, __shfl_xor_sync(kFull, x, o));
-        if (lane == u0 + u && on) atomicMin(&qv[mi], x);
-      }
+    for (int u = 0; u < kNarrow; ++u) x = min(x, v[u]);
+    if (on) {
+      const int mi = static_cast<int>(clampv<long long>(item, 0, NI - 1));
+      atomicMin(&qv[mi], x);
+      if (!kLow) atomicMin(&mc[mi], tot);
     }
   }
-  __syncthreads();
+  stamp(kLowMers, true);
+  cluster_sync_all();
+  stamp(kLowSync1, false);
 
-  if (!kLow) {
-    for (int i = tid; i < NI; i += T) {
-      a.o_mincov[w * NI + i] = mc[i];
-      a.o_mincov_qv[w * NI + i] = qv[i];
+  // 3. the owners: each item's minima over the cluster's blocks
+  const float thr = kLow ? a.thr[w] : 0.0f;
+  int flag = 0;
+  for (int i = ir.lo + tid, k = 0; i < ir.hi; i += T, ++k) {
+    long long q = kBig, c = kBig;
+#pragma unroll
+    for (int b = 0; b < kMaxC; ++b) {
+      if (b < C) {
+        q = min(q, peer(qv, b)[i]);
+        if (!kLow) c = min(c, peer(mc, b)[i]);
+      }
     }
-    return;
-  }
-  // removeLowCov: the low items, then every edge that touches one
-  uint8_t* low = smem + L.low;
-  const float thr = a.thr[w];
-  int any = 0;
-  for (int i = tid; i < NI; i += T) {
     const size_t s = w * NI + i;
-    const long long q = qv[i], ml = a.merlen[s];
-    const int64_t* cs = a.csum + s * 4;
-    const long long tt = add64(cs[0], cs[1]), tn = add64(cs[2], cs[3]);
-    const bool lo = a.alive[s] && !a.special[s] &&
+    if (!kLow) {
+      a.o_mincov[s] = c;
+      a.o_mincov_qv[s] = q;
+      continue;
+    }
+    // removeLowCov's test
+    const ItemIn it = k == 0 ? it0 : load_item(a, s);
+    const bool lo = it.alive && !it.special &&
                     (q <= a.low_cov_threshold || __ll2float_rn(q) <= thr ||
-                     (tt == ml && tn == ml && ml > 0));
+                     (it.tt == it.merlen && it.tn == it.merlen &&
+                      it.merlen > 0));
     low[i] = lo;
-    a.o_alive[s] = a.alive[s] && !lo;
-    any |= lo;
+    a.o_alive[s] = it.alive && !lo;
+    flag |= lo;
   }
-  any = __syncthreads_or(any);
-  const size_t EE = a.EE;
-  for (size_t e = tid; e < EE; e += T) {
-    const size_t s = w * EE + e;
-    const bool gone = low[clampv<long long>(a.e_src[s], 0, NI - 1)] ||
-                      low[clampv<long long>(a.e_dst[s], 0, NI - 1)];
-    a.o_e_alive[s] = a.e_alive[s] && !gone;
+  stamp(kLowOwners, true);
+  if (kLow) {
+    if (flag) atomicOr(any, 1);
+    cluster_sync_all();
+    stamp(kLowSync2, false);
+    // 4. the edges: an end's low flag is its owner's
+    if (r == 0 && tid == 0) {
+      int o = 0;
+      for (int b = 0; b < C; ++b) o |= *peer(any, b);
+      a.o_any[w] = o != 0;
+    }
+    for (int e = er.lo + tid, k = 0; e < er.hi; e += T, ++k) {
+      const size_t s = w * a.EE + e;
+      const EdgeIn ed = k == 0 ? ed0 : load_edge(a, s);
+      bool keep = ed.alive;
+      if (keep) {
+        const int u = static_cast<int>(clampv<long long>(ed.src, 0, NI - 1));
+        const int d = static_cast<int>(clampv<long long>(ed.dst, 0, NI - 1));
+        keep = !peer(low, u / a.ich)[u] && !peer(low, d / a.ich)[d];
+      }
+      a.o_e_alive[s] = keep;
+    }
+    stamp(kLowEdges, true);
   }
-  if (tid == 0) a.o_any[w] = any;
+  // 5. every DSMEM load of this block's shared memory done
+  cluster_sync_all();
+  stamp(kLowEnd, false);
 }
 
 template <class F>
@@ -615,6 +788,54 @@ int launch_checked(const void* kern, size_t smem, F&& go) {
   if (rc != 0) return rc;
   go();
   return static_cast<int>(cudaGetLastError());
+}
+
+// a low-coverage launch: W clusters of a.C blocks
+struct Launch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+};
+
+void configure(Launch* l, int W, int C, size_t smem, void* stream) {
+  l->cfg = cudaLaunchConfig_t{};
+  l->attr[0].id = cudaLaunchAttributeClusterDimension;
+  l->attr[0].val.clusterDim.x = C;
+  l->attr[0].val.clusterDim.y = 1;
+  l->attr[0].val.clusterDim.z = 1;
+  l->cfg.gridDim = dim3(static_cast<unsigned>(W * C));
+  l->cfg.blockDim = dim3(kThreads);
+  l->cfg.dynamicSmemBytes = smem;
+  l->cfg.stream = static_cast<cudaStream_t>(stream);
+  l->cfg.attrs = l->attr;
+  l->cfg.numAttrs = 1;
+}
+
+// the ranges of W windows' clusters: C in [1, kMaxC], each range's chunk
+// >= 1 and C chunks covering its axis
+bool lowcov_ranges_ok(int C, long long NM, long long NI, long long EE,
+                      const LowArgs& a) {
+  return C >= 1 && C <= kMaxC && a.mch >= 1 && a.ich >= 1 && a.ech >= 1 &&
+         C * static_cast<long long>(a.mch) >= NM &&
+         C * static_cast<long long>(a.ich) >= NI &&
+         C * static_cast<long long>(a.ech) >= EE;
+}
+
+#ifdef LOWCOV_STAMPS
+long long* g_low_stamps = nullptr;
+#endif
+
+template <bool kLow>
+int lowcov_launch(LowArgs a, int W, size_t smem, void* stream) {
+#ifdef LOWCOV_STAMPS
+  if (g_low_stamps == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  a.stamps = g_low_stamps;
+#endif
+  const void* kern = reinterpret_cast<const void*>(lowcov_kernel<kLow>);
+  const int rc = set_smem(kern, smem);
+  if (rc != 0) return rc;
+  Launch l;
+  configure(&l, W, a.C, smem, stream);
+  return static_cast<int>(cudaLaunchKernelEx(&l.cfg, lowcov_kernel<kLow>, a));
 }
 
 }  // namespace
@@ -719,17 +940,23 @@ int compact_state(const void* const* ins, void* const* outs, int W, int NI,
       });
 }
 
-// item_mincovs: W windows; ins (mer_totq, mer_tot, keep_lo, keep_hi,
-// mer_item, mer_flip), outs (mincov, mincov_qv); mer_totq's rows of K
-// contiguous, totq_ws elements between its windows; smem must equal
-// lowcov_smem(NI, 0).
+// item_mincovs: W windows, a cluster of C blocks each, rank r taking the
+// mers [r mch, (r + 1) mch) and owning the items [r ich, (r + 1) ich);
+// ins (mer_totq, mer_tot, keep_lo, keep_hi, mer_item, mer_flip), outs
+// (mincov, mincov_qv); mer_totq's rows of K contiguous, totq_ws elements
+// between its windows; smem must equal lowcov_smem(NI, 0).
 int item_mincovs(const void* const* ins, void* const* outs, int W, int NI,
-                 int NM, int K, long long totq_ws, size_t smem,
-                 void* stream) {
+                 int NM, int K, int C, int mch, int ich, long long totq_ws,
+                 size_t smem, void* stream) {
+  LowArgs a{};
+  a.C = C;
+  a.mch = mch;
+  a.ich = ich;
+  a.ech = 1;
   if (W <= 0 || NI <= 0 || NM < 0 || K < 1 || K > kMaxK ||
+      !lowcov_ranges_ok(C, NM, NI, 0, a) ||
       smem != low_layout(NI, false).total || smem > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
-  LowArgs a{};
   a.totq = static_cast<const int64_t*>(ins[0]);
   a.tot = static_cast<const int64_t*>(ins[1]);
   a.keep_lo = static_cast<const int64_t*>(ins[2]);
@@ -742,24 +969,28 @@ int item_mincovs(const void* const* ins, void* const* outs, int W, int NI,
   a.NM = NM;
   a.K = K;
   a.totq_ws = totq_ws;
-  return launch_checked(
-      reinterpret_cast<const void*>(lowcov_kernel<false>), smem, [&] {
-        lowcov_kernel<false><<<W, kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(a);
-      });
+  return lowcov_launch<false>(a, W, smem, stream);
 }
 
-// low_cov_pass: W windows; ins (mer_totq, keep_lo, keep_hi, mer_item,
-// mer_flip, alive, special, csum, merlen, e_src, e_dst, e_alive, thr),
-// outs (alive, e_alive, any); mer_totq as item_mincovs takes it; smem
+// low_cov_pass: W windows, a cluster of C blocks each, rank r taking the
+// mers [r mch, (r + 1) mch) and the edges [r ech, (r + 1) ech) and owning
+// the items [r ich, (r + 1) ich); ins (mer_totq, keep_lo, keep_hi,
+// mer_item, mer_flip, alive, special, csum, merlen, e_src, e_dst, e_alive,
+// thr), outs (alive, e_alive, any); mer_totq as item_mincovs takes it; smem
 // must equal lowcov_smem(NI, 1).
 int low_cov_pass(const void* const* ins, void* const* outs, int W, int NI,
-                 int EE, int NM, int K, long long totq_ws,
-                 long long low_cov_threshold, size_t smem, void* stream) {
+                 int EE, int NM, int K, int C, int mch, int ich, int ech,
+                 long long totq_ws, long long low_cov_threshold, size_t smem,
+                 void* stream) {
+  LowArgs a{};
+  a.C = C;
+  a.mch = mch;
+  a.ich = ich;
+  a.ech = ech;
   if (W <= 0 || NI <= 0 || EE < 0 || NM < 0 || K < 1 || K > kMaxK ||
+      !lowcov_ranges_ok(C, NM, NI, EE, a) ||
       smem != low_layout(NI, true).total || smem > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
-  LowArgs a{};
   a.totq = static_cast<const int64_t*>(ins[0]);
   a.keep_lo = static_cast<const int64_t*>(ins[1]);
   a.keep_hi = static_cast<const int64_t*>(ins[2]);
@@ -782,11 +1013,18 @@ int low_cov_pass(const void* const* ins, void* const* outs, int W, int NI,
   a.K = K;
   a.totq_ws = totq_ws;
   a.low_cov_threshold = low_cov_threshold;
-  return launch_checked(
-      reinterpret_cast<const void*>(lowcov_kernel<true>), smem, [&] {
-        lowcov_kernel<true><<<W, kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(a);
-      });
+  return lowcov_launch<true>(a, W, smem, stream);
 }
+
+#ifdef LOWCOV_STAMPS
+// The stamped build: the int64 buffer [W, kMaxC, kLowPhases] on the card
+// that each later low-coverage launch of W windows writes its blocks'
+// clock64 stamps to.
+void lowcov_set_stamps(void* stamps) {
+  g_low_stamps = static_cast<long long*>(stamps);
+}
+
+int lowcov_phases() { return kLowPhases; }
+#endif
 
 }  // extern "C"

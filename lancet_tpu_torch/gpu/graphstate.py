@@ -14,8 +14,12 @@ kernel launch per call, with no host sync:
   shared memory to the window's own fixed point, then the numbering;
 - `compact_state`: three blocks a window (items, edges, mers), each with
   the regular items' ranks from a block scan;
-- `item_mincovs` and `low_cov_pass`: one block a window, a warp a mer over
-  its kept positions of mer_totq, the per-item minima in shared memory.
+- `item_mincovs` and `low_cov_pass`: a thread block cluster of C blocks a
+  window (`lowcov_plan`: C 4, so 128 blocks at W 32), each rank a range
+  of the mers, items and edges: a lane a mer over its kept positions of
+  mer_totq (a wide kept window by the warp), its block's per-item minima
+  in shared memory, each item's minimum over the cluster by its owner,
+  then (low_cov_pass) the low test and the removal by ranges.
 
 Each wrapper takes tensors on one device and raises, before any work, when
 its inputs span two. On the CPU it runs the plain version
@@ -43,12 +47,13 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from typing import NamedTuple
 
 import torch
 
 from .._build import build_shared
-from . import count_launch, input_device
-from .gotoh import NVCC_FLAGS, SMEM_LIMIT, _nvcc, _r16, _stream
+from . import compress, count_launch, input_device
+from .gotoh import NVCC_FLAGS, SMEM_LIMIT, _nvcc, _r16
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "graphstate.cu")
@@ -56,6 +61,9 @@ LAUNCHES = {"components": 0, "compact_state": 0, "item_mincovs": 0,
             "low_cov_pass": 0}
 BIG = 1 << 30
 MAX_K = 64  # a mer row's positions: two a lane (csrc kMaxK)
+RANGE_ALIGN = 32  # a rank's range of mers, items or edges: whole warps
+NARROW = 8  # kept positions a lane reads itself (csrc kNarrow)
+MAX_C = 4  # blocks a low-coverage window's cluster (csrc kMaxC)
 MAX_ITEMS = (1 << 30) - 1  # labels and slots in int32 beside BIG
 
 # inputs of each kernel, in its order: (state key, dtype, axis); the axes:
@@ -106,6 +114,18 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
+class LowPlan(NamedTuple):
+    """A low-coverage launch: a cluster of C blocks a window, `smem` bytes
+    of dynamic shared memory a block; rank r takes the mers [r mers, (r +
+    1) mers), the edges [r edges, (r + 1) edges) (low_cov_pass; 0 for
+    item_mincovs) and owns the items [r items, (r + 1) items)."""
+    C: int
+    smem: int
+    mers: int
+    items: int
+    edges: int
+
+
 def components_smem(NI: int, EE: int) -> int:
     """A components block's dynamic shared memory, as csrc/graphstate.cu's
     comp_layout: three int32 label buffers, the alive edges' int32 ends,
@@ -120,10 +140,17 @@ def compact_smem(NI: int, EE: int) -> int:
 
 
 def lowcov_smem(NI: int, low: bool) -> int:
-    """An item_mincovs (low False) or low_cov_pass block's: the items'
-    int64 minima (two arrays for item_mincovs), their low flags
-    (low_cov_pass; low_layout)."""
-    return _r16(8 * NI) + (_r16(NI) if low else _r16(8 * NI))
+    """An item_mincovs (low False) or low_cov_pass block's: its low flag
+    (16 bytes), the items' int64 minima (two arrays for item_mincovs),
+    their low flags (low_cov_pass; low_layout)."""
+    return 16 + _r16(8 * NI) + (_r16(NI) if low else _r16(8 * NI))
+
+
+def lowcov_range(n: int, C: int) -> int:
+    """A rank's range of n elements over C ranks: n / C rounded up to
+    whole warps (RANGE_ALIGN), at least one warp."""
+    chunk = max(1, -(-n // C))
+    return -(-chunk // RANGE_ALIGN) * RANGE_ALIGN
 
 
 def _fits(name: str, smem: int, what: str) -> int:
@@ -161,17 +188,28 @@ def compact_plan(NI: int, EE: int, NM: int, N: int, Cmax: int, NCR: int,
                  f"NI={NI} items and EE={EE} edges")
 
 
-def lowcov_plan(NI: int, NM: int, K: int, low: bool) -> int:
-    """The bytes of dynamic shared memory an item_mincovs (low False) or
-    low_cov_pass block takes (8,448 and 4,752 at the engine's compact NI
-    528). Raises for NI < 1, NM < 0, K outside [1, MAX_K], or a window
-    that does not fit a block."""
+def lowcov_plan(NI: int, NM: int, K: int, low: bool, EE: int = 0,
+                C: int = MAX_C) -> LowPlan:
+    """The cluster an item_mincovs (low False) or low_cov_pass window takes
+    and its ranges: C blocks (MAX_C on the card's path; the kernel takes
+    any C in [1, MAX_C], which the tests and the emulation force), each
+    rank's ranges by lowcov_range (at the engine's compact NI 528, NM
+    1,536, EE 1,568 and C 4: 384 mers, 160 items, 416 edges), the shared
+    memory a block (8,464 and 4,768 bytes, far under what a cluster of 4
+    may take). One ordinary cluster launch, so W has no residency limit.
+    Raises for NI < 1, NM or EE < 0, K outside [1, MAX_K], C outside [1,
+    MAX_C] or a window whose items do not fit a block's shared memory."""
     name = "low_cov_pass" if low else "item_mincovs"
-    if NI < 1 or NI > MAX_ITEMS or NM < 0:
-        raise ValueError(f"{name}: NI={NI}, NM={NM}")
+    if NI < 1 or NI > MAX_ITEMS or NM < 0 or EE < 0:
+        raise ValueError(f"{name}: NI={NI}, NM={NM}, EE={EE}")
     if not 1 <= K <= MAX_K:
         raise ValueError(f"{name} takes K 1 to {MAX_K}, got K={K}")
-    return _fits(name, lowcov_smem(NI, low), f"NI={NI} items")
+    if not 1 <= C <= MAX_C:
+        raise ValueError(f"{name} takes a cluster of 1 to {MAX_C} blocks, "
+                         f"got C={C}")
+    smem = _fits(name, lowcov_smem(NI, low), f"NI={NI} items")
+    return LowPlan(C, smem, lowcov_range(NM, C), lowcov_range(NI, C),
+                   lowcov_range(EE, C) if low else 0)
 
 
 def reset_launches() -> None:
@@ -196,9 +234,9 @@ def bind(path: str) -> ctypes.CDLL:
     lib.compact_state.restype = ci
     lib.compact_state.argtypes = [vp, vp] + [ci] * 8 + [sz, vp]
     lib.item_mincovs.restype = ci
-    lib.item_mincovs.argtypes = [vp, vp, ci, ci, ci, ci, ll, sz, vp]
+    lib.item_mincovs.argtypes = [vp, vp] + [ci] * 7 + [ll, sz, vp]
     lib.low_cov_pass.restype = ci
-    lib.low_cov_pass.argtypes = [vp, vp] + [ci] * 5 + [ll, ll, sz, vp]
+    lib.low_cov_pass.argtypes = [vp, vp] + [ci] * 9 + [ll, ll, sz, vp]
     for f, n in (("components_smem", 2), ("compact_smem", 2),
                  ("lowcov_smem", 2)):
         getattr(lib, f).restype = sz
@@ -233,15 +271,18 @@ def _ptrs(ts) -> ctypes.Array:
         *[None if t is None else t.data_ptr() for t in ts])
 
 
-def _launch(name: str, dev, ins, outs, smem_fn, smem: int, call) -> None:
-    """Launches `call(lib, in pointers, out pointers, stream)` on `dev`
-    after holding the library's shared-memory layout to the wrapper's."""
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        lib = _load()
-        if smem_fn(lib) != smem:
+def _launch(name: str, dev, ins, outs, call, lib=None,
+            layout=None) -> None:
+    """Launches `call(lib, in pointers, out pointers, stream)` on `dev` (the
+    CPU tensors of an emulated build: tools/cuda_emu), `lib` by default
+    `build()`'s, after holding its shared-memory layout to the wrapper's
+    (`layout`: (smem_fn(lib), the wrapper's bytes)) where one is given."""
+    lib = lib or _load()
+    with compress.on_device(dev):  # the launch goes to the current device
+        if layout is not None and layout[0](lib) != layout[1]:
             raise RuntimeError(f"{name}: the shared-memory plan disagrees "
                                "with csrc/graphstate.cu's layout")
-        rc = call(lib, _ptrs(ins), _ptrs(outs), _stream(dev))
+        rc = call(lib, _ptrs(ins), _ptrs(outs), compress.stream(dev))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     count_launch(LAUNCHES, name)
@@ -273,9 +314,9 @@ def _components_card(alive, e_src, e_dst, e_alive, rank, Cmax):
         _launch("components", dev,
                 [ins[k].contiguous() for k, _, _ in COMPONENTS_INPUTS],
                 [comp, numcomp, over],
-                lambda lib: lib.components_smem(NI, EE), smem,
                 lambda lib, ip, op, s: lib.components(
-                    ip, op, W, NI, EE, int(Cmax), smem, s))
+                    ip, op, W, NI, EE, int(Cmax), smem, s),
+                layout=(lambda lib: lib.components_smem(NI, EE), smem))
     return comp, numcomp, over
 
 
@@ -323,9 +364,9 @@ def _compact_card(st: dict, N, NI, Cmax, NCR, ECR):
                for k, _, _ in COMPACT_INPUTS]
         _launch("compact_state", dev, ins,
                 [outs.get(k) for k, _, _ in COMPACT_OUTPUTS] + [over, dead],
-                lambda lib: lib.compact_smem(NI, EE), smem,
                 lambda lib, ip, op, s: lib.compact_state(
-                    ip, op, W, NI, EE, NM, N, Cmax, NCR, ECR, smem, s))
+                    ip, op, W, NI, EE, NM, N, Cmax, NCR, ECR, smem, s),
+                layout=(lambda lib: lib.compact_smem(NI, EE), smem))
     return outs, over, dead
 
 
@@ -371,29 +412,33 @@ def _mer_shapes(st: dict, K: int, NI: int, EE: int) -> dict:
             "mK": (W, NM, K)}
 
 
-def _mincovs_card(st: dict, K, NI):
-    """Checks, allocates the outputs and launches the item_mincovs kernel.
-    Returns (mincov, mincov_qv), [W, NI] int64."""
+def _mincovs_card(st: dict, K, NI, lib=None, C: int = MAX_C):
+    """Checks, plans (a cluster of C blocks a window), allocates the
+    outputs and launches the item_mincovs kernel of `lib` (a `bind`-loaded
+    build; by default `build()`'s). Returns (mincov, mincov_qv), [W, NI]
+    int64."""
     W, NM = st["mer_item"].shape
     _check("item_mincovs", st, MINCOV_INPUTS, _mer_shapes(st, K, NI, 0))
-    smem = lowcov_plan(NI, NM, K, False)
+    p = lowcov_plan(NI, NM, K, False, 0, C)  # refuses before the build
     dev = st["mer_item"].device
     mincov = torch.empty((W, NI), dtype=torch.int64, device=dev)
     mincov_qv = torch.empty((W, NI), dtype=torch.int64, device=dev)
     if W:
         totq, ws = _totq_rows(st["mer_totq"])
-        _launch("item_mincovs", dev,
-                [totq] + [st[k].contiguous() for k, _, _ in MINCOV_INPUTS[1:]],
-                [mincov, mincov_qv], lambda lib: lib.lowcov_smem(NI, 0),
-                smem, lambda lib, ip, op, s: lib.item_mincovs(
-                    ip, op, W, NI, NM, K, ws, smem, s))
+        _launch(
+            "item_mincovs", dev,
+            [totq] + [st[k].contiguous() for k, _, _ in MINCOV_INPUTS[1:]],
+            [mincov, mincov_qv],
+            lambda lib, ip, op, s: lib.item_mincovs(
+                ip, op, W, NI, NM, K, p.C, p.mers, p.items, ws, p.smem, s),
+            lib, layout=(lambda lib: lib.lowcov_smem(NI, 0), p.smem))
     return mincov, mincov_qv
 
 
 def item_mincovs(st: dict, K, N, NI):
     """Per-item (mincov, mincov_qv) over the donor structure
-    (gpu.stages.item_mincovs_plain). On the card one block a window
-    (lowcov_plan)."""
+    (gpu.stages.item_mincovs_plain). On the card a cluster of MAX_C blocks
+    a window."""
     dev = _dict_device("item_mincovs", st, READS["item_mincovs"])
     if dev.type == "cpu":
         from .stages import item_mincovs_plain
@@ -404,30 +449,33 @@ def item_mincovs(st: dict, K, N, NI):
     return _mincovs_card(st, K, NI)
 
 
-def _lowcov_card(st: dict, K, NI, low_cov_threshold, thr):
-    """Checks, allocates the outputs and launches the low_cov_pass kernel,
-    `thr` [W] float32 the threshold min_cov_ratio * avgcov. Returns
-    (alive [W, NI], e_alive [W, EE], low.any [W])."""
+def _lowcov_card(st: dict, K, NI, low_cov_threshold, thr, lib=None,
+                 C: int = MAX_C):
+    """Checks, plans (a cluster of C blocks a window), allocates the
+    outputs and launches the low_cov_pass kernel of `lib` (by default
+    `build()`'s), `thr` [W] float32 the threshold min_cov_ratio * avgcov.
+    Returns (alive [W, NI], e_alive [W, EE], low.any [W])."""
     W, EE = st["e_src"].shape
     NM = st["mer_item"].shape[1]
     _check("low_cov_pass", st, LOWCOV_INPUTS, _mer_shapes(st, K, NI, EE))
     if tuple(thr.shape) != (W,) or thr.dtype != torch.float32:
         raise ValueError(f"low_cov_pass takes the threshold as [W] float32, "
                          f"got {tuple(thr.shape)} {thr.dtype}")
-    smem = lowcov_plan(NI, NM, K, True)
+    p = lowcov_plan(NI, NM, K, True, EE, C)  # refuses before the build
     dev = st["alive"].device
     alive = torch.empty((W, NI), dtype=torch.bool, device=dev)
     e_alive = torch.empty((W, EE), dtype=torch.bool, device=dev)
     low_any = torch.empty((W,), dtype=torch.bool, device=dev)
     if W:
         totq, ws = _totq_rows(st["mer_totq"])
-        _launch("low_cov_pass", dev,
-                [totq] + [st[k].contiguous() for k, _, _ in LOWCOV_INPUTS[1:]]
-                + [thr.contiguous()], [alive, e_alive, low_any],
-                lambda lib: lib.lowcov_smem(NI, 1), smem,
-                lambda lib, ip, op, s: lib.low_cov_pass(
-                    ip, op, W, NI, EE, NM, K, ws, int(low_cov_threshold),
-                    smem, s))
+        _launch(
+            "low_cov_pass", dev,
+            [totq] + [st[k].contiguous() for k, _, _ in LOWCOV_INPUTS[1:]]
+            + [thr.contiguous()], [alive, e_alive, low_any],
+            lambda lib, ip, op, s: lib.low_cov_pass(
+                ip, op, W, NI, EE, NM, K, p.C, p.mers, p.items, p.edges, ws,
+                int(low_cov_threshold), p.smem, s),
+            lib, layout=(lambda lib: lib.lowcov_smem(NI, 1), p.smem))
     return alive, e_alive, low_any
 
 
@@ -436,8 +484,9 @@ def low_cov_pass(st: dict, K, N, NI, low_cov_threshold, min_cov_ratio,
     """removeLowCov for every component at once
     (gpu.stages.low_cov_pass_plain): (a new dict with alive and e_alive
     rewritten, every other key passed through; low.any [W]). On the card
-    one block a window (lowcov_plan); the float threshold is the plain
-    version's own torch expression, min_cov_ratio * avgcov, on the card."""
+    a cluster of MAX_C blocks a window; the float threshold is the plain
+    version's own torch expression, min_cov_ratio * avgcov, on
+    the card."""
     dev = _dict_device("low_cov_pass", st, READS["low_cov_pass"])
     input_device("low_cov_pass", st["alive"], avgcov)
     if dev.type == "cpu":

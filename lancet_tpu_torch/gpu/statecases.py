@@ -36,6 +36,16 @@ whose last 2 CMAX slots are the anchors. The cases:
   and just over the float threshold, also past 2^24 where the int64 to
   float32 conversion rounds (2^24 + 1 -> 2^24); special and dead items;
   alive edges out of [0, NI) (clamped).
+- the low-coverage kernels' cluster (`ranges_batch`, at NM 1,001 and EE
+  705, multiples of neither 32 nor any cluster size, and K 63 and 64): an
+  item whose donor mers fall in every rank's range of the mers (its least
+  mincov_qv in the last rank's, its least mincov in a middle one's) and
+  whose edges lie in every rank's range of the edges; kept windows of
+  every width around the kernels' narrow limit (0, 1, 2, 7, 8, 9, 16,
+  K - 1, K, clamped, negative), flipped and not, each item's least kept
+  position at its window's far end and smaller values outside it; a warp
+  whose 32 mers are all wide; seeded mixtures; an empty window; and the
+  first window alone (W 1).
 - W 1 and an empty window at a small shape (`edge_batches`).
 """
 
@@ -45,6 +55,8 @@ import contextlib
 
 import numpy as np
 import torch
+
+from .graphstate import NARROW
 
 BIG = 1 << 30
 CMAX = 8  # the engine's anchors a window (engine/devicepipe.py _CMAX)
@@ -358,6 +370,112 @@ def lowcov_batch(shape=ENGINE_COMPACT, K=K_ENGINE, seed: int = 31):
     return _stack(wins), names, avg
 
 
+# the low-coverage kernels' cluster ranges: NM and EE multiples of neither
+# 32 nor any cluster size; K past the narrow limit up to MAX_K
+RANGES = (272, 705, 1001)
+RANGE_KS = (63, 64)
+HUB = 5  # the item whose donors and edges span every rank's range
+
+
+def ranges_windows(NI, EE, NM, K, seed):
+    """(windows, names, avgcov [W] float32) at one shape: every_rank,
+    widths, seeded and empty (see the module's docstring). Every other
+    item's kept totq is 5,000 or more, so at avgcov 1,000 only the crafted
+    minima are low."""
+    N = NI - 2 * CMAX
+    r = np.random.default_rng(seed)
+    wins, names = [], []
+
+    def base():
+        items = r.integers(0, N, NM)
+        items[items == HUB] = HUB + 1
+        w = _state_window(NI, EE, NM, K, r, reg=np.arange(N),
+                          special=range(N, NI, 2),
+                          pairs=_pairs_among(r, range(NI), EE // 3),
+                          mer_items=items, junk=True)
+        w["mer_totq"] = r.integers(5000, 9000, (NM, K)).astype(np.int64)
+        w["mer_tot"] = r.integers(5000, 9000, NM).astype(np.int64)
+        w["keep_lo"] = r.integers(0, K, NM).astype(np.int64)
+        w["keep_hi"] = w["keep_lo"] + 1
+        w["merlen"] = r.integers(1, 30, NI).astype(np.int64)
+        w["csum"] = r.integers(31, 60, (NI, 4)).astype(np.int64)
+        return w
+
+    # HUB's donors in every rank's range (the ends and the quarters), its
+    # least totq in the last rank's (low at every LOWCOV_PARAMS), its least
+    # tot in a middle one's; its edges at the ends and quarters of the
+    # edge axis
+    w = base()
+    donors = (0, NM // 4 + 3, NM // 2 + 1, 3 * NM // 4 + 2, NM - 1)
+    for q, m in enumerate(donors):
+        w["mer_item"][m] = HUB
+        w["keep_lo"][m], w["keep_hi"][m] = q, q + 1
+        w["mer_flip"][m] = False
+        w["mer_totq"][m, q] = (40, 30, 20, 15, 7)[q]  # low at the last
+        w["mer_tot"][m] = 50 + abs(q - 2)  # 50 at the middle
+    for j, e in enumerate((0, EE // 4 + 1, EE // 2, 3 * EE // 4, EE - 1)):
+        w["e_alive"][e] = True
+        w["e_src"][e], w["e_dst"][e] = ((HUB, 7 + j) if j % 2
+                                        else (9 + j, HUB))
+    wins.append(w)
+    names.append("every_rank")
+    # kept windows of every width, each its own item, spread over the mer
+    # axis; a warp of 32 wide mers
+    w = base()
+    widths = [0, 1, 2, NARROW - 1, NARROW, NARROW + 1, 16, K - 1, K]
+    cases = [(wd, f) for wd in widths for f in (False, True)]
+    cases += [("clamped", False), ("clamped", True), ("negative", False)]
+    step = NM // len(cases)
+    for j, (wd, f) in enumerate(cases):
+        m = j * step + 7
+        item = 20 + j
+        w["mer_item"][m] = item
+        w["mer_flip"][m] = f
+        w["mer_tot"][m] = 10 + j  # the item's least, where it donates
+        if wd == "clamped":  # past [0, K] on both sides: all K kept
+            lo, hi = -3, K + 2
+        elif wd == "negative":
+            lo, hi = 5, 3
+        else:
+            lo = min(2, K - wd)
+            hi = lo + wd
+        w["keep_lo"][m], w["keep_hi"][m] = lo, hi
+        clo = max(0, min(K, K - hi if f else lo))
+        chi = max(0, min(K, K - lo if f else hi))
+        w["mer_totq"][m] = 1  # outside the kept window: never read
+        w["mer_totq"][m, clo:chi] = 7000
+        if chi > clo:
+            w["mer_totq"][m, chi - 1] = 200 + j  # the far end's
+    wide = np.arange(64, 96)
+    w["mer_item"][wide] = 100 + wide % 8
+    w["keep_lo"][wide], w["keep_hi"][wide] = 0, K
+    w["mer_totq"][wide, (wide * 7) % K] = 300 + wide
+    wins.append(w)
+    names.append("widths")
+    # seeded: mostly one kept position, some wide and some empty windows
+    w = base()
+    lo = r.integers(-2, K + 2, NM)
+    w["keep_lo"] = lo.astype(np.int64)
+    w["keep_hi"] = (lo + r.choice([1, 1, 1, 1, 1, 1, 2, NARROW,
+                                   NARROW + 1, K, 0, -1], NM)).astype(
+                                       np.int64)
+    w["mer_totq"] = r.integers(2, 3000, (NM, K)).astype(np.int64)
+    wins.append(w)
+    names.append("seeded")
+    # empty: nothing alive, no alive edge, no donating mer
+    w = _state_window(NI, EE, NM, K, r, reg=[], special=[], pairs=[])
+    w["keep_hi"] = w["keep_lo"].copy()
+    wins.append(w)
+    names.append("empty")
+    return wins, names, np.full(len(wins), 1000.0, np.float32)
+
+
+def ranges_batch(K: int, shape=RANGES, seed: int = 41):
+    NI, EE, NM = shape
+    wins, names, avg = ranges_windows(NI, EE, NM, K, seed)
+    return _stack(wins), names, avg
+
+
 # ---------------------------------------------------------------------------
 # every batch
 # ---------------------------------------------------------------------------
@@ -391,7 +509,8 @@ def edge_batches():
 
 def batches():
     """Every batch: [(name, function, arrays, params)]: the engine's
-    shapes, the small shape, W 1 and the empty window."""
+    shapes, the small shape, the cluster ranges' (`ranges_batch` at each
+    of RANGE_KS, its first window alone), W 1 and the empty window."""
     out = []
     for tag, shape, caps, K in (("engine", None, (NCR, ECR), K_ENGINE),
                                 ("small", SMALL, SMALL_CAPS, K_SMALL)):
@@ -415,6 +534,18 @@ def batches():
         out.append((f"{tag}_sliced", "low_cov_pass", lc,
                     {"K": K, "avgcov": avg, "params": LOWCOV_PARAMS[0],
                      "totq_pad": 64}))
+    for K in RANGE_KS:
+        rb, _, avg = ranges_batch(K)
+        out.append((f"ranges_k{K}", "item_mincovs", rb, {"K": K}))
+        for p in LOWCOV_PARAMS:
+            out.append((f"ranges_k{K}_lct{p[0]}_r{p[1]}", "low_cov_pass", rb,
+                        {"K": K, "avgcov": avg, "params": p}))
+    rb, _, avg = ranges_batch(RANGE_KS[0])
+    first = {k: v[:1] for k, v in rb.items()}
+    out.append(("ranges_w1", "item_mincovs", first, {"K": RANGE_KS[0]}))
+    out.append(("ranges_w1", "low_cov_pass", first,
+                {"K": RANGE_KS[0], "avgcov": avg[:1],
+                 "params": LOWCOV_PARAMS[2]}))
     return out + edge_batches()
 
 
@@ -423,25 +554,32 @@ def to_torch(arrs: dict, dev="cpu") -> dict:
             for k, v in arrs.items()}
 
 
-def run(func: str, arrs: dict, params: dict, dev="cpu", plain=False,
-        guard=contextlib.nullcontext):
-    """gpu.stages' function (or its plain version) on the batch on `dev`,
-    inside the context `guard()` (the inputs' copies and the outputs'
-    outside it); returns its outputs on the host as a flat dict of
-    tensors (params["totq_pad"]: mer_totq the first NM of NM + pad mers);
-    components (comp, numcomp, over); compact_state the rewritten
-    keys, over and dead_edge; item_mincovs (mincov,
-    mincov_qv); low_cov_pass (alive, e_alive, any)."""
-    from . import stages
-
+def state(arrs: dict, params: dict, dev="cpu") -> dict:
+    """The batch's state dict on `dev` (params["totq_pad"]: mer_totq the
+    first NM of NM + pad mers, a slice as the engine's is)."""
     st = to_torch(arrs, dev)
     pad = params.get("totq_pad", 0)
-    if pad:  # mer_totq a slice of a wider mer axis, as the engine's is
+    if pad:
         t = st["mer_totq"]
         W, NM, K = t.shape
         wide = torch.full((W, NM + pad, K), -1, dtype=t.dtype, device=dev)
         wide[:, :NM] = t
         st["mer_totq"] = wide[:, :NM]
+    return st
+
+
+def run(func: str, arrs: dict, params: dict, dev="cpu", plain=False,
+        guard=contextlib.nullcontext):
+    """gpu.stages' function (or its plain version) on the batch on `dev`,
+    inside the context `guard()` (the inputs' copies and the outputs'
+    outside it), its state from `state`; returns its outputs on the host
+    as a flat dict of tensors;
+    components (comp, numcomp, over); compact_state the rewritten
+    keys, over and dead_edge; item_mincovs (mincov,
+    mincov_qv); low_cov_pass (alive, e_alive, any)."""
+    from . import stages
+
+    st = state(arrs, params, dev)
     avg = (torch.from_numpy(params["avgcov"]).to(dev) if "avgcov" in params
            else None)
     NI = arrs["alive"].shape[1]

@@ -15,17 +15,24 @@ against the JAX package.
   past 2^24);
 - a numpy replay of each kernel's schedule (the label rounds to each
   window's own fixed point and the numbering by counting over the roots;
-  the compaction's scans and scatters in three parts; the per-mer minima
-  over the kept positions and the per-item atomics) bit-equal to the
-  plain version on every batch, W 1 and an empty window included;
+  the compaction's scans and scatters in three parts; the low-coverage
+  kernels on a cluster of C blocks a window, at each C: the ranks'
+  ranges, a lane's reads of a narrow kept window and a warp's of a wide
+  one, each rank's per-item minima merged by the items' owners, the
+  removal by ranges) bit-equal to the plain version on every batch, W 1,
+  an empty window and the cluster ranges' corners (`statecases.
+  ranges_batch`, K 63 and 64, also against the JAX package) included;
 - compact_state's hold-point: the plain version asserts on a lane within
   the caps whose alive edge touches a dead item, and the replay flags it;
-- the plans on the engine's shapes and their refusals; the dispatch on the
+- the plans on the engine's shapes and their refusals, the low-coverage
+  launch's arguments from its plan and its check of the build's layout;
+  the dispatch on the
   CPU (the plain version, no launch, the other keys passed through as the
   same tensors) and the refusal of mixed devices and dtypes.
 
 The `cuda` test holds each kernel bit-equal to its plain version on every
-batch on the card, dtypes too, one launch a call.
+batch on the card, dtypes too, one launch a call, the low-coverage kernels
+also at each cluster size of `compress.CLUSTER_SIZES`.
 """
 
 import functools
@@ -34,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from lancet_tpu_torch.gpu import compress
 from lancet_tpu_torch.gpu import graphstate as gs
 from lancet_tpu_torch.gpu import stages
 from lancet_tpu_torch.gpu import statecases as sc
@@ -42,6 +50,7 @@ torch.set_num_threads(1)
 
 BIG = 1 << 30
 CMAX = sc.CMAX
+CLUSTER_SIZES = compress.CLUSTER_SIZES
 
 
 @functools.lru_cache(maxsize=None)
@@ -183,43 +192,77 @@ def replay_compact(a, caps, Cmax=CMAX):
     return out
 
 
-def replay_lowcov(a, K, params=None, avgcov=None):
-    """lowcov_kernel, window by window: a warp's minimum over each mer's
-    kept positions (BIG outside them), the per-item minima (a mer of width
-    <= 0 donating nothing), then the low test (the threshold the torch
-    product, mincov_qv rounded to float32) and the removal. Returns
-    (mincov, mincov_qv) without `params`, else (alive, e_alive, any)."""
+def replay_lowcov(a, K, C, params=None, avgcov=None):
+    """lowcov_kernel's schedule, window by window, on a cluster of C blocks
+    (gs.lowcov_plan's ranges): rank r's warps take its range of the mers
+    32 at a time, a lane a mer; a kept window of at most NARROW positions
+    is read by its lane (position clo + u for u < width), a wider one by
+    the warp (lane j reads positions j and j + 32 inside it, the minimum
+    over the lanes); a mer of width > 0 donates its minimum (BIG outside
+    the kept window) and its mer_tot into rank r's own per-item minima;
+    each item's owner takes the minimum over the C ranks' copies; then
+    (with `params`) the owner's low test (the threshold the torch product,
+    mincov_qv rounded to float32), each rank's range of the edges cleared
+    by its ends' owners' flags, low.any the OR of the ranks' flags.
+    Returns (mincov, mincov_qv) without `params`, else (alive, e_alive,
+    any)."""
     W, NM = a["mer_item"].shape
-    NI = a["alive"].shape[1]
-    qv = np.full((W, NI), BIG, np.int64)
-    mc = np.full((W, NI), BIG, np.int64)
+    NI, EE = a["alive"].shape[1], a["e_src"].shape[1]
+    low_pass = params is not None
+    p = gs.lowcov_plan(NI, NM, K, low_pass, EE, C)
+    qv = np.full((W, C, NI), BIG, np.int64)
+    mc = np.full((W, C, NI), BIG, np.int64)
+    paths = np.zeros((W, NM), np.int64)  # 1 a lane's reads, 2 a warp's
     j = np.arange(K)
-    for w in range(W):
-        lo, hi = a["keep_lo"][w], a["keep_hi"][w]
+    for r in range(C):
+        m = np.arange(min(r * p.mers, NM), min((r + 1) * p.mers, NM))
+        lo, hi = a["keep_lo"][:, m], a["keep_hi"][:, m]
+        f = a["mer_flip"][:, m]
         on = hi - lo > 0
-        f = a["mer_flip"][w]
-        clo = np.clip(np.where(f, K - hi, lo), 0, K)
-        chi = np.clip(np.where(f, K - lo, hi), 0, K)
-        inside = (j[None] >= clo[:, None]) & (j[None] < chi[:, None])
-        mq = np.where(inside, a["mer_totq"][w], BIG).min(axis=1)
-        mi = np.clip(a["mer_item"][w], 0, NI - 1)
-        np.minimum.at(qv[w], mi[on], mq[on])
-        np.minimum.at(mc[w], mi[on], a["mer_tot"][w][on])
-    if params is None:
-        return {"mincov": mc, "mincov_qv": qv}
+        clo = np.clip(np.where(f, K - hi, lo), 0, K)[..., None]
+        chi = np.clip(np.where(f, K - lo, hi), 0, K)[..., None]
+        wd = np.where(on[..., None], chi - clo, 0)
+        narrow = wd <= gs.NARROW
+        # a lane reads clo + u for u < width; a warp's lane l reads l and
+        # l + 32 inside the window
+        reads = np.where(narrow, (j >= clo) & (j < clo + wd),
+                         (j >= clo) & (j < chi) & (j < 64))
+        x = np.minimum(np.where(reads, a["mer_totq"][:, m], BIG).min(-1),
+                       BIG)
+        paths[:, m] += np.where(narrow[..., 0], 1, 2)
+        mi = np.clip(a["mer_item"][:, m], 0, NI - 1)
+        for w in range(W):
+            np.minimum.at(qv[w, r], mi[w][on[w]], x[w][on[w]])
+            np.minimum.at(mc[w, r], mi[w][on[w]], a["mer_tot"][w, m][on[w]])
+    assert ((paths == 1) | (paths == 2)).all()  # each mer once
+    owner = np.arange(NI) // p.items
+    assert owner.max() < C
+    # each owner's items, over the C copies
+    q = qv.min(axis=1)
+    c = mc.min(axis=1)
+    if not low_pass:
+        return {"mincov": c, "mincov_qv": q}
     lct, ratio = params
     thr = (ratio * torch.from_numpy(avgcov)).numpy()
     cs = a["csum"]
     tt, tn = cs[..., 0] + cs[..., 1], cs[..., 2] + cs[..., 3]
     ml = a["merlen"]
     low = (a["alive"] & ~a["special"]
-           & ((qv <= lct) | (qv.astype(np.float32) <= thr[:, None])
+           & ((q <= lct) | (q.astype(np.float32) <= thr[:, None])
               | ((tt == ml) & (tn == ml) & (ml > 0))))
+    flags = np.zeros((W, C, NI), bool)  # each rank's flags, its items'
+    for r in range(C):
+        flags[:, r, owner == r] = low[:, owner == r]
+    e_alive = np.zeros_like(a["e_alive"])
     rows = np.arange(W)[:, None]
-    gone = (low[rows, np.clip(a["e_src"], 0, NI - 1)]
-            | low[rows, np.clip(a["e_dst"], 0, NI - 1)])
-    return {"alive": a["alive"] & ~low, "e_alive": a["e_alive"] & ~gone,
-            "any": low.any(axis=1)}
+    for r in range(C):
+        e = np.arange(min(r * p.edges, EE), min((r + 1) * p.edges, EE))
+        u = np.clip(a["e_src"][:, e], 0, NI - 1)
+        d = np.clip(a["e_dst"][:, e], 0, NI - 1)
+        gone = flags[rows, owner[u], u] | flags[rows, owner[d], d]
+        e_alive[:, e] = a["e_alive"][:, e] & ~gone
+    return {"alive": a["alive"] & ~low, "e_alive": e_alive,
+            "any": flags.any(axis=(1, 2))}
 
 
 def _plain(func, arrs, params):
@@ -357,14 +400,71 @@ def test_replay_equals_plain(func):
             got = replay_compact(arrs, params["caps"])
             assert not got["dead_edge"].any(), name
         elif func == "item_mincovs":
-            got = replay_lowcov(arrs, params["K"])
+            got = replay_lowcov(arrs, params["K"], CLUSTER_SIZES[0])
         else:
-            got = replay_lowcov(arrs, params["K"], params["params"],
-                                params["avgcov"])
+            got = replay_lowcov(arrs, params["K"], CLUSTER_SIZES[0],
+                                params["params"], params["avgcov"])
         for k in want:
             _eq(got[k], want[k], f"{name} {func} {k}")
         n += 1
     assert n >= 4
+
+
+@pytest.mark.parametrize("C", CLUSTER_SIZES)
+@pytest.mark.parametrize("func", ["item_mincovs", "low_cov_pass"])
+def test_lowcov_replay_at_each_cluster_size(func, C):
+    """The low-coverage kernels' schedule on a cluster of C blocks a window
+    bit-equal to the plain version on every batch: the ranges cut the
+    every_rank item's donors and edges at each C, the widths' windows take
+    the lane's and the warp's reads, NM 1,001 and EE 705 leave partial
+    warps and ranges."""
+    n = 0
+    for name, f, arrs, params in _batches():
+        if f != func:
+            continue
+        want = _plain(func, arrs, params)
+        got = replay_lowcov(arrs, params["K"], C, params.get("params"),
+                            params.get("avgcov"))
+        for k in want:
+            _eq(got[k], want[k], f"{name} {func} C {C} {k}")
+        n += 1
+    assert n >= 9
+
+
+@pytest.mark.parametrize("K", sc.RANGE_KS)
+def test_lowcov_ranges_plain_equals_jax(K):
+    """The cluster ranges' batch (K 63 and 64, NM 1,001, EE 705):
+    item_mincovs_plain and low_cov_pass_plain bit-equal to the JAX
+    functions; the every_rank item's minima come from the last and a
+    middle rank's mers and it is removed with every edge on it; each
+    crafted width's item takes its window's far end."""
+    from lancet_tpu.tpu import stages as jst
+
+    arrs, names, avg = sc.ranges_batch(K)
+    NI, EE, NM = sc.RANGES
+    N = NI - 2 * CMAX
+    j = _jax_state(arrs)
+    got = _plain("item_mincovs", arrs, {"K": K})
+    for k, w in zip(("mincov", "mincov_qv"), jst.item_mincovs(j, K, N, NI)):
+        _eq(got[k], w, k)
+    row = {n: i for i, n in enumerate(names)}
+    r = row["every_rank"]
+    assert got["mincov_qv"][r, sc.HUB] == 7 and got["mincov"][r, sc.HUB] == 50
+    r = row["widths"]  # 18 windows of width > 0 (widths 1 to K, clamped)
+    assert got["mincov_qv"][r, 22:40].tolist() == list(range(202, 220))
+    assert got["mincov"][r, 22:40].tolist() == list(range(12, 30))
+    assert (got["mincov"][r, [20, 21, 40]] > 1000).all()  # width <= 0
+    for p in sc.LOWCOV_PARAMS:
+        jo, jany = jst.low_cov_pass(j, K, N, NI, *p, np.asarray(avg))
+        got = _plain("low_cov_pass", arrs,
+                     {"K": K, "avgcov": avg, "params": p})
+        _eq(got["any"], jany, "any")
+        _eq(got["alive"], jo["alive"], "alive")
+        _eq(got["e_alive"], jo["e_alive"], "e_alive")
+        r = row["every_rank"]
+        hub = ((arrs["e_src"][r] == sc.HUB) | (arrs["e_dst"][r] == sc.HUB))
+        assert not got["alive"][r, sc.HUB] and not got["e_alive"][r][hub].any()
+        assert not got["any"][row["empty"]]
 
 
 def test_dead_edge_hold_point():
@@ -389,9 +489,21 @@ def test_plans():
     """The plans on the engine's shapes; their refusals."""
     assert gs.components_plan(1552, 3872) == 88400
     assert gs.compact_plan(1552, 3872, 1536, 1536, 8, 512, 1536) == 27120
-    assert gs.lowcov_plan(528, 1536, 41, False) == 8448
-    assert gs.lowcov_plan(528, 1536, 41, True) == 4752
-    assert gs.lowcov_plan(528, 1536, 64, True) == 4752
+    # the engine's compact shape: C 4, a rank 384 mers, 160 items, 416
+    # edges; a block its flag, the minima and (low_cov_pass) the flags
+    assert gs.lowcov_plan(528, 1536, 41, False) == (4, 8464, 384, 160, 0)
+    assert gs.lowcov_plan(528, 1536, 41, True, 1568) == (4, 4768, 384, 160,
+                                                         416)
+    assert gs.lowcov_plan(528, 1536, 64, True, 1568).smem == 4768
+    # C as asked (4 by default); ranges of whole warps, NM 1,001 at C 3
+    assert gs.lowcov_plan(272, 1001, 63, True, 705, 3) == (3, 2464, 352,
+                                                           96, 256)
+    assert gs.lowcov_plan(1, 0, 1, True, 0, 1) == (1, 48, 32, 32, 32)
+    for C in (0, 5):
+        with pytest.raises(ValueError, match="cluster"):
+            gs.lowcov_plan(528, 1536, 41, True, 1568, C)
+    with pytest.raises(ValueError):
+        gs.lowcov_plan(528, 1536, 41, True, -1)
     for bad in ((0, 10), (10, -1), (6000, 4000)):
         with pytest.raises(ValueError):
             gs.components_plan(*bad)
@@ -406,6 +518,72 @@ def test_plans():
             gs.lowcov_plan(528, 1536, K, True)
     with pytest.raises(ValueError, match="shared memory"):
         gs.lowcov_plan(30000, 10, 41, False)
+
+
+class _Recorder:
+    """A stand-in build for the low-coverage wrappers: its lowcov_smem
+    (`skew` bytes off the wrapper's layout) and entry points that record
+    their scalar arguments and launch nothing."""
+
+    def __init__(self, skew=0):
+        self.skew, self.calls = skew, []
+
+    def lowcov_smem(self, NI, low):
+        return gs.lowcov_smem(NI, bool(low)) + self.skew
+
+    def item_mincovs(self, ins, outs, *scalars):
+        self.calls.append(("item_mincovs",) + scalars[:-1])
+        return 0
+
+    def low_cov_pass(self, ins, outs, *scalars):
+        self.calls.append(("low_cov_pass",) + scalars[:-1])
+        return 0
+
+
+@pytest.mark.parametrize("C", CLUSTER_SIZES)
+def test_lowcov_launch_takes_its_plan(C):
+    """The low-coverage wrappers launch with their plan's cluster, ranges
+    and shared memory (C 4 unless asked, W 2 at the engine's compact
+    shape, K 41 and the window stride of mer_totq, here a slice of a
+    wider mer axis), count one launch each, and raise before any launch
+    when the build's layout disagrees with theirs."""
+    W, NI, EE, NM, K = 2, 528, 1568, 1536, 41
+    rng = np.random.default_rng(5)
+    st = {"mer_totq": torch.from_numpy(
+        rng.integers(0, 9, (W, NM + 64, K)))[:, :NM],
+        "mer_tot": torch.zeros((W, NM), dtype=torch.int64),
+        "keep_lo": torch.zeros((W, NM), dtype=torch.int64),
+        "keep_hi": torch.ones((W, NM), dtype=torch.int64),
+        "mer_item": torch.zeros((W, NM), dtype=torch.int64),
+        "mer_flip": torch.zeros((W, NM), dtype=torch.bool),
+        "alive": torch.ones((W, NI), dtype=torch.bool),
+        "special": torch.zeros((W, NI), dtype=torch.bool),
+        "csum": torch.zeros((W, NI, 4), dtype=torch.int64),
+        "merlen": torch.zeros((W, NI), dtype=torch.int64),
+        "e_src": torch.zeros((W, EE), dtype=torch.int64),
+        "e_dst": torch.zeros((W, EE), dtype=torch.int64),
+        "e_alive": torch.zeros((W, EE), dtype=torch.bool)}
+    thr = torch.ones(W, dtype=torch.float32)
+    kw = {} if C == gs.MAX_C else {"C": C}
+    lib = _Recorder()
+    before = dict(gs.LAUNCHES)
+    gs._mincovs_card(st, K, NI, lib=lib, **kw)
+    gs._lowcov_card(st, K, NI, 3, thr, lib=lib, **kw)
+    m, lo = (gs.lowcov_plan(NI, NM, K, False, 0, C),
+             gs.lowcov_plan(NI, NM, K, True, EE, C))
+    ws = (NM + 64) * K
+    assert lib.calls == [
+        ("item_mincovs", W, NI, NM, K, C, m.mers, m.items, ws, m.smem),
+        ("low_cov_pass", W, NI, EE, NM, K, C, lo.mers, lo.items, lo.edges,
+         ws, 3, lo.smem)]
+    for f in ("item_mincovs", "low_cov_pass"):
+        assert gs.LAUNCHES[f] == before[f] + 1
+    bad = _Recorder(skew=16)
+    with pytest.raises(RuntimeError, match="disagrees"):
+        gs._mincovs_card(st, K, NI, lib=bad, **kw)
+    with pytest.raises(RuntimeError, match="disagrees"):
+        gs._lowcov_card(st, K, NI, 3, thr, lib=bad, **kw)
+    assert bad.calls == []
 
 
 def test_cpu_runs_the_plain_versions():
@@ -495,9 +673,26 @@ def test_kernels_match_plain_on_card():
         assert gs.LAUNCHES[func] == before + 1, (name, func)
         want = sc.run(func, arrs, params, plain=True)
         assert set(got) == set(want), (name, func)
-        for k in want:
-            assert got[k].dtype == want[k].dtype, (name, func, k)
-            _eq(got[k].numpy(), want[k].numpy(), f"{name} {func} {k}")
+        runs = [("plan", got)]
+        if func in ("item_mincovs", "low_cov_pass"):  # and at every C
+            st = sc.state(arrs, params, "cuda")
+            K, NI = params["K"], arrs["alive"].shape[1]
+            for C in CLUSTER_SIZES:
+                if func == "item_mincovs":
+                    out = gs._mincovs_card(st, K, NI, C=C)
+                    keys = ("mincov", "mincov_qv")
+                else:
+                    lct, ratio = params["params"]
+                    thr = ratio * torch.from_numpy(params["avgcov"]).cuda()
+                    out = gs._lowcov_card(st, K, NI, lct, thr, C=C)
+                    keys = ("alive", "e_alive", "any")
+                runs.append((f"C {C}", {k: v.cpu()
+                                        for k, v in zip(keys, out)}))
+        for how, res in runs:
+            for k in want:
+                assert res[k].dtype == want[k].dtype, (name, func, how, k)
+                _eq(res[k].numpy(), want[k].numpy(),
+                    f"{name} {func} {how} {k}")
     got = sc.run("compact_state", sc.dead_edge_batch(),
                  {"caps": sc.SMALL_CAPS}, "cuda")
     assert got["dead_edge"].tolist() == [True, False]

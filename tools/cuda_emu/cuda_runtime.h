@@ -1,8 +1,9 @@
 // A CPU emulation of the part of the CUDA runtime and device library that
-// lancet_tpu_torch/csrc/dbg.cu, compress.cu and cleanup.cu use, for running
-// their kernels with g++ on a machine without a card (tools/cuda_emu/emu.py
-// builds a source against it). A launch runs its thread block clusters one
-// after another, the blocks of a cluster at once, and a cooperative launch
+// lancet_tpu_torch/csrc/dbg.cu, compress.cu, cleanup.cu and graphstate.cu
+// use, for running their kernels with g++ on a machine without a card
+// (tools/cuda_emu/emu.py builds a source against it). A launch runs its
+// thread block clusters one after another (a two-dimensional grid row by
+// row), the blocks of a cluster at once, and a cooperative launch
 // (cudaLaunchAttributeCooperative) every block at once; each thread of a
 // block is a std::thread: __syncthreads is a barrier of the block, the
 // cluster barriers (cluster_arrive / cluster_wait, this_cluster().sync())
@@ -286,11 +287,12 @@ inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, const void*,
   return 0;
 }
 
-// blocks [b0, b0 + nb) at once, in clusters of C, the grid's barrier
-// `grid` (or none)
+// blocks [b0, b0 + nb) of grid row y at once, in clusters of C, the
+// grid's barrier `grid` (or none)
 template <class F>
 void emu_run(int b0, int nb, int grid_blocks, int threads, size_t smem,
-             int C, EmuGroup* grid, F& body) {
+             int C, EmuGroup* grid, F& body, unsigned y = 0,
+             unsigned rows = 1) {
   std::vector<std::unique_ptr<EmuBlock>> blks;
   std::vector<std::unique_ptr<EmuGroup>> cls;
   for (int i = 0; i < nb; ++i) {
@@ -313,8 +315,10 @@ void emu_run(int b0, int nb, int grid_blocks, int threads, size_t smem,
       ts.emplace_back([&, i, t] {
         threadIdx.x = t;
         blockIdx.x = b0 + i;
+        blockIdx.y = y;
         blockDim.x = threads;
         gridDim.x = grid_blocks;
+        gridDim.y = rows;
         emu_blk = blks[i].get();
         emu_cl = cls[i / C].get();
         emu_gr = grid;
@@ -335,6 +339,15 @@ void emu_launch(int grid, int threads, size_t smem, F&& body, int C = 1,
   }
   for (int b = 0; b < grid; b += C)
     emu_run(b, C, grid, threads, smem, C, nullptr, body);
+}
+
+// a two-dimensional grid, without clusters: block by block, row by row
+template <class F>
+void emu_launch(dim3 grid, int threads, size_t smem, F&& body) {
+  for (unsigned y = 0; y < grid.y; ++y)
+    for (unsigned b = 0; b < grid.x; ++b)
+      emu_run(static_cast<int>(b), 1, static_cast<int>(grid.x), threads, smem,
+              1, nullptr, body, y, grid.y);
 }
 
 // kernel<<<grid, threads, smem, stream>>>(args) becomes

@@ -9,6 +9,7 @@ module binds as it binds the card's build.
     python3 tools/cuda_emu/emu.py --check-build
     python3 tools/cuda_emu/emu.py --check-compress
     python3 tools/cuda_emu/emu.py --check-cleanup
+    python3 tools/cuda_emu/emu.py --check-graphstate
 
 --check-compress builds csrc/compress.cu so and runs gpu/compress.py's card
 path (compress._launch: its plan, the launch through the same pointers) on
@@ -23,6 +24,11 @@ gpu/cleanupcases.py at the cleanup's tips call (the state after its
 low-coverage pass and compress) and its links call (the state after the
 tips fixpoint, its mincov and thr, the gate open and, in place, closed) at
 each of CLUSTER_C, held bit-equal to gpu/pipeline.py::tip_fixpoint_plain.
+--check-graphstate builds csrc/graphstate.cu and runs gpu/graphstate.py's
+item_mincovs and low_cov_pass card paths (their plans, a cluster of C
+blocks a window, the launch through the same pointers) on every batch of
+gpu/statecases.py at each of CLUSTER_C, held bit-equal, dtypes too, to
+gpu/stages.py::item_mincovs_plain and low_cov_pass_plain.
 
 builds csrc/dbg.cu so, runs gpu/dbgk.py's card path (its launches through
 the same pointers and workspace) on CPU tensors on crafted windows of
@@ -54,8 +60,10 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
-_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?),(.*?),(.*?),(.*?)>>>\((.*?)\);",
-                     re.S)
+# kernel<<<grid, threads, smem, stream>>>(args); the grid may be a call
+# such as dim3(W, 3)
+_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<((?:[^,()]|\([^()]*\))*?),"
+                     r"(.*?),(.*?),(.*?)>>>\((.*?)\);", re.S)
 
 
 def translate(src: str) -> str:
@@ -336,6 +344,44 @@ def check_cleanup(out_dir: str) -> int:
     return bad
 
 
+def check_graphstate(out_dir: str) -> int:
+    """item_mincovs' and low_cov_pass's card path through the emulated
+    build against item_mincovs_plain and low_cov_pass_plain on every batch
+    of statecases, at each of CLUSTER_C; returns the count of unequal
+    outputs."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from lancet_tpu_torch.gpu import graphstate as gs
+    from lancet_tpu_torch.gpu import statecases as sc
+
+    torch.set_num_threads(1)
+    lib = gs.bind(build(gs._SRC, out_dir))
+    bad = 0
+    for name, func, arrs, params in sc.batches():
+        if func not in ("item_mincovs", "low_cov_pass"):
+            continue
+        want = sc.run(func, arrs, params, plain=True)
+        st = sc.state(arrs, params)
+        K = params["K"]
+        W, NI = arrs["alive"].shape
+        for C in CLUSTER_C:
+            if func == "item_mincovs":
+                out = gs._mincovs_card(st, K, NI, lib=lib, C=C)
+                got = dict(zip(("mincov", "mincov_qv"), out))
+            else:
+                lct, ratio = params["params"]
+                thr = ratio * torch.from_numpy(params["avgcov"])
+                out = gs._lowcov_card(st, K, NI, lct, thr, lib=lib, C=C)
+                got = dict(zip(("alive", "e_alive", "any"), out))
+            diff = [k for k in want if not _equal(got[k], want[k])]
+            print(f"{func} {name} W {W} NI {NI} C {C}: "
+                  f"{'equal' if not diff else 'differs: ' + str(diff)}",
+                  file=sys.stderr)
+            bad += len(diff)
+    return bad
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--check-build", action="store_true",
@@ -347,11 +393,16 @@ def main() -> int:
     ap.add_argument("--check-cleanup", action="store_true",
                     help="hold csrc/cleanup.cu's tip_fixpoint, emulated, "
                          "against tip_fixpoint_plain")
+    ap.add_argument("--check-graphstate", action="store_true",
+                    help="hold csrc/graphstate.cu's item_mincovs and "
+                         "low_cov_pass, emulated, against their plain "
+                         "versions")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "cuda_emu"))
     a = ap.parse_args()
-    if not (a.check_build or a.check_compress or a.check_cleanup):
-        ap.error("nothing to do: pass --check-build, --check-compress or "
-                 "--check-cleanup")
+    if not (a.check_build or a.check_compress or a.check_cleanup
+            or a.check_graphstate):
+        ap.error("nothing to do: pass --check-build, --check-compress, "
+                 "--check-cleanup or --check-graphstate")
     bad = 0
     if a.check_build:
         bad += check_build(a.out)
@@ -359,6 +410,8 @@ def main() -> int:
         bad += check_compress(a.out)
     if a.check_cleanup:
         bad += check_cleanup(a.out)
+    if a.check_graphstate:
+        bad += check_graphstate(a.out)
     print("equal" if not bad else f"{bad} outputs differ")
     return 1 if bad else 0
 

@@ -7,7 +7,7 @@ a parent commit's, on one card.
     python3 walks_ab.py --parent build/parent [--only walks|removal|gates]
     python3 walks_ab.py --only screens [--parent build/parent]
     python3 walks_ab.py --only compress [--parent build/parent]
-    python3 walks_ab.py --only graphstate
+    python3 walks_ab.py --only graphstate [--parent build/parent] [--turns N]
     python3 walks_ab.py --only cleanup [--parent build/parent] [--turns N]
     python3 walks_ab.py --only build [--parent build/parent] [--turns N]
     python3 walks_ab.py --only bodies --parent build/parent
@@ -109,6 +109,17 @@ from the profiler's records (kernels_ab). With --only cleanup both cases
 then run end to end with the parent's compress_round and tip_fixpoint
 against this tree's, in turns (`--turns` runs each, as plain_ab runs the
 other parts).
+
+The low-coverage kernels against the parent's (`--only graphstate
+--parent`; the parent's csrc/graphstate.cu, from `git archive <parent>
+lancet_tpu_torch/csrc`, built beside this tree's and driven through its
+own entry points, one block a window): every card low_cov_pass and
+item_mincovs call of device-graph case 1 and of the hard corpus's device
+graph run, launched as both, bit-equal, the device time summed over the
+calls and, in TURNS turns of PER_TURN launches, alternating, on each
+function's largest call, with this tree's cluster size and grid from the
+profiler (kernels_ab); then both cases end to end with the parent's two
+kernels against this tree's, in turns (`--turns` runs each).
 
 The build (`--only build`, without a parent): device-graph case 1 and
 the hard corpus's device graph run with gpu/dbg.py::build_k patched to
@@ -901,6 +912,7 @@ PLAIN_AB = {"screens": ("tandem_at", "cycle_screen"),
             "compress": ("compress_round",),
             "graphstate": ("components", "compact_state", "low_cov_pass",
                            "item_mincovs"),
+            "lowcov": ("low_cov_pass", "item_mincovs"),
             "cleanup": ("cleanup",), "build": ("build_k",),
             "clusters": ("compress.compress_round", "cleanup.tip_fixpoint")}
 PLAIN_AB_MODULE = {"cleanup": "pipeline", "build": "dbg"}
@@ -1457,58 +1469,189 @@ def parent_tip_fixpoint(lib, st, cond, K, N, NI, U, D2, rounds, fallback,
     return out, fb_out
 
 
-# the kernel each A/B times, by this tree's wrapper
+def _build_parent_graphstate(parent: str) -> ctypes.CDLL:
+    """The parent's csrc/graphstate.cu built beside this tree's, its
+    low-coverage entry points as the parent declared them (one block a
+    window): item_mincovs(2 pointers, 4 ints, long long, size_t, stream),
+    low_cov_pass(2 pointers, 5 ints, 2 long longs, size_t, stream),
+    lowcov_smem(2 ints)."""
+    from lancet_tpu_torch._build import build_shared
+    from lancet_tpu_torch.gpu.gotoh import NVCC_FLAGS, _nvcc
+
+    src = os.path.join(os.path.abspath(parent), "lancet_tpu_torch", "csrc",
+                       "graphstate.cu")
+    lib = ctypes.CDLL(build_shared(src, "libgraphstate_parent",
+                                   [_nvcc()] + NVCC_FLAGS + [src]))
+    vp, ci, ll, sz = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_size_t)
+    lib.item_mincovs.restype = ci
+    lib.item_mincovs.argtypes = [vp, vp] + [ci] * 4 + [ll, sz, vp]
+    lib.low_cov_pass.restype = ci
+    lib.low_cov_pass.argtypes = [vp, vp] + [ci] * 5 + [ll, ll, sz, vp]
+    lib.lowcov_smem.restype = sz
+    lib.lowcov_smem.argtypes = [ci, ci]
+    return lib
+
+
+def parent_item_mincovs(lib, st, K, N, NI):
+    """graphstate.item_mincovs' result from the parent's kernel."""
+    import torch
+
+    from lancet_tpu_torch.gpu import compress, graphstate as gs
+
+    W, NM = st["mer_item"].shape
+    dev = st["mer_item"].device
+    mincov = torch.empty((W, NI), dtype=torch.int64, device=dev)
+    mincov_qv = torch.empty((W, NI), dtype=torch.int64, device=dev)
+    totq, ws = gs._totq_rows(st["mer_totq"])
+    ins = [totq] + [st[k].contiguous() for k, _, _ in gs.MINCOV_INPUTS[1:]]
+    with torch.cuda.device(dev):
+        rc = lib.item_mincovs(gs._ptrs(ins), gs._ptrs([mincov, mincov_qv]),
+                              W, NI, NM, int(K), ws, lib.lowcov_smem(NI, 0),
+                              compress.stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"the parent's item_mincovs: CUDA error {rc}")
+    return mincov, mincov_qv
+
+
+def parent_low_cov_pass(lib, st, K, N, NI, low_cov_threshold, min_cov_ratio,
+                        avgcov):
+    """graphstate.low_cov_pass' result from the parent's kernel."""
+    import torch
+
+    from lancet_tpu_torch.gpu import compress, graphstate as gs
+
+    W, EE = st["e_src"].shape
+    NM = st["mer_item"].shape[1]
+    dev = st["alive"].device
+    thr = (min_cov_ratio * avgcov).contiguous()
+    alive = torch.empty((W, NI), dtype=torch.bool, device=dev)
+    e_alive = torch.empty((W, EE), dtype=torch.bool, device=dev)
+    low_any = torch.empty((W,), dtype=torch.bool, device=dev)
+    totq, ws = gs._totq_rows(st["mer_totq"])
+    ins = ([totq] + [st[k].contiguous() for k, _, _ in gs.LOWCOV_INPUTS[1:]]
+           + [thr])
+    with torch.cuda.device(dev):
+        rc = lib.low_cov_pass(gs._ptrs(ins), gs._ptrs([alive, e_alive,
+                                                        low_any]),
+                              W, NI, EE, NM, int(K), ws,
+                              int(low_cov_threshold), lib.lowcov_smem(NI, 1),
+                              compress.stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"the parent's low_cov_pass: CUDA error {rc}")
+    out = dict(st)
+    out["alive"] = alive
+    out["e_alive"] = e_alive
+    return out, low_any
+
+
+# the kernel each A/B times, by this tree's wrapper; its parent's version
+# (its library's key in `libs`, the function); what a call's work counts
 _AB_KERNELS = {"compress_round": "compress_kernel",
-               "tip_fixpoint": "tip_fixpoint_kernel"}
+               "tip_fixpoint": "tip_fixpoint_kernel",
+               "low_cov_pass": "lowcov_kernel",
+               "item_mincovs": "lowcov_kernel"}
+_AB_PARENT = {"compress_round": ("compress", parent_compress_round),
+              "tip_fixpoint": ("cleanup", parent_tip_fixpoint),
+              "low_cov_pass": ("graphstate", parent_low_cov_pass),
+              "item_mincovs": ("graphstate", parent_item_mincovs)}
+_AB_WORK = {"compress_round": "alive_items", "tip_fixpoint": "alive_items",
+            "low_cov_pass": "donating_mers_x_K",
+            "item_mincovs": "donating_mers_x_K"}
 
 
-def kernels_ab(name: str, libs: dict, case: str, workdir: str,
+def kernels_ab(names, libs: dict, case: str, workdir: str,
                region: str) -> tuple[list, bool]:
-    """Every card call of `name` (compress_round or tip_fixpoint) of one
-    device-graph run of `region`, launched as the parent's kernel and as
-    this tree's, bit-equal (dtypes too; an in-place call each on a copy of
-    its inputs as captured), the device time summed over the calls (3
-    launches each), and on the largest call of each item axis
-    (compress_round) or mode (tip_fixpoint) in TURNS turns of PER_TURN
-    launches, alternating (parent, this; this, parent; ...), with this
-    tree's cluster size and its grid's blocks from the profiler's
-    records. Returns (JSON lines, every call equal)."""
+    """Every card call of each of `names` (compress_round, tip_fixpoint,
+    low_cov_pass, item_mincovs) of one device-graph run of `region`,
+    launched as the parent's kernel and as this tree's, bit-equal (dtypes
+    too; an in-place call each on a copy of its inputs as captured), the
+    device time summed over the calls (3 launches each), and on the
+    largest call of each item axis (compress_round), mode (tip_fixpoint)
+    or function in TURNS turns of PER_TURN launches, alternating (parent,
+    this; this, parent; ...), with this tree's cluster size and its grid's
+    blocks from the profiler's records. Returns (JSON lines, every call
+    equal)."""
     import torch
 
     import chip_smoke as cs
-    from lancet_tpu_torch.gpu import cleanup, compress
 
     calls: list = []
     with cs.instrument_devgraph(None, None, calls):
         cs.run_devgraph(workdir, region, {})
     torch.cuda.synchronize()
+    lines, ok = [], True
+    for name in names:
+        more, eq = _kernel_calls_ab(name, libs, case, calls)
+        lines += more
+        ok &= eq
+    return lines, ok
+
+
+def _shape(name: str, args) -> tuple:
+    """(W, NI, EE, NM) of a captured call (item_mincovs' state holds
+    neither items nor edges: NI its argument, EE 0)."""
+    st = args[0]
+    W, NM = st["mer_item"].shape
+    if name == "item_mincovs":
+        return W, args[3], 0, NM
+    return W, st["alive"].shape[1], st["e_src"].shape[1], NM
+
+
+def _plan(name: str, args):
+    """This tree's plan for a captured call of `name` (its cluster size)."""
+    from lancet_tpu_torch.gpu import cleanup, compress, graphstate
+
+    W, NI, EE, NM = _shape(name, args)
+    on = args[0]["mer_item"].device
+    if name == "compress_round":
+        return compress.plan_for(W, NI, EE, NM, on)
+    if name == "tip_fixpoint":
+        return cleanup.plan_for(W, NI, EE, NM, args[5], args[6], on)
+    return graphstate.lowcov_plan(NI, NM, args[1], name == "low_cov_pass",
+                                  EE)
+
+
+def _kernel_calls_ab(name: str, libs: dict, case: str,
+                     calls: list) -> tuple[list, bool]:
+    """kernels_ab on the captured calls of one function."""
+    import torch
+
+    import chip_smoke as cs
+    from lancet_tpu_torch.gpu import cleanup, compress, graphstate
+
     mine = [(a, k) for n, a, k, _, _ in calls if n == name]
     kernel = _AB_KERNELS[name]
+    lib_key, parent_fn = _AB_PARENT[name]
+    this_fn = {"compress_round": compress.compress_round,
+               "tip_fixpoint": cleanup.tip_fixpoint,
+               "low_cov_pass": graphstate.low_cov_pass,
+               "item_mincovs": graphstate.item_mincovs}[name]
 
     def launchers(args, kw):
         fresh = lambda: [cs._tree(x, lambda t: t.clone() if torch.is_tensor(t)
                                   else t) for x in args]
-        if name == "compress_round":
+        if name != "tip_fixpoint":
             def par():
-                return parent_compress_round(libs["compress"], *args, **kw)
+                return parent_fn(libs[lib_key], *args, **kw)
 
             def new():
-                return compress.compress_round(*args, **kw)
+                return this_fn(*args, **kw)
             return par, new, par, new
         inplace = kw.get("inplace", False)
         pa, na = fresh(), fresh()  # the timed calls' own copies
 
         def par(a=pa):
-            return parent_tip_fixpoint(libs["cleanup"], *a, **kw)
+            return parent_fn(libs[lib_key], *a, **kw)
 
         def new(a=na):
-            return cleanup.tip_fixpoint(*a, **kw)
+            return this_fn(*a, **kw)
 
         def par_check():
-            return parent_tip_fixpoint(libs["cleanup"], *fresh(), **kw)
+            return parent_fn(libs[lib_key], *fresh(), **kw)
 
         def new_check():
-            return cleanup.tip_fixpoint(*fresh(), **kw)
+            return this_fn(*fresh(), **kw)
         return ((par_check, new_check, par, new) if inplace
                 else (par, new, par, new))
 
@@ -1536,17 +1679,12 @@ def kernels_ab(name: str, libs: dict, case: str, workdir: str,
             order = (("parent", par), ("this", new))
             for ver, fn in (order if turn % 2 == 0 else order[::-1]):
                 dev[ver].append(cs.device_ms(fn, kernel, PER_TURN))
-        st = args[0]
-        W, NI = st["alive"].shape
-        EE, NM = st["e_src"].shape[1], st["mer_item"].shape[1]
-        on = st["alive"].device
-        plan = (compress.plan_for(W, NI, EE, NM, on)
-                if name == "compress_round" else
-                cleanup.plan_for(W, NI, EE, NM, args[5], args[6], on))
+        W, NI, EE, NM = _shape(name, args)
         lines.append({
             "kernel_ab": key, "case": case, "W": W, "NI": NI, "EE": EE,
-            "NM": NM, "alive_items": work,
-            **cs.cluster_grid(new, kernel, W, plan),
+            "NM": NM, _AB_WORK[name]: work,
+            **({"K": int(args[1])} if name in cs._LOWCOV else {}),
+            **cs.cluster_grid(new, kernel, W, _plan(name, args)),
             "device_ms": {v: _spread(t) for v, t in dev.items()},
             "source": "torch.profiler CUDA activity"})
     lines.append({
@@ -1584,7 +1722,8 @@ def main() -> int:
                          "lancet_tpu_torch/csrc/walks.cu, "
                          "lancet_tpu_torch/csrc/repeats.cu and "
                          "lancet_tpu_torch/csrc/screens.cu (with --only "
-                         "screens: the kernels' A/B)")
+                         "screens, compress, cleanup or graphstate: that "
+                         "part's sources, the kernels' A/B)")
     ap.add_argument("--only", choices=("walks", "removal", "gates",
                                        "screens", "compress", "graphstate",
                                        "cleanup", "build", "bodies"),
@@ -1628,27 +1767,40 @@ def main() -> int:
         print(cs.nvidia_smi(), flush=True)
         print(json.dumps({"ok": ok}), flush=True)
         return 0 if ok else 1
-    if a.only in ("compress", "cleanup") and a.parent:
+    if a.only in ("compress", "cleanup", "graphstate") and a.parent:
         import functools
 
-        from lancet_tpu_torch.gpu import cleanup, compress
+        from lancet_tpu_torch.gpu import cleanup, compress, stages
 
-        libs = _build_parent_kernels(a.parent)
+        libs = (_build_parent_kernels(a.parent) if a.only != "graphstate"
+                else {"graphstate": _build_parent_graphstate(a.parent)})
         workdir = os.path.join(HERE, "build", "smoke_corpus")
         corpus.write_default_corpus(workdir)
         hdir = os.path.join(HERE, "build", "smoke_hard")
         os.makedirs(hdir, exist_ok=True)
         refseq, tumor, normal, hregion = corpus.hard_corpus()
         corpus.write_pair(hdir, refseq, "chr1", tumor, normal)
-        name = "compress_round" if a.only == "compress" else "tip_fixpoint"
+        names = {"compress": ("compress_round",),
+                 "cleanup": ("tip_fixpoint",),
+                 "graphstate": ("low_cov_pass", "item_mincovs")}[a.only]
         ok = True
         for case, wd, region in (("devgraph_case_1", workdir,
                                   cs.DEVGRAPH_REGION),
                                  ("hard", hdir, hregion)):
-            lines, eq = kernels_ab(name, libs, case, wd, region)
+            lines, eq = kernels_ab(names, libs, case, wd, region)
             for line in lines:
                 print(json.dumps(line), flush=True)
             ok &= eq
+            if a.only == "graphstate":
+                lib = libs["graphstate"]
+                line, eq = plain_ab(
+                    "lowcov", case, wd, region,
+                    {"parent": (functools.partial(parent_low_cov_pass, lib),
+                                functools.partial(parent_item_mincovs, lib)),
+                     "this": (stages.low_cov_pass, stages.item_mincovs)},
+                    a.turns)
+                print(json.dumps(line), flush=True)
+                ok &= eq
             if a.only == "cleanup":
                 line, eq = plain_ab(
                     "clusters", case, wd, region,
